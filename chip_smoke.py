@@ -1,26 +1,46 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU.
 
-Drives the port's main path (BASELINE config #1: GDELT-style points, a
-bbox + DURING query stream through ``TorchDataStore.query`` /
-``query_many``) on the card and holds every hand kernel against its plain
-PyTorch edition. Run from the repository root with one CUDA device:
+Drives the port's two main paths on the card and holds every hand kernel
+against its plain PyTorch edition:
 
-    python3 chip_smoke.py [--rows N] [--out DIR]
+  * BASELINE config #1: GDELT-style points, a bbox + DURING query stream
+    through ``TorchDataStore.query`` / ``query_many`` (z3/z2: the
+    ``candidate_mask`` and ``exact_bitmap`` kernels);
+  * BASELINE config #3: OSM-way-shaped extents (LineStrings, rotated
+    polygons, rectangles, null geometries) in one ``ways`` schema
+    (``*geom:Geometry:srid=4326,dtg:Date``: xz3, xz2, id), five streams:
+    (a) bench_suite.py bench_xz2's 24 jittered bboxes (xz2, dual route),
+    (b) the same boxes AND a 3-week DURING (xz3, dual route), (c) 4
+    INTERSECTS with a triangle (every hit in the ring), (d) 8 bbox A OR
+    bbox B (xz2 candidate route) and (e) 8 (A OR B) AND DURING (xz3
+    candidate route): the ``xz_mask`` and ``xz_dual_bitmap`` kernels.
+
+Run from the repository root with one CUDA device:
+
+    python3 chip_smoke.py [--rows N] [--ways N] [--seed S] [--out DIR]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
-     nvcc build time;
-  2. ingest N rows (20M by default) and upload the z3/z2 device columns;
-  3. every kernel against its plain edition at the main path's shapes
-     (bitwise equality), timed with CUDA events (median of >= 20 runs);
-  4. with launch counts reset: config #1 (one sync query, then 20 jittered
-     queries through query_many), a bbox-only stream (z2 exact), and the
-     residual streams ((A OR B) AND DURING on z3, A OR B on z2), each query
-     checked for fid-set parity against a numpy brute-force scan;
-  5. every kernel must have launched during phase 4;
-  6. a torch.profiler trace of the config #1 stream: the host time of each
-     step (the ``geomesa.*`` ranges of the store and executor) and the
-     device's busy and idle shares.
+     nvcc build time (one nvcc per source, all at once);
+  2. config #1: ingest N points (20M by default), upload the z3/z2 device
+     columns; config #3: make N ways (8M by default) from the seed, ingest
+     them with precomputed envelope companions, upload the xz3/xz2 device
+     columns, plan every stream and answer it with the numpy oracle
+     (``oracle_rows``, which shares no code with the port's geometry);
+  3. every kernel instantiation against its plain edition at its path's
+     shapes (bitwise equality), timed with CUDA events (median of >= 20
+     runs) beside its plain edition and its bound;
+  4. each main path with the launch counts reset just before and read just
+     after: config #1 (one sync query, then 20 jittered queries through
+     query_many, a bbox-only stream (z2 exact), the residual streams) and
+     config #3 (streams (a)-(e): a warm and a timed query_many each, and a
+     lone query), every query checked for fid-set parity;
+  5. every kernel must have launched during its path's run;
+  6. torch.profiler traces of the config #1 stream and of stream (a): the
+     host time of each step (the ``geomesa.*`` ranges of the store and
+     executor, ``geomesa.ring`` for the per-geometry test) and the device's
+     busy and idle shares; the rows per query the host tests after the
+     device (the ring, or the candidates of the mask route).
 
 Prints a ``{"kernels": [...]}`` line, a metrics line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -37,13 +57,15 @@ import time
 import numpy as np
 import torch
 
-# H100 SXM HBM bandwidth (NVIDIA data sheet). The kernels' work is integer
-# compares, so their operation ceiling is the card's INT32 rate: Hopper SMs
-# issue 64 INT32 lane-operations per clock (the Hopper architecture
-# whitepaper), times the SM count and the maximum SM clock this card reports
-# (int32_ops_per_s); 132 SMs at 1980 MHz give 16.7e12 per second.
+# H100 SXM HBM bandwidth (NVIDIA data sheet). The kernels' work is mostly
+# integer compares, so their operation ceiling is the card's INT32 rate:
+# Hopper SMs issue 64 INT32 lane-operations per clock (the Hopper
+# architecture whitepaper), times the SM count and the maximum SM clock this
+# card reports (lane_ops_per_s); 132 SMs at 1980 MHz give 16.7e12 per second.
 HBM_BYTES_PER_S = 3.35e12
 INT32_LANES_PER_SM = 64
+# float32 compares issue on the FP32 pipes: 128 lanes per SM per clock
+FP32_LANES_PER_SM = 128
 
 # config #1 stream length (bench.py's 20 queries) and residual stream length
 REPS = 20
@@ -125,6 +147,301 @@ def brute_force(x, y, t, box=BOX):
     return np.flatnonzero(in_box(x, y, box) & (t > T_LO) & (t < T_HI))
 
 
+# -- config #3: OSM-way-shaped extents (bench_suite.py bench_xz2's table at
+# its size, with lines, rotated polygons, rectangles and null geometries) --
+
+WAYS_ROWS = 8_000_000
+WAYS_SPEC = "*geom:Geometry:srid=4326,dtg:Date"
+YEAR_LO = np.datetime64("2025-01-01T00:00:00", "ms").astype(np.int64)
+YEAR_HI = np.datetime64("2026-01-01T00:00:00", "ms").astype(np.int64)
+XZ2_BOX = (0.0, 0.0, 20.0, 15.0)  # bench_xz2's base box
+WORLD = (-180.0, -90.0, 180.0, 90.0)
+LINE, POLY, RECT, NULL = 0, 1, 2, -1
+WAYS_STREAM = 24  # bench_xz2's jittered stream
+TRIANGLES = 4
+XZ_RESIDUAL = 8
+
+
+def synthesize_ways(n: int, seed: int = 66, bounds=WORLD, clusters: int = 64):
+    """OSM-way-shaped features as flat numpy arrays: 70% LineStrings of 2-10
+    vertices (a random walk whose extent runs 1e-3..5e-2 deg), 20% rotated
+    polygons of 4-8 vertices (extent 1e-4..1e-2 deg), 10% axis-aligned
+    rectangles, 0.1% null geometries; positions a mixture of ``clusters``
+    Gaussian cities and a uniform background inside ``bounds``; dtg uniform
+    ms over one year. Returns dict(kind int8[n], off int64[n+1], xy
+    float64[V, 2], env float64[n, 4], dtg int64[n]); a feature's vertices
+    are xy[off[i]:off[i+1]] (polygon rings closed, null rows empty)."""
+    rng = np.random.default_rng(seed)
+    x0, y0, x1, y1 = bounds
+    kind = rng.choice(np.array([LINE, POLY, RECT], dtype=np.int8), n, p=[0.7, 0.2, 0.1])
+    kind[rng.random(n) < 0.001] = NULL
+    centers = np.stack([rng.uniform(x0 + 2, x1 - 2, clusters),
+                        rng.uniform(y0 + 2, y1 - 2, clusters)], axis=1)
+    sigma = rng.uniform(0.3, 3.0, clusters)
+    city = rng.random(n) < 0.7
+    which = rng.integers(0, clusters, n)
+    cx = np.where(city, centers[which, 0] + rng.normal(0, 1, n) * sigma[which],
+                  rng.uniform(x0, x1, n))
+    cy = np.where(city, centers[which, 1] + rng.normal(0, 1, n) * sigma[which],
+                  rng.uniform(y0, y1, n))
+    cx = np.clip(cx, x0 + 0.1, x1 - 0.1)
+    cy = np.clip(cy, y0 + 0.1, y1 - 0.1)
+    nv = np.zeros(n, dtype=np.int64)
+    nv[kind == LINE] = rng.integers(2, 11, int((kind == LINE).sum()))
+    nv[kind == POLY] = rng.integers(4, 9, int((kind == POLY).sum())) + 1  # closed
+    nv[kind == RECT] = 5
+    off = np.concatenate([[0], np.cumsum(nv)])
+    feat = np.repeat(np.arange(n), nv)  # owner of each vertex
+    j = np.arange(off[-1]) - off[feat]  # vertex index inside its feature
+    k = nv[feat]
+    ext = np.where(kind == LINE, np.exp(rng.uniform(np.log(1e-3), np.log(5e-2), n)),
+                   np.exp(rng.uniform(np.log(1e-4), np.log(1e-2), n)))
+    xy = np.empty((off[-1], 2))
+    # lines: a random walk of k - 1 steps of ext / (k - 1)
+    step = rng.uniform(0, 2 * np.pi, off[-1])
+    length = (ext / np.maximum(nv - 1, 1))[feat]
+    walk_x = np.where(j > 0, np.cos(step) * length, 0.0)
+    walk_y = np.where(j > 0, np.sin(step) * length, 0.0)
+    # cumulative sum restarted at every feature
+    first = off[feat]  # each vertex's feature's first vertex
+    wx = np.cumsum(walk_x)
+    wy = np.cumsum(walk_y)
+    wx -= wx[first]
+    wy -= wy[first]
+    # polygons: sorted angles on a circle of radius ext / 2, rotated, closed
+    ang = np.where(j < k - 1, (j + rng.uniform(0.1, 0.9, off[-1])) * 2 * np.pi / np.maximum(k - 1, 1),
+                   0.0) + rng.uniform(0, 2 * np.pi, n)[feat]
+    ang = np.where(j == k - 1, ang[first], ang)  # close the ring
+    px = np.cos(ang) * (ext / 2)[feat]
+    py = np.sin(ang) * (ext / 2)[feat]
+    # rectangles: (x0, y0) (x1, y0) (x1, y1) (x0, y1) (x0, y0)
+    w = np.exp(rng.uniform(np.log(1e-4), np.log(1e-2), n))[feat]
+    h = np.exp(rng.uniform(np.log(1e-4), np.log(1e-2), n))[feat]
+    rx = np.where((j == 1) | (j == 2), w, 0.0)
+    ry = np.where((j == 2) | (j == 3), h, 0.0)
+    kv = kind[feat]
+    xy[:, 0] = cx[feat] + np.where(kv == LINE, wx, np.where(kv == POLY, px, rx))
+    xy[:, 1] = cy[feat] + np.where(kv == LINE, wy, np.where(kv == POLY, py, ry))
+    env = np.zeros((n, 4))
+    live = nv > 0
+    starts = off[:-1][live]
+    env[live, 0] = np.minimum.reduceat(xy[:, 0], starts)
+    env[live, 1] = np.minimum.reduceat(xy[:, 1], starts)
+    env[live, 2] = np.maximum.reduceat(xy[:, 0], starts)
+    env[live, 3] = np.maximum.reduceat(xy[:, 1], starts)
+    dtg = YEAR_LO + rng.integers(0, YEAR_HI - YEAR_LO, n)
+    return {"kind": kind, "off": off, "xy": xy, "env": env, "dtg": dtg}
+
+
+def ways_columns(ways, classes=None):
+    """The store's ingest columns: one geometry OBJECT per row over views of
+    the flat vertex array, with the envelope and isrect companions
+    precomputed columnar (what bench_xz2 ingests). ``classes`` =
+    (LineString, Polygon), the port's by default."""
+    if classes is None:
+        from geomesa_tpu_torch.geom.base import LineString, Polygon
+    else:
+        LineString, Polygon = classes
+    kind, off, xy, env = ways["kind"], ways["off"], ways["xy"], ways["env"]
+    n = len(kind)
+    geoms = np.empty(n, dtype=object)
+    for i, (k, a, b) in enumerate(zip(kind.tolist(), off[:-1].tolist(), off[1:].tolist())):
+        if k == LINE:
+            geoms[i] = LineString(xy[a:b])
+        elif k != NULL:
+            geoms[i] = Polygon(xy[a:b])
+    fids = np.char.add("w", np.arange(n).astype(f"<U{len(str(n - 1))}"))
+    return {
+        "__fid__": fids, "geom": geoms, "dtg": ways["dtg"],
+        "geom__bxmin": env[:, 0], "geom__bymin": env[:, 1],
+        "geom__bxmax": env[:, 2], "geom__bymax": env[:, 3],
+        "geom__isrect": (kind == RECT).astype(np.uint8),
+    }
+
+
+def xz2_boxes(reps: int = WAYS_STREAM, seed: int = 66, box=XZ2_BOX):
+    """bench_xz2's jittered stream: the base box shifted +-10 deg."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(reps):
+        dx, dy = rng.uniform(-10, 10, 2)
+        out.append((box[0] + dx, box[1] + dy, box[2] + dx, box[3] + dy))
+    return out
+
+
+def xz_bbox_cql(b) -> str:
+    return f"bbox(geom, {b[0]}, {b[1]}, {b[2]}, {b[3]})"
+
+
+def iso(ms: int) -> str:
+    return str(np.datetime64(int(ms), "ms").astype("datetime64[s]")) + "Z"
+
+
+def three_week_windows(reps: int, seed: int = 67):
+    """(lo, hi) exclusive DURING bounds: three weeks at a whole second
+    jittered inside the year."""
+    rng = np.random.default_rng(seed)
+    span = 21 * 86_400_000
+    starts = YEAR_LO + rng.integers(0, (YEAR_HI - YEAR_LO - span) // 1000, reps) * 1000
+    return [(int(s), int(s) + span) for s in starts]
+
+
+def during_cql(w) -> str:
+    return f"dtg DURING {iso(w[0])}/{iso(w[1])}"
+
+
+def triangles(reps: int = TRIANGLES, seed: int = 69, box=XZ2_BOX, size: float = 3.0):
+    """Non-rectangular query triangles (rect = false: every hit is ring)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(reps):
+        cx = rng.uniform(box[0], box[2])
+        cy = rng.uniform(box[1], box[3])
+        out.append(np.array([[cx - size / 2, cy - size / 3], [cx + size / 2, cy - size / 2],
+                             [cx + size / 5, cy + size / 2]]))
+    return out
+
+
+def triangle_cql(tri) -> str:
+    ring = [*tri, tri[0]]
+    return "INTERSECTS(geom, POLYGON((" + ", ".join(f"{x} {y}" for x, y in ring) + ")))"
+
+
+def xz_streams(reps: int = WAYS_STREAM, tris: int = TRIANGLES, resid: int = XZ_RESIDUAL):
+    """Streams (a)-(e) of config #3: name -> [(cql, oracle spec)]; a spec is
+    (boxes OR-ed, triangle or None, DURING window or None)."""
+    boxes = xz2_boxes(reps)
+    wins = three_week_windows(reps)
+    a_boxes = xz2_boxes(resid, seed=68)
+    b_boxes = xz2_boxes(resid, seed=70, box=(25.0, 20.0, 35.0, 28.0))
+    rwins = three_week_windows(resid, seed=71)
+    tri = triangles(tris)
+    return {
+        "xz2_bbox": [(xz_bbox_cql(b), ([b], None, None)) for b in boxes],
+        "xz3_bbox_during": [(f"{xz_bbox_cql(b)} AND {during_cql(w)}", ([b], None, w))
+                            for b, w in zip(boxes, wins)],
+        "xz2_triangle": [(triangle_cql(t), ([], t, None)) for t in tri],
+        "xz2_or": [(f"{xz_bbox_cql(a)} OR {xz_bbox_cql(b)}", ([a, b], None, None))
+                   for a, b in zip(a_boxes, b_boxes)],
+        "xz3_or_during": [(f"({xz_bbox_cql(a)} OR {xz_bbox_cql(b)}) AND {during_cql(w)}",
+                           ([a, b], None, w)) for a, b, w in zip(a_boxes, b_boxes, rwins)],
+    }
+
+
+# -- the numpy oracle of config #3 (independent of the port's geometry code)
+
+
+def _vertex_rows(off, feats):
+    """(feature position, vertex index) of every vertex of ``feats``."""
+    nv = off[feats + 1] - off[feats]
+    pos = np.repeat(np.arange(len(feats)), nv)
+    first = np.repeat(np.cumsum(nv) - nv, nv)
+    return pos, np.repeat(off[feats], nv) + np.arange(int(nv.sum())) - first
+
+
+def _segments(off, feats):
+    """(feature position, start vertex, end vertex) of every segment."""
+    pos, v = _vertex_rows(off, feats)
+    keep = v + 1 < np.repeat(off[feats + 1], off[feats + 1] - off[feats])
+    return pos[keep], v[keep], v[keep] + 1
+
+
+def _any_by(pos, flag, n):
+    out = np.zeros(n, dtype=bool)
+    out[pos[flag]] = True
+    return out
+
+
+def _segments_cross_box(p, q, box):
+    """Liang-Barsky: does segment p->q meet the closed box?"""
+    dx, dy = q[:, 0] - p[:, 0], q[:, 1] - p[:, 1]
+    t0 = np.zeros(len(p))
+    t1 = np.ones(len(p))
+    ok = np.ones(len(p), dtype=bool)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        for pp, qq in ((-dx, p[:, 0] - box[0]), (dx, box[2] - p[:, 0]),
+                       (-dy, p[:, 1] - box[1]), (dy, box[3] - p[:, 1])):
+            r = qq / pp
+            ok &= ~((pp == 0) & (qq < 0))
+            t0 = np.where(pp < 0, np.maximum(t0, r), t0)
+            t1 = np.where(pp > 0, np.minimum(t1, r), t1)
+    return ok & (t0 <= t1)
+
+
+def _orient(a, b, c):
+    return np.sign((b[..., 0] - a[..., 0]) * (c[..., 1] - a[..., 1])
+                   - (b[..., 1] - a[..., 1]) * (c[..., 0] - a[..., 0]))
+
+
+def _segments_cross(p, q, a, b):
+    """Closed segment p->q against segment a->b (a, b one segment)."""
+    a = np.broadcast_to(a, p.shape)
+    b = np.broadcast_to(b, p.shape)
+    o1, o2 = _orient(p, q, a), _orient(p, q, b)
+    o3, o4 = _orient(a, b, p), _orient(a, b, q)
+
+    def on(s, e, r):
+        return ((np.minimum(s[:, 0], e[:, 0]) <= r[:, 0]) & (r[:, 0] <= np.maximum(s[:, 0], e[:, 0]))
+                & (np.minimum(s[:, 1], e[:, 1]) <= r[:, 1]) & (r[:, 1] <= np.maximum(s[:, 1], e[:, 1])))
+
+    return (((o1 != o2) & (o3 != o4)) | ((o1 == 0) & on(p, q, a)) | ((o2 == 0) & on(p, q, b))
+            | ((o3 == 0) & on(a, b, p)) | ((o4 == 0) & on(a, b, q)))
+
+
+def _point_in_rings(off, feats, pt, xy):
+    """Even-odd test of one point against each feature's closed ring."""
+    pos, s, e = _segments(off, feats)
+    y1, y2 = xy[s, 1], xy[e, 1]
+    x1, x2 = xy[s, 0], xy[e, 0]
+    straddle = (y1 > pt[1]) != (y2 > pt[1])
+    with np.errstate(divide="ignore", invalid="ignore"):
+        xint = x1 + (pt[1] - y1) * (x2 - x1) / (y2 - y1)
+    cross = straddle & (pt[0] < xint)
+    return (np.bincount(pos[cross], minlength=len(feats)) & 1) == 1
+
+
+def oracle_rows(ways, boxes, tri=None, window=None) -> np.ndarray:
+    """Rows whose geometry intersects any of ``boxes`` (or the triangle
+    ``tri``), with the date inside the exclusive DURING ``window``."""
+    kind, off, xy, env = ways["kind"], ways["off"], ways["xy"], ways["env"]
+    live = kind != NULL
+    if window is not None:
+        live &= (ways["dtg"] > window[0]) & (ways["dtg"] < window[1])
+    hit = np.zeros(len(kind), dtype=bool)
+    shapes = [(b, None) for b in boxes] + ([] if tri is None else [(None, tri)])
+    for box, t in shapes:
+        qb = box if t is None else (t[:, 0].min(), t[:, 1].min(), t[:, 0].max(), t[:, 1].max())
+        cand = np.flatnonzero(live & (env[:, 0] <= qb[2]) & (env[:, 2] >= qb[0])
+                              & (env[:, 1] <= qb[3]) & (env[:, 3] >= qb[1]))
+        if t is None:
+            done = kind[cand] == RECT  # a rectangle meets the box iff its envelope does
+            rest = cand[~done]
+            pos, v = _vertex_rows(off, rest)
+            px, py = xy[v, 0], xy[v, 1]
+            got = _any_by(pos, (px >= box[0]) & (px <= box[2]) & (py >= box[1]) & (py <= box[3]),
+                          len(rest))
+            spos, s, e = _segments(off, rest)
+            got |= _any_by(spos, _segments_cross_box(xy[s], xy[e], box), len(rest))
+            polys = rest[(kind[rest] == POLY) & ~got]
+            corner_in = _point_in_rings(off, polys, (box[0], box[1]), xy)
+            hit[cand[done]] = True
+            hit[rest[got]] = True
+            hit[polys[corner_in]] = True
+        else:
+            pos, v = _vertex_rows(off, cand)
+            o = [_orient(t[i], t[(i + 1) % 3], xy[v]) for i in range(3)]
+            inside = ((o[0] >= 0) & (o[1] >= 0) & (o[2] >= 0)) | ((o[0] <= 0) & (o[1] <= 0) & (o[2] <= 0))
+            got = _any_by(pos, inside, len(cand))
+            spos, s, e = _segments(off, cand)
+            for i in range(3):
+                got |= _any_by(spos, _segments_cross(xy[s], xy[e], t[i], t[(i + 1) % 3]), len(cand))
+            polys = cand[(kind[cand] != LINE) & ~got]
+            got_poly = _point_in_rings(off, polys, t[0], xy)
+            hit[cand[got]] = True
+            hit[polys[got_poly]] = True
+    return np.flatnonzero(hit)
+
+
 # -- helpers ----------------------------------------------------------------
 
 
@@ -141,14 +458,16 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def int32_ops_per_s() -> float:
+def lane_ops_per_s(lanes_per_sm: int) -> float:
+    """Per-lane instructions per second of the card: SM count x lanes per
+    SM per clock x the maximum SM clock this card reports."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
         capture_output=True, text=True, check=True,
     )
     mhz = float(out.stdout.strip().splitlines()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * INT32_LANES_PER_SM * mhz * 1e6
+    return sms * lanes_per_sm * mhz * 1e6
 
 
 def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
@@ -175,9 +494,9 @@ def max_abs_err(got, want) -> int:
     )
 
 
-def expect_fids(res, want_rows, what: str) -> None:
+def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
     got = set(res.fids.tolist())
-    want = {f"f{i}" for i in want_rows}
+    want = {f"{prefix}{i}" for i in want_rows}
     if got != want:
         raise AssertionError(
             f"{what}: fid-set parity failed ({len(got)} device vs {len(want)} brute force)"
@@ -187,10 +506,9 @@ def expect_fids(res, want_rows, what: str) -> None:
 # -- phases -----------------------------------------------------------------
 
 
-def kernel_checks(store, plans, ops_per_s):
-    """Each kernel against its plain edition on the segments' own columns
-    with the main path's descriptors. Returns the kernels-line entries
-    (their launch counts are filled in from the main path's run).
+def point_cases(store, plans):
+    """The config #1 kernels on the z3/z2 segments' own columns with the
+    main path's descriptors.
 
     Operation counts are per-lane instructions of the kernel's inner loop,
     counted from the source: an int32 compare is one instruction, an int64
@@ -219,7 +537,7 @@ def kernel_checks(store, plans, ops_per_s):
     n3, n2 = seg3.n_padded, seg2.n_padded
     q3, q2 = ebox3.shape[0], ebox2.shape[0]
     k3, w3, k2 = boxes3.shape[0], wins3.shape[0], boxes2.shape[0]
-    cases = [
+    return [
         dict(
             name="candidate_mask_z3",
             replaces="geomesa_tpu/ops/pallas_kernels.py:84",
@@ -266,6 +584,93 @@ def kernel_checks(store, plans, ops_per_s):
             shape=f"rows={n2} q={q2}",
         ),
     ]
+
+
+def xz_cases(store, plans):
+    """The config #3 kernels on the xz3/xz2 segments' own columns with the
+    main path's descriptors (the first residual query's boxes and windows;
+    the whole bbox and bbox + DURING streams as one batch each).
+
+    Operations: ``xz_mask`` does 4 float32 compares per box and row
+    (counted at the card's FP32 rate) plus 1 OR per box, 3 int32 compares
+    and 1 OR per window and 2 ANDs (INT32 rate). ``xz_dual_bitmap`` does per
+    row and query 8 int64 compares (overlap and inside; 10 with the
+    window), two instructions each, about 8 ANDs (10 with the window), and
+    12 for the two ballots, the lane test and its branch, two brev +
+    byte_perm reorders, two stores and the loop; plus 12 per row for the
+    hoisted placeholder test (4 int64 equalities, 3 ANDs, a NOT)."""
+    from geomesa_tpu_torch.ops import kernels
+
+    ex = store.executor
+    tables = store._tables["ways"]
+    seg3 = ex.device_index(tables["xz3"]).segments[0]
+    seg2 = ex.device_index(tables["xz2"]).segments[0]
+    dev = ex.device
+    boxes3, wins3 = ex._query_descriptor(tables["xz3"], plans["xz3_or_during"][0])
+    boxes2, _ = ex._query_descriptor(tables["xz2"], plans["xz2_or"][0])
+    d3 = torch.as_tensor(np.stack(
+        [ex._xz_batch_desc(tables["xz3"], p)[0] for p in plans["xz3_bbox_during"]]), device=dev)
+    d2 = torch.as_tensor(np.stack(
+        [ex._xz_batch_desc(tables["xz2"], p)[0] for p in plans["xz2_bbox"]]), device=dev)
+    env3 = (seg3.bxmin, seg3.bymin, seg3.bxmax, seg3.bymax, seg3.valid, boxes3)
+    env2 = (seg2.bxmin, seg2.bymin, seg2.bxmax, seg2.bymax, seg2.valid, boxes2)
+    cols3 = seg3._xz_cols(True)
+    cols2 = seg2._xz_cols(False)
+    n3, n2 = seg3.n_padded, seg2.n_padded
+    q3, q2 = d3.shape[0], d2.shape[0]
+    k3, w3, k2 = boxes3.shape[0], wins3.shape[0], boxes2.shape[0]
+    return [
+        dict(
+            name="xz_mask_xz3",
+            replaces="geomesa_tpu/ops/pallas_kernels.py:102",
+            source="geomesa_tpu_torch/csrc/xz_mask.cu",
+            kernel=lambda: (kernels.xz_mask(*env3, seg3.bins, seg3.ti, wins3),),
+            plain=lambda: (kernels.xz_mask_plain(*env3, seg3.bins, seg3.ti, wins3),),
+            bytes=n3 * (4 * 4 + 1 + 2 * 4) + n3,
+            ops=n3 * (k3 + 4 * w3 + 2),
+            fops=n3 * 4 * k3,
+            shape=f"rows={n3} K={k3} W={w3}",
+        ),
+        dict(
+            name="xz_mask_xz2",
+            replaces="geomesa_tpu/ops/pallas_kernels.py:95",
+            source="geomesa_tpu_torch/csrc/xz_mask.cu",
+            kernel=lambda: (kernels.xz_mask(*env2),),
+            plain=lambda: (kernels.xz_mask_plain(*env2),),
+            bytes=n2 * (4 * 4 + 1) + n2,
+            ops=n2 * (k2 + 1),
+            fops=n2 * 4 * k2,
+            shape=f"rows={n2} K={k2}",
+        ),
+        dict(
+            name="xz_dual_bitmap_xz3",
+            replaces="geomesa_tpu/parallel/executor.py:1748",
+            source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
+            kernel=lambda: kernels.xz_dual_bitmap(*cols3[:6], d3, tk=cols3[6]),
+            plain=lambda: kernels.xz_dual_bitmap_plain(*cols3[:6], d3, tk=cols3[6]),
+            bytes=n3 * (5 * 8 + 2) + 2 * q3 * n3 // 8 + q3 * (64 + 12),
+            ops=q3 * n3 * (2 * 10 + 10 + 12) + n3 * 12,
+            shape=f"rows={n3} q={q3} time",
+        ),
+        dict(
+            name="xz_dual_bitmap_xz2",
+            replaces="geomesa_tpu/parallel/executor.py:1748",
+            source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
+            kernel=lambda: kernels.xz_dual_bitmap(*cols2[:6], d2),
+            plain=lambda: kernels.xz_dual_bitmap_plain(*cols2[:6], d2),
+            bytes=n2 * (4 * 8 + 2) + 2 * q2 * n2 // 8 + q2 * (64 + 12),
+            ops=q2 * n2 * (2 * 8 + 8 + 12) + n2 * 12,
+            shape=f"rows={n2} q={q2}",
+        ),
+    ]
+
+
+def kernel_checks(cases, int32_per_s, fp32_per_s):
+    """Each kernel against its plain edition (bitwise), then timed with CUDA
+    events beside its plain edition. Returns the kernels-line entries
+    (their launch counts are filled in from the main path's run). The
+    bound is the larger of the bytes over HBM bandwidth and the counted
+    instructions over the card's rate for their type."""
     out = []
     for c in cases:
         got = c["kernel"]()
@@ -278,9 +683,9 @@ def kernel_checks(store, plans, ops_per_s):
                 f"{c['name']}: kernel differs from its plain edition (max abs err {err})"
             )
         ms = cuda_ms(c["kernel"])
-        plain_ms = cuda_ms(c["plain"], reps=20, warmup=2)
+        plain_ms = cuda_ms(c["plain"], reps=10, warmup=1)
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = c["ops"] / ops_per_s * 1e3
+        t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
         out.append({
             "name": c["name"],
             "route": "cuda",
@@ -301,18 +706,18 @@ def kernel_checks(store, plans, ops_per_s):
     return out
 
 
-def breakdown(store, queries):
-    """Where one pipelined config #1 stream spends its time, from one
-    torch.profiler trace of ``store.query_many``: the host time of each
-    step, read from the ``geomesa.*`` ranges the store and the executor
-    open, and the device's busy share (device kernel and copy time over
-    the traced wall). Also the cost of one range with no profiler running."""
+def breakdown(store, name, queries):
+    """Where one pipelined stream spends its time, from one torch.profiler
+    trace of ``store.query_many``: the host time of each step, read from
+    the ``geomesa.*`` ranges the store and the executor open, and the
+    device's busy share (device kernel and copy time over the traced
+    wall). Also the cost of one range with no profiler running."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     clock = time.perf_counter
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = clock()
-        results = store.query_many("gdelt", queries)
+        results = store.query_many(name, queries)
         torch.cuda.synchronize()
         wall_ms = (clock() - t0) * 1e3
     n = len(queries)
@@ -354,7 +759,9 @@ def breakdown(store, queries):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows", type=int, default=20_000_000)
+    ap.add_argument("--rows", type=int, default=20_000_000, help="config #1 points")
+    ap.add_argument("--ways", type=int, default=WAYS_ROWS, help="config #3 extents")
+    ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
     args = ap.parse_args()
 
@@ -364,9 +771,9 @@ def main() -> int:
 
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import kernels
-    from geomesa_tpu_torch.schema.featuretype import parse_spec
     from geomesa_tpu_torch.store.datastore import TorchDataStore
 
+    t_start = time.perf_counter()
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
@@ -376,29 +783,105 @@ def main() -> int:
     log(f"kernels built in {build_s:.2f} s")
 
     # -- phase 2: data, ingest, device columns --------------------------------
-    n = args.rows
+    store = TorchDataStore()  # the default executor: TorchScanExecutor on cuda:0
+    data1, plans1, streams1, setup1 = config1(store, args.rows)
+    streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
+    log(f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+
+    # -- phase 3: kernels against their plain editions ------------------------
+    int32_per_s = lane_ops_per_s(INT32_LANES_PER_SM)
+    fp32_per_s = lane_ops_per_s(FP32_LANES_PER_SM)
+    log(f"INT32 peak: {int32_per_s:.4g} ops/s; FP32 {fp32_per_s:.4g} ops/s")
+    entries = kernel_checks(point_cases(store, plans1) + xz_cases(store, plans3),
+                            int32_per_s, fp32_per_s)
+
+    # -- phase 4: each main path through the entry points, launches counted ---
+    launched = {}
+    kernels.reset_launches()
+    metrics1 = config1_path(store, data1, streams1)
+    launched["config1"] = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    metrics3 = config3_path(store, streams3, oracle3)
+    launched["config3"] = dict(kernels.LAUNCHES)
+    log(f"main-path launches: {launched}")
+
+    # -- phase 5: each path went through its kernels --------------------------
+    path_of = {e["name"]: ("config3" if e["name"].startswith("xz_") else "config1")
+               for e in entries}
+    for e in entries:
+        e["launches"] = launched[path_of[e["name"]]][e["name"]]
+    missing = [e["name"] for e in entries if e["launches"] == 0]
+    if missing or set(path_of) != set(kernels.LAUNCHES):
+        raise AssertionError(f"kernels never launched on their main path: {missing}")
+
+    # -- phase 6: host splits and the host-tested rows --------------------------
+    split1 = breakdown(store, "gdelt", [Query.cql(c, properties=[]) for c in streams1["config1"][1]])
+    log(f"config #1 stream breakdown: {json.dumps(split1)}")
+    split3 = breakdown(store, "ways", [Query.cql(c, properties=[]) for c, _ in streams3["xz2_bbox"]])
+    log(f"config #3 xz2 stream breakdown: {json.dumps(split3)}")
+    for name, rows in host_tested_rows(store, plans3).items():
+        metrics3[name]["host_tested_rows_per_query"] = rows
+
+    metrics = {
+        "rows": args.rows,
+        "card": card,
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        **metrics1,
+        **setup1,
+        "kernel_build_s": build_s,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "int32_ops_per_s": int32_per_s,
+        "fp32_ops_per_s": fp32_per_s,
+        "breakdown": split1,
+        "config3": {**setup3, "streams": metrics3, "breakdown_xz2_bbox": split3},
+        "script_s": time.perf_counter() - t_start,
+    }
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
+        json.dump({"kernels": entries, "metrics": metrics}, f, indent=1)
+    print(json.dumps({"kernels": entries}))
+    print(json.dumps({"metrics": metrics}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu",
+        "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+
+def config1(store, n):
+    """Config #1: ingest N GDELT-style points, upload the z3/z2 device
+    columns. Returns (data, plans, streams)."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
     x, y, t = synthesize(n)
     boxes, cqls = make_queries(REPS)
-    store = TorchDataStore()  # the default executor: TorchScanExecutor on cuda:0
     ft = parse_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
     store.create_schema(ft)
     fids = np.char.add("f", np.arange(n).astype(f"<U{len(str(n - 1))}"))
     t0 = time.perf_counter()
     store._insert_columns(ft, {"__fid__": fids, "geom__x": x, "geom__y": y, "dtg": t})
     ingest_s = time.perf_counter() - t0
-    log(f"ingest: {n / ingest_s:,.0f} rec/s ({ingest_s:.1f} s)")
+    log(f"config #1 ingest: {n / ingest_s:,.0f} rec/s ({ingest_s:.1f} s)")
 
     bbox_boxes = jittered_boxes(RESIDUAL_REPS, seed=17)
-    bbox_cqls = [bbox_cql(b) for b in bbox_boxes]
     resid = list(zip(jittered_boxes(RESIDUAL_REPS, seed=23),
                      jittered_boxes(RESIDUAL_REPS, box=BOX_B, seed=29)))
-    resid_z3 = [f"({bbox_cql(a)} OR {bbox_cql(b)}) AND {DURING}" for a, b in resid]
-    resid_z2 = [f"{bbox_cql(a)} OR {bbox_cql(b)}" for a, b in resid]
+    streams = {
+        "config1": (boxes, cqls),
+        "bbox": (bbox_boxes, [bbox_cql(b) for b in bbox_boxes]),
+        "resid_z3": (resid, [f"({bbox_cql(a)} OR {bbox_cql(b)}) AND {DURING}" for a, b in resid]),
+        "resid_z2": (resid, [f"{bbox_cql(a)} OR {bbox_cql(b)}" for a, b in resid]),
+    }
     plans = {
         "config1": [store._plan_cached("gdelt", Query.cql(c)) for c in cqls],
-        "bbox": [store._plan_cached("gdelt", Query.cql(c)) for c in bbox_cqls],
-        "resid_z3": store._plan_cached("gdelt", Query.cql(resid_z3[0])),
-        "resid_z2": store._plan_cached("gdelt", Query.cql(resid_z2[0])),
+        "bbox": [store._plan_cached("gdelt", Query.cql(c)) for c in streams["bbox"][1]],
+        "resid_z3": store._plan_cached("gdelt", Query.cql(streams["resid_z3"][1][0])),
+        "resid_z2": store._plan_cached("gdelt", Query.cql(streams["resid_z2"][1][0])),
     }
     idx = {p.index.name for p in plans["config1"]}, {p.index.name for p in plans["bbox"]}
     if idx != ({"z3"}, {"z2"}) or plans["resid_z3"].index.name != "z3" \
@@ -411,21 +894,21 @@ def main() -> int:
             seg.load_exact(table)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    log(f"device columns uploaded in {upload_s:.1f} s; "
-        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    log(f"config #1 device columns uploaded in {upload_s:.1f} s")
+    return (x, y, t), plans, streams, {"ingest_rec_per_s": n / ingest_s, "upload_s": upload_s}
 
-    # -- phase 3: kernels against their plain editions ------------------------
-    ops_per_s = int32_ops_per_s()
-    log(f"INT32 peak: {ops_per_s:.4g} ops/s")
-    entries = kernel_checks(store, plans, ops_per_s)
 
-    # -- phase 4: the main path through the entry points ----------------------
-    kernels.reset_launches()
+def config1_path(store, data, streams):
+    """Config #1's main path through the entry points, parity-checked."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    x, y, t = data
+    boxes, cqls = streams["config1"]
     t0 = time.perf_counter()
     res = store.query("gdelt", QUERY)
     warm_s = time.perf_counter() - t0
     expect_fids(res, brute_force(x, y, t), "config #1 sync query")
-    if res.plan.scan_path != "device-exact":
+    if res.plan.scan_path != "device-exact/runs":
         raise AssertionError(f"config #1 took {res.plan.scan_path}")
     lat_reps = 3
     t0 = time.perf_counter()
@@ -441,12 +924,14 @@ def main() -> int:
     for i, (r, b) in enumerate(zip(results, boxes)):
         expect_fids(r, brute_force(x, y, t, b), f"config #1 stream query {i}")
 
+    bbox_boxes, bbox_cqls = streams["bbox"]
     t0 = time.perf_counter()
     results = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in bbox_cqls])
     bbox_s = (time.perf_counter() - t0) / len(bbox_cqls)
     for i, (r, b) in enumerate(zip(results, bbox_boxes)):
         expect_fids(r, np.flatnonzero(in_box(x, y, b)), f"bbox-only query {i}")
 
+    resid, resid_z3 = streams["resid_z3"]
     t0 = time.perf_counter()
     results = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in resid_z3])
     resid3_s = (time.perf_counter() - t0) / len(resid_z3)
@@ -454,57 +939,140 @@ def main() -> int:
         m = (in_box(x, y, a) | in_box(x, y, b)) & (t > T_LO) & (t < T_HI)
         expect_fids(r, np.flatnonzero(m), f"residual z3 query {i}")
 
+    resid_z2 = streams["resid_z2"][1]
     t0 = time.perf_counter()
     results = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in resid_z2])
     resid2_s = (time.perf_counter() - t0) / len(resid_z2)
     for i, (r, (a, b)) in enumerate(zip(results, resid)):
         expect_fids(r, np.flatnonzero(in_box(x, y, a) | in_box(x, y, b)), f"residual z2 query {i}")
     torch.cuda.synchronize()
-    launched = dict(kernels.LAUNCHES)
-    log(f"main-path launches: {launched}")
-    split = breakdown(store, queries)
-    log(f"config #1 stream breakdown: {json.dumps(split)}")
-
-    # -- phase 5: the main path went through every kernel ---------------------
-    for e in entries:
-        e["launches"] = launched[e["name"]]
-    missing = [k for k, v in launched.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
-
-    metrics = {
-        "rows": n,
-        "card": card,
-        "torch": torch.__version__,
-        "cuda": torch.version.cuda,
-        "features_per_s": n / pipe_s,
+    return {
+        "features_per_s": len(x) / pipe_s,
         "query_ms_sync": sync_s * 1e3,
         "query_ms_pipelined": pipe_s * 1e3,
         "bbox_query_ms_pipelined": bbox_s * 1e3,
         "residual_z3_query_ms_pipelined": resid3_s * 1e3,
         "residual_z2_query_ms_pipelined": resid2_s * 1e3,
         "warm_query_s": warm_s,
-        "ingest_rec_per_s": n / ingest_s,
-        "upload_s": upload_s,
-        "kernel_build_s": build_s,
         "hits_query0": int(len(res.fids)),
-        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "int32_ops_per_s": ops_per_s,
-        "breakdown": split,
     }
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": entries, "metrics": metrics}, f, indent=1)
-    print(json.dumps({"kernels": entries}))
-    print(json.dumps({"metrics": metrics}))
-    print(card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu",
-        "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
-    return 0
 
+
+# stream -> (index, scan path in a stream, scan path of a lone query)
+XZ_PATHS = {
+    "xz2_bbox": ("xz2", "device-batch-dual/bitmap", "device-batch-dual/runs"),
+    "xz3_bbox_during": ("xz3", "device-batch-dual/bitmap", "device-batch-dual/runs"),
+    "xz2_triangle": ("xz2", "device-batch-dual/bitmap", "device-batch-dual/runs"),
+    "xz2_or": ("xz2", "device-mask/runs", "device-mask/runs"),
+    "xz3_or_during": ("xz3", "device-mask/runs", "device-mask/runs"),
+}
+
+
+def config3(store, n, seed):
+    """Config #3: N OSM-way-shaped features through ``_insert_columns``
+    with precomputed envelope companions, the xz3/xz2 device columns
+    uploaded, and each stream's plans and numpy-oracle answers."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    t0 = time.perf_counter()
+    ways = synthesize_ways(n, seed=seed)
+    cols = ways_columns(ways)
+    gen_s = time.perf_counter() - t0
+    ft = parse_spec("ways", WAYS_SPEC)
+    store.create_schema(ft)
+    if [i.name for i in store._indices["ways"]] != ["xz3", "xz2", "id"]:
+        raise AssertionError(f"ways indices: {[i.name for i in store._indices['ways']]}")
+    t0 = time.perf_counter()
+    store._insert_columns(ft, cols)
+    ingest_s = time.perf_counter() - t0
+    log(f"config #3: {n} ways made in {gen_s:.1f} s, ingest {n / ingest_s:,.0f} rec/s "
+        f"({ingest_s:.1f} s)")
+    t0 = time.perf_counter()
+    for name in ("xz3", "xz2"):
+        table = store._tables["ways"][name]
+        for seg in store.executor.device_index(table).segments:
+            seg.load_exact_xz(table)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    streams = xz_streams()
+    t0 = time.perf_counter()
+    plans = {k: [store._plan_cached("ways", Query.cql(c)) for c, _ in items]
+             for k, items in streams.items()}
+    plan_s = time.perf_counter() - t0
+    for k, ps in plans.items():
+        got = {p.index.name for p in ps}
+        if got != {XZ_PATHS[k][0]}:
+            raise AssertionError(f"{k}: planned on {got}")
+    t0 = time.perf_counter()
+    oracle = {k: [oracle_rows(ways, *spec) for _c, spec in items] for k, items in streams.items()}
+    oracle_s = time.perf_counter() - t0
+    log(f"config #3 device columns uploaded in {upload_s:.1f} s; plans {plan_s:.1f} s; "
+        f"oracle {oracle_s:.1f} s")
+    return streams, plans, oracle, {
+        "ways": n, "ways_made_s": gen_s, "ingest_rec_per_s": n / ingest_s,
+        "upload_s": upload_s, "first_plan_s": plan_s, "oracle_s": oracle_s,
+    }
+
+
+def config3_path(store, streams, oracle):
+    """Config #3's main path through the entry points: per stream a warm
+    ``query_many`` (span window learning), a timed one, and one lone
+    ``store.query`` timed three times; every query parity-checked."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    out = {}
+    for name, items in streams.items():
+        index, path, lone_path = XZ_PATHS[name]
+        queries = [Query.cql(c, properties=[]) for c, _ in items]
+        store.query_many("ways", queries)
+        t0 = time.perf_counter()
+        results = store.query_many("ways", queries)
+        pipe_s = (time.perf_counter() - t0) / len(queries)
+        for i, r in enumerate(results):
+            expect_fids(r, oracle[name][i], f"{name} query {i}", prefix="w")
+            if (r.plan.index.name, r.plan.scan_path) != (index, path):
+                raise AssertionError(f"{name} query {i}: {r.plan.index.name} {r.plan.scan_path}")
+        res = store.query("ways", items[0][0])
+        expect_fids(res, oracle[name][0], f"{name} lone query", prefix="w")
+        if res.plan.scan_path != lone_path:
+            raise AssertionError(f"{name} lone query took {res.plan.scan_path}")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            store.query("ways", items[0][0])
+        sync_s = (time.perf_counter() - t0) / 3
+        out[name] = {
+            "queries": len(items),
+            "query_ms_pipelined": pipe_s * 1e3,
+            "query_ms_sync": sync_s * 1e3,
+            "hits_per_query": sum(len(r) for r in results) / len(results),
+        }
+        log(f"{name}: {pipe_s * 1e3:.2f} ms/query pipelined, {sync_s * 1e3:.2f} ms sync, "
+            f"{out[name]['hits_per_query']:.0f} hits/query")
+    torch.cuda.synchronize()
+    return out
+
+
+def host_tested_rows(store, plans):
+    """Per stream, the rows per query the host tests after the device: the
+    ring (hit minus decided) of the dual route, the candidates of the mask
+    route (all post-filtered)."""
+    from geomesa_tpu_torch.parallel.executor import _XZBatchScan
+
+    tables = store._tables["ways"]
+    out = {}
+    for name, ps in plans.items():
+        scans = store.executor.dispatch_many([(tables[p.index.name], p) for p in ps])
+        sizes = []
+        for p in ps:
+            scan = scans[id(p)]
+            if isinstance(scan, _XZBatchScan):
+                sizes.append(sum(len(h) - len(d) for _seg, ph in scan.pending
+                                 for h, d in [ph.rows()]))
+            else:
+                sizes.append(sum(len(rows) for _block, rows in scan))
+        out[name] = sum(sizes) / len(sizes)
+    return out
 
 if __name__ == "__main__":
     sys.exit(main())

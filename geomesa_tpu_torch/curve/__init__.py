@@ -1,6 +1,6 @@
-"""Curve math: z2/z3 space-filling curves and time binning.
+"""Curve math: z2/z3 and xz2/xz3 space-filling curves and time binning.
 
-Port of ``geomesa_tpu/curve`` limited to the point curves (no XZ curves).
+Port of ``geomesa_tpu/curve``.
 """
 
 from geomesa_tpu_torch.curve.binnedtime import (
@@ -19,6 +19,7 @@ from geomesa_tpu_torch.curve.normalized import (
     NormalizedTime,
 )
 from geomesa_tpu_torch.curve.sfc import Z2SFC, Z3SFC
+from geomesa_tpu_torch.curve.xz import XZ2SFC, XZ3SFC, XZ_DEFAULT_G
 from geomesa_tpu_torch.curve.zorder import (
     IndexRange,
     z2_decode,
@@ -36,6 +37,9 @@ __all__ = [
     "NormalizedLon",
     "NormalizedTime",
     "TimePeriod",
+    "XZ2SFC",
+    "XZ3SFC",
+    "XZ_DEFAULT_G",
     "Z2SFC",
     "Z3SFC",
     "binned_to_time",

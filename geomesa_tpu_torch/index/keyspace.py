@@ -25,6 +25,8 @@ import numpy as np
 
 from geomesa_tpu_torch.curve import (
     TimePeriod,
+    XZ2SFC,
+    XZ3SFC,
     Z2SFC,
     Z3SFC,
     bounds_to_indexable_ms,
@@ -175,6 +177,49 @@ def _boxes(values: IndexValues) -> List[Tuple[float, float, float, float]]:
         if inter is not None:
             out.append(inter.as_tuple())
     return out or [WHOLE_WORLD.as_tuple()]
+
+
+def _envelope_columns(geom: str, columns) -> Dict[str, np.ndarray]:
+    """Per-row geometry envelope companion columns (``geom__bxmin`` ... +
+    ``geom__isrect``).
+
+    Computed once at ingest for XZ keys and STORED in the blocks: the
+    vectorized bbox prescreen in filter evaluation (evaluate._eval_spatial)
+    and the device executor both read them instead of re-walking the
+    object geometry column. Null geometries get an empty (0,0,0,0) box.
+    ``isrect`` marks features whose geometry IS its envelope rectangle —
+    for rectangle queries the envelope test is then exact and the per-row
+    geometry predicate is skipped (the extent-query hot path)."""
+    existing = columns.get(geom + "__bxmin")
+    if existing is not None:
+        out = {
+            geom + "__bxmin": existing,
+            geom + "__bymin": columns[geom + "__bymin"],
+            geom + "__bxmax": columns[geom + "__bxmax"],
+            geom + "__bymax": columns[geom + "__bymax"],
+        }
+        isrect = columns.get(geom + "__isrect")
+        if isrect is not None:
+            out[geom + "__isrect"] = isrect.astype(np.uint8, copy=False)
+        return out
+    col = columns[geom]
+    n = len(col)
+    envs = np.zeros((n, 4), dtype=np.float64)
+    isrect = np.zeros(n, dtype=np.uint8)
+    for i, g in enumerate(col):
+        if g is None:
+            continue
+        envs[i] = g.envelope.as_tuple()
+        rect = getattr(g, "is_rectangle", None)
+        if rect is not None and rect():
+            isrect[i] = 1
+    return {
+        geom + "__bxmin": envs[:, 0],
+        geom + "__bymin": envs[:, 1],
+        geom + "__bxmax": envs[:, 2],
+        geom + "__bymax": envs[:, 3],
+        geom + "__isrect": isrect,
+    }
 
 
 def times_by_bin(
@@ -342,6 +387,114 @@ class Z2KeySpace(IndexKeySpace):
         )
 
 
+class XZ2KeySpace(IndexKeySpace):
+    """Extent spatial index: key = XZ2 sequence code
+    (XZ2IndexKeySpace.scala:26+). Always requires a geometry post-filter."""
+
+    name = "xz2"
+
+    def supports(self, ft: FeatureType) -> bool:
+        geom = ft.default_geometry
+        return geom is not None and not ft.is_points
+
+    def sfc(self, ft: FeatureType) -> XZ2SFC:
+        return XZ2SFC.for_g(ft.xz_precision)
+
+    def key_columns(self, ft: FeatureType, columns) -> Dict[str, np.ndarray]:
+        geom = _geom_prop(ft)
+        envs = _envelope_columns(geom, columns)
+        keys = self.sfc(ft).index(
+            envs[geom + "__bxmin"],
+            envs[geom + "__bymin"],
+            envs[geom + "__bxmax"],
+            envs[geom + "__bymax"],
+            lenient=True,
+        )
+        return {"__key__": keys, **envs}
+
+    def get_index_values(self, ft: FeatureType, f: ast.Filter) -> IndexValues:
+        geoms = extract_geometries(f, _geom_prop(ft))
+        return IndexValues(geoms, disjoint=geoms.disjoint)
+
+    def get_ranges(
+        self, ft: FeatureType, values: IndexValues, max_ranges: Optional[int] = None
+    ) -> List[ScanRange]:
+        if values.disjoint:
+            return []
+        ranges = self.sfc(ft).ranges(_boxes(values), max_ranges=_ranges_target(max_ranges))
+        # contained forced False: XZ rows are extent features, whose geometry
+        # predicate can never be skipped from key containment alone
+        return [ScanRange(0, r.lower, r.upper, False) for r in ranges]
+
+
+class XZ3KeySpace(IndexKeySpace):
+    """Extent + time index (XZ3IndexKeySpace.scala:29+): key = (bin, xz3)."""
+
+    name = "xz3"
+
+    def supports(self, ft: FeatureType) -> bool:
+        geom = ft.default_geometry
+        return geom is not None and not ft.is_points and ft.default_date is not None
+
+    def sfc(self, ft: FeatureType) -> XZ3SFC:
+        return XZ3SFC.for_period(ft.xz_precision, ft.xz3_interval)
+
+    def key_columns(self, ft: FeatureType, columns) -> Dict[str, np.ndarray]:
+        geom = _geom_prop(ft)
+        dtg = ft.default_date.name
+        envs = _envelope_columns(geom, columns)
+        bins, offsets = time_to_binned(columns[dtg], ft.xz3_interval, lenient=True)
+        off = offsets.astype(np.float64)
+        keys = self.sfc(ft).index(
+            envs[geom + "__bxmin"],
+            envs[geom + "__bymin"],
+            off,
+            envs[geom + "__bxmax"],
+            envs[geom + "__bymax"],
+            off,
+            lenient=True,
+        )
+        return {"__bin__": bins, "__key__": keys, **envs}
+
+    def get_index_values(self, ft: FeatureType, f: ast.Filter) -> IndexValues:
+        geom = _geom_prop(ft)
+        dtg = ft.default_date.name
+        geoms = extract_geometries(f, geom)
+        intervals = extract_intervals(f, dtg, handle_exclusive_bounds=True)
+        if geoms.disjoint or intervals.disjoint:
+            return IndexValues(geoms, intervals, disjoint=True)
+        bins = times_by_bin(intervals, ft.xz3_interval) if intervals.values else {}
+        return IndexValues(geoms, intervals, bins=bins)
+
+    def get_ranges(
+        self, ft: FeatureType, values: IndexValues, max_ranges: Optional[int] = None
+    ) -> List[ScanRange]:
+        if values.disjoint:
+            return []
+        sfc = self.sfc(ft)
+        boxes = _boxes(values)
+        mo = max_offset(ft.xz3_interval)
+        out: List[ScanRange] = []
+        whole = [b for b, w in values.bins.items() if w == (0, mo)]
+        partial = {b: w for b, w in values.bins.items() if w != (0, mo)}
+        n_groups = (1 if whole else 0) + len(partial)
+        per_group = max(1, _ranges_target(max_ranges) // max(1, n_groups))
+        # contained is forced False: XZ rows are extent features, whose
+        # geometry predicate can never be skipped from key containment alone
+        if whole:
+            queries = [(x0, y0, 0.0, x1, y1, float(mo)) for x0, y0, x1, y1 in boxes]
+            ranges = sfc.ranges(queries, max_ranges=per_group)
+            for b in sorted(whole):
+                out.extend(ScanRange(b, r.lower, r.upper, False) for r in ranges)
+        for b, (lo, hi) in sorted(partial.items()):
+            queries = [
+                (x0, y0, float(lo), x1, y1, float(hi)) for x0, y0, x1, y1 in boxes
+            ]
+            ranges = sfc.ranges(queries, max_ranges=per_group)
+            out.extend(ScanRange(b, r.lower, r.upper, False) for r in ranges)
+        return out
+
+
 class IdKeySpace(IndexKeySpace):
     """Feature-id index (IdIndex, index/IdIndex.scala:24).
 
@@ -395,7 +548,7 @@ def _extract_ids(f: ast.Filter, out: List[str]) -> bool:
     return False
 
 
-ALL_INDICES = ("z3", "z2", "id")
+ALL_INDICES = ("z3", "z2", "xz3", "xz2", "id")
 
 
 def default_indices(ft: FeatureType) -> List[IndexKeySpace]:
@@ -406,7 +559,9 @@ def default_indices(ft: FeatureType) -> List[IndexKeySpace]:
     out: List[IndexKeySpace] = []
     candidates: List[IndexKeySpace] = [
         Z3KeySpace(),
+        XZ3KeySpace(),
         Z2KeySpace(),
+        XZ2KeySpace(),
         IdKeySpace(),
     ]
     for ks in candidates:

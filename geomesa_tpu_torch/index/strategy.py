@@ -1,7 +1,7 @@
 """Filter strategies: which index can answer a filter, and at what cost.
 
-Port of ``geomesa_tpu/index/strategy.py`` limited to the z3, z2 and id
-strategies.
+Port of ``geomesa_tpu/index/strategy.py`` limited to the z3, xz3, z2, xz2
+and id strategies.
 
 Rebuild of the reference's strategy extraction + cost model
 (geomesa-index-api .../index/strategies/SpatioTemporalFilterStrategy.scala,
@@ -24,6 +24,8 @@ from geomesa_tpu_torch.index.keyspace import (
     IdKeySpace,
     IndexKeySpace,
     IndexValues,
+    XZ2KeySpace,
+    XZ3KeySpace,
     Z2KeySpace,
     Z3KeySpace,
 )
@@ -33,7 +35,9 @@ from geomesa_tpu_torch.schema.featuretype import FeatureType
 # (id cheapest, then attribute equality, then st indices, then full scan)
 _COST_ID = 1.0
 _COST_Z3 = 200.0
+_COST_XZ3 = 250.0
 _COST_Z2 = 400.0
+_COST_XZ2 = 450.0
 _COST_FULL_SCAN = 1e9
 
 
@@ -167,7 +171,7 @@ def _strategy_for(
             _COST_ID * max(1, len(values.ids)),
         )
 
-    if isinstance(index, Z3KeySpace):
+    if isinstance(index, (Z3KeySpace, XZ3KeySpace)):
         # requires a bounded interval (SpatioTemporalFilterStrategy.scala:26)
         if not values.bins:
             return None
@@ -176,7 +180,8 @@ def _strategy_for(
             return None
         pred = lambda n: _is_spatial(ft, n) or _is_temporal(ft, n)
         hits, rest = _split_nodes(f, pred)
-        cost = _COST_Z3 * max(1, len(values.bins))
+        base = _COST_Z3 if isinstance(index, Z3KeySpace) else _COST_XZ3
+        cost = base * max(1, len(values.bins))
         if not values.geometries.values:
             cost *= 4  # time-only scan covers the whole world
         return FilterStrategy(
@@ -187,12 +192,13 @@ def _strategy_for(
             cost,
         )
 
-    if isinstance(index, Z2KeySpace):
+    if isinstance(index, (Z2KeySpace, XZ2KeySpace)):
         if not values.geometries.values:
             return None
         hits, rest = _split_nodes(f, lambda n: _is_spatial(ft, n))
         area = sum(g.envelope.area for g in values.geometries.values)
-        cost = _COST_Z2 * max(0.01, min(1.0, area / (360.0 * 180.0))) * 100
+        base = _COST_Z2 if isinstance(index, Z2KeySpace) else _COST_XZ2
+        cost = base * max(0.01, min(1.0, area / (360.0 * 180.0))) * 100
         return FilterStrategy(
             index,
             and_option(hits) if hits else None,

@@ -9,8 +9,14 @@ the hand kernels in :mod:`geomesa_tpu_torch.ops.kernels`:
     over normalized int32 coordinates (Z3Filter.scala:22-58,
     Z2Filter.scala:18-20), the work of the reference's Pallas
     ``_z3_mask_kernel`` / ``_z2_mask_kernel``;
+  * ``bbox_overlap_mask``: the f32 extent-envelope candidate mask of the
+    xz2 index (``& temporal_mask`` for xz3), the work of the Pallas
+    ``_xz2_mask_kernel`` / ``_xz3_mask_kernel``;
   * ``exact_st_mask``: the query's own inclusive f64 bbox + ms window test
-    over int64 sort keys (see :mod:`geomesa_tpu_torch.ops.zkernels`).
+    over int64 sort keys (see :mod:`geomesa_tpu_torch.ops.zkernels`);
+  * ``xz_exact_planes``: the extent query's exact (hit, decided) planes
+    over int64 envelope keys (the reference's ``_xz_exact_mask_body`` in
+    ``geomesa_tpu/parallel/executor.py``).
 """
 
 from __future__ import annotations
@@ -89,6 +95,17 @@ def z2_query_mask(xi, yi, valid, boxes) -> torch.Tensor:
     return valid & spatial_mask(xi, yi, boxes)
 
 
+def bbox_overlap_mask(bxmin, bymin, bxmax, bymax, valid, boxes) -> torch.Tensor:
+    """Per-feature f32 envelopes vs [K, 4] (xlo, ylo, xhi, yhi) query boxes
+    -> [N] bool any-overlap mask (the XZ2/XZ3 candidate test; the exact
+    geometry intersection stays the host's job, XZ2IndexKeySpace.scala:26+).
+    NaN fails every compare."""
+    m = torch.zeros(bxmin.shape, dtype=torch.bool, device=bxmin.device)
+    for xlo, ylo, xhi, yhi in boxes:
+        m |= (bxmin <= xhi) & (bxmax >= xlo) & (bymin <= yhi) & (bymax >= ylo)
+    return valid & m
+
+
 def exact_st_mask(
     xk: torch.Tensor,
     yk: torch.Tensor,
@@ -107,3 +124,33 @@ def exact_st_mask(
     if window is not None:
         m &= (tk >= window[0]) & (tk <= window[1])
     return m & valid
+
+
+def xz_exact_planes(
+    bxmin: torch.Tensor,
+    bymin: torch.Tensor,
+    bxmax: torch.Tensor,
+    bymax: torch.Tensor,
+    isrect: torch.Tensor,
+    valid: torch.Tensor,
+    desc: torch.Tensor,
+    zero: torch.Tensor,
+    tk: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """EXACT extent predicate over int64 envelope sort keys -> (hit, decided).
+
+    ``desc`` = int64[8] (xmin, ymin, xmax, ymax, zero, rect, t_lo, t_hi)
+    keys (see ``TorchScanExecutor._xz_desc``); ``zero`` is the key of 0.0,
+    the envelope of a null geometry (the placeholder). hit = the stored
+    envelope overlaps the query envelope, ``& valid`` (and, with ``tk``,
+    ``t_lo <= tk <= t_hi``); decided = hit & rect & ~placeholder & (inside |
+    isrect): rows whose final answer the envelope alone gives. hit &
+    ~decided is the ring the host tests geometry by geometry."""
+    overlap = (desc[0] <= bxmax) & (bxmin <= desc[2]) & (desc[1] <= bymax) & (bymin <= desc[3])
+    hit = overlap & valid
+    if tk is not None:
+        hit &= (tk >= desc[6]) & (tk <= desc[7])
+    placeholder = (bxmin == zero) & (bymin == zero) & (bxmax == zero) & (bymax == zero)
+    inside = (desc[0] <= bxmin) & (bxmax <= desc[2]) & (desc[1] <= bymin) & (bymax <= desc[3])
+    decided = hit & (desc[5] != 0) & ~placeholder & (inside | isrect)
+    return hit, decided

@@ -9,7 +9,12 @@ answers that):
     ``geomesa_tpu/ops/pallas_kernels.py``;
   * ``exact_bitmap`` (``csrc/exact_bitmap.cu``) replaces the batched exact
     predicate of ``geomesa_tpu/parallel/executor.py``
-    ``_exact_bitmap_batch_fn``.
+    ``_exact_bitmap_batch_fn``;
+  * ``xz_mask`` (``csrc/xz_mask.cu``) replaces the Pallas
+    ``_xz2_mask_kernel`` / ``_xz3_mask_kernel``;
+  * ``xz_dual_bitmap`` (``csrc/xz_dual_bitmap.cu``) replaces the batched
+    extent predicate of ``geomesa_tpu/parallel/executor.py``
+    ``_xz_bitmap_batch_fn`` (the (hit, decided) planes).
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
 CPU, and for CUDA tensors launches the kernel (counting the launch in
@@ -29,15 +34,27 @@ from typing import Dict, Tuple
 
 import torch
 
-from geomesa_tpu_torch.ops.filters import exact_st_mask, z2_query_mask, z3_query_mask
+from geomesa_tpu_torch.ops.filters import (
+    bbox_overlap_mask,
+    exact_st_mask,
+    temporal_mask,
+    xz_exact_planes,
+    z2_query_mask,
+    z3_query_mask,
+)
 from geomesa_tpu_torch.ops.zkernels import pack_mask_rows
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
-# kernel sources -> exported C symbol
-SOURCES = {"candidate_mask": "candidate_mask.cu", "exact_bitmap": "exact_bitmap.cu"}
+# exported C symbol -> kernel source
+SOURCES = {
+    "candidate_mask": "candidate_mask.cu",
+    "exact_bitmap": "exact_bitmap.cu",
+    "xz_mask": "xz_mask.cu",
+    "xz_dual_bitmap": "xz_dual_bitmap.cu",
+}
 
 # launches per kernel instantiation, counted where the wrapper launches
 LAUNCHES: Dict[str, int] = {
@@ -45,12 +62,19 @@ LAUNCHES: Dict[str, int] = {
     "candidate_mask_z2": 0,
     "exact_bitmap_z3": 0,
     "exact_bitmap_z2": 0,
+    "xz_mask_xz2": 0,
+    "xz_mask_xz3": 0,
+    "xz_dual_bitmap_xz2": 0,
+    "xz_dual_bitmap_xz3": 0,
 }
 
-# the exact kernel keeps q descriptors and per-warp partials in shared memory
+# the exact kernels keep q descriptors and per-warp partials in shared memory
 EXACT_MAX_Q = 256
-# the candidate kernel stages boxes and windows in 48 KB of shared memory
+# the candidate kernels stage boxes and windows in 48 KB of shared memory
 _CAND_SMEM = 48 * 1024
+# int64 fields of one extent descriptor: (xmin, ymin, xmax, ymax, zero,
+# rect, t_lo, t_hi)
+XZ_DESC = 8
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -98,15 +122,21 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# each C entry point's arguments (pointers and the stream as c_void_p)
+_ARGTYPES = {
+    "candidate_mask": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
+    "exact_bitmap": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
+    "xz_mask": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
+    "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
+}
+
+
 def _load(name: str, path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "candidate_mask":
-        fn.argtypes = [i, p, p, p, p, p, p, i, p, i, p, ll, p]
-    else:
-        fn.argtypes = [i, p, p, p, p, p, p, i, p, p, ll, p]
+    fn.argtypes = _ARGTYPES[name]
     _LIBS[name] = lib
     return lib
 
@@ -277,3 +307,141 @@ def frame_bitmaps(bits: torch.Tensor, hdr: torch.Tensor, span_cap: int):
     header = torch.cat([hdr, start[:, None].to(torch.int32)], dim=1)
     return header, window
 
+
+
+def frame_dual_bitmaps(hit_bits: torch.Tensor, dec_bits: torch.Tensor,
+                       hdr: torch.Tensor, span_cap: int):
+    """Span framing of the two planes of an extent batch (the reference's
+    _dual_bitmap_row): one window per query keyed on the HIT span (decided
+    is a subset of hit), the hit window then the decided window. Returns
+    (header int32[q, 4], window u8[q, 2 * span_cap / 8])."""
+    header, hit_w = frame_bitmaps(hit_bits, hdr, span_cap)
+    _, dec_w = frame_bitmaps(dec_bits, hdr, span_cap)
+    return header, torch.cat([hit_w, dec_w], dim=1)
+
+
+# -- K3: extent candidate mask -----------------------------------------------
+
+
+def xz_mask_plain(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
+                  windows=None) -> torch.Tensor:
+    """Plain edition of :func:`xz_mask` (the reference's ``_xla_mask_fn``
+    for xz2 / xz3)."""
+    m = bbox_overlap_mask(bxmin, bymin, bxmax, bymax, valid, boxes)
+    if windows is not None:
+        m = m & temporal_mask(bins, offs, windows)
+    return m
+
+
+def xz_mask(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
+            windows=None) -> torch.Tensor:
+    """Conservative xz3 (``windows`` given) or xz2 candidate mask -> bool[n].
+
+    ``bxmin .. bymax`` float32[n] stored envelopes, ``valid`` bool[n],
+    ``boxes`` float32[K, 4] as (xlo, ylo, xhi, yhi); ``bins, offs``
+    int32[n] and ``windows`` int32[W, 3] as (bin, lo, hi)."""
+    has_time = windows is not None
+    if bxmin.device.type == "cpu":
+        return xz_mask_plain(bxmin, bymin, bxmax, bymax, valid, boxes, bins, offs, windows)
+    if bxmin.device.type != "cuda":
+        raise ValueError(f"xz_mask: unsupported device {bxmin.device}")
+    dev, n = bxmin.device, bxmin.shape[0]
+    if n % 4:
+        raise ValueError(f"xz_mask: rows ({n}) must be a multiple of 4")
+    cols = [(w, t, torch.float32) for w, t in
+            (("bxmin", bxmin), ("bymin", bymin), ("bxmax", bxmax), ("bymax", bymax))]
+    if has_time:
+        cols += [("bins", bins, torch.int32), ("offs", offs, torch.int32)]
+    for what, t, dtype in cols:
+        _check(t, what, dtype, dev, (n,))
+        if t.data_ptr() % 16:
+            raise ValueError(f"xz_mask: {what} is not 16-byte aligned")
+    _check(valid, "valid", torch.bool, dev, (n,))
+    if valid.data_ptr() % 4:
+        raise ValueError("xz_mask: valid is not 4-byte aligned")
+    _check(boxes, "boxes", torch.float32, dev)
+    k, w = boxes.shape[0], 0
+    if has_time:
+        _check(windows, "windows", torch.int32, dev)
+        w = windows.shape[0]
+    if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
+        raise ValueError("xz_mask: boxes must be [K, 4] and windows [W, 3]")
+    if 4 * (4 * k + 3 * w) > _CAND_SMEM:
+        raise ValueError(f"xz_mask: {k} boxes / {w} windows exceed shared memory")
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    err = _lib("xz_mask").xz_mask(
+        int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
+        bymax.data_ptr(), bins.data_ptr() if has_time else None,
+        offs.data_ptr() if has_time else None, valid.data_ptr(), boxes.data_ptr(), k,
+        windows.data_ptr() if has_time else None, w, out.data_ptr(), n, _stream(dev),
+    )
+    _raise_on(err, "xz_mask")
+    LAUNCHES["xz_mask_xz3" if has_time else "xz_mask_xz2"] += 1
+    return out
+
+
+# -- K4: extent dual-plane bitmap ----------------------------------------------
+
+
+def xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
+    """Plain edition of :func:`xz_dual_bitmap`, one query at a time."""
+    n8 = bxmin.shape[0] // 8
+    hits, decs, hdr = [], [], []
+    for i in range(descs.shape[0]):
+        hit, dec = xz_exact_planes(bxmin, bymin, bxmax, bymax, isrect, valid,
+                                   descs[i], descs[0, 4], tk)
+        hits.append(pack_mask_rows(hit))
+        decs.append(pack_mask_rows(dec))
+        hdr.append(torch.stack(_span_bounds(hit)))
+    if not hits:
+        empty = torch.empty((0, n8), dtype=torch.uint8, device=bxmin.device)
+        return empty, empty.clone(), torch.empty((0, 3), dtype=torch.int32, device=bxmin.device)
+    return torch.stack(hits), torch.stack(decs), torch.stack(hdr).to(torch.int32)
+
+
+def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
+    """q exact extent predicates -> (hit bits u8[q, n/8], decided bits
+    u8[q, n/8], hdr int32[q, 3]), both planes MSB-first.
+
+    ``bxmin .. bymax`` int64[n] envelope sort keys, ``isrect`` and
+    ``valid`` bool[n] (``valid`` is the temporal-valid column when ``tk``,
+    the int64[n] ms column, is given); ``descs`` int64[q, 8] (see
+    :func:`geomesa_tpu_torch.ops.filters.xz_exact_planes`). Every
+    descriptor carries the same placeholder key: both editions take the
+    first one's. ``hdr`` rows are the HIT plane's (count, first, last),
+    no hit giving (0, 0, n - 1)."""
+    has_time = tk is not None
+    if bxmin.device.type == "cpu":
+        return xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk)
+    if bxmin.device.type != "cuda":
+        raise ValueError(f"xz_dual_bitmap: unsupported device {bxmin.device}")
+    dev, n = bxmin.device, bxmin.shape[0]
+    q = descs.shape[0]
+    if n % 32 or n >= 2**31:
+        raise ValueError(f"xz_dual_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
+    if not 0 < q <= EXACT_MAX_Q:
+        raise ValueError(f"xz_dual_bitmap: q ({q}) must be in [1, {EXACT_MAX_Q}]")
+    cols = [("bxmin", bxmin), ("bymin", bymin), ("bxmax", bxmax), ("bymax", bymax)]
+    for what, t in cols + ([("tk", tk)] if has_time else []):
+        _check(t, what, torch.int64, dev, (n,))
+    _check(isrect, "isrect", torch.bool, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    _check(descs, "descs", torch.int64, dev, (q, XZ_DESC))
+    hit_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+    dec_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+    hdr = torch.empty((q, 3), dtype=torch.int32, device=dev)
+    hdr[:, 0] = 0
+    hdr[:, 1] = n
+    hdr[:, 2] = -1
+    err = _lib("xz_dual_bitmap").xz_dual_bitmap(
+        int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
+        bymax.data_ptr(), isrect.data_ptr(), valid.data_ptr(),
+        tk.data_ptr() if has_time else None, descs.data_ptr(), q,
+        hit_bits.data_ptr(), dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
+    )
+    _raise_on(err, "xz_dual_bitmap")
+    LAUNCHES["xz_dual_bitmap_xz3" if has_time else "xz_dual_bitmap_xz2"] += 1
+    empty = hdr[:, 0] == 0
+    hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
+    hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
+    return hit_bits, dec_bits, hdr

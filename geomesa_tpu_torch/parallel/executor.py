@@ -1,30 +1,43 @@
-"""TorchScanExecutor: the index pre-filter of z2/z3 plans on one device.
+"""TorchScanExecutor: the index pre-filter of z2/z3/xz2/xz3 plans on one device.
 
 Port of ``geomesa_tpu/parallel/executor.py`` limited to the point indices
-(z3, z2) and to the two device routes a query stream takes there:
+(z3, z2), the extent indices (xz3, xz2) and to the device routes a query
+stream takes there:
 
-  * the EXACT route: a plan whose full filter is one bbox(+window) test is
-    answered by the device alone (no host post-filter). A stream of such
-    plans on one table runs as ONE ``exact_bitmap`` kernel launch per
+  * the EXACT route: a point plan whose full filter is one bbox(+window)
+    test is answered by the device alone (no host post-filter). A stream of
+    such plans on one table runs as ONE ``exact_bitmap`` kernel launch per
     segment; the per-query span windows of its packed bitmaps are sliced on
     the device and decoded on the host (the reference's bitmap protocol,
     ``_exact_bitmap_batch_fn`` / ``_BitmapBatch``). A lone query runs the
     same kernel with q = 1 and returns run-length encoded hits.
-  * the CANDIDATE route (plans with a residual the exact descriptor
-    declines, e.g. an OR of boxes): the ``candidate_mask`` kernel gives a
-    conservative mask, run-length encoded on the device, and the host
-    post-filters the candidates with the full filter.
+  * the DUAL route: an extent plan whose full filter is one spatial
+    predicate on the default geometry (+ xz3 time bounds) runs as ONE
+    ``xz_dual_bitmap`` launch per segment, giving per query a HIT plane
+    (exact f64 envelope overlap) and a DECIDED plane (rows the envelope
+    alone answers); only the ring, hit minus decided, takes the host's
+    per-geometry test (``_xz_bitmap_batch_fn`` / ``_XZBatchScan``). A lone
+    query runs the kernel with q = 1 and returns both planes run-length
+    encoded (the reference's ``_xz_runs_fn`` role).
+  * the CANDIDATE route (plans with a residual the exact descriptors
+    decline, e.g. an OR of boxes): the ``candidate_mask`` (points) or
+    ``xz_mask`` (extents) kernel gives a conservative mask, run-length
+    encoded on the device, and the host post-filters the candidates with
+    the full filter.
 
 There is no host-seek chooser in this slice: the executor behaves as the
 reference does under ``GEOMESA_SEEK=0``, with the exact path and batched
-dispatch always on. Unlike the reference, segment rows pad to the kernels'
-granule (``GRANULE``) rather than to a power-of-two bucket, because PyTorch
-compiles no per-shape programs.
+dispatch always on, except that a lone extent query takes the dual route
+(the reference sends it to the candidate route there). Unlike the
+reference, segment rows pad to the kernels' granule (``GRANULE``) rather
+than to a power-of-two bucket, because PyTorch compiles no per-shape
+programs.
 
 The host steps of a scan carry ``torch.profiler`` ranges (``geomesa.fetch``,
-``geomesa.decode``, ``geomesa.block_rows``; the store adds ``geomesa.plan``,
-``geomesa.dispatch``, ``geomesa.post_filter`` and ``geomesa.assemble``), so
-a profiler trace of a query stream splits its host time by step.
+``geomesa.decode``, ``geomesa.block_rows``, ``geomesa.ring``; the store adds
+``geomesa.plan``, ``geomesa.dispatch``, ``geomesa.post_filter`` and
+``geomesa.assemble``), so a profiler trace of a query stream splits its host
+time by step.
 """
 
 from __future__ import annotations
@@ -36,7 +49,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geomesa_tpu_torch.curve import zorder
+from geomesa_tpu_torch.curve import time_to_binned, zorder
 from geomesa_tpu_torch.index.planner import QueryPlan
 from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops.filters import pad_boxes, pad_windows
@@ -67,6 +80,15 @@ GRANULE = 1024
 
 _INT64_MIN = np.iinfo(np.int64).min
 _INT64_MAX = np.iinfo(np.int64).max
+
+# device candidate columns of each index kind (besides ``valid``)
+_CANDIDATE_COLUMNS = {
+    "z3": ("xi", "yi", "bins", "ti"),
+    "z2": ("xi", "yi"),
+    "xz3": ("bxmin", "bymin", "bxmax", "bymax", "bins", "ti"),
+    "xz2": ("bxmin", "bymin", "bxmax", "bymax"),
+}
+_ENV_SUFFIXES = ("__bxmin", "__bymin", "__bxmax", "__bymax")
 
 
 def _pow2_at_least(n: int, floor: int = 256) -> int:
@@ -124,16 +146,23 @@ class DeviceSegment:
     """Device-resident mirror of a contiguous run of (non-empty) blocks of
     one index, rows padded to a multiple of GRANULE.
 
-    Candidate columns: int32 ``xi, yi`` (and ``bins, ti`` for z3) decoded
-    from the z keys, and ``valid``; pad rows are ``valid = False`` with
-    ``bins = -1``. Exact columns (``load_exact``): int64 sort keys ``xk,
-    yk`` (and ``tk``) plus ``tvalid``, the valid column with null dates
-    cleared; pad keys are int64 max."""
+    Candidate columns (``_CANDIDATE_COLUMNS``) and ``valid``; pad rows are
+    ``valid = False`` with ``bins = -1``:
+      * z3/z2: int32 ``xi, yi`` (and ``bins, ti``) decoded from the z keys;
+      * xz3/xz2: float32 stored envelopes ``bxmin .. bymax``, rounded
+        outward one ulp so the cast never loses a true overlap, pad rows
+        inverted (min 1, max 0); xz3 adds ``bins, ti`` binned from the
+        dates.
+    Exact columns of points (``load_exact``): int64 sort keys ``xk, yk``
+    (and ``tk``) plus ``tvalid``, the valid column with null dates cleared;
+    pad keys are int64 max. Exact columns of extents (``load_exact_xz``):
+    the four int64 envelope keys ``xz_keys``, ``xz_isrect`` and, for xz3,
+    ``xz_tk`` and ``xz_tvalid``; pad keys are int64 min."""
 
     def __init__(self, kind: str, device: torch.device, n: int,
                  columns: Dict[str, np.ndarray],
                  blocks: Sequence[FeatureBlock] = ()):
-        self.kind = kind  # "z3" | "z2"
+        self.kind = kind  # "z3" | "z2" | "xz3" | "xz2"
         self.device = device
         self.blocks = list(blocks)
         self.block_ids = [id(b) for b in self.blocks]
@@ -141,14 +170,14 @@ class DeviceSegment:
         self.n = n
         self.n_padded = len(columns["valid"])
         self.valid = upload(columns["valid"], device)
-        self.xi = upload(columns["xi"], device)
-        self.yi = upload(columns["yi"], device)
-        self.bins = self.ti = None
-        if kind == "z3":
-            self.bins = upload(columns["bins"], device)
-            self.ti = upload(columns["ti"], device)
+        self.xi = self.yi = self.bins = self.ti = None
+        self.bxmin = self.bymin = self.bxmax = self.bymax = None
+        for name in _CANDIDATE_COLUMNS[kind]:
+            setattr(self, name, upload(columns[name], device))
         self.xk = self.yk = self.tk = self.tvalid = None
         self._exact_loaded = False
+        self.xz_keys = self.xz_isrect = self.xz_tk = self.xz_tvalid = None
+        self._exact_xz_loaded = False
         # adaptive run capacity: grows on overflow, remembered per segment
         self._rcap = HIT_CAPACITY0
         # bitmap-batch span window (rows): starts at the full segment and
@@ -159,28 +188,44 @@ class DeviceSegment:
     def from_blocks(cls, table: IndexTable, blocks: Sequence[FeatureBlock],
                     device: torch.device) -> "DeviceSegment":
         kind = table.index.name
-        xs, ys, ts, bins = [], [], [], []
+        ft = table.ft
+        geom = ft.default_geometry.name
+        xs, ys, ts, bins, envs = [], [], [], [], []
         for b in blocks:
-            key = b.key.astype(np.int64)
             if kind == "z3":
-                xi, yi, ti = zorder.z3_decode(key)
+                xi, yi, ti = zorder.z3_decode(b.key.astype(np.int64))
                 ts.append(ti.astype(np.int32))
+            elif kind == "z2":
+                xi, yi = zorder.z2_decode(b.key.astype(np.int64))
+            else:  # xz3 / xz2: the stored envelope companions
+                e = np.stack([b.columns[geom + sfx] for sfx in _ENV_SUFFIXES],
+                             axis=1).astype(np.float64)
+                envs.append(_widened_f32(e))
+                if kind == "xz3":
+                    _, offs = time_to_binned(b.full_col(ft.default_date.name), ft.xz3_interval)
+                    ts.append(offs.astype(np.int32))
+            if kind in ("z3", "xz3"):
                 bins.append(b.bins.astype(np.int32))
-            else:
-                xi, yi = zorder.z2_decode(key)
-            xs.append(xi.astype(np.int32))
-            ys.append(yi.astype(np.int32))
+            if kind in ("z3", "z2"):
+                xs.append(xi.astype(np.int32))
+                ys.append(yi.astype(np.int32))
         n = sum(b.n for b in blocks)
 
         def pack(parts, dtype, fill):
             return pad_to_multiple(np.concatenate(parts).astype(dtype), GRANULE, fill)
 
-        cols = {
-            "valid": pack([np.ones(n, dtype=bool)], bool, False),
-            "xi": pack(xs, np.int32, 0),
-            "yi": pack(ys, np.int32, 0),
-        }
-        if kind == "z3":
+        cols = {"valid": pack([np.ones(n, dtype=bool)], bool, False)}
+        if kind in ("z3", "z2"):
+            cols["xi"] = pack(xs, np.int32, 0)
+            cols["yi"] = pack(ys, np.int32, 0)
+        else:
+            env = np.concatenate(envs)
+            # inverted pad boxes (min > max) never overlap a query box
+            for j, (name, fill) in enumerate(
+                (("bxmin", 1.0), ("bymin", 1.0), ("bxmax", 0.0), ("bymax", 0.0))
+            ):
+                cols[name] = pack([env[:, j]], np.float32, fill)
+        if kind in ("z3", "xz3"):
             cols["ti"] = pack(ts, np.int32, 0)
             cols["bins"] = pack(bins, np.int32, -1)
         return cls(kind, device, n, cols, blocks)
@@ -215,6 +260,39 @@ class DeviceSegment:
             else:
                 self.tvalid = self.valid
         self._exact_loaded = True
+
+    def load_exact_xz(self, table: IndexTable) -> None:
+        """Pack the int64 sort keys of the envelope companions, the isrect
+        flags and, for xz3, the date keys and a temporal-valid column for
+        the EXACT extent predicate."""
+        if self._exact_xz_loaded:
+            return
+        ft = table.ft
+        geom = ft.default_geometry.name
+        # pad with the min key; pads are also valid = False
+        self.xz_keys = tuple(
+            upload(pad_to_multiple(
+                f64_keys(np.concatenate([b.columns[geom + sfx] for b in self.blocks])),
+                GRANULE, _INT64_MIN), self.device)
+            for sfx in _ENV_SUFFIXES
+        )
+        irs = np.concatenate([
+            np.asarray(b.columns.get(geom + "__isrect", np.zeros(b.n, np.uint8))).astype(bool)
+            for b in self.blocks
+        ])
+        self.xz_isrect = upload(pad_to_multiple(irs, GRANULE, False), self.device)
+        if self.kind == "xz3":
+            dtg = ft.default_date.name
+            self.xz_tk = upload(pad_to_multiple(
+                np.concatenate([b.full_col(dtg).astype(np.int64) for b in self.blocks]),
+                GRANULE, _INT64_MIN), self.device)
+            # null dates: the temporal test rejects them (see load_exact)
+            nulls = np.concatenate([b.full_col(dtg + "__null") for b in self.blocks])
+            self.xz_tvalid = (
+                upload(pad_to_multiple(~nulls, GRANULE, False), self.device)
+                if nulls.any() else self.valid
+            )
+        self._exact_xz_loaded = True
 
     def remember_rcap(self, nruns: int) -> None:
         """Adapt the run capacity to observed run counts: grow to 2x the
@@ -260,15 +338,32 @@ class DeviceSegment:
             return self.xk, self.yk, self.tk, self.tvalid
         return self.xk, self.yk, None, self.valid
 
+    def _xz_cols(self, has_time: bool):
+        """(bxmin, bymin, bxmax, bymax, isrect, valid, tk | None) of the
+        extent kernel: the temporal-valid column when the query has time."""
+        if has_time:
+            return (*self.xz_keys, self.xz_isrect, self.xz_tvalid, self.xz_tk)
+        return (*self.xz_keys, self.xz_isrect, self.valid, None)
+
     def dispatch_hits(self, boxes_dev, windows_dev) -> "_PendingHits":
-        """Candidate scan: the ``candidate_mask`` kernel, then the RLE runs
-        on the device. Call ``.rows()`` on the handle to fetch and decode."""
+        """Candidate scan: the ``candidate_mask`` (points) or ``xz_mask``
+        (extents) kernel, then the RLE runs on the device. Call ``.rows()``
+        on the handle to fetch and decode."""
         if self.kind == "z3":
             mask = kernels.candidate_mask(
                 self.xi, self.yi, self.valid, boxes_dev, self.bins, self.ti, windows_dev
             )
-        else:
+        elif self.kind == "z2":
             mask = kernels.candidate_mask(self.xi, self.yi, self.valid, boxes_dev)
+        elif self.kind == "xz3":
+            mask = kernels.xz_mask(
+                self.bxmin, self.bymin, self.bxmax, self.bymax, self.valid, boxes_dev,
+                self.bins, self.ti, windows_dev,
+            )
+        else:
+            mask = kernels.xz_mask(
+                self.bxmin, self.bymin, self.bxmax, self.bymax, self.valid, boxes_dev
+            )
         rcap = self._rcap
         return _PendingHits(
             self, rcap, _runs_from_mask(mask, rcap),
@@ -314,6 +409,44 @@ class DeviceSegment:
             ))
         return out
 
+    def dispatch_exact_xz(self, desc_dev, has_time: bool) -> "_PendingXZHits":
+        """Exact extent scan of one query: ``xz_dual_bitmap`` with q = 1,
+        both planes run-length encoded on the device (the reference's
+        ``_xz_runs_fn`` role). ``desc_dev`` = int64[8] on the device."""
+        cols = self._xz_cols(has_time)
+        hit_bits, dec_bits, _hdr = kernels.xz_dual_bitmap(*cols[:6], desc_dev[None], tk=cols[6])
+        hit = unpack_mask_rows(hit_bits[0])
+        dec = unpack_mask_rows(dec_bits[0])
+
+        def dual_runs(rc: int) -> torch.Tensor:
+            return torch.cat([_runs_from_mask(hit, rc), _runs_from_mask(dec, rc)])
+
+        rcap = self._rcap
+        return _PendingXZHits(
+            self, rcap, dual_runs(rcap), refetch=dual_runs,
+            packed=lambda: torch.cat([hit_bits[0], dec_bits[0]]),
+        )
+
+    def dispatch_exact_xz_batch(self, descs: np.ndarray, has_time: bool
+                                ) -> List["_PendingXZBitmapHits"]:
+        """Q extent exact scans in ONE ``xz_dual_bitmap`` launch: per query
+        the (hit, decided) span windows keyed on the hit span, sliced on
+        the device and fetched once for all q; a query whose span outgrows
+        the window refetches alone as dual runs. ``descs`` = int64[q, 8]."""
+        descs_dev = upload(descs, self.device)
+        cols = self._xz_cols(has_time)
+        hit_bits, dec_bits, hdr = kernels.xz_dual_bitmap(*cols[:6], descs_dev, tk=cols[6])
+        span_cap = self.span_cap()
+        header, window = kernels.frame_dual_bitmaps(hit_bits, dec_bits, hdr, span_cap)
+        batch = _BitmapBatch(header, window, span_cap, seg=self)
+        return [
+            _PendingXZBitmapHits(
+                self, batch, i,
+                single=lambda d=descs_dev[i]: self.dispatch_exact_xz(d, has_time),
+            )
+            for i in range(len(descs))
+        ]
+
     def to_block_rows(self, rows: np.ndarray) -> List[Tuple[FeatureBlock, np.ndarray]]:
         """Segment-local candidate rows -> [(block, local rows)]."""
         if not len(rows):
@@ -328,16 +461,41 @@ class DeviceSegment:
             return out
 
 
+def _widened_f32(env: np.ndarray) -> np.ndarray:
+    """float64 [n, 4] (xmin, ymin, xmax, ymax) envelopes -> float32 rounded
+    outward one ulp, so the cast can never shrink a box out of a true
+    overlap (the reference's DeviceSegment envelope packing)."""
+    out = np.empty(env.shape, dtype=np.float32)
+    for j, toward in enumerate((-np.inf, -np.inf, np.inf, np.inf)):
+        out[:, j] = np.nextafter(env[:, j].astype(np.float32), np.float32(toward))
+    return out
+
+
 def segment_from_reference(arrays: Dict[str, np.ndarray], device: Device) -> DeviceSegment:
     """A port segment holding the same state as a reference (JAX)
-    ``DeviceSegment``: ``arrays`` are its host arrays ``xi, yi, valid`` (+
-    ``bins, ti`` for z3) and, when its exact columns are loaded, the
-    ``*_hi`` / ``*_lo`` uint32 key limbs and ``tvalid``. The limbs join into
-    the port's int64 keys; rows keep the reference's padding."""
+    ``DeviceSegment``: ``arrays`` are its host arrays ``valid`` and the
+    candidate columns of its kind (``xi, yi`` or ``bxmin .. bymax``, +
+    ``bins, ti`` when binned) and, when its exact columns are loaded, the
+    ``*_hi`` / ``*_lo`` uint32 key limbs and ``tvalid`` (points) or
+    ``xz_limbs`` (the eight envelope key limbs), ``xz_isrect`` and, for xz3,
+    ``xz_tk`` (two limbs) and ``xz_tvalid`` (extents). The limbs join into
+    the port's int64 keys; rows keep the reference's padding and the
+    envelopes their float32 bits."""
     device = default_device(device)
-    kind = "z3" if "bins" in arrays else "z2"
-    cols = {k: np.array(arrays[k]) for k in ("valid", "xi", "yi", "bins", "ti") if k in arrays}
+    extent = "bxmin" in arrays
+    kind = ("xz" if extent else "z") + ("3" if "bins" in arrays else "2")
+    cols = {k: np.array(arrays[k]) for k in ("valid",) + _CANDIDATE_COLUMNS[kind]}
     seg = DeviceSegment(kind, device, len(cols["valid"]), cols)
+    if "xz_limbs" in arrays:
+        limbs = [np.array(a) for a in arrays["xz_limbs"]]
+        seg.xz_keys = tuple(
+            upload(limbs_to_keys(limbs[2 * j], limbs[2 * j + 1]), device) for j in range(4)
+        )
+        seg.xz_isrect = upload(np.array(arrays["xz_isrect"]), device)
+        if "xz_tk" in arrays:
+            seg.xz_tk = upload(limbs_to_keys(*(np.array(a) for a in arrays["xz_tk"])), device)
+            seg.xz_tvalid = upload(np.array(arrays["xz_tvalid"]), device)
+        seg._exact_xz_loaded = True
     if "xk_hi" in arrays:
         seg.xk = upload(limbs_to_keys(arrays["xk_hi"], arrays["xk_lo"]), device)
         seg.yk = upload(limbs_to_keys(arrays["yk_hi"], arrays["yk_lo"]), device)
@@ -447,6 +605,154 @@ class _PendingBitmapHits:
         return _decode_bitmap_rows(self.batch.query_bits(self.i), start)
 
 
+class _PendingXZHits:
+    """A dispatched extent segment scan: dual fused RLE buffers (hit +
+    decided runs) en route to host. rows() -> (hit_rows, decided_rows),
+    both sorted; decided_rows is a subset of hit_rows. Overflow of either
+    run set escalates; fragmented dense results degrade to the two packed
+    planes."""
+
+    __slots__ = ("seg", "rcap", "buf", "_refetch", "_packed", "_rows")
+
+    def __init__(self, seg: DeviceSegment, rcap: int, buf, refetch, packed):
+        self.seg = seg
+        self.rcap = rcap
+        self.buf = buf
+        self._refetch = refetch  # rcap -> new dual runs buffer (device)
+        self._packed = packed  # () -> both packed planes (device)
+        self._rows = None
+
+    def rows(self):
+        if self._rows is None:
+            self._rows = self._resolve()
+        return self._rows
+
+    @staticmethod
+    def _one(buf, rcap):
+        nruns = int(buf[1])
+        starts = buf[2 : 2 + nruns].astype(np.int64)
+        lens = buf[2 + rcap : 2 + rcap + nruns].astype(np.int64)
+        return _expand_runs(starts, lens)
+
+    def _resolve(self):
+        seg = self.seg
+        buf = _np_local(self.buf)
+        rcap = self.rcap
+        half = 2 + 2 * rcap
+        hit_b, dec_b = buf[:half], buf[half:]
+        nruns = max(int(hit_b[1]), int(dec_b[1]))
+        seg.remember_rcap(nruns)
+        if int(hit_b[0]) == 0:
+            empty = np.empty(0, dtype=np.int64)
+            return empty, empty
+        if nruns > rcap:
+            if nruns > max(1, seg.n_padded // DENSE_BITMAP_FACTOR):
+                # fragmented + dense: the two bitmaps are the smaller transfer
+                both = _np_local(self._packed())
+                h = len(both) // 2
+                with record_function("geomesa.decode"):
+                    hm = np.unpackbits(both[:h])[: seg.n].astype(bool)
+                    dm = np.unpackbits(both[h:])[: seg.n].astype(bool)
+                    return np.flatnonzero(hm), np.flatnonzero(dm)
+            while rcap < nruns:
+                rcap *= 2
+            buf = _np_local(self._refetch(rcap))
+            half = 2 + 2 * rcap
+            hit_b, dec_b = buf[:half], buf[half:]
+        return self._one(hit_b, rcap), self._one(dec_b, rcap)
+
+
+class _PendingXZBitmapHits:
+    """One extent query's slice of a dual bitmap batch: rows() ->
+    (hit_rows, decided_rows) from its hit and decided windows; a span wider
+    than the window falls back to a single-query dual scan."""
+
+    __slots__ = ("seg", "batch", "i", "_single", "_rows")
+
+    def __init__(self, seg: DeviceSegment, batch: _BitmapBatch, i: int, single):
+        self.seg = seg
+        self.batch = batch
+        self.i = i
+        self._single = single  # () -> _PendingXZHits of this query alone
+        self._rows = None
+
+    def rows(self):
+        if self._rows is None:
+            self._rows = self._resolve()
+        return self._rows
+
+    def _resolve(self):
+        cnt, _lo, hi, start = (int(v) for v in self.batch.header(self.i))
+        if cnt == 0:
+            empty = np.empty(0, dtype=np.int64)
+            return empty, empty
+        if hi - start + 1 > self.batch.span_cap:
+            return self._single().rows()
+        both = self.batch.query_bits(self.i)
+        h = len(both) // 2
+        return (
+            _decode_bitmap_rows(both[:h], start),
+            _decode_bitmap_rows(both[h:], start),  # decided <= hit
+        )
+
+
+def _ring_split(hit_rows: np.ndarray, dec_rows: np.ndarray) -> np.ndarray:
+    """Ring = hits not device-decided (both inputs sorted): membership via
+    one searchsorted merge."""
+    if not len(hit_rows):
+        return hit_rows
+    in_dec = np.zeros(len(hit_rows), dtype=bool)
+    if len(dec_rows):
+        pos = np.searchsorted(dec_rows, hit_rows)
+        pos = np.minimum(pos, len(dec_rows) - 1)
+        in_dec = dec_rows[pos] == hit_rows
+    return hit_rows[~in_dec]
+
+
+def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, node, geom):
+    """Tail of every extent device scan: ring rows (hit but not decided)
+    take the host's exact per-geometry test, decided rows are final.
+    Yields (block, local_rows)."""
+    from geomesa_tpu_torch.filter.evaluate import _geom_predicate
+
+    if len(ring):
+        for block, local in seg.to_block_rows(np.sort(ring)):
+            with record_function("geomesa.ring"):
+                geoms = block.gather(geom, local)
+                m = np.fromiter(
+                    (g is not None and _geom_predicate(node, g) for g in geoms),
+                    bool,
+                    len(local),
+                )
+            if m.any():
+                yield block, local[m]
+    if len(dec_rows):
+        yield from seg.to_block_rows(np.sort(dec_rows))
+
+
+class _XZBatchScan:
+    """Extent scans resolved against the plan's own spatial node: decided
+    rows are final; the ring (hit minus decided) takes the host's exact
+    per-geometry test. ``exact`` is True: the yielded rows ARE the result
+    set (the valid columns carry the null dates)."""
+
+    __slots__ = ("pending", "node", "geom", "exact")
+
+    def __init__(self, pending, node, geom):
+        self.pending = pending  # [(seg, _PendingXZHits | _PendingXZBitmapHits)]
+        self.node = node
+        self.geom = geom
+        self.exact = True
+
+    def __iter__(self):
+        for seg, ph in self.pending:
+            hit_rows, dec_rows = ph.rows()
+            if not len(hit_rows):
+                continue
+            ring = _ring_split(hit_rows, dec_rows)
+            yield from _yield_xz_rows(seg, dec_rows, ring, self.node, self.geom)
+
+
 class _PendingScan:
     """All of one table's dispatched segment scans; iterating resolves them
     in order and maps segment-local rows back to (block, local rows).
@@ -490,9 +796,9 @@ class DeviceIndex:
 
 
 class TorchScanExecutor:
-    """Pluggable executor for TorchDataStore: device pre-filter for z2/z3
-    plans (None elsewhere: the store scans the host blocks); also evaluates
-    the exact post-filter (numpy) on candidates."""
+    """Pluggable executor for TorchDataStore: device pre-filter for
+    z2/z3/xz2/xz3 plans (None elsewhere: the store scans the host blocks);
+    also evaluates the exact post-filter (numpy) on candidates."""
 
     # one batched launch answers at most this many queries
     BATCH_MAX = 64
@@ -516,25 +822,27 @@ class TorchScanExecutor:
 
     def supports(self, table: IndexTable, plan: QueryPlan) -> bool:
         return (
-            table.index.name in ("z3", "z2")
+            table.index.name in ("z3", "z2", "xz3", "xz2")
             and not plan.values.disjoint
             and bool(plan.values.spatial_envelopes)
         )
 
     def _scan_eligible(self, table: IndexTable, plan: QueryPlan) -> bool:
         """Shared gate for any device dispatch: index family supported and
-        z3 plans have bins."""
+        binned (z3/xz3) plans have bins."""
         if not self.supports(table, plan):
             return False
-        return not (table.index.name == "z3" and not plan.values.bins)
+        return not (table.index.name in ("z3", "xz3") and not plan.values.bins)
 
     _DESC_UNSET = object()  # sentinel: caller did not precompute desc
 
     def dispatch_candidates(self, table: IndexTable, plan: QueryPlan, desc=_DESC_UNSET):
         """Start the device pre-filter; None -> the caller scans host ranges.
-        Pure bbox(+interval) filters take the EXACT route (no host
-        post-filter), everything else the candidate route. ``desc`` lets
-        dispatch_many pass an already-computed exact descriptor."""
+        Pure bbox(+interval) point filters take the EXACT route (no host
+        post-filter), one spatial predicate on an extent table (+ xz3 time
+        bounds) the DUAL route, everything else the candidate route.
+        ``desc`` lets dispatch_many pass an already-computed exact point
+        descriptor."""
         if not self._scan_eligible(table, plan):
             return None
         if desc is TorchScanExecutor._DESC_UNSET:
@@ -549,12 +857,26 @@ class TorchScanExecutor:
                 seg.load_exact(table)
                 pending.append((seg, seg.dispatch_exact(box_dev, win_dev)))
             return _PendingScan(pending, exact=True)
+        xz = self._xz_batch_desc(table, plan)
+        if xz is not None:
+            return self._dispatch_xz_single(table, dev, *xz)
         boxes_dev, windows_dev = self._query_descriptor(table, plan)
         return _PendingScan(
             [(seg, seg.dispatch_hits(boxes_dev, windows_dev)) for seg in dev.segments]
         )
 
     scan_candidates = dispatch_candidates
+
+    def _dispatch_xz_single(self, table: IndexTable, dev: DeviceIndex, qdesc: np.ndarray,
+                            has_time: bool, geom: str, node) -> _XZBatchScan:
+        """One extent query on the dual route: ``xz_dual_bitmap`` with q = 1
+        per segment."""
+        desc_dev = upload(qdesc, self.device)
+        pending = []
+        for seg in dev.segments:
+            seg.load_exact_xz(table)
+            pending.append((seg, seg.dispatch_exact_xz(desc_dev, has_time)))
+        return _XZBatchScan(pending, node, geom)
 
     def degrade(self, table: Optional[IndexTable], exc: BaseException) -> None:
         """Evict the failed table's device mirror (None evicts every mirror)
@@ -569,21 +891,28 @@ class TorchScanExecutor:
     def dispatch_many(self, items: Sequence[Tuple[IndexTable, QueryPlan]]):
         """Dispatch a query stream; returns {id(plan): scan | None}.
 
-        Plans whose full filter reduces to one exact box(+window) test on
-        the same table fuse into ONE ``exact_bitmap`` launch per segment
-        (chunks of BATCH_MAX); the rest dispatch as dispatch_candidates
-        would."""
+        Point plans whose full filter reduces to one exact box(+window)
+        test on the same table fuse into ONE ``exact_bitmap`` launch per
+        segment, extent plans with a dual descriptor into ONE
+        ``xz_dual_bitmap`` launch (chunks of BATCH_MAX); the rest dispatch
+        as dispatch_candidates would."""
         out: Dict[int, object] = {}
         batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
+        xz_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         for table, plan in items:
             if id(plan) in out:
                 continue
-            desc = (
-                self._exact_descriptor(table, plan)
-                if self._scan_eligible(table, plan)
-                else None
-            )
+            eligible = self._scan_eligible(table, plan)
+            desc = self._exact_descriptor(table, plan) if eligible else None
             if desc is None:
+                xz = self._xz_batch_desc(table, plan) if eligible else None
+                if xz is not None:
+                    qdesc, has_time, geom, node = xz
+                    group = xz_batchable.setdefault(
+                        (id(table), has_time), (table, has_time, []))
+                    group[2].append((id(plan), qdesc, geom, node))
+                    out[id(plan)] = None  # placeholder, filled below
+                    continue
                 out[id(plan)] = self.dispatch_candidates(table, plan, desc=None)
                 continue
             has_time = desc[1] is not None
@@ -609,7 +938,31 @@ class TorchScanExecutor:
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
                         exact=True,
                     )
+        self._drain_xz_batches(out, xz_batchable)
         return out
+
+    def _drain_xz_batches(self, out: Dict[int, object], groups) -> None:
+        """The extent groups of dispatch_many (the reference's
+        ``_drain_dual_batches``): chunked ``xz_dual_bitmap`` batches per
+        segment resolving through _XZBatchScan; a lone query takes the
+        q = 1 dual scan."""
+        for table, has_time, lst in groups.values():
+            dev = self.device_index(table)
+            for seg in dev.segments:
+                seg.load_exact_xz(table)
+            for i in range(0, len(lst), self.BATCH_MAX):
+                chunk = lst[i : i + self.BATCH_MAX]
+                if len(chunk) == 1:
+                    pid, qdesc, geom, node = chunk[0]
+                    out[pid] = self._dispatch_xz_single(table, dev, qdesc, has_time, geom, node)
+                    continue
+                descs = np.stack([item[1] for item in chunk])
+                per_seg = [seg.dispatch_exact_xz_batch(descs, has_time) for seg in dev.segments]
+                for qi, (pid, _qdesc, geom, node) in enumerate(chunk):
+                    out[pid] = _XZBatchScan(
+                        [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
+                        node, geom,
+                    )
 
     @staticmethod
     def _seed_spans(dev: DeviceIndex, plans) -> None:
@@ -767,8 +1120,78 @@ class TorchScanExecutor:
             return None
         return self._shape_keys(shape)
 
+    @staticmethod
+    def _xz_pred_shape(table: IndexTable, plan: QueryPlan):
+        """(geom, node, qenv, rect, t_lo, t_hi) when the FULL filter of an
+        xz2/xz3 plan is exactly one spatial predicate on the default
+        geometry plus, for xz3, AND-combined temporal bounds on the default
+        date; None otherwise. t_lo/t_hi are inclusive ms or None.
+
+        Only a SINGLE spatial node qualifies: an AND of two boxes is not one
+        test against their intersection for extent features (a geometry can
+        straddle both boxes yet miss the intersection)."""
+        if table.index.name not in ("xz2", "xz3") or plan.secondary is not None:
+            return None
+        f = plan.full_filter
+        if f is None:
+            return None
+        from geomesa_tpu_torch.filter import ast as A
+
+        ft = table.ft
+        geom = ft.default_geometry.name
+        spatial: List = []
+
+        def match(node) -> bool:
+            if isinstance(node, (A.BBox, A.Intersects)) and node.prop == geom:
+                spatial.append(node)
+                return True
+            return False
+
+        ok, t_lo, t_hi = TorchScanExecutor._and_walk_temporal(ft, f, match)
+        if not ok or len(spatial) != 1:
+            return None
+        if table.index.name == "xz2" and (t_lo is not None or t_hi is not None):
+            return None  # xz2 segments carry no time column
+        node = spatial[0]
+        if isinstance(node, A.BBox):
+            qenv, rect = node.envelope, True
+        else:
+            g = node.geometry
+            qenv = g.envelope
+            rect = hasattr(g, "is_rectangle") and g.is_rectangle()
+        return geom, node, qenv, rect, t_lo, t_hi
+
+    @staticmethod
+    def _xz_desc(qenv, rect: bool, t_lo, t_hi) -> Tuple[np.ndarray, bool]:
+        """(desc int64[8], has_time): the ONE place that encodes an extent
+        query (the reference's ``_xz_query_limbs``): the keys of (xmin,
+        ymin, xmax, ymax) and of 0.0 (the null-geometry placeholder), the
+        rect flag, and the inclusive [lo, hi] ms window, an open side being
+        int64 min + 1 or int64 max (zeros without time)."""
+        desc = np.zeros(kernels.XZ_DESC, dtype=np.int64)
+        desc[:5] = f64_keys(np.asarray([qenv.xmin, qenv.ymin, qenv.xmax, qenv.ymax, 0.0]))
+        desc[5] = 1 if rect else 0
+        has_time = t_lo is not None or t_hi is not None
+        if has_time:
+            desc[6] = _INT64_MIN + 1 if t_lo is None else t_lo
+            desc[7] = _INT64_MAX if t_hi is None else t_hi
+        return desc, has_time
+
+    def _xz_batch_desc(self, table: IndexTable, plan: QueryPlan):
+        """(desc int64[8], has_time, geom, node) when this extent plan's
+        full filter reduces to one spatial predicate (+ xz3 time bounds):
+        the dual route's descriptor; None otherwise."""
+        shape = self._xz_pred_shape(table, plan)
+        if shape is None:
+            return None
+        geom, node, qenv, rect, t_lo, t_hi = shape
+        desc, has_time = self._xz_desc(qenv, rect, t_lo, t_hi)
+        return desc, has_time, geom, node
+
     def _query_descriptor(self, table: IndexTable, plan: QueryPlan):
         """(boxes, windows | None) device tensors of the candidate mask."""
+        if table.index.name in ("xz2", "xz3"):
+            return self._xz_query_descriptor(table, plan)
         sfc = table.index.sfc(table.ft)
         boxes = pad_boxes(
             [
@@ -802,6 +1225,32 @@ class TorchScanExecutor:
                     (b, int(sfc.time.normalize(lo)[()]), int(sfc.time.normalize(hi)[()]))
                     for b, (lo, hi) in sorted(bins.items())
                 ]
+            )
+        boxes_dev = upload(boxes, self.device)
+        windows_dev = upload(windows, self.device) if windows is not None else None
+        return boxes_dev, windows_dev
+
+    def _xz_query_descriptor(self, table: IndexTable, plan: QueryPlan):
+        """Extent candidate descriptors: raw-domain float32 boxes widened
+        outward one ulp so the cast never excludes a true overlap, and for
+        xz3 the plan's per-bin offset windows widened one unit each side."""
+        neg, pos = np.float32(-np.inf), np.float32(np.inf)
+        boxes = pad_boxes(
+            [
+                (
+                    np.nextafter(np.float32(env.xmin), neg),
+                    np.nextafter(np.float32(env.ymin), neg),
+                    np.nextafter(np.float32(env.xmax), pos),
+                    np.nextafter(np.float32(env.ymax), pos),
+                )
+                for env in plan.values.spatial_envelopes
+            ],
+            dtype=np.float32,
+        )
+        windows = None
+        if table.index.name == "xz3":
+            windows = pad_windows(
+                [(b, max(0, lo - 1), hi + 1) for b, (lo, hi) in sorted(plan.values.bins.items())]
             )
         boxes_dev = upload(boxes, self.device)
         windows_dev = upload(windows, self.device) if windows is not None else None

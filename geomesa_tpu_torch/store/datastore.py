@@ -230,11 +230,10 @@ class TorchDataStore:
             scan = pending[id(plan)]  # pre-dispatched (query_many pipeline)
         else:
             scan = self.executor.scan_candidates(table, plan)
+        plan.scan_path = _scan_label(scan)
         if scan is None:
-            plan.scan_path = "host-table"
             rows = table.scan(plan.ranges) if plan.ranges else table.scan_all()
             return self._consume(ft, plan, rows, False)
-        plan.scan_path = "device-exact" if scan.exact else "device"
         try:
             return self._consume(ft, plan, scan, scan.exact)
         except Exception as e:
@@ -260,6 +259,32 @@ class TorchDataStore:
             if len(rows):
                 parts.append((block, rows))
         return parts
+
+
+# derived scan-internal companion suffixes (dictionary vocabs, envelope
+# prescreen columns, rect flags): never exposed in query results, whether
+# they were computed at ingest or supplied precomputed by a columnar writer
+_INTERNAL_SUFFIXES = (
+    "__vocab", "__bxmin", "__bymin", "__bxmax", "__bymax", "__isrect"
+)
+
+
+def _scan_label(scan) -> str:
+    """Execution-path label of a scan (the reference's ``_scan_label``;
+    None = the executor declined and the host table scan ran). Device
+    scans carry a ``/bitmap`` or ``/runs`` suffix for the wire format."""
+    if scan is None:
+        return "host-table"
+    name = type(scan).__name__
+    base = (
+        "device-batch-dual" if name == "_XZBatchScan"
+        else "device-exact" if scan.exact
+        else "device-mask"
+    )
+    if not scan.pending:
+        return base
+    pname = type(scan.pending[0][1]).__name__
+    return f"{base}/{'bitmap' if 'Bitmap' in pname else 'runs'}"
 
 
 def _column_base(k: str) -> str:
@@ -308,8 +333,8 @@ def _columns_from_parts(ft: FeatureType, parts: List[tuple], properties=None) ->
     keys |= {k for rb, _ in records for k in rb.columns if k.endswith("__null")}
     out: Columns = {}
     for k in keys:
-        if k.endswith("__vocab") or k == "__vis__":
-            continue
+        if k == "__vis__" or k.endswith(_INTERNAL_SUFFIXES):
+            continue  # scan internals never leak into results
         if properties is not None and k != "__fid__" and _column_base(k) not in properties:
             continue
         pieces = []

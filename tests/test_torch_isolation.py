@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, no hidden CPU.
 
-``import geomesa_tpu_torch`` and a config #1 query through it must load
-neither ``jax`` nor any ``geomesa_tpu`` module. conftest.py imports jax in
-every test process, so that check runs in a subprocess. A source scan
+``import geomesa_tpu_torch`` and config #1 and config #3 (xz2, xz3) queries
+through it must load neither ``jax`` nor any ``geomesa_tpu`` module.
+conftest.py imports jax in every test process, so that check runs in a
+subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
 default executor must refuse to run without CUDA.
 """
@@ -52,7 +53,21 @@ hi = np.datetime64("2026-01-19T00:00:00", "ms").astype(np.int64)
 for i, r in enumerate(res):
     m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
     assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
-    assert r.plan.scan_path == "device-exact"
+    assert r.plan.scan_path == "device-exact/bitmap"
+# an xz2 and an xz3 stream of config #3 (extent features)
+import chip_smoke as cs
+ways = cs.synthesize_ways(3000, seed=2, bounds=(-15.0, -15.0, 45.0, 35.0), clusters=4)
+wft = parse_spec("ways", cs.WAYS_SPEC)
+store.create_schema(wft)
+store._insert_columns(wft, cs.ways_columns(ways))
+streams = cs.xz_streams(reps=2, tris=1, resid=1)
+for name in ("xz2_bbox", "xz3_bbox_during"):
+    items = streams[name]
+    res = store.query_many("ways", [Query.cql(c, properties=[]) for c, _ in items])
+    for (c, spec), r in zip(items, res):
+        assert set(r.fids) == {f"w{j}" for j in cs.oracle_rows(ways, *spec)}, c
+        assert r.plan.index.name == name[:3], c
+        assert r.plan.scan_path == "device-batch-dual/bitmap", c
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "geomesa_tpu"
              or m.startswith("geomesa_tpu."))
@@ -62,6 +77,7 @@ assert not bad, bad
 
 
 def test_port_runs_config1_without_jax_or_the_reference():
+    """Config #1 (z3) and config #3 (xz2, xz3) streams load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

@@ -108,8 +108,10 @@ def _same(ref_res, port_res, want_rows):
 def test_config1_query(stores, data):
     ref, port = stores
     res = port.query("gdelt", bench.QUERY)
-    assert res.plan.index.name == "z3" and res.plan.scan_path == "device-exact"
-    _same(ref.query("gdelt", bench.QUERY), res,
+    want = ref.query("gdelt", bench.QUERY)
+    assert res.plan.index.name == "z3" and res.plan.scan_path == "device-exact/runs"
+    assert res.plan.scan_path == want.plan.scan_path
+    _same(want, res,
           np.flatnonzero(_in_box(data, bench.BOX) & _during(data)))
 
 
@@ -119,7 +121,7 @@ def test_config1_query_many(stores, data):
     got = port.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
     want = ref.query_many("gdelt", [RefQuery.cql(c, properties=[]) for c in cqls])
     for b, r, p in zip(boxes, want, got):
-        assert p.plan.scan_path == "device-exact"
+        assert p.plan.scan_path == r.plan.scan_path == "device-exact/bitmap"
         assert set(p.columns) == {"__fid__"}
         _same(r, p, np.flatnonzero(_in_box(data, b) & _during(data)))
 
@@ -139,7 +141,7 @@ def test_query_shapes(stores, data, kind):
         box = (-79.0, 37.0, -71.0, 40.0)
         cqls = [_bbox(box)]
         wants = [_in_box(data, box)]
-        index, path = "z2", "device-exact"
+        index, path = "z2", "device-exact/runs"
     elif kind in ("or_dtg", "or"):
         pairs = _or_queries(3)
         if kind == "or_dtg":
@@ -150,7 +152,7 @@ def test_query_shapes(stores, data, kind):
             cqls = [f"{_bbox(a)} OR {_bbox(b)}" for a, b in pairs]
             wants = [_in_box(data, a) | _in_box(data, b) for a, b in pairs]
             index = "z2"
-        path = "device"
+        path = "device-mask/runs"
     elif kind == "empty":
         box = (150.0, -80.0, 151.0, -79.0)
         cqls = [f"{_bbox(box)} AND dtg DURING 2030-01-01T00:00:00Z/2030-01-02T00:00:00Z"]
@@ -160,12 +162,14 @@ def test_query_shapes(stores, data, kind):
         box = (-80.0, 36.0, -70.0, 41.0)
         cqls = [f"{_bbox(box)} AND {bench.DURING}"]
         wants = [_in_box(data, box) & _during(data)]
-        index, path = "z3", "device-exact"
+        index, path = "z3", "device-exact/runs"
     for cql, want in zip(cqls, wants):
         res = port.query("gdelt", cql)
+        ref_res = ref.query("gdelt", cql)
         if index is not None:
             assert (res.plan.index.name, res.plan.scan_path) == (index, path)
-        _same(ref.query("gdelt", cql), res, np.flatnonzero(want))
+            assert res.plan.scan_path == ref_res.plan.scan_path
+        _same(ref_res, res, np.flatnonzero(want))
     # and the same queries as one pipelined stream
     for cql, p, r, want in zip(cqls, port.query_many("gdelt", cqls),
                                ref.query_many("gdelt", cqls), wants):
