@@ -33,8 +33,9 @@ Phases (any failure raises and the script exits non-zero):
   4. each main path with the launch counts reset just before and read just
      after: config #1 (one sync query, then 20 jittered queries through
      query_many, a bbox-only stream (z2 exact), the residual streams) and
-     config #3 (streams (a)-(e): a warm and a timed query_many each, and a
-     lone query), every query checked for fid-set parity;
+     config #3 (streams (a)-(e): a warm and a timed query_many each, then
+     each query alone through store.query, checked and timed), every query
+     checked for fid-set parity;
   5. every kernel must have launched during its path's run;
   6. torch.profiler traces of the config #1 stream and of stream (a): the
      host time of each step (the ``geomesa.*`` ranges of the store and
@@ -510,13 +511,14 @@ def point_cases(store, plans):
     """The config #1 kernels on the z3/z2 segments' own columns with the
     main path's descriptors.
 
-    Operation counts are per-lane instructions of the kernel's inner loop,
-    counted from the source: an int32 compare is one instruction, an int64
-    compare two (a compare of each half, chained), and the exact bitmap's
-    query loop adds per row and query the valid AND, the ballot, the lane
-    test and its branch, the lane-0 bit reorder (brev, byte_perm), the
-    store and the loop's increment and branch (8); a warp instruction that
-    only lane 0 needs still takes the issue slot of all 32 rows."""
+    Operation counts are per-lane instructions, counted from the source
+    with one rule for every exact kernel: an int32 compare is one
+    instruction, an int64 compare two (a compare of each half; the ANDs
+    between compares chain into the predicates and are not counted), and
+    each bitmap plane adds per 32 rows and query one ballot and one store,
+    warp instructions that take the issue slot of all 32 rows (one each per
+    row and query). The exact bitmap thus counts 6 int64 compares plus 2
+    (14) per row and query with the window, 4 plus 2 (10) without."""
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.filters import z2_query_mask, z3_query_mask
 
@@ -570,7 +572,7 @@ def point_cases(store, plans):
             plain=lambda: kernels.exact_bitmap_plain(
                 seg3.xk, seg3.yk, seg3.tk, seg3.tvalid, ebox3, ewin3),
             bytes=n3 * (3 * 8 + 1) + q3 * n3 // 8 + q3 * (48 + 12),
-            ops=q3 * n3 * (2 * 6 + 8),
+            ops=q3 * n3 * (2 * 6 + 2),
             shape=f"rows={n3} q={q3} time",
         ),
         dict(
@@ -580,7 +582,7 @@ def point_cases(store, plans):
             kernel=lambda: kernels.exact_bitmap(seg2.xk, seg2.yk, None, seg2.valid, ebox2),
             plain=lambda: kernels.exact_bitmap_plain(seg2.xk, seg2.yk, None, seg2.valid, ebox2),
             bytes=n2 * (2 * 8 + 1) + q2 * n2 // 8 + q2 * (32 + 12),
-            ops=q2 * n2 * (2 * 4 + 8),
+            ops=q2 * n2 * (2 * 4 + 2),
             shape=f"rows={n2} q={q2}",
         ),
     ]
@@ -593,12 +595,12 @@ def xz_cases(store, plans):
 
     Operations: ``xz_mask`` does 4 float32 compares per box and row
     (counted at the card's FP32 rate) plus 1 OR per box, 3 int32 compares
-    and 1 OR per window and 2 ANDs (INT32 rate). ``xz_dual_bitmap`` does per
-    row and query 8 int64 compares (overlap and inside; 10 with the
-    window), two instructions each, about 8 ANDs (10 with the window), and
-    12 for the two ballots, the lane test and its branch, two brev +
-    byte_perm reorders, two stores and the loop; plus 12 per row for the
-    hoisted placeholder test (4 int64 equalities, 3 ANDs, a NOT)."""
+    and 1 OR per window and 2 ANDs (INT32 rate). ``xz_dual_bitmap`` is
+    counted by ``point_cases``'s rule for exact kernels: per row and query
+    8 int64 compares (overlap and inside; 10 with the window), two
+    instructions each, plus a ballot and a store for each of the two
+    planes, 4: 20 per row and query (24 with the window); plus 8 per row
+    for the hoisted placeholder test (4 int64 equalities)."""
     from geomesa_tpu_torch.ops import kernels
 
     ex = store.executor
@@ -649,7 +651,7 @@ def xz_cases(store, plans):
             kernel=lambda: kernels.xz_dual_bitmap(*cols3[:6], d3, tk=cols3[6]),
             plain=lambda: kernels.xz_dual_bitmap_plain(*cols3[:6], d3, tk=cols3[6]),
             bytes=n3 * (5 * 8 + 2) + 2 * q3 * n3 // 8 + q3 * (64 + 12),
-            ops=q3 * n3 * (2 * 10 + 10 + 12) + n3 * 12,
+            ops=q3 * n3 * (2 * 10 + 4) + n3 * 2 * 4,
             shape=f"rows={n3} q={q3} time",
         ),
         dict(
@@ -659,7 +661,7 @@ def xz_cases(store, plans):
             kernel=lambda: kernels.xz_dual_bitmap(*cols2[:6], d2),
             plain=lambda: kernels.xz_dual_bitmap_plain(*cols2[:6], d2),
             bytes=n2 * (4 * 8 + 2) + 2 * q2 * n2 // 8 + q2 * (64 + 12),
-            ops=q2 * n2 * (2 * 8 + 8 + 12) + n2 * 12,
+            ops=q2 * n2 * (2 * 8 + 4) + n2 * 2 * 4,
             shape=f"rows={n2} q={q2}",
         ),
     ]
@@ -1017,8 +1019,10 @@ def config3(store, n, seed):
 
 def config3_path(store, streams, oracle):
     """Config #3's main path through the entry points: per stream a warm
-    ``query_many`` (span window learning), a timed one, and one lone
-    ``store.query`` timed three times; every query parity-checked."""
+    ``query_many`` (span window learning) and a timed one, then every
+    query of the stream alone through ``store.query``, once checked and
+    once timed, so that both routes' ms per query cover the same queries;
+    every answer parity-checked."""
     from geomesa_tpu_torch.index.planner import Query
 
     out = {}
@@ -1033,14 +1037,15 @@ def config3_path(store, streams, oracle):
             expect_fids(r, oracle[name][i], f"{name} query {i}", prefix="w")
             if (r.plan.index.name, r.plan.scan_path) != (index, path):
                 raise AssertionError(f"{name} query {i}: {r.plan.index.name} {r.plan.scan_path}")
-        res = store.query("ways", items[0][0])
-        expect_fids(res, oracle[name][0], f"{name} lone query", prefix="w")
-        if res.plan.scan_path != lone_path:
-            raise AssertionError(f"{name} lone query took {res.plan.scan_path}")
+        for i, (cql, _spec) in enumerate(items):
+            res = store.query("ways", cql)
+            expect_fids(res, oracle[name][i], f"{name} lone query {i}", prefix="w")
+            if res.plan.scan_path != lone_path:
+                raise AssertionError(f"{name} lone query {i} took {res.plan.scan_path}")
         t0 = time.perf_counter()
-        for _ in range(3):
-            store.query("ways", items[0][0])
-        sync_s = (time.perf_counter() - t0) / 3
+        for cql, _spec in items:
+            store.query("ways", cql)
+        sync_s = (time.perf_counter() - t0) / len(items)
         out[name] = {
             "queries": len(items),
             "query_ms_pipelined": pipe_s * 1e3,

@@ -17,11 +17,11 @@
 // row), accumulated with integer atomics (exact in any order) into a
 // header the caller initialises to (0, n, -1).
 //
-// Bound on Hopper: instruction issue, at the main path's q. The sweep reads
-// 25 B per row (three int64 keys and one bool) and writes q/8 B per row,
-// but each row and query costs about 20 integer instructions (two per
-// int64 compare, plus the ballot, the lane-0 reorder and store, and the
-// loop), so from q of about 6 up the INT32 rate binds before HBM does.
+// Bound on Hopper: instruction issue from q of about 9 up, HBM below. The
+// sweep reads 25 B per row (three int64 keys and one bool) and writes q/8 B
+// per row; each row and query costs at least 14 integer instructions (two
+// per int64 compare, plus the ballot and the store per 32-row word), 10
+// without the window.
 // Design: each thread loads its row once and loops over the q
 // descriptors, which sit in shared memory and are read as broadcasts.
 // __ballot_sync forms each 32-row word of a query's mask; __brev +

@@ -28,13 +28,12 @@
 // The span framing (one window per query keyed on the hit span) is done by
 // the caller with a gather.
 //
-// Bound on Hopper: instruction issue at the main path's q. The sweep reads
-// 34 B per row (four int64 keys, isrect, valid; 42 B with the int64 time)
-// and writes q/4 B per row, but each row and query costs about 35-40
-// integer instructions (two per int64 compare: eight for overlap and
-// inside, two more for the window; the ANDs; two ballots, the lane-0
-// reorders and stores, and the loop), so from q of about 2 up the INT32
-// rate binds before HBM does. Design (as exact_bitmap.cu): each thread
+// Bound on Hopper: instruction issue from q of about 9 up, HBM below. The
+// sweep reads 34 B per row (four int64 keys, isrect, valid; 42 B with the
+// int64 time) and writes q/4 B per row; each row and query costs at least
+// 20 integer instructions (two per int64 compare: eight compares for
+// overlap and inside, two more for the window, 24 in all; plus a ballot
+// and a store per plane and 32-row word). Design (as exact_bitmap.cu): each thread
 // loads its row once and loops over the q descriptors, which sit in shared
 // memory and are read as broadcasts. __ballot_sync forms each 32-row word
 // of both planes; __brev + __byte_perm put it into packbits byte and bit
