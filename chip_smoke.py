@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU.
 
-Drives the port's two main paths on the card and holds every hand kernel
+Drives the port's three main paths on the card and holds every hand kernel
 against its plain PyTorch edition:
 
   * BASELINE config #1: GDELT-style points, a bbox + DURING query stream
@@ -13,11 +13,19 @@ against its plain PyTorch edition:
     (b) the same boxes AND a 3-week DURING (xz3, dual route), (c) 4
     INTERSECTS with a triangle (every hit in the ring), (d) 8 bbox A OR
     bbox B (xz2 candidate route) and (e) 8 (A OR B) AND DURING (xz3
-    candidate route): the ``xz_mask`` and ``xz_dual_bitmap`` kernels.
+    candidate route): the ``xz_mask`` and ``xz_dual_bitmap`` kernels;
+  * the density push-down (``hints={"density": {"envelope", "width",
+    "height"}}``, the ``density_grid`` kernel): BASELINE config #6
+    (bench_suite.py bench_density: 8M uniform points, schema ``dens`` =
+    ``*geom:Point:srid=4326``, z2), stream (f) 16 bbox heatmaps at 256x128
+    (bench_density's box, then 15 shifted +-5 deg), (g) 4 of them at
+    512x512 (the kernel's global-atomic branch); on config #1's table,
+    (h) its 20 jittered boxes AND its DURING at 64x32 (z3), (i) its base
+    box AND DURING at 256x256, whose band overflows: the host reducer.
 
 Run from the repository root with one CUDA device:
 
-    python3 chip_smoke.py [--rows N] [--ways N] [--seed S] [--out DIR]
+    python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--seed S] [--out DIR]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
@@ -27,6 +35,9 @@ Phases (any failure raises and the script exits non-zero):
      them with precomputed envelope companions, upload the xz3/xz2 device
      columns, plan every stream and answer it with the numpy oracle
      (``oracle_rows``, which shares no code with the port's geometry);
+     config #6: ingest N points (8M by default), upload the raw f32 columns
+     of its z2 table and of config #1's z3 table, and answer (f)-(i) with a
+     numpy f64 GridSnap oracle (``density_oracle``);
   3. every kernel instantiation against its plain edition at its path's
      shapes (bitwise equality), timed with CUDA events (median of >= 20
      runs) beside its plain edition and its bound;
@@ -35,13 +46,18 @@ Phases (any failure raises and the script exits non-zero):
      query_many, a bbox-only stream (z2 exact), the residual streams) and
      config #3 (streams (a)-(e): a warm and a timed query_many each, then
      each query alone through store.query, checked and timed), every query
-     checked for fid-set parity;
+     checked for fid-set parity; the density streams (f)-(i) (each query
+     alone through store.query, then the stream through query_many), every
+     grid equal to the oracle and every query on its stream's route;
   5. every kernel must have launched during its path's run;
   6. torch.profiler traces of the config #1 stream and of stream (a): the
      host time of each step (the ``geomesa.*`` ranges of the store and
      executor, ``geomesa.ring`` for the per-geometry test) and the device's
      busy and idle shares; the rows per query the host tests after the
-     device (the ring, or the candidates of the mask route).
+     device (the ring, or the candidates of the mask route); per density
+     stream the same split (``geomesa.density``: launches + the grid's D2H
+     copy; ``geomesa.band``: the host certification) and the band rows
+     per query.
 
 Prints a ``{"kernels": [...]}`` line, a metrics line, the card's name and
 power limit, and last ``{"ok": true, "device": {...}}``.
@@ -443,6 +459,71 @@ def oracle_rows(ways, boxes, tri=None, window=None) -> np.ndarray:
     return np.flatnonzero(hit)
 
 
+# -- config #6 and the GDELT heatmap: density push-downs --------------------
+
+DENS_ROWS = 8_000_000  # bench_suite.py bench_density's default size
+DENS_SPEC = "*geom:Point:srid=4326"
+DENS_BOX = (-60.0, -30.0, 60.0, 40.0)  # bench_density's box
+DENS_STREAM = 16
+DENS_WIDE = 4
+
+
+def synthesize_dens(n: int):
+    """bench_density's table: uniform points, x in (-180, 180), y in
+    (-85, 85), from default_rng(12)."""
+    rng = np.random.default_rng(12)
+    return rng.uniform(-180, 180, n), rng.uniform(-85, 85, n)
+
+
+def density_boxes(reps: int = DENS_STREAM, seed: int = 612):
+    """bench_density's box, then boxes shifted by a seeded uniform +-5 deg
+    in x and y."""
+    rng = np.random.default_rng(seed)
+    out = [DENS_BOX]
+    for _ in range(reps - 1):
+        dx, dy = (float(v) for v in rng.uniform(-5.0, 5.0, 2))
+        out.append((DENS_BOX[0] + dx, DENS_BOX[1] + dy, DENS_BOX[2] + dx, DENS_BOX[3] + dy))
+    return out
+
+
+def density_hint(env, width, height):
+    return {"density": {"envelope": tuple(env), "width": width, "height": height}}
+
+
+def density_streams(full: bool = True):
+    """Streams (f)-(i): name -> (type name, [(cql, box, during, (W, H))],
+    expected route). The envelope of every query is its box. Stream (i)'s
+    band overflows at config #1's full 20M rows and it must then take the
+    host route (None); on a cut table either route ("any") may answer."""
+    boxes = density_boxes()
+    gdelt = jittered_boxes(REPS)
+    return {
+        "f_dens_256x128": ("dens", [(bbox_cql(b), b, False, (256, 128)) for b in boxes],
+                           "device-density"),
+        "g_dens_512x512": ("dens", [(bbox_cql(b), b, False, (512, 512))
+                                    for b in boxes[:DENS_WIDE]], "device-density"),
+        "h_gdelt_64x32": ("gdelt", [(f"{bbox_cql(b)} AND {DURING}", b, True, (64, 32))
+                                    for b in gdelt], "device-density"),
+        # its band (~19k rows) overflows the 8,192-row cap: the host reducer
+        "i_gdelt_256x256": ("gdelt", [(QUERY, BOX, True, (256, 256))], None if full else "any"),
+    }
+
+
+def density_oracle(x, y, t, box, during: bool, width: int, height: int) -> np.ndarray:
+    """The numpy f64 oracle of a density query whose envelope is its box:
+    brute-force box (+ DURING) hits, GridSnap floor((v - min) / ((max - min)
+    / n)) clipped into the grid, then a bincount."""
+    m = in_box(x, y, box)
+    if during:
+        m &= (t > T_LO) & (t < T_HI)
+    dx = (box[2] - box[0]) / width
+    dy = (box[3] - box[1]) / height
+    col = np.clip(np.floor((x[m] - box[0]) / dx).astype(np.int64), 0, width - 1)
+    row = np.clip(np.floor((y[m] - box[1]) / dy).astype(np.int64), 0, height - 1)
+    grid = np.bincount(row * width + col, minlength=width * height)
+    return grid.reshape(height, width).astype(np.float64)
+
+
 # -- helpers ----------------------------------------------------------------
 
 
@@ -667,6 +748,116 @@ def xz_cases(store, plans):
     ]
 
 
+def density_check(cap, full):
+    """Kernel vs plain edition of ``density_grid``: the grid bitwise, the
+    true band count equal, the band indices equal as a set; past the cap
+    the kernel keeps ``cap`` distinct near rows (``full()`` lists them all)."""
+
+    def check(got, want):
+        (grid, idx, cnt), (pgrid, pidx, pcnt) = got, want
+        err = int((grid.to(torch.int64) - pgrid.to(torch.int64)).abs().max().item())
+        c = int(pcnt[0])
+        kept = idx.cpu().numpy()
+        ok = torch.equal(grid, pgrid) and int(cnt[0]) == c
+        if c <= cap:
+            ok = ok and (kept[c:] == -1).all() and \
+                set(kept[:c].tolist()) == set(pidx.cpu().numpy()[:c].tolist())
+        else:
+            every = set(full()[1].cpu().numpy()[:c].tolist())
+            ok = ok and len(set(kept.tolist())) == cap and set(kept.tolist()) <= every
+        return bool(ok), err
+
+    return check
+
+
+def density_work(args):
+    """Rows of this run's data that reach each stage of the density kernel:
+    (rows passing valid and the window, rows inside a band-widened box, the
+    certain rows' flat cell ids)."""
+    from geomesa_tpu_torch.ops import aggregations as agg
+    from geomesa_tpu_torch.ops.filters import bbox_mask_f32, temporal_mask
+
+    x, y, bins, offs, valid, boxes, wins, env, width, height, _cap = args
+    live = valid.clone()
+    if wins is not None:
+        live &= temporal_mask(bins, offs, wins)
+    eps = agg._EPS
+    ex = eps * torch.maximum(torch.maximum(env[0].abs(), env[2].abs()), x.abs())
+    ey = eps * torch.maximum(torch.maximum(env[1].abs(), env[3].abs()), y.abs())
+    wide = torch.zeros_like(live)
+    for bx0, by0, bx1, by1 in boxes:
+        exk = torch.maximum(ex, eps * torch.maximum(bx0.abs(), bx1.abs()))
+        eyk = torch.maximum(ey, eps * torch.maximum(by0.abs(), by1.abs()))
+        wide |= (x >= bx0 - exk) & (x <= bx1 + exk) & (y >= by0 - eyk) & (y <= by1 + eyk)
+    col, row, in_env = agg.grid_snap_indices(x, y, env, width, height)
+    band, _near = agg.density_band(x, y, env, width, height, boxes)
+    certain = live & bbox_mask_f32(x, y, boxes) & ~band & in_env
+    ids = (row.to(torch.int64) * width + col.to(torch.int64))[certain]
+    return int(live.sum()), int((wide & live).sum()), ids
+
+
+def density_cases(store, streams):
+    """The density kernel on the dens z2 and gdelt z3 segments' own
+    columns with the first query of each stream: (f) 256 x 128 and (g)
+    512 x 512 on config #6, (h) 64 x 32 and (i) 256 x 256 (its band
+    overflows) on config #1.
+
+    Bytes: x, y and valid per row (+ bins and the ms offset with time), the
+    grid written once, the kept band indices. Operations, counted from the
+    source on this run's data: an INT32 valid test per row and, with time,
+    3 compares and an OR per window and valid row; per row that passes both,
+    6 FP32 operations (ex, ey) and 22 per box (2 max, 8 add/sub, 12
+    compares); per row inside a widened box, 36 more (the cell, the band,
+    in_env and near; a divide counted as one). ``bincount_ms`` times one
+    torch.bincount over the certain rows' cell ids (library: none, no
+    single PyTorch call computes the fused mask, band and grid)."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import aggregations as agg
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.filters import pad_boxes, pad_windows
+
+    ex = store.executor
+    dev = ex.device
+    cap = agg.DENSITY_BAND_CAP
+    out = []
+    for name, (tname, items, _route) in streams.items():
+        cql, box, during, (width, height) = items[0]
+        table = store._tables[tname]["z3" if during else "z2"]
+        seg = ex.device_index(table).segments[0]
+        boxes = torch.as_tensor(pad_boxes([box], dtype=np.float32), device=dev)
+        env = torch.as_tensor(np.asarray(box, dtype=np.float32), device=dev)
+        wins = None
+        if during:
+            plan = store._plan_cached(tname, Query.cql(cql))
+            wins = torch.as_tensor(pad_windows(ex._ms_windows(table.ft, plan)), device=dev)
+        args = (seg.xf, seg.yf, seg.bins if during else None, seg.t_ms if during else None,
+                seg.valid, boxes, wins, env, width, height, cap)
+        # which instantiation the wrapper picks for this grid (shared memory
+        # histogram or global atomics): the one whose count moves
+        before = dict(kernels.LAUNCHES)
+        kernels.density_grid(*args)
+        kname = next(k for k, v in kernels.LAUNCHES.items() if v != before[k])
+        n = seg.n_padded
+        live, wide, ids = density_work(args)
+        k, w = boxes.shape[0], 0 if wins is None else wins.shape[0]
+        cnt = int(kernels.density_grid_plain(*args)[2][0])
+        out.append(dict(
+            name=kname,
+            replaces="geomesa_tpu/ops/pallas_kernels.py:222",
+            source="geomesa_tpu_torch/csrc/density_grid.cu",
+            kernel=lambda a=args: kernels.density_grid(*a),
+            plain=lambda a=args: kernels.density_grid_plain(*a),
+            check=density_check(cap, lambda a=args, c=cnt: kernels.density_grid_plain(
+                *a[:-1], max(c, 1))),
+            bytes=n * (9 + (8 if during else 0)) + 4 * width * height + 4 * min(cnt, cap) + 4,
+            ops=n + (int(seg.valid.sum()) * 4 * w if during else 0),
+            fops=live * (6 + 22 * k) + wide * 36,
+            aside={"bincount_ms": lambda i=ids, m=width * height: torch.bincount(i, minlength=m)},
+            shape=f"rows={n} {width}x{height} K={k} W={w} band={cnt} stream={name}",
+        ))
+    return out
+
+
 def kernel_checks(cases, int32_per_s, fp32_per_s):
     """Each kernel against its plain edition (bitwise), then timed with CUDA
     events beside its plain edition. Returns the kernels-line entries
@@ -678,8 +869,11 @@ def kernel_checks(cases, int32_per_s, fp32_per_s):
         got = c["kernel"]()
         want = c["plain"]()
         torch.cuda.synchronize()
-        equal = all(torch.equal(g, w) for g, w in zip(got, want))
-        err = max_abs_err(got, want)
+        if "check" in c:
+            equal, err = c["check"](got, want)
+        else:
+            equal = all(torch.equal(g, w) for g, w in zip(got, want))
+            err = max_abs_err(got, want)
         if not equal:
             raise AssertionError(
                 f"{c['name']}: kernel differs from its plain edition (max abs err {err})"
@@ -702,6 +896,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s):
             "library_ms": None,
             "bitwise_equal": equal,
             "shape": c["shape"],
+            **{k: cuda_ms(fn) for k, fn in c.get("aside", {}).items()},
         })
         log(f"{c['name']}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
             f"bound {out[-1]['bound_ms']:.4f} ms) {c['shape']}")
@@ -763,6 +958,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows", type=int, default=20_000_000, help="config #1 points")
     ap.add_argument("--ways", type=int, default=WAYS_ROWS, help="config #3 extents")
+    ap.add_argument("--dens", type=int, default=DENS_ROWS, help="config #6 points")
     ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
     args = ap.parse_args()
@@ -788,14 +984,16 @@ def main() -> int:
     store = TorchDataStore()  # the default executor: TorchScanExecutor on cuda:0
     data1, plans1, streams1, setup1 = config1(store, args.rows)
     streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
+    streams6, oracle6, setup6 = config6(store, args.dens, data1, args.rows >= 20_000_000)
     log(f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     # -- phase 3: kernels against their plain editions ------------------------
     int32_per_s = lane_ops_per_s(INT32_LANES_PER_SM)
     fp32_per_s = lane_ops_per_s(FP32_LANES_PER_SM)
     log(f"INT32 peak: {int32_per_s:.4g} ops/s; FP32 {fp32_per_s:.4g} ops/s")
-    entries = kernel_checks(point_cases(store, plans1) + xz_cases(store, plans3),
-                            int32_per_s, fp32_per_s)
+    entries = kernel_checks(
+        point_cases(store, plans1) + xz_cases(store, plans3) + density_cases(store, streams6),
+        int32_per_s, fp32_per_s)
 
     # -- phase 4: each main path through the entry points, launches counted ---
     launched = {}
@@ -805,10 +1003,14 @@ def main() -> int:
     kernels.reset_launches()
     metrics3 = config3_path(store, streams3, oracle3)
     launched["config3"] = dict(kernels.LAUNCHES)
+    kernels.reset_launches()
+    metrics6 = density_path(store, streams6, oracle6)
+    launched["density"] = dict(kernels.LAUNCHES)
     log(f"main-path launches: {launched}")
 
     # -- phase 5: each path went through its kernels --------------------------
-    path_of = {e["name"]: ("config3" if e["name"].startswith("xz_") else "config1")
+    path_of = {e["name"]: ("config3" if e["name"].startswith("xz_") else
+                           "density" if e["name"].startswith("density_") else "config1")
                for e in entries}
     for e in entries:
         e["launches"] = launched[path_of[e["name"]]][e["name"]]
@@ -823,6 +1025,11 @@ def main() -> int:
     log(f"config #3 xz2 stream breakdown: {json.dumps(split3)}")
     for name, rows in host_tested_rows(store, plans3).items():
         metrics3[name]["host_tested_rows_per_query"] = rows
+    for name, rows in density_band_rows(store, streams6).items():
+        metrics6[name]["band_rows_per_query"] = rows
+    for name, (tname, items, _route) in streams6.items():
+        metrics6[name]["breakdown"] = breakdown(store, tname, density_queries(items))
+        log(f"{name} breakdown: {json.dumps(metrics6[name]['breakdown'])}")
 
     metrics = {
         "rows": args.rows,
@@ -837,6 +1044,7 @@ def main() -> int:
         "fp32_ops_per_s": fp32_per_s,
         "breakdown": split1,
         "config3": {**setup3, "streams": metrics3, "breakdown_xz2_bbox": split3},
+        "density": {**setup6, "streams": metrics6},
         "script_s": time.perf_counter() - t_start,
     }
     os.makedirs(args.out, exist_ok=True)
@@ -1077,6 +1285,127 @@ def host_tested_rows(store, plans):
             else:
                 sizes.append(sum(len(rows) for _block, rows in scan))
         out[name] = sum(sizes) / len(sizes)
+    return out
+
+
+def config6(store, n, gdelt, full: bool):
+    """Config #6: bench_density's N uniform points in the ``dens`` schema
+    (z2, id), the raw f32 device columns of its z2 table and of config #1's
+    z3 table, and each density stream's plans and numpy-oracle grids
+    (``gdelt`` = config #1's (x, y, t))."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    x, y = synthesize_dens(n)
+    ft = parse_spec("dens", DENS_SPEC)
+    store.create_schema(ft)
+    if [i.name for i in store._indices["dens"]] != ["z2", "id"]:
+        raise AssertionError(f"dens indices: {[i.name for i in store._indices['dens']]}")
+    fids = np.char.add("f", np.arange(n).astype(f"<U{len(str(n - 1))}"))
+    t0 = time.perf_counter()
+    store._insert_columns(ft, {"__fid__": fids, "geom__x": x, "geom__y": y})
+    ingest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for tname, index in (("dens", "z2"), ("gdelt", "z3")):
+        table = store._tables[tname][index]
+        for seg in store.executor.device_index(table).segments:
+            if not seg.load_raw(table):
+                raise AssertionError(f"{tname}/{index}: no raw device columns")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    streams = density_streams(full)
+    data = {"dens": (x, y, None), "gdelt": gdelt}
+    t0 = time.perf_counter()
+    oracle = {}
+    for name, (tname, items, _route) in streams.items():
+        for cql, box, during, _wh in items:
+            plan = store._plan_cached(tname, Query.cql(cql))
+            if plan.index.name != ("z3" if during else "z2"):
+                raise AssertionError(f"{name}: {cql} planned on {plan.index.name}")
+        oracle[name] = [density_oracle(*data[tname], box, during, w, h)
+                        for _c, box, during, (w, h) in items]
+    oracle_s = time.perf_counter() - t0
+    log(f"config #6: {n} points, ingest {n / ingest_s:,.0f} rec/s; raw columns uploaded in "
+        f"{upload_s:.1f} s; density oracle {oracle_s:.1f} s")
+    return streams, oracle, {"dens_rows": n, "ingest_rec_per_s": n / ingest_s,
+                             "raw_upload_s": upload_s, "oracle_s": oracle_s}
+
+
+def density_queries(items):
+    from geomesa_tpu_torch.index.planner import Query
+
+    return [Query.cql(c, hints=density_hint(box, w, h)) for c, box, _d, (w, h) in items]
+
+
+def expect_grid(res, want, route, what: str) -> None:
+    got = res.aggregate.get("density")
+    if got is None or got.shape != want.shape or not np.array_equal(got, want):
+        diff = -1 if got is None or got.shape != want.shape else int(np.abs(got - want).sum())
+        raise AssertionError(f"{what}: grid differs from the numpy oracle (L1 {diff})")
+    path = res.plan.scan_path
+    if route == "any":
+        return
+    if (route is not None and path != route) or (route is None and path == "device-density"):
+        raise AssertionError(f"{what}: took {path}")
+
+
+def density_path(store, streams, oracle):
+    """The density streams through the entry points: every query alone
+    through ``store.query`` (checked, then timed over the whole stream),
+    then the stream through ``query_many`` (timed, checked); every grid
+    must equal the numpy oracle and take its stream's route."""
+    out = {}
+    for name, (tname, items, route) in streams.items():
+        queries = density_queries(items)
+        routes = {}
+        for i, q in enumerate(queries):
+            res = store.query(tname, q)
+            expect_grid(res, oracle[name][i], route, f"{name} query {i}")
+            routes[res.plan.scan_path] = routes.get(res.plan.scan_path, 0) + 1
+        t0 = time.perf_counter()
+        for q in queries:
+            store.query(tname, q)
+        sync_s = (time.perf_counter() - t0) / len(queries)
+        t0 = time.perf_counter()
+        results = store.query_many(tname, queries)
+        pipe_s = (time.perf_counter() - t0) / len(queries)
+        for i, res in enumerate(results):
+            expect_grid(res, oracle[name][i], route, f"{name} pipelined query {i}")
+        out[name] = {
+            "queries": len(queries),
+            "grid": list(items[0][3]),
+            "query_ms_sync": sync_s * 1e3,
+            "query_ms_pipelined": pipe_s * 1e3,
+            "routes": routes,
+            "features_in_grid_per_query": float(np.mean([g.sum() for g in oracle[name]])),
+        }
+        log(f"{name}: {sync_s * 1e3:.3f} ms/query sync, {pipe_s * 1e3:.3f} ms pipelined, "
+            f"routes {routes}")
+    torch.cuda.synchronize()
+    return out
+
+
+def density_band_rows(store, streams):
+    """Band rows per query the host certifies, per stream (over the queries
+    that took the device route)."""
+    ex = store.executor
+    seen = []
+    certify = ex._certify_density_band
+
+    def recorder(table, plan, spec, band, width, height):
+        seen.append(sum(len(idx) for _seg, idx in band))
+        return certify(table, plan, spec, band, width, height)
+
+    out = {}
+    ex._certify_density_band = recorder
+    try:
+        for name, (tname, items, _route) in streams.items():
+            seen.clear()
+            results = store.query_many(tname, density_queries(items))
+            device = sum(r.plan.scan_path == "device-density" for r in results)
+            out[name] = sum(seen) / device if device else None
+    finally:
+        del ex._certify_density_band
     return out
 
 if __name__ == "__main__":

@@ -12,6 +12,8 @@ the hand kernels in :mod:`geomesa_tpu_torch.ops.kernels`:
   * ``bbox_overlap_mask``: the f32 extent-envelope candidate mask of the
     xz2 index (``& temporal_mask`` for xz3), the work of the Pallas
     ``_xz2_mask_kernel`` / ``_xz3_mask_kernel``;
+  * ``bbox_mask_f32``: the raw f32 coordinate box mask of the density
+    aggregation (the reference's ``bbox_mask_f32``);
   * ``exact_st_mask``: the query's own inclusive f64 bbox + ms window test
     over int64 sort keys (see :mod:`geomesa_tpu_torch.ops.zkernels`);
   * ``xz_exact_planes``: the extent query's exact (hit, decided) planes
@@ -104,6 +106,16 @@ def bbox_overlap_mask(bxmin, bymin, bxmax, bymax, valid, boxes) -> torch.Tensor:
     for xlo, ylo, xhi, yhi in boxes:
         m |= (bxmin <= xhi) & (bxmax >= xlo) & (bymin <= yhi) & (bymax >= ylo)
     return valid & m
+
+
+def bbox_mask_f32(x: torch.Tensor, y: torch.Tensor, boxes: torch.Tensor) -> torch.Tensor:
+    """Raw f32 coordinates vs [K, 4] f32 (xlo, ylo, xhi, yhi) boxes -> [N]
+    bool any-box containment (inclusive edges; NaN fails every compare).
+    Used by the density aggregation."""
+    m = torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    for xlo, ylo, xhi, yhi in boxes:
+        m |= (x >= xlo) & (x <= xhi) & (y >= ylo) & (y <= yhi)
+    return m
 
 
 def exact_st_mask(

@@ -14,7 +14,11 @@ answers that):
     ``_xz2_mask_kernel`` / ``_xz3_mask_kernel``;
   * ``xz_dual_bitmap`` (``csrc/xz_dual_bitmap.cu``) replaces the batched
     extent predicate of ``geomesa_tpu/parallel/executor.py``
-    ``_xz_bitmap_batch_fn`` (the (hit, decided) planes).
+    ``_xz_bitmap_batch_fn`` (the (hit, decided) planes);
+  * ``density_grid`` (``csrc/density_grid.cu``) replaces the Pallas
+    ``_density_kernel`` and fuses the density band, masks and band indices
+    of ``geomesa_tpu/ops/aggregations.py`` ``make_sharded_density_dual``
+    around it.
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
 CPU, and for CUDA tensors launches the kernel (counting the launch in
@@ -26,6 +30,7 @@ CPU, and for CUDA tensors launches the kernel (counting the launch in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import subprocess
@@ -34,6 +39,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from geomesa_tpu_torch.ops.aggregations import density_dual, reciprocal_f32
 from geomesa_tpu_torch.ops.filters import (
     bbox_overlap_mask,
     exact_st_mask,
@@ -54,7 +60,11 @@ SOURCES = {
     "exact_bitmap": "exact_bitmap.cu",
     "xz_mask": "xz_mask.cu",
     "xz_dual_bitmap": "xz_dual_bitmap.cu",
+    "density_grid": "density_grid.cu",
 }
+# extra nvcc flags per source: the density band's f32 arithmetic must not
+# contract into FMAs that the reference does not do
+_NVCC_FLAGS = {"density_grid": ["-fmad=false"]}
 
 # launches per kernel instantiation, counted where the wrapper launches
 LAUNCHES: Dict[str, int] = {
@@ -66,6 +76,12 @@ LAUNCHES: Dict[str, int] = {
     "xz_mask_xz3": 0,
     "xz_dual_bitmap_xz2": 0,
     "xz_dual_bitmap_xz3": 0,
+    # the density kernel's SHARED histogram branch, and its global-atomic
+    # branch for grids beyond the shared-memory opt-in
+    "density_grid_z3": 0,
+    "density_grid_z2": 0,
+    "density_grid_z3_global": 0,
+    "density_grid_z2_global": 0,
 }
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
@@ -93,8 +109,9 @@ def _nvcc() -> str:
 def _compile(name: str) -> str:
     """Compile one source into ``_build/<name>.<hash>.so`` unless present."""
     src = os.path.join(CSRC, SOURCES[name])
+    flags = _NVCC_FLAGS.get(name, [])
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"{name}.{digest}.so")
     if os.path.exists(out):
         return out
@@ -102,7 +119,7 @@ def _compile(name: str) -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        "-O3", *flags, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -122,13 +139,15 @@ def build_all() -> Dict[str, str]:
     return paths
 
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # each C entry point's arguments (pointers and the stream as c_void_p)
 _ARGTYPES = {
     "candidate_mask": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
     "exact_bitmap": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
     "xz_mask": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
     "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
+    "density_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
+                     _P, _P, _P, _I, _LL, _P],
 }
 
 
@@ -137,6 +156,9 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name]
+    if name == "density_grid":
+        lib.density_grid_smem_optin.restype = ctypes.c_int
+        lib.density_grid_smem_optin.argtypes = []
     _LIBS[name] = lib
     return lib
 
@@ -445,3 +467,79 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
     hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
     hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
     return hit_bits, dec_bits, hdr
+
+
+# -- K5: exact density grid --------------------------------------------------
+
+
+def density_grid_plain(x, y, bins, offs, valid, boxes, windows, env,
+                       width: int, height: int, band_cap: int):
+    """Plain edition of :func:`density_grid` (``density_dual`` with the
+    grid as int32)."""
+    grid, idx, count = density_dual(x, y, bins, offs, valid, boxes, windows, env,
+                                    width, height, band_cap)
+    return grid.to(torch.int32), idx, count
+
+
+@functools.cache
+def _smem_optin() -> int:
+    """The card's per-block opt-in shared memory (bytes), read once."""
+    return _lib("density_grid").density_grid_smem_optin()
+
+
+def density_grid(x, y, bins, offs, valid, boxes, windows, env,
+                 width: int, height: int, band_cap: int):
+    """One segment's exact density pass -> (grid int32[H, W], band_idx
+    int32[band_cap], band_count int32[1]) (see
+    :func:`geomesa_tpu_torch.ops.aggregations.density_dual`).
+
+    ``x, y`` float32[n] raw coordinates, ``valid`` bool[n], ``boxes``
+    float32[K, 4] as (xlo, ylo, xhi, yhi), ``env`` float32[4] as (xmin,
+    ymin, xmax, ymax); with time, ``bins, offs`` int32[n] (the in-bin ms
+    offset) and ``windows`` int32[W, 3] as (bin, lo, hi), else all three
+    None. On the card the band buffer holds ``min(count, band_cap)``
+    indices in arbitrary order, then -1: compare it as a set."""
+    has_time = windows is not None
+    if x.device.type == "cpu":
+        return density_grid_plain(x, y, bins, offs, valid, boxes, windows, env,
+                                  width, height, band_cap)
+    if x.device.type != "cuda":
+        raise ValueError(f"density_grid: unsupported device {x.device}")
+    dev, n = x.device, x.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"density_grid: rows ({n}) must be below 2^31")
+    if not (0 < width and 0 < height and width * height < 2**31 // 4):
+        raise ValueError(f"density_grid: bad grid {width} x {height}")
+    cols = [("x", x, torch.float32), ("y", y, torch.float32), ("valid", valid, torch.bool)]
+    if has_time:
+        cols += [("bins", bins, torch.int32), ("offs", offs, torch.int32)]
+    for what, t, dtype in cols:
+        _check(t, what, dtype, dev, (n,))
+    _check(boxes, "boxes", torch.float32, dev)
+    _check(env, "env", torch.float32, dev, (4,))
+    k, w = boxes.shape[0], 0
+    if has_time:
+        _check(windows, "windows", torch.int32, dev)
+        w = windows.shape[0]
+    if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
+        raise ValueError("density_grid: boxes must be [K, 4] and windows [W, 3]")
+    # shared memory: the boxes and their margins, the windows and, in the
+    # SHARED branch, the block-private histogram
+    staged = 4 * (6 * k + 3 * w)
+    shared = staged + 4 * width * height <= _smem_optin()
+    if not shared and staged > _CAND_SMEM:
+        raise ValueError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
+    grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
+    band_idx = torch.full((band_cap,), -1, dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int32, device=dev)
+    err = _lib("density_grid").density_grid(
+        int(has_time), int(shared), x.data_ptr(), y.data_ptr(),
+        bins.data_ptr() if has_time else None, offs.data_ptr() if has_time else None,
+        valid.data_ptr(), boxes.data_ptr(), k,
+        windows.data_ptr() if has_time else None, w, env.data_ptr(),
+        reciprocal_f32(width), reciprocal_f32(height), width, height,
+        grid.data_ptr(), band_idx.data_ptr(), count.data_ptr(), band_cap, n, _stream(dev),
+    )
+    _raise_on(err, "density_grid")
+    LAUNCHES["density_grid_" + ("z3" if has_time else "z2") + ("" if shared else "_global")] += 1
+    return grid, band_idx, count

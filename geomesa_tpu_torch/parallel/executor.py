@@ -25,6 +25,14 @@ stream takes there:
     encoded on the device, and the host post-filters the candidates with
     the full filter.
 
+  * the DENSITY push-down (``density_scan``): a z2/z3 plan whose full
+    filter is precise rectangles (+ one precise interval over day or week
+    bins) runs ONE ``density_grid`` launch per segment over the raw f32
+    coordinates (``load_raw``), which returns the [H, W] grid of the rows
+    the device certifies and the indices of the band rows; the host
+    certifies the band from its f64 columns (``_certify_density_band``),
+    so the grid equals the host reducer's cell for cell.
+
 There is no host-seek chooser in this slice: the executor behaves as the
 reference does under ``GEOMESA_SEEK=0``, with the exact path and batched
 dispatch always on, except that a lone extent query takes the dual route
@@ -36,8 +44,9 @@ programs.
 The host steps of a scan carry ``torch.profiler`` ranges (``geomesa.fetch``,
 ``geomesa.decode``, ``geomesa.block_rows``, ``geomesa.ring``; the store adds
 ``geomesa.plan``, ``geomesa.dispatch``, ``geomesa.post_filter`` and
-``geomesa.assemble``), so a profiler trace of a query stream splits its host
-time by step.
+``geomesa.assemble``; a density query opens ``geomesa.density`` around its
+launches and grid fetch and ``geomesa.band`` around the host certification),
+so a profiler trace of a query stream splits its host time by step.
 """
 
 from __future__ import annotations
@@ -50,8 +59,9 @@ import torch
 from torch.profiler import record_function
 
 from geomesa_tpu_torch.curve import time_to_binned, zorder
+from geomesa_tpu_torch.curve.binnedtime import TimePeriod, binned_to_time
 from geomesa_tpu_torch.index.planner import QueryPlan
-from geomesa_tpu_torch.ops import kernels
+from geomesa_tpu_torch.ops import aggregations, kernels
 from geomesa_tpu_torch.ops.filters import pad_boxes, pad_windows
 from geomesa_tpu_torch.ops.zkernels import (
     f64_keys,
@@ -157,7 +167,9 @@ class DeviceSegment:
     (and ``tk``) plus ``tvalid``, the valid column with null dates cleared;
     pad keys are int64 max. Exact columns of extents (``load_exact_xz``):
     the four int64 envelope keys ``xz_keys``, ``xz_isrect`` and, for xz3,
-    ``xz_tk`` and ``xz_tvalid``; pad keys are int64 min."""
+    ``xz_tk`` and ``xz_tvalid``; pad keys are int64 min. Raw columns of
+    points (``load_raw``, the density push-down): float32 ``xf, yf`` and,
+    for z3, the int32 in-bin ms offset ``t_ms``; pads are 0.0, 0.0, -1."""
 
     def __init__(self, kind: str, device: torch.device, n: int,
                  columns: Dict[str, np.ndarray],
@@ -178,6 +190,8 @@ class DeviceSegment:
         self._exact_loaded = False
         self.xz_keys = self.xz_isrect = self.xz_tk = self.xz_tvalid = None
         self._exact_xz_loaded = False
+        self.xf = self.yf = self.t_ms = None
+        self._raw_loaded = False
         # adaptive run capacity: grows on overflow, remembered per segment
         self._rcap = HIT_CAPACITY0
         # bitmap-batch span window (rows): starts at the full segment and
@@ -293,6 +307,35 @@ class DeviceSegment:
                 if nulls.any() else self.valid
             )
         self._exact_xz_loaded = True
+
+    def load_raw(self, table: IndexTable) -> bool:
+        """Pack the raw f32 coordinates (+ the in-bin ms offsets of day/week
+        z3 bins) for the density push-down. False when unsupported: month
+        and year bins are not uniform and overflow int32 ms offsets."""
+        if self._raw_loaded:
+            return self.kind == "z2" or self.t_ms is not None
+        self._raw_loaded = True
+        ft = table.ft
+        geom = ft.default_geometry.name
+
+        def pack(parts, dtype, fill):
+            return upload(pad_to_multiple(np.concatenate(parts).astype(dtype), GRANULE, fill),
+                          self.device)
+
+        self.xf = pack([b.full_col(geom + "__x") for b in self.blocks], np.float32, 0.0)
+        self.yf = pack([b.full_col(geom + "__y") for b in self.blocks], np.float32, 0.0)
+        if self.kind == "z3":
+            if ft.z3_interval not in (TimePeriod.DAY, TimePeriod.WEEK):
+                return False
+            traw = []
+            for b in self.blocks:
+                t_ms = b.full_col(ft.default_date.name).astype(np.int64)
+                starts = binned_to_time(
+                    b.bins.astype(np.int64), np.zeros(b.n, np.int64), ft.z3_interval
+                )
+                traw.append(t_ms - starts)
+            self.t_ms = pack(traw, np.int32, -1)
+        return True
 
     def remember_rcap(self, nruns: int) -> None:
         """Adapt the run capacity to observed run counts: grow to 2x the
@@ -478,9 +521,10 @@ def segment_from_reference(arrays: Dict[str, np.ndarray], device: Device) -> Dev
     ``bins, ti`` when binned) and, when its exact columns are loaded, the
     ``*_hi`` / ``*_lo`` uint32 key limbs and ``tvalid`` (points) or
     ``xz_limbs`` (the eight envelope key limbs), ``xz_isrect`` and, for xz3,
-    ``xz_tk`` (two limbs) and ``xz_tvalid`` (extents). The limbs join into
+    ``xz_tk`` (two limbs) and ``xz_tvalid`` (extents), and when its raw
+    columns are loaded ``xf, yf`` (+ ``t_ms`` for z3). The limbs join into
     the port's int64 keys; rows keep the reference's padding and the
-    envelopes their float32 bits."""
+    envelopes and raw coordinates their float32 bits."""
     device = default_device(device)
     extent = "bxmin" in arrays
     kind = ("xz" if extent else "z") + ("3" if "bins" in arrays else "2")
@@ -503,6 +547,12 @@ def segment_from_reference(arrays: Dict[str, np.ndarray], device: Device) -> Dev
             seg.tk = upload(limbs_to_keys(arrays["tk_hi"], arrays["tk_lo"]), device)
             seg.tvalid = upload(np.array(arrays["tvalid"]), device)
         seg._exact_loaded = True
+    if "xf" in arrays:
+        seg.xf = upload(np.array(arrays["xf"]), device)
+        seg.yf = upload(np.array(arrays["yf"]), device)
+        if "t_ms" in arrays:
+            seg.t_ms = upload(np.array(arrays["t_ms"]), device)
+        seg._raw_loaded = True
     return seg
 
 
@@ -1260,3 +1310,139 @@ class TorchScanExecutor:
         from geomesa_tpu_torch.filter.evaluate import evaluate
 
         return evaluate(plan.post_filter, ft, columns)
+
+    # -- density push-down ---------------------------------------------------
+
+    _BIN_MS = {TimePeriod.DAY: 86400000, TimePeriod.WEEK: 604800000}
+
+    def _ms_windows(self, ft, plan: QueryPlan):
+        """Per-bin inclusive ms windows [(bin, lo, hi)], exact against the
+        query's ms semantics, or None when the device time test cannot be
+        exact. Re-extracts the intervals from the full filter WITHOUT the
+        exclusive-bound rounding of range planning, so the +-1 ms here
+        matches the host filter; needs a single precise interval (several
+        can merge into over-wide per-bin windows) and uniform day/week
+        bins."""
+        from geomesa_tpu_torch.filter.extract import extract_intervals
+
+        if plan.full_filter is None:
+            return None
+        iv = extract_intervals(plan.full_filter, ft.default_date.name)
+        if iv is None or not iv.precise or len(iv.values) != 1:
+            return None
+        bin_ms = self._BIN_MS.get(ft.z3_interval)
+        if bin_ms is None:
+            return None
+        b = iv.values[0]
+        lo_ms = None if b.lower.value is None else int(b.lower.value)
+        hi_ms = None if b.upper.value is None else int(b.upper.value)
+        if lo_ms is not None and not b.lower.inclusive:
+            lo_ms += 1
+        if hi_ms is not None and not b.upper.inclusive:
+            hi_ms -= 1
+        out = []
+        for bn in sorted(plan.values.bins):
+            start = int(binned_to_time(np.asarray([bn]), np.asarray([0]), ft.z3_interval)[0])
+            wlo = 0 if lo_ms is None else max(lo_ms - start, 0)
+            whi = bin_ms - 1 if hi_ms is None else min(hi_ms - start, bin_ms - 1)
+            if whi >= wlo:
+                out.append((bn, wlo, whi))
+        return out
+
+    def density_scan(self, table: IndexTable, plan: QueryPlan, spec) -> Optional[np.ndarray]:
+        """The density push-down (the server-side KryoLazyDensityIterator
+        analog): an f64 [H, W] grid, or None when the host reducer must
+        answer. Declines unless the plan is z2/z3 with no residual, the
+        spec has no weight and no ``exact``, the geometries are precise
+        rectangles and, for z3, the time is one precise interval over
+        day/week bins. The grid is exact: each segment's ``density_grid``
+        launch counts the rows it certifies in f32 and returns the band
+        rows, which the host decides from its f64 columns. A band beyond
+        ``DENSITY_BAND_CAP`` rows in a segment, or a cell at 2^24 (the
+        reference's f32 grid limit), also sends the query to the host."""
+        if table.index.name not in ("z2", "z3") or not self.supports(table, plan):
+            return None
+        if plan.secondary is not None or spec.get("weight") or spec.get("exact"):
+            return None
+        gv = plan.values.geometries
+        if not gv.values or not gv.precise or not all(g.is_rectangle() for g in gv.values):
+            return None
+        dev = self.device_index(table)
+        windows = None
+        if table.index.name == "z3":
+            if not plan.values.bins:
+                return None
+            windows = self._ms_windows(table.ft, plan)
+            if windows is None:
+                return None
+        for seg in dev.segments:
+            if not seg.load_raw(table):
+                return None
+        width, height = int(spec["width"]), int(spec["height"])
+        # one read of the cap: the launch's buffer and the overflow check
+        band_cap = aggregations.DENSITY_BAND_CAP
+        with record_function("geomesa.density"):
+            boxes = upload(pad_boxes(
+                [(g.envelope.xmin, g.envelope.ymin, g.envelope.xmax, g.envelope.ymax)
+                 for g in gv.values],
+                dtype=np.float32,
+            ), self.device)
+            env = upload(np.asarray(spec["envelope"], dtype=np.float32), self.device)
+            wins = None if windows is None else upload(pad_windows(windows), self.device)
+            outs = []
+            for seg in dev.segments:
+                grid, idx, cnt = kernels.density_grid(
+                    seg.xf, seg.yf, seg.bins if wins is not None else None,
+                    seg.t_ms if wins is not None else None, seg.valid, boxes, wins, env,
+                    width, height, band_cap,
+                )
+                # one D2H copy per segment: count, band indices, grid
+                outs.append((seg, torch.cat([cnt, idx, grid.reshape(-1)])))
+            total = np.zeros((height, width), dtype=np.float64)
+            band: List[Tuple[DeviceSegment, np.ndarray]] = []
+            for seg, buf in outs:
+                buf = buf.cpu().numpy()
+                cnt = int(buf[0])
+                if cnt > band_cap:
+                    return None  # the band buffer truncated: the host answers
+                grid = buf[1 + band_cap:].reshape(height, width)
+                if int(grid.max()) >= 2**24:
+                    return None  # the reference's f32 grid is exact below 2^24 only
+                total += grid
+                if cnt:
+                    band.append((seg, np.sort(buf[1:1 + cnt].astype(np.int64))))
+        if band:
+            with record_function("geomesa.band"):
+                total += self._certify_density_band(table, plan, spec, band, width, height)
+        return total
+
+    def _certify_density_band(self, table: IndexTable, plan: QueryPlan, spec,
+                              band: List[Tuple[DeviceSegment, np.ndarray]],
+                              width: int, height: int) -> np.ndarray:
+        """Host-exact decisions for the band rows: the plan's post filter on
+        their f64 block columns, then the f64 GridSnap of the rows that
+        pass (``density_grid_numpy``), the arithmetic of the host reducer,
+        so that the sum with the device grid equals the host's grid."""
+        from geomesa_tpu_torch.filter import ast
+        from geomesa_tpu_torch.index.aggregators import density_grid_numpy
+        from geomesa_tpu_torch.store.datastore import _gather_filter_cols
+
+        ft = table.ft
+        geom = ft.default_geometry.name
+        pf = plan.post_filter
+        props = set(ast.properties(pf)) if pf is not None else set()
+        env = tuple(spec["envelope"])
+        add = np.zeros((height, width), dtype=np.float64)
+        for seg, idx in band:
+            idx = np.unique(idx[idx < seg.n])  # pad rows are never valid
+            for block, rows in seg.to_block_rows(idx):
+                if pf is not None:
+                    m = self.post_filter(ft, plan, _gather_filter_cols(block, rows, props))
+                    rows = rows[m]
+                if len(rows):
+                    add += density_grid_numpy(
+                        np.asarray(block.gather(geom + "__x", rows), dtype=np.float64),
+                        np.asarray(block.gather(geom + "__y", rows), dtype=np.float64),
+                        None, env, width, height,
+                    )
+        return add

@@ -9,11 +9,19 @@ the host blocks over the plan's ranges. Execution per query: PLAN
 host post-filter unless the device evaluated the exact predicate) -> MERGE
 (fid dedupe across union arms, sort/limit/projection).
 
+The density aggregation hint (``hints={"density": {"envelope": (xmin,
+ymin, xmax, ymax), "width": W, "height": H}}``) is pushed down to the
+executor's ``density_scan`` (the reference's KryoLazyDensityIterator
+analog: the grid comes back, the rows do not); when the executor declines,
+the host reducer ``run_aggregation`` answers over the scanned rows. The
+result's grid is ``QueryResult.aggregate["density"]``.
+
 Admission, deadlines, tenants, workload capture, audit, plan telemetry,
-visibility labels, age-off, deletes, aggregations, pyramids, joins and
-streaming are not in this slice of the port. A device scan that fails
-raises (after ``executor.degrade`` evicts the mirror) instead of being
-answered from the host.
+visibility labels, age-off, deletes, the stats / bin / arrow aggregations,
+the aggregate cache, pyramids, joins, sampling, transforms and streaming
+are not in this slice of the port. A device scan that fails raises (after
+``executor.degrade`` evicts the mirror) instead of being answered from the
+host.
 """
 
 from __future__ import annotations
@@ -25,6 +33,11 @@ import numpy as np
 from torch.profiler import record_function
 
 from geomesa_tpu_torch.filter import ast
+from geomesa_tpu_torch.index.aggregators import (
+    AGGREGATION_HINTS,
+    has_aggregation,
+    run_aggregation,
+)
 from geomesa_tpu_torch.index.keyspace import IndexKeySpace, default_indices
 from geomesa_tpu_torch.index.planner import Query, QueryPlan, QueryPlanner
 from geomesa_tpu_torch.parallel.executor import TorchScanExecutor
@@ -47,12 +60,15 @@ DEFAULT_FLUSH_SIZE = 100_000
 
 
 class QueryResult:
-    """Columnar query result."""
+    """Columnar query result; ``aggregate`` holds the density grid when the
+    query's hints asked for one."""
 
-    def __init__(self, ft: FeatureType, columns: Columns, plan: Optional[QueryPlan] = None):
+    def __init__(self, ft: FeatureType, columns: Columns, plan: Optional[QueryPlan] = None,
+                 aggregate: Optional[Dict[str, Any]] = None):
         self.ft = ft
         self.columns = columns
         self.plan = plan
+        self.aggregate = aggregate or {}
 
     def __len__(self):
         return len(self.fids)
@@ -179,7 +195,8 @@ class TorchDataStore:
         every query and starts its device work (exact-shape plans on one
         table fuse into one batched launch); phase 2 resolves and
         post-filters in order. Results are positionally identical to
-        ``[query(name, q) for q in queries]``."""
+        ``[query(name, q) for q in queries]``. Density queries are left out
+        of the dispatch: their push-down launches its own kernel."""
         ft = self.get_schema(name)
         qs = [self._as_query(q) for q in queries]
         with record_function("geomesa.plan"):
@@ -188,7 +205,9 @@ class TorchDataStore:
         dispatch_many = getattr(self.executor, "dispatch_many", None)
         if dispatch_many is not None:
             items = []
-            for plan in plans:
+            for q, plan in zip(qs, plans):
+                if "density" in q.hints:
+                    continue
                 for arm in plan.union if plan.union is not None else [plan]:
                     if arm.is_empty or id(arm) in pending:
                         continue
@@ -204,9 +223,27 @@ class TorchDataStore:
         return [self._execute(name, ft, q, p, pending) for q, p in zip(qs, plans)]
 
     def _execute(self, name, ft, query: Query, plan: QueryPlan, pending=None) -> QueryResult:
-        """route -> scan -> merge."""
+        """route -> scan -> merge; a density query of one plan first tries
+        the device push-down."""
+        aggregating = has_aggregation(query.hints)
+        if aggregating and (query.hints.get("sampling") or not _untransformed(query)):
+            raise NotImplementedError(
+                "sampling and transforms are not ported (ROADMAP Queue 1 item 17)"
+            )
         if plan.is_empty:
-            return QueryResult(ft, _empty_columns(ft), plan)
+            empty = _empty_columns(ft)
+            agg = run_aggregation(ft, query.hints, empty) if aggregating else None
+            return QueryResult(ft, empty, plan, agg)
+        if plan.union is None and set(query.hints) & set(AGGREGATION_HINTS) == {"density"}:
+            density_scan = getattr(self.executor, "density_scan", None)
+            grid = None
+            if density_scan is not None:
+                grid = density_scan(
+                    self._tables[name][plan.index.name], plan, query.hints["density"]
+                )
+            if grid is not None:
+                plan.scan_path = "device-density"
+                return QueryResult(ft, _empty_columns(ft), plan, {"density": grid})
         parts: List[tuple] = []
         for arm in self._route(plan):
             parts.extend(self._scan_parts(name, ft, arm, pending))
@@ -214,6 +251,10 @@ class TorchDataStore:
             columns = _columns_from_parts(ft, parts, query.properties)
             if plan.union is not None:
                 columns = _dedupe_by_fid(columns)
+            if aggregating:
+                # the host reducer over the scanned rows
+                return QueryResult(ft, _empty_columns(ft), plan,
+                                   run_aggregation(ft, query.hints, columns))
             return QueryResult(ft, _apply_query_options(query, columns), plan)
 
     def _route(self, plan: QueryPlan) -> List[QueryPlan]:
@@ -267,6 +308,12 @@ class TorchDataStore:
 _INTERNAL_SUFFIXES = (
     "__vocab", "__bxmin", "__bymin", "__bxmax", "__bymax", "__isrect"
 )
+
+
+def _untransformed(query: Query) -> bool:
+    """No computed property (``name=expression``) among the projected ones:
+    aggregations run over stored columns only."""
+    return not query.properties or not any("=" in p for p in query.properties)
 
 
 def _scan_label(scan) -> str:

@@ -6,13 +6,16 @@ is not installed::
 
     python -m pytest tests/test_torch_cuda.py -m cuda
 
-Kernel and plain edition must agree bitwise (all integer and boolean work).
+Kernel and plain edition must agree bitwise (all integer and boolean work;
+the density kernel's f32 band arithmetic is the plain edition's operation
+for operation), and the density band's indices as a set.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from geomesa_tpu_torch.ops import aggregations as agg
 from geomesa_tpu_torch.ops import filters as F
 from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops.zkernels import f64_keys
@@ -138,3 +141,69 @@ def test_xz_dual_bitmap_matches_plain_on_the_card(cuda, n, has_time):
     assert want[0].any() and want[1].any()
     header, window = kernels.frame_dual_bitmaps(*got, span_cap=n // 2)
     assert torch.equal(header[:, :3], want[2]) and window.shape == (len(shapes), n // 8)
+
+
+def _density_rows(n: int, seed: int, env):
+    """float32 points around ``env`` with rows on its cell edges, NaN rows
+    (null geometries) and invalid rows; bins and in-bin ms offsets."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(env[0] - 5, env[2] + 5, n).astype(np.float32)
+    y = rng.uniform(env[1] - 5, env[3] + 5, n).astype(np.float32)
+    x[:4096] = env[0] + (env[2] - env[0]) * np.float32(rng.integers(0, 257, 4096) / 256)
+    x[5000:5100] = np.nan
+    y[5050:5150] = np.nan
+    return {
+        "x": x, "y": y, "valid": rng.random(n) > 0.05,
+        "bins": rng.integers(0, 4, n).astype(np.int32),
+        "offs": rng.integers(-1, 604_800_000, n).astype(np.int32),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("width,height,branch", [
+    (256, 128, ""), (64, 32, ""), (512, 512, "_global"), (256, 256, "_global")])
+def test_density_grid_matches_plain_on_the_card(cuda, width, height, branch, has_time):
+    env = np.array([-60.0, -30.0, 60.0, 40.0], dtype=np.float32)
+    n = 4 * 1024 * 1024 + 1000
+    r = {k: torch.from_numpy(v).to(cuda) for k, v in _density_rows(n, width + height, env).items()}
+    boxes = torch.from_numpy(F.pad_boxes(
+        [(-50.0, -20.0, 10.0, 35.0), (0.0, -30.0, 60.0, 0.0)], dtype=np.float32)).to(cuda)
+    windows = torch.from_numpy(F.pad_windows([(1, 0, 300_000_000), (3, 5, 604_799_999)])).to(cuda)
+    args = (r["x"], r["y"], r["bins"] if has_time else None, r["offs"] if has_time else None,
+            r["valid"], boxes, windows if has_time else None, torch.from_numpy(env).to(cuda),
+            width, height, agg.DENSITY_BAND_CAP * 8)
+    kernels.reset_launches()
+    grid, idx, cnt = kernels.density_grid(*args)
+    pgrid, pidx, pcnt = kernels.density_grid_plain(*args)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["density_grid_" + ("z3" if has_time else "z2") + branch] == 1
+    assert torch.equal(grid, pgrid) and int(grid.sum()) > 0
+    c = int(pcnt[0])
+    assert int(cnt[0]) == c and 0 < c <= agg.DENSITY_BAND_CAP * 8
+    got = idx.cpu().numpy()
+    assert (got[c:] == -1).all()
+    assert set(got[:c].tolist()) == set(pidx.cpu().numpy()[:c].tolist())
+
+
+@pytest.mark.cuda
+def test_density_grid_band_overflow_on_the_card(cuda):
+    """A fine grid over a tiny envelope puts every row in the band: the
+    count stays true and the buffer keeps ``band_cap`` of the near rows."""
+    env = np.array([100.0, 10.0, 100.0001, 10.0001], dtype=np.float32)
+    n = 1 << 20
+    rng = np.random.default_rng(5)
+    x = torch.from_numpy(rng.uniform(100.0, 100.0001, n).astype(np.float32)).to(cuda)
+    y = torch.from_numpy(rng.uniform(10.0, 10.0001, n).astype(np.float32)).to(cuda)
+    valid = torch.ones(n, dtype=torch.bool, device=cuda)
+    boxes = torch.from_numpy(F.pad_boxes([tuple(env)], dtype=np.float32)).to(cuda)
+    tenv = torch.from_numpy(env).to(cuda)
+    cap = 1000
+    grid, idx, cnt = kernels.density_grid(x, y, None, None, valid, boxes, None, tenv, 512, 512, cap)
+    pgrid, full, pcnt = kernels.density_grid_plain(x, y, None, None, valid, boxes, None, tenv,
+                                                   512, 512, n)
+    assert int(cnt[0]) == int(pcnt[0]) > cap
+    assert torch.equal(grid, pgrid)
+    kept = idx.cpu().numpy()
+    assert len(set(kept.tolist())) == cap and (kept >= 0).all()
+    assert set(kept.tolist()) <= set(full.cpu().numpy().tolist())

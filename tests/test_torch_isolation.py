@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, no hidden CPU.
 
-``import geomesa_tpu_torch`` and config #1 and config #3 (xz2, xz3) queries
-through it must load neither ``jax`` nor any ``geomesa_tpu`` module.
+``import geomesa_tpu_torch`` and config #1, density (z3, z2) and config #3
+(xz2, xz3) queries through it must load neither ``jax`` nor any
+``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -54,6 +55,16 @@ for i, r in enumerate(res):
     m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
     assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
     assert r.plan.scan_path == "device-exact/bitmap"
+# density push-downs (z3 and z2) against a numpy GridSnap oracle
+env = (-80.0, 36.0, -70.0, 41.0)
+for cql, keep in ((cqls[0], (t > lo) & (t < hi)), ("bbox(geom, -80.0, 36.0, -70.0, 41.0)", True)):
+    r = store.query("gdelt", Query.cql(cql, hints={"density": {"envelope": env, "width": 100, "height": 60}}))
+    assert r.plan.scan_path == "device-density", r.plan.scan_path
+    m = (x >= env[0]) & (x <= env[2]) & (y >= env[1]) & (y <= env[3]) & keep
+    col = np.clip(np.floor((x[m] - env[0]) / ((env[2] - env[0]) / 100)).astype(int), 0, 99)
+    row = np.clip(np.floor((y[m] - env[1]) / ((env[3] - env[1]) / 60)).astype(int), 0, 59)
+    want = np.bincount(row * 100 + col, minlength=6000).reshape(60, 100)
+    assert np.array_equal(r.aggregate["density"], want)
 # an xz2 and an xz3 stream of config #3 (extent features)
 import chip_smoke as cs
 ways = cs.synthesize_ways(3000, seed=2, bounds=(-15.0, -15.0, 45.0, 35.0), clusters=4)
@@ -77,7 +88,8 @@ assert not bad, bad
 
 
 def test_port_runs_config1_without_jax_or_the_reference():
-    """Config #1 (z3) and config #3 (xz2, xz3) streams load no JAX."""
+    """Config #1 (z3), density (z3, z2) and config #3 (xz2, xz3) queries
+    load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
