@@ -771,9 +771,11 @@ def density_check(cap, full):
 
 
 def density_work(args):
-    """Rows of this run's data that reach each stage of the density kernel:
-    (rows passing valid and the window, rows inside a band-widened box, the
-    certain rows' flat cell ids)."""
+    """What this run's data asks of the density function, stage by stage:
+    (valid rows, rows passing valid and the window, rows of those inside a
+    band-widened box, the real (not padding) boxes and windows, the certain
+    rows' flat cell ids). Padding boxes are inverted and padding windows
+    have bin -1: neither can hold a row, so no stage counts them."""
     from geomesa_tpu_torch.ops import aggregations as agg
     from geomesa_tpu_torch.ops.filters import bbox_mask_f32, temporal_mask
 
@@ -781,11 +783,13 @@ def density_work(args):
     live = valid.clone()
     if wins is not None:
         live &= temporal_mask(bins, offs, wins)
+    real = [b for b in boxes if bool(b[0] <= b[2]) and bool(b[1] <= b[3])]
+    n_win = 0 if wins is None else int(((wins[:, 0] >= 0) & (wins[:, 1] <= wins[:, 2])).sum())
     eps = agg._EPS
     ex = eps * torch.maximum(torch.maximum(env[0].abs(), env[2].abs()), x.abs())
     ey = eps * torch.maximum(torch.maximum(env[1].abs(), env[3].abs()), y.abs())
     wide = torch.zeros_like(live)
-    for bx0, by0, bx1, by1 in boxes:
+    for bx0, by0, bx1, by1 in real:
         exk = torch.maximum(ex, eps * torch.maximum(bx0.abs(), bx1.abs()))
         eyk = torch.maximum(ey, eps * torch.maximum(by0.abs(), by1.abs()))
         wide |= (x >= bx0 - exk) & (x <= bx1 + exk) & (y >= by0 - eyk) & (y <= by1 + eyk)
@@ -793,7 +797,8 @@ def density_work(args):
     band, _near = agg.density_band(x, y, env, width, height, boxes)
     certain = live & bbox_mask_f32(x, y, boxes) & ~band & in_env
     ids = (row.to(torch.int64) * width + col.to(torch.int64))[certain]
-    return int(live.sum()), int((wide & live).sum()), ids
+    return (int(valid.sum()), int(live.sum()), int((wide & live).sum()), len(real), n_win,
+            ids)
 
 
 def density_cases(store, streams):
@@ -802,15 +807,22 @@ def density_cases(store, streams):
     512 x 512 on config #6, (h) 64 x 32 and (i) 256 x 256 (its band
     overflows) on config #1.
 
-    Bytes: x, y and valid per row (+ bins and the ms offset with time), the
-    grid written once, the kept band indices. Operations, counted from the
-    source on this run's data: an INT32 valid test per row and, with time,
-    3 compares and an OR per window and valid row; per row that passes both,
-    6 FP32 operations (ex, ey) and 22 per box (2 max, 8 add/sub, 12
-    compares); per row inside a widened box, 36 more (the cell, the band,
-    in_env and near; a divide counted as one). ``bincount_ms`` times one
-    torch.bincount over the certain rows' cell ids (library: none, no
-    single PyTorch call computes the fused mask, band and grid)."""
+    The bound counts what the function needs on this run's data, not what
+    the kernel happens to do. Bytes: the valid flag of every row; with
+    time, bins and the ms offset of the valid rows; x and y of the rows
+    that pass valid and the window (the grid and the band do not depend
+    on the others' coordinates); the grid written once; the kept band
+    indices and the count. Operations, counted from the source: an INT32
+    valid test per row and, with time, 3 compares and an OR per real
+    window and valid row; per row that passes both, 6 FP32 operations (ex,
+    ey) and 22 per real box (2 max, 8 add/sub, 12 compares); per row
+    inside a widened box, 36 more (the cell, the band, in_env and near; a
+    divide counted as one). Padding boxes and windows hold no row and are
+    not counted. ``bincount_ms`` times one torch.bincount over the certain
+    rows' cell ids (library: none, no single PyTorch call computes the
+    fused mask, band and grid). Where the wrapper picks the shared-memory
+    histogram, ``global_ms`` times the global-atomic branch on the same
+    inputs, the measurement that the wrapper's choice of branch rests on."""
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import aggregations as agg
     from geomesa_tpu_torch.ops import kernels
@@ -838,9 +850,11 @@ def density_cases(store, streams):
         kernels.density_grid(*args)
         kname = next(k for k, v in kernels.LAUNCHES.items() if v != before[k])
         n = seg.n_padded
-        live, wide, ids = density_work(args)
-        k, w = boxes.shape[0], 0 if wins is None else wins.shape[0]
+        n_valid, live, wide, k, w, ids = density_work(args)
         cnt = int(kernels.density_grid_plain(*args)[2][0])
+        aside = {"bincount_ms": lambda i=ids, m=width * height: torch.bincount(i, minlength=m)}
+        if not kname.endswith("_global"):
+            aside["global_ms"] = lambda a=args: kernels.density_grid(*a, shared=False)
         out.append(dict(
             name=kname,
             replaces="geomesa_tpu/ops/pallas_kernels.py:222",
@@ -849,11 +863,12 @@ def density_cases(store, streams):
             plain=lambda a=args: kernels.density_grid_plain(*a),
             check=density_check(cap, lambda a=args, c=cnt: kernels.density_grid_plain(
                 *a[:-1], max(c, 1))),
-            bytes=n * (9 + (8 if during else 0)) + 4 * width * height + 4 * min(cnt, cap) + 4,
-            ops=n + (int(seg.valid.sum()) * 4 * w if during else 0),
+            bytes=n + (8 * n_valid if during else 0) + 8 * live + 4 * width * height
+            + 4 * min(cnt, cap) + 4,
+            ops=n + n_valid * 4 * w,
             fops=live * (6 + 22 * k) + wide * 36,
-            aside={"bincount_ms": lambda i=ids, m=width * height: torch.bincount(i, minlength=m)},
-            shape=f"rows={n} {width}x{height} K={k} W={w} band={cnt} stream={name}",
+            aside=aside,
+            shape=f"rows={n} live={live} {width}x{height} K={k} W={w} band={cnt} stream={name}",
         ))
     return out
 

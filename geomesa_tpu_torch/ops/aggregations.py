@@ -33,8 +33,6 @@ from geomesa_tpu_torch.ops.filters import bbox_mask_f32, temporal_mask
 DENSITY_BAND_CAP = 8192  # band-candidate budget per segment (32 KB int32 D2H)
 _BAND_ULPS = 16.0  # margin over the rigorous f32 quantization + rounding bound
 _EPS = float(np.float32(_BAND_ULPS * 2.0 ** -23))
-# the reference's Pallas VMEM bound on a grid side; the port keeps the limit
-DENSITY_MAX_DIM = 512
 
 
 def reciprocal_f32(n: int) -> float:

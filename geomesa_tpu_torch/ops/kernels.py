@@ -35,7 +35,7 @@ import hashlib
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -488,7 +488,7 @@ def _smem_optin() -> int:
 
 
 def density_grid(x, y, bins, offs, valid, boxes, windows, env,
-                 width: int, height: int, band_cap: int):
+                 width: int, height: int, band_cap: int, shared: Optional[bool] = None):
     """One segment's exact density pass -> (grid int32[H, W], band_idx
     int32[band_cap], band_count int32[1]) (see
     :func:`geomesa_tpu_torch.ops.aggregations.density_dual`).
@@ -498,7 +498,9 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
     ymin, xmax, ymax); with time, ``bins, offs`` int32[n] (the in-bin ms
     offset) and ``windows`` int32[W, 3] as (bin, lo, hi), else all three
     None. On the card the band buffer holds ``min(count, band_cap)``
-    indices in arbitrary order, then -1: compare it as a set."""
+    indices in arbitrary order, then -1: compare it as a set. ``shared``
+    picks the branch (block-private histogram or global atomics); by
+    default the histogram wherever it fits in shared memory."""
     has_time = windows is not None
     if x.device.type == "cpu":
         return density_grid_plain(x, y, bins, offs, valid, boxes, windows, env,
@@ -526,7 +528,10 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
     # shared memory: the boxes and their margins, the windows and, in the
     # SHARED branch, the block-private histogram
     staged = 4 * (6 * k + 3 * w)
-    shared = staged + 4 * width * height <= _smem_optin()
+    fits = staged + 4 * width * height <= _smem_optin()
+    if shared and not fits:
+        raise ValueError(f"density_grid: a {width} x {height} histogram exceeds shared memory")
+    shared = fits if shared is None else shared
     if not shared and staged > _CAND_SMEM:
         raise ValueError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
     grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
