@@ -19,7 +19,7 @@ against its plain PyTorch edition:
     (bench_suite.py bench_density: 8M uniform points, schema ``dens`` =
     ``*geom:Point:srid=4326``, z2), stream (f) 16 bbox heatmaps at 256x128
     (bench_density's box, then 15 shifted +-5 deg), (g) 4 of them at
-    512x512 (the kernel's global-atomic branch); on config #1's table,
+    512x512 (a 1 MiB grid); on config #1's table,
     (h) its 20 jittered boxes AND its DURING at 64x32 (z3), (i) its base
     box AND DURING at 256x256, whose band overflows: the host reducer.
 
@@ -48,7 +48,8 @@ Phases (any failure raises and the script exits non-zero):
      each query alone through store.query, checked and timed), every query
      checked for fid-set parity; the density streams (f)-(i) (each query
      alone through store.query, then the stream through query_many), every
-     grid equal to the oracle and every query on its stream's route;
+     grid equal to the oracle and every query on its stream's route (each
+     density stream is a path of its own);
   5. every kernel must have launched during its path's run;
   6. torch.profiler traces of the config #1 stream and of stream (a): the
      host time of each step (the ``geomesa.*`` ranges of the store and
@@ -820,9 +821,8 @@ def density_cases(store, streams):
     divide counted as one). Padding boxes and windows hold no row and are
     not counted. ``bincount_ms`` times one torch.bincount over the certain
     rows' cell ids (library: none, no single PyTorch call computes the
-    fused mask, band and grid). Where the wrapper picks the shared-memory
-    histogram, ``global_ms`` times the global-atomic branch on the same
-    inputs, the measurement that the wrapper's choice of branch rests on."""
+    fused mask, band and grid). Each entry's launches are its own
+    stream's (``path``)."""
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import aggregations as agg
     from geomesa_tpu_torch.ops import kernels
@@ -844,19 +844,12 @@ def density_cases(store, streams):
             wins = torch.as_tensor(pad_windows(ex._ms_windows(table.ft, plan)), device=dev)
         args = (seg.xf, seg.yf, seg.bins if during else None, seg.t_ms if during else None,
                 seg.valid, boxes, wins, env, width, height, cap)
-        # which instantiation the wrapper picks for this grid (shared memory
-        # histogram or global atomics): the one whose count moves
-        before = dict(kernels.LAUNCHES)
-        kernels.density_grid(*args)
-        kname = next(k for k, v in kernels.LAUNCHES.items() if v != before[k])
         n = seg.n_padded
         n_valid, live, wide, k, w, ids = density_work(args)
         cnt = int(kernels.density_grid_plain(*args)[2][0])
-        aside = {"bincount_ms": lambda i=ids, m=width * height: torch.bincount(i, minlength=m)}
-        if not kname.endswith("_global"):
-            aside["global_ms"] = lambda a=args: kernels.density_grid(*a, shared=False)
         out.append(dict(
-            name=kname,
+            name="density_grid_" + ("z3" if during else "z2"),
+            path=name,
             replaces="geomesa_tpu/ops/pallas_kernels.py:222",
             source="geomesa_tpu_torch/csrc/density_grid.cu",
             kernel=lambda a=args: kernels.density_grid(*a),
@@ -867,7 +860,7 @@ def density_cases(store, streams):
             + 4 * min(cnt, cap) + 4,
             ops=n + n_valid * 4 * w,
             fops=live * (6 + 22 * k) + wide * 36,
-            aside=aside,
+            aside={"bincount_ms": lambda i=ids, m=width * height: torch.bincount(i, minlength=m)},
             shape=f"rows={n} live={live} {width}x{height} K={k} W={w} band={cnt} stream={name}",
         ))
     return out
@@ -911,6 +904,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s):
             "library_ms": None,
             "bitwise_equal": equal,
             "shape": c["shape"],
+            "path": c.get("path"),
             **{k: cuda_ms(fn) for k, fn in c.get("aside", {}).items()},
         })
         log(f"{c['name']}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
@@ -1018,19 +1012,15 @@ def main() -> int:
     kernels.reset_launches()
     metrics3 = config3_path(store, streams3, oracle3)
     launched["config3"] = dict(kernels.LAUNCHES)
-    kernels.reset_launches()
-    metrics6 = density_path(store, streams6, oracle6)
-    launched["density"] = dict(kernels.LAUNCHES)
+    metrics6 = density_path(store, streams6, oracle6, launched)
     log(f"main-path launches: {launched}")
 
     # -- phase 5: each path went through its kernels --------------------------
-    path_of = {e["name"]: ("config3" if e["name"].startswith("xz_") else
-                           "density" if e["name"].startswith("density_") else "config1")
-               for e in entries}
     for e in entries:
-        e["launches"] = launched[path_of[e["name"]]][e["name"]]
+        path = e.pop("path") or ("config3" if e["name"].startswith("xz_") else "config1")
+        e["launches"] = launched[path][e["name"]]
     missing = [e["name"] for e in entries if e["launches"] == 0]
-    if missing or set(path_of) != set(kernels.LAUNCHES):
+    if missing or {e["name"] for e in entries} != set(kernels.LAUNCHES):
         raise AssertionError(f"kernels never launched on their main path: {missing}")
 
     # -- phase 6: host splits and the host-tested rows --------------------------
@@ -1364,14 +1354,19 @@ def expect_grid(res, want, route, what: str) -> None:
         raise AssertionError(f"{what}: took {path}")
 
 
-def density_path(store, streams, oracle):
+def density_path(store, streams, oracle, launched):
     """The density streams through the entry points: every query alone
     through ``store.query`` (checked, then timed over the whole stream),
     then the stream through ``query_many`` (timed, checked); every grid
-    must equal the numpy oracle and take its stream's route."""
+    must equal the numpy oracle and take its stream's route. Each stream
+    is a path of its own: the launch counts are zeroed before it and
+    read into ``launched[stream]`` after it."""
+    from geomesa_tpu_torch.ops import kernels
+
     out = {}
     for name, (tname, items, route) in streams.items():
         queries = density_queries(items)
+        kernels.reset_launches()
         routes = {}
         for i, q in enumerate(queries):
             res = store.query(tname, q)
@@ -1386,6 +1381,7 @@ def density_path(store, streams, oracle):
         pipe_s = (time.perf_counter() - t0) / len(queries)
         for i, res in enumerate(results):
             expect_grid(res, oracle[name][i], route, f"{name} pipelined query {i}")
+        launched[name] = dict(kernels.LAUNCHES)
         out[name] = {
             "queries": len(queries),
             "grid": list(items[0][3]),

@@ -1,4 +1,4 @@
-// density_grid<HAS_TIME, SHARED>: the exact density grid of one segment.
+// density_grid<HAS_TIME>: the exact density grid of one segment.
 //
 // Replaces the Pallas kernel _density_kernel of
 // geomesa_tpu/ops/pallas_kernels.py (entry point density_grid_pallas) and
@@ -25,16 +25,19 @@
 // convert). The max is NaN-propagating like jnp.maximum / torch.maximum.
 // NaN coordinates (null geometries) fail every compare.
 //
-// Bound on Hopper: bytes for most rows. Each row reads x, y (8 B) and
-// valid (1 B), plus bins and t_ms (8 B) with time; the grid (H * W * 4 B)
-// and the band (4 B per band row) are written once. The f32 work is the K
-// box tests per row (22 operations each), and for the rows inside a
+// Bound on Hopper: bytes. Every row's valid flag is read; with time, the
+// bins and t_ms of the valid rows (8 B); x and y (8 B) only of the rows
+// that pass valid and the window; the grid (H * W * 4 B) and the band (4 B
+// per band row) are written once. The f32 work is the box tests of each
+// such row (22 operations per real box), and for the rows inside a
 // widened box the band (about 40 operations and 4 divides). Design: one row
 // per thread per step of a grid-stride loop; boxes, their per-box margins
-// and the windows are staged in shared memory. Integer counters are exact
-// in any order. SHARED: a block-private int32 histogram in dynamic shared
-// memory (up to the 227 KB opt-in), flushed with one global atomic per
-// non-zero cell; otherwise (512 x 512 = 1 MiB) global int32 atomics.
+// and the windows are staged in shared memory; every certain row adds one
+// to its cell with a global int32 atomic (exact in any order). A
+// block-private shared-memory histogram, flushed once per block, was no
+// faster on an H100 80GB HBM3 at 700 W: 0.2365 ms against 0.1660 at
+// 256 x 128 (z2, 8M rows), 0.2586 against 0.2585 at 64 x 32 (z3, 20M
+// rows), so there is none.
 
 #include <cuda_runtime.h>
 
@@ -58,7 +61,7 @@ __device__ __forceinline__ int snap(float t, int n) {
 
 constexpr int kThreads = 512;
 
-template <bool HAS_TIME, bool SHARED>
+template <bool HAS_TIME>
 __global__ void __launch_bounds__(kThreads)
     density_grid_kernel(const float* __restrict__ x, const float* __restrict__ y,
                         const int* __restrict__ bins, const int* __restrict__ offs,
@@ -73,8 +76,6 @@ __global__ void __launch_bounds__(kThreads)
   float* sbox = smem;            // [k, 4] (x0, y0, x1, y1)
   float* smarg = smem + 4 * k;   // [k, 2] eps * max(|x0|, |x1|), eps * max(|y0|, |y1|)
   int* swin = (int*)(smem + 6 * k);  // [w, 3]
-  int* hist = swin + 3 * w;      // [height * width] when SHARED
-  const int cells = width * height;
   for (int i = threadIdx.x; i < 4 * k; i += blockDim.x) sbox[i] = boxes[i];
   for (int i = threadIdx.x; i < k; i += blockDim.x) {
     const float* b = boxes + 4 * i;
@@ -84,9 +85,6 @@ __global__ void __launch_bounds__(kThreads)
   if (HAS_TIME) {
     for (int i = threadIdx.x; i < 3 * w; i += blockDim.x) swin[i] = windows[i];
   }
-  if (SHARED) {
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) hist[i] = 0;
-  }
   __syncthreads();
 
   const float xmin = env[0], ymin = env[1], xmax = env[2], ymax = env[3];
@@ -95,7 +93,6 @@ __global__ void __launch_bounds__(kThreads)
   const float adx = fabsf(dx), ady = fabsf(dy);
   const float envx = maxp(fabsf(xmin), fabsf(xmax));
   const float envy = maxp(fabsf(ymin), fabsf(ymax));
-  int* counts = SHARED ? hist : grid;
 
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
@@ -139,7 +136,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool band = cell_band | (any_ring & !any_strict);
     const bool in_env = (xv >= xmin) & (xv <= xmax) & (yv >= ymin) & (yv <= ymax);
     if (inbox & in_env & !band) {
-      atomicAdd(counts + snap(ty, height) * width + snap(tx, width), 1);
+      atomicAdd(grid + snap(ty, height) * width + snap(tx, width), 1);
     }
     const bool near = band & (tx >= -ttx) & (tx <= __fadd_rn((float)width, ttx)) &
                       (ty >= -tty) & (ty <= __fadd_rn((float)height, tty));
@@ -148,38 +145,27 @@ __global__ void __launch_bounds__(kThreads)
       if (pos < band_cap) band_idx[pos] = (int)r;
     }
   }
-
-  if (SHARED) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < cells; i += blockDim.x) {
-      const int v = hist[i];
-      if (v) atomicAdd(grid + i, v);
-    }
-  }
 }
 
-template <bool HAS_TIME, bool SHARED>
+template <bool HAS_TIME>
 int launch(const void* x, const void* y, const void* bins, const void* offs,
            const void* valid, const void* boxes, int k, const void* windows,
            int w, const void* env, float rw, float rh, int width, int height,
            void* grid, void* band_idx, void* band_count, int band_cap,
            long long n, cudaStream_t s) {
-  auto kern = density_grid_kernel<HAS_TIME, SHARED>;
-  const size_t smem = sizeof(float) * (6 * (size_t)k + 3 * (size_t)w) +
-                      (SHARED ? sizeof(int) * (size_t)width * height : 0);
+  auto kern = density_grid_kernel<HAS_TIME>;
+  // the boxes, margins and windows (the wrapper keeps them within 48 KB)
+  const size_t smem = sizeof(float) * (6 * (size_t)k + 3 * (size_t)w);
   const int threads = kThreads;
-  // per instantiation: the shared-memory opt-in and the resident blocks per
-  // SM of the last size asked for (the grid is sized to fill the card once)
+  // per instantiation: the resident blocks per SM of the last size asked
+  // for (the grid is sized to fill the card once)
   static size_t last_smem = (size_t)-1;
   static int sms = 0, per_sm = 0;
   if (smem != last_smem) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
     int dev = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
     if (err != cudaSuccess) return (int)err;
     if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     last_smem = smem;
@@ -198,22 +184,12 @@ int launch(const void* x, const void* y, const void* bins, const void* offs,
 
 }  // namespace
 
-// The largest dynamic shared memory a block of the current device may opt
-// in to (bytes): the wrapper takes the SHARED branch when the histogram,
-// the boxes and the windows fit in it.
-extern "C" int density_grid_smem_optin(void) {
-  int dev = 0, bytes = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return bytes;
-}
-
 // C interface for ctypes. Device pointers: x, y float32[n]; bins, offs
 // int32[n] (ignored unless has_time); valid bool[n]; boxes float32[k, 4];
 // windows int32[w, 3]; env float32[4]; grid int32[height * width] zeroed;
 // band_idx int32[band_cap]; band_count int32[1] zeroed. rw, rh = f32(1 /
 // width), f32(1 / height). Launches on `stream`; returns a CUDA error code.
-extern "C" int density_grid(int has_time, int shared, const void* x,
+extern "C" int density_grid(int has_time, const void* x,
                             const void* y, const void* bins, const void* offs,
                             const void* valid, const void* boxes, int k,
                             const void* windows, int w, const void* env,
@@ -223,13 +199,9 @@ extern "C" int density_grid(int has_time, int shared, const void* x,
   if (n == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (has_time) {
-    return shared ? launch<true, true>(x, y, bins, offs, valid, boxes, k, windows, w, env, rw, rh,
-                                       width, height, grid, band_idx, band_count, band_cap, n, s)
-                  : launch<true, false>(x, y, bins, offs, valid, boxes, k, windows, w, env, rw, rh,
-                                        width, height, grid, band_idx, band_count, band_cap, n, s);
+    return launch<true>(x, y, bins, offs, valid, boxes, k, windows, w, env, rw, rh, width,
+                        height, grid, band_idx, band_count, band_cap, n, s);
   }
-  return shared ? launch<false, true>(x, y, nullptr, nullptr, valid, boxes, k, nullptr, 0, env, rw,
-                                      rh, width, height, grid, band_idx, band_count, band_cap, n, s)
-                : launch<false, false>(x, y, nullptr, nullptr, valid, boxes, k, nullptr, 0, env, rw,
-                                       rh, width, height, grid, band_idx, band_count, band_cap, n, s);
+  return launch<false>(x, y, nullptr, nullptr, valid, boxes, k, nullptr, 0, env, rw, rh, width,
+                       height, grid, band_idx, band_count, band_cap, n, s);
 }

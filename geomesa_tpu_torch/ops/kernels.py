@@ -30,12 +30,11 @@ CPU, and for CUDA tensors launches the kernel (counting the launch in
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -76,12 +75,8 @@ LAUNCHES: Dict[str, int] = {
     "xz_mask_xz3": 0,
     "xz_dual_bitmap_xz2": 0,
     "xz_dual_bitmap_xz3": 0,
-    # the density kernel's SHARED histogram branch, and its global-atomic
-    # branch for grids beyond the shared-memory opt-in
     "density_grid_z3": 0,
     "density_grid_z2": 0,
-    "density_grid_z3_global": 0,
-    "density_grid_z2_global": 0,
 }
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
@@ -146,7 +141,7 @@ _ARGTYPES = {
     "exact_bitmap": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
     "xz_mask": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
     "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
-    "density_grid": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
+    "density_grid": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
                      _P, _P, _P, _I, _LL, _P],
 }
 
@@ -156,9 +151,6 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name]
-    if name == "density_grid":
-        lib.density_grid_smem_optin.restype = ctypes.c_int
-        lib.density_grid_smem_optin.argtypes = []
     _LIBS[name] = lib
     return lib
 
@@ -481,14 +473,8 @@ def density_grid_plain(x, y, bins, offs, valid, boxes, windows, env,
     return grid.to(torch.int32), idx, count
 
 
-@functools.cache
-def _smem_optin() -> int:
-    """The card's per-block opt-in shared memory (bytes), read once."""
-    return _lib("density_grid").density_grid_smem_optin()
-
-
 def density_grid(x, y, bins, offs, valid, boxes, windows, env,
-                 width: int, height: int, band_cap: int, shared: Optional[bool] = None):
+                 width: int, height: int, band_cap: int):
     """One segment's exact density pass -> (grid int32[H, W], band_idx
     int32[band_cap], band_count int32[1]) (see
     :func:`geomesa_tpu_torch.ops.aggregations.density_dual`).
@@ -498,9 +484,7 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
     ymin, xmax, ymax); with time, ``bins, offs`` int32[n] (the in-bin ms
     offset) and ``windows`` int32[W, 3] as (bin, lo, hi), else all three
     None. On the card the band buffer holds ``min(count, band_cap)``
-    indices in arbitrary order, then -1: compare it as a set. ``shared``
-    picks the branch (block-private histogram or global atomics); by
-    default the histogram wherever it fits in shared memory."""
+    indices in arbitrary order, then -1: compare it as a set."""
     has_time = windows is not None
     if x.device.type == "cpu":
         return density_grid_plain(x, y, bins, offs, valid, boxes, windows, env,
@@ -525,20 +509,14 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         w = windows.shape[0]
     if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
         raise ValueError("density_grid: boxes must be [K, 4] and windows [W, 3]")
-    # shared memory: the boxes and their margins, the windows and, in the
-    # SHARED branch, the block-private histogram
-    staged = 4 * (6 * k + 3 * w)
-    fits = staged + 4 * width * height <= _smem_optin()
-    if shared and not fits:
-        raise ValueError(f"density_grid: a {width} x {height} histogram exceeds shared memory")
-    shared = fits if shared is None else shared
-    if not shared and staged > _CAND_SMEM:
+    # shared memory: the boxes and their margins, and the windows
+    if 4 * (6 * k + 3 * w) > _CAND_SMEM:
         raise ValueError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
     grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
     band_idx = torch.full((band_cap,), -1, dtype=torch.int32, device=dev)
     count = torch.zeros(1, dtype=torch.int32, device=dev)
     err = _lib("density_grid").density_grid(
-        int(has_time), int(shared), x.data_ptr(), y.data_ptr(),
+        int(has_time), x.data_ptr(), y.data_ptr(),
         bins.data_ptr() if has_time else None, offs.data_ptr() if has_time else None,
         valid.data_ptr(), boxes.data_ptr(), k,
         windows.data_ptr() if has_time else None, w, env.data_ptr(),
@@ -546,5 +524,5 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         grid.data_ptr(), band_idx.data_ptr(), count.data_ptr(), band_cap, n, _stream(dev),
     )
     _raise_on(err, "density_grid")
-    LAUNCHES["density_grid_" + ("z3" if has_time else "z2") + ("" if shared else "_global")] += 1
+    LAUNCHES["density_grid_" + ("z3" if has_time else "z2")] += 1
     return grid, band_idx, count

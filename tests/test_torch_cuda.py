@@ -161,10 +161,8 @@ def _density_rows(n: int, seed: int, env):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("has_time", [True, False])
-@pytest.mark.parametrize("width,height,shared,branch", [
-    (256, 128, None, ""), (64, 32, None, ""), (256, 128, False, "_global"),
-    (64, 32, False, "_global"), (512, 512, None, "_global"), (256, 256, None, "_global")])
-def test_density_grid_matches_plain_on_the_card(cuda, width, height, shared, branch, has_time):
+@pytest.mark.parametrize("width,height", [(256, 128), (64, 32), (512, 512), (256, 256)])
+def test_density_grid_matches_plain_on_the_card(cuda, width, height, has_time):
     env = np.array([-60.0, -30.0, 60.0, 40.0], dtype=np.float32)
     n = 4 * 1024 * 1024 + 1000
     r = {k: torch.from_numpy(v).to(cuda) for k, v in _density_rows(n, width + height, env).items()}
@@ -175,10 +173,10 @@ def test_density_grid_matches_plain_on_the_card(cuda, width, height, shared, bra
             r["valid"], boxes, windows if has_time else None, torch.from_numpy(env).to(cuda),
             width, height, agg.DENSITY_BAND_CAP * 8)
     kernels.reset_launches()
-    grid, idx, cnt = kernels.density_grid(*args, shared=shared)
+    grid, idx, cnt = kernels.density_grid(*args)
     pgrid, pidx, pcnt = kernels.density_grid_plain(*args)
     torch.cuda.synchronize()
-    assert kernels.LAUNCHES["density_grid_" + ("z3" if has_time else "z2") + branch] == 1
+    assert kernels.LAUNCHES["density_grid_" + ("z3" if has_time else "z2")] == 1
     assert torch.equal(grid, pgrid) and int(grid.sum()) > 0
     c = int(pcnt[0])
     assert int(cnt[0]) == c and 0 < c <= agg.DENSITY_BAND_CAP * 8
