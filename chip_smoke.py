@@ -26,10 +26,12 @@ against its plain PyTorch edition:
 Run from the repository root with one CUDA device:
 
     python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--seed S] [--out DIR]
+                          [--ab DIR]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
-     nvcc build time (one nvcc per source, all at once);
+     nvcc build time (one nvcc per source, all at once) and what
+     ``-Xptxas -v`` reports of each kernel (registers, spills);
   2. config #1: ingest N points (20M by default), upload the z3/z2 device
      columns; config #3: make N ways (8M by default) from the seed, ingest
      them with precomputed envelope companions, upload the xz3/xz2 device
@@ -38,9 +40,14 @@ Phases (any failure raises and the script exits non-zero):
      config #6: ingest N points (8M by default), upload the raw f32 columns
      of its z2 table and of config #1's z3 table, and answer (f)-(i) with a
      numpy f64 GridSnap oracle (``density_oracle``);
-  3. every kernel instantiation against its plain edition at its path's
-     shapes (bitwise equality), timed with CUDA events (median of >= 20
-     runs) beside its plain edition and its bound;
+  3. every kernel instantiation against its plain edition at each shape
+     its paths launch it at (bitwise equality), timed beside its plain
+     edition and its bound: ``ms`` is the kernel's own device time per
+     launch, read by name from a torch.profiler window over 50 calls,
+     ``call_ms`` the CUDA-event time of 50 back-to-back calls over 50 (the
+     wrapper's cost); with ``--ab DIR``, each kernel whose source has
+     another design in DIR (same C interface) is also timed from it, in
+     turns with its own;
   4. each main path with the launch counts reset just before and read just
      after: config #1 (one sync query, then 20 jittered queries through
      query_many, a bbox-only stream (z2 exact), the residual streams) and
@@ -50,7 +57,10 @@ Phases (any failure raises and the script exits non-zero):
      alone through store.query, then the stream through query_many), every
      grid equal to the oracle and every query on its stream's route (each
      density stream is a path of its own);
-  5. every kernel must have launched during its path's run;
+  5. every kernel must have launched during its path's run, at every
+     shape that phase 3 timed, and every shape a path launched must be
+     timed; the ranking, per kernel, sums launches x (ms - bound) over
+     its shapes;
   6. torch.profiler traces of the config #1 stream and of stream (a): the
      host time of each step (the ``geomesa.*`` ranges of the store and
      executor, ``geomesa.ring`` for the per-geometry test) and the device's
@@ -60,14 +70,14 @@ Phases (any failure raises and the script exits non-zero):
      copy; ``geomesa.band``: the host certification) and the band rows
      per query.
 
-Prints a ``{"kernels": [...]}`` line, a metrics line, the card's name and
-power limit, and last ``{"ok": true, "device": {...}}``.
+Prints a metrics line, a ``{"kernels": [...]}`` line (one entry per kernel
+and shape), the card's name and power limit, and last ``{"ok": true,
+"device": {...}}``.
 """
 
 import argparse
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -553,21 +563,45 @@ def lane_ops_per_s(lanes_per_sm: int) -> float:
     return sms * lanes_per_sm * mhz * 1e6
 
 
-def cuda_ms(fn, reps: int = 25, warmup: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events around each call)."""
+def event_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Time per call of ``fn`` in ms: CUDA events around ``reps``
+    back-to-back calls, no synchronise between them, over ``reps``. With
+    a hand kernel's wrapper this is the wrapper's cost: the card waits for
+    whatever the host does before each launch."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def kernel_ms(fn, symbol: str, reps: int = 50):
+    """(ms, call_ms, launches seen, source) of a hand kernel: ``call_ms``
+    from ``event_ms``; ``ms`` is the kernel's own device time per launch,
+    the CUDA time of the kernels whose name holds ``symbol`` in a
+    torch.profiler window over another ``reps`` calls. Where the profiler
+    shows no device time for it, ``ms`` is ``call_ms`` and the source says
+    "events"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    call_ms = event_ms(fn, reps)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and symbol in e.key
+            and e.self_device_time_total]
+    seen = sum(e.count for e in hits)
+    if not seen:
+        return call_ms, call_ms, 0, "events"
+    return sum(e.self_device_time_total for e in hits) / 1e3 / seen, call_ms, seen, "profiler"
 
 
 def max_abs_err(got, want) -> int:
@@ -589,9 +623,34 @@ def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
 # -- phases -----------------------------------------------------------------
 
 
+def exact_case(name, seg, boxes, wins, path):
+    """One ``exact_bitmap`` shape: q = the descriptors given. Operations by
+    ``point_cases``'s rule: 6 int64 compares plus 2 (14) per row and query
+    with the window, 4 plus 2 (10) without."""
+    from geomesa_tpu_torch.ops import kernels
+
+    n, q = seg.n_padded, boxes.shape[0]
+    xk, yk, tk, valid = seg._exact_cols(wins is not None)
+    key = 8 * (3 if wins is not None else 2)
+    return dict(
+        name=name,
+        path=path,
+        tag=f"q={q}",
+        symbol="exact_bitmap_kernel",
+        replaces="geomesa_tpu/parallel/executor.py:840",
+        source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
+        kernel=lambda: kernels.exact_bitmap(xk, yk, tk, valid, boxes, wins),
+        plain=lambda: kernels.exact_bitmap_plain(xk, yk, tk, valid, boxes, wins),
+        bytes=n * (key + 1) + q * n // 8 + q * (2 * key + 12),
+        ops=q * n * (2 * (6 if wins is not None else 4) + 2),
+        shape=f"rows={n} q={q}" + (" time" if wins is not None else ""),
+    )
+
+
 def point_cases(store, plans):
     """The config #1 kernels on the z3/z2 segments' own columns with the
-    main path's descriptors.
+    main path's descriptors, ``exact_bitmap`` at each q its path launches:
+    q = 1 (a lone query: the first of its stream) and the stream's batch.
 
     Operation counts are per-lane instructions, counted from the source
     with one rule for every exact kernel: an int32 compare is one
@@ -599,8 +658,7 @@ def point_cases(store, plans):
     between compares chain into the predicates and are not counted), and
     each bitmap plane adds per 32 rows and query one ballot and one store,
     warp instructions that take the issue slot of all 32 rows (one each per
-    row and query). The exact bitmap thus counts 6 int64 compares plus 2
-    (14) per row and query with the window, 4 plus 2 (10) without."""
+    row and query)."""
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.filters import z2_query_mask, z3_query_mask
 
@@ -619,11 +677,13 @@ def point_cases(store, plans):
     ebox2 = torch.as_tensor(np.stack([d[0] for d in bx_descs]), device=dev)
 
     n3, n2 = seg3.n_padded, seg2.n_padded
-    q3, q2 = ebox3.shape[0], ebox2.shape[0]
     k3, w3, k2 = boxes3.shape[0], wins3.shape[0], boxes2.shape[0]
     return [
         dict(
             name="candidate_mask_z3",
+            path="config1",
+            tag=f"K={k3} W={w3}",
+            symbol="candidate_mask_kernel",
             replaces="geomesa_tpu/ops/pallas_kernels.py:84",
             source="geomesa_tpu_torch/csrc/candidate_mask.cu",
             kernel=lambda: (kernels.candidate_mask(
@@ -637,6 +697,9 @@ def point_cases(store, plans):
         ),
         dict(
             name="candidate_mask_z2",
+            path="config1",
+            tag=f"K={k2} W=0",
+            symbol="candidate_mask_kernel",
             replaces="geomesa_tpu/ops/pallas_kernels.py:91",
             source="geomesa_tpu_torch/csrc/candidate_mask.cu",
             kernel=lambda: (kernels.candidate_mask(seg2.xi, seg2.yi, seg2.valid, boxes2),),
@@ -645,44 +708,53 @@ def point_cases(store, plans):
             ops=n2 * (5 * k2 + 1),
             shape=f"rows={n2} K={k2}",
         ),
-        dict(
-            name="exact_bitmap_z3",
-            replaces="geomesa_tpu/parallel/executor.py:840",
-            source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
-            kernel=lambda: kernels.exact_bitmap(
-                seg3.xk, seg3.yk, seg3.tk, seg3.tvalid, ebox3, ewin3),
-            plain=lambda: kernels.exact_bitmap_plain(
-                seg3.xk, seg3.yk, seg3.tk, seg3.tvalid, ebox3, ewin3),
-            bytes=n3 * (3 * 8 + 1) + q3 * n3 // 8 + q3 * (48 + 12),
-            ops=q3 * n3 * (2 * 6 + 2),
-            shape=f"rows={n3} q={q3} time",
-        ),
-        dict(
-            name="exact_bitmap_z2",
-            replaces="geomesa_tpu/parallel/executor.py:840",
-            source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
-            kernel=lambda: kernels.exact_bitmap(seg2.xk, seg2.yk, None, seg2.valid, ebox2),
-            plain=lambda: kernels.exact_bitmap_plain(seg2.xk, seg2.yk, None, seg2.valid, ebox2),
-            bytes=n2 * (2 * 8 + 1) + q2 * n2 // 8 + q2 * (32 + 12),
-            ops=q2 * n2 * (2 * 4 + 2),
-            shape=f"rows={n2} q={q2}",
-        ),
+        exact_case("exact_bitmap_z3", seg3, ebox3[:1], ewin3[:1], "config1"),
+        exact_case("exact_bitmap_z3", seg3, ebox3, ewin3, "config1"),
+        exact_case("exact_bitmap_z2", seg2, ebox2[:1], None, "config1"),
+        exact_case("exact_bitmap_z2", seg2, ebox2, None, "config1"),
     ]
+
+
+def dual_case(name, seg, descs, has_time, path):
+    """One ``xz_dual_bitmap`` shape: q = the descriptors given. Operations
+    by ``point_cases``'s rule, counted as this run's data needs them: per
+    row and query the overlap test, 4 int64 compares (6 with the window),
+    two instructions each, plus the hit plane's ballot and store and the
+    decided plane's store, 3; the inside test (4 int64 compares) and the
+    decided ballot, 9, only per hit row of a rectangle query (the decided
+    plane is 0 wherever no row hits); plus 8 per row for the hoisted
+    placeholder test (4 int64 equalities)."""
+    from geomesa_tpu_torch.ops import kernels
+
+    cols = seg._xz_cols(has_time)
+    n, q = seg.n_padded, descs.shape[0]
+    hdr = kernels.xz_dual_bitmap_plain(*cols[:6], descs, tk=cols[6])[2]
+    rect_hits = int(hdr[:, 0][descs[:, 5] != 0].sum())
+    return dict(
+        name=name,
+        path=path,
+        tag=f"q={q}",
+        symbol="xz_dual_bitmap_kernel",
+        replaces="geomesa_tpu/parallel/executor.py:1748",
+        source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
+        kernel=lambda: kernels.xz_dual_bitmap(*cols[:6], descs, tk=cols[6]),
+        plain=lambda: kernels.xz_dual_bitmap_plain(*cols[:6], descs, tk=cols[6]),
+        bytes=n * ((5 if has_time else 4) * 8 + 2) + 2 * q * n // 8 + q * (64 + 12),
+        ops=q * n * (2 * (6 if has_time else 4) + 3) + rect_hits * (2 * 4 + 1) + n * 2 * 4,
+        shape=f"rows={n} q={q} rect_hits={rect_hits}" + (" time" if has_time else ""),
+    )
 
 
 def xz_cases(store, plans):
     """The config #3 kernels on the xz3/xz2 segments' own columns with the
-    main path's descriptors (the first residual query's boxes and windows;
-    the whole bbox and bbox + DURING streams as one batch each).
+    main path's descriptors: the masks with the first residual query's
+    boxes and windows; ``xz_dual_bitmap`` at each q its path launches: q =
+    1 (a lone query, the first of stream (a) or (b)), the bbox streams as
+    one batch each (q = 24) and, for xz2, the triangle stream (c) (q = 4).
 
     Operations: ``xz_mask`` does 4 float32 compares per box and row
     (counted at the card's FP32 rate) plus 1 OR per box, 3 int32 compares
-    and 1 OR per window and 2 ANDs (INT32 rate). ``xz_dual_bitmap`` is
-    counted by ``point_cases``'s rule for exact kernels: per row and query
-    8 int64 compares (overlap and inside; 10 with the window), two
-    instructions each, plus a ballot and a store for each of the two
-    planes, 4: 20 per row and query (24 with the window); plus 8 per row
-    for the hoisted placeholder test (4 int64 equalities)."""
+    and 1 OR per window and 2 ANDs (INT32 rate)."""
     from geomesa_tpu_torch.ops import kernels
 
     ex = store.executor
@@ -692,20 +764,23 @@ def xz_cases(store, plans):
     dev = ex.device
     boxes3, wins3 = ex._query_descriptor(tables["xz3"], plans["xz3_or_during"][0])
     boxes2, _ = ex._query_descriptor(tables["xz2"], plans["xz2_or"][0])
-    d3 = torch.as_tensor(np.stack(
-        [ex._xz_batch_desc(tables["xz3"], p)[0] for p in plans["xz3_bbox_during"]]), device=dev)
-    d2 = torch.as_tensor(np.stack(
-        [ex._xz_batch_desc(tables["xz2"], p)[0] for p in plans["xz2_bbox"]]), device=dev)
+
+    def descs(index, stream):
+        return torch.as_tensor(np.stack(
+            [ex._xz_batch_desc(tables[index], p)[0] for p in plans[stream]]), device=dev)
+
+    d3, d2, tri = descs("xz3", "xz3_bbox_during"), descs("xz2", "xz2_bbox"), \
+        descs("xz2", "xz2_triangle")
     env3 = (seg3.bxmin, seg3.bymin, seg3.bxmax, seg3.bymax, seg3.valid, boxes3)
     env2 = (seg2.bxmin, seg2.bymin, seg2.bxmax, seg2.bymax, seg2.valid, boxes2)
-    cols3 = seg3._xz_cols(True)
-    cols2 = seg2._xz_cols(False)
     n3, n2 = seg3.n_padded, seg2.n_padded
-    q3, q2 = d3.shape[0], d2.shape[0]
     k3, w3, k2 = boxes3.shape[0], wins3.shape[0], boxes2.shape[0]
     return [
         dict(
             name="xz_mask_xz3",
+            path="config3",
+            tag=f"K={k3} W={w3}",
+            symbol="xz_mask_kernel",
             replaces="geomesa_tpu/ops/pallas_kernels.py:102",
             source="geomesa_tpu_torch/csrc/xz_mask.cu",
             kernel=lambda: (kernels.xz_mask(*env3, seg3.bins, seg3.ti, wins3),),
@@ -717,6 +792,9 @@ def xz_cases(store, plans):
         ),
         dict(
             name="xz_mask_xz2",
+            path="config3",
+            tag=f"K={k2} W=0",
+            symbol="xz_mask_kernel",
             replaces="geomesa_tpu/ops/pallas_kernels.py:95",
             source="geomesa_tpu_torch/csrc/xz_mask.cu",
             kernel=lambda: (kernels.xz_mask(*env2),),
@@ -726,26 +804,11 @@ def xz_cases(store, plans):
             fops=n2 * 4 * k2,
             shape=f"rows={n2} K={k2}",
         ),
-        dict(
-            name="xz_dual_bitmap_xz3",
-            replaces="geomesa_tpu/parallel/executor.py:1748",
-            source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
-            kernel=lambda: kernels.xz_dual_bitmap(*cols3[:6], d3, tk=cols3[6]),
-            plain=lambda: kernels.xz_dual_bitmap_plain(*cols3[:6], d3, tk=cols3[6]),
-            bytes=n3 * (5 * 8 + 2) + 2 * q3 * n3 // 8 + q3 * (64 + 12),
-            ops=q3 * n3 * (2 * 10 + 4) + n3 * 2 * 4,
-            shape=f"rows={n3} q={q3} time",
-        ),
-        dict(
-            name="xz_dual_bitmap_xz2",
-            replaces="geomesa_tpu/parallel/executor.py:1748",
-            source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
-            kernel=lambda: kernels.xz_dual_bitmap(*cols2[:6], d2),
-            plain=lambda: kernels.xz_dual_bitmap_plain(*cols2[:6], d2),
-            bytes=n2 * (4 * 8 + 2) + 2 * q2 * n2 // 8 + q2 * (64 + 12),
-            ops=q2 * n2 * (2 * 8 + 4) + n2 * 2 * 4,
-            shape=f"rows={n2} q={q2}",
-        ),
+        dual_case("xz_dual_bitmap_xz3", seg3, d3[:1], True, "config3"),
+        dual_case("xz_dual_bitmap_xz3", seg3, d3, True, "config3"),
+        dual_case("xz_dual_bitmap_xz2", seg2, d2[:1], False, "config3"),
+        dual_case("xz_dual_bitmap_xz2", seg2, tri, False, "config3"),
+        dual_case("xz_dual_bitmap_xz2", seg2, d2, False, "config3"),
     ]
 
 
@@ -850,6 +913,8 @@ def density_cases(store, streams):
         out.append(dict(
             name="density_grid_" + ("z3" if during else "z2"),
             path=name,
+            tag=f"{width}x{height}",
+            symbol="density_grid_kernel",
             replaces="geomesa_tpu/ops/pallas_kernels.py:222",
             source="geomesa_tpu_torch/csrc/density_grid.cu",
             kernel=lambda a=args: kernels.density_grid(*a),
@@ -866,12 +931,17 @@ def density_cases(store, streams):
     return out
 
 
-def kernel_checks(cases, int32_per_s, fp32_per_s):
-    """Each kernel against its plain edition (bitwise), then timed with CUDA
-    events beside its plain edition. Returns the kernels-line entries
-    (their launch counts are filled in from the main path's run). The
-    bound is the larger of the bytes over HBM bandwidth and the counted
-    instructions over the card's rate for their type."""
+def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
+    """Each kernel against its plain edition (bitwise), then timed at its
+    shape beside its plain edition (``kernel_ms``, ``event_ms``). Returns
+    the kernels-line entries (their launch counts are filled in from the
+    main path's run). The bound is the larger of the bytes over HBM
+    bandwidth and the counted instructions over the card's rate for their
+    type. ``ab`` maps a kernel source's name to another source with the
+    same C interface: that kernel is then also timed from it, in turns
+    with its own (own, other, other, own), under ``ab_ms``."""
+    from geomesa_tpu_torch.ops import kernels
+
     out = []
     for c in cases:
         got = c["kernel"]()
@@ -884,10 +954,11 @@ def kernel_checks(cases, int32_per_s, fp32_per_s):
             err = max_abs_err(got, want)
         if not equal:
             raise AssertionError(
-                f"{c['name']}: kernel differs from its plain edition (max abs err {err})"
+                f"{c['name']} {c['tag']}: kernel differs from its plain edition "
+                f"(max abs err {err})"
             )
-        ms = cuda_ms(c["kernel"])
-        plain_ms = cuda_ms(c["plain"], reps=10, warmup=1)
+        ms, call_ms, seen, ms_source = kernel_ms(c["kernel"], c["symbol"])
+        plain_ms = event_ms(c["plain"], reps=10, warmup=1)
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
         out.append({
@@ -902,14 +973,47 @@ def kernel_checks(cases, int32_per_s, fp32_per_s):
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None,
+            "call_ms": call_ms,
+            "ms_source": ms_source,
+            "profiled_launches": seen,
             "bitwise_equal": equal,
+            "shape_tag": c["tag"],
             "shape": c["shape"],
-            "path": c.get("path"),
-            **{k: cuda_ms(fn) for k, fn in c.get("aside", {}).items()},
+            "path": c["path"],
+            **{k: event_ms(fn, reps=50) for k, fn in c.get("aside", {}).items()},
         })
-        log(f"{c['name']}: {ms:.4f} ms (plain {plain_ms:.4f} ms, "
-            f"bound {out[-1]['bound_ms']:.4f} ms) {c['shape']}")
+        src = (ab or {}).get(c["source"].rsplit("/", 1)[1][:-3])
+        if src:
+            out[-1]["ab_ms"] = ab_times(c, src)
+        log(f"{c['name']} {c['tag']}: {ms:.4f} ms device ({ms_source}), {call_ms:.4f} ms "
+            f"per call (plain {plain_ms:.4f} ms, bound {out[-1]['bound_ms']:.4f} ms) "
+            f"{c['shape']}")
     return out
+
+
+def ab_times(case, src):
+    """Device ms per launch of ``case``'s kernel built from its own source
+    and from ``src``, in turns (own, other, other, own), each checked
+    against the plain edition first."""
+    from geomesa_tpu_torch.ops import kernels
+
+    lib = case["source"].rsplit("/", 1)[1][:-3]
+    want = case["plain"]()
+    times = {"own": [], "other": []}
+    for which in ("own", "other", "other", "own"):
+        if which == "own":
+            times[which].append(kernel_ms(case["kernel"], case["symbol"])[0])
+            continue
+        with kernels.using_source(lib, src):
+            got = case["kernel"]()
+            torch.cuda.synchronize()
+            ok = case["check"](got, want)[0] if "check" in case else \
+                all(torch.equal(g, w) for g, w in zip(got, want))
+            if not ok:
+                raise AssertionError(f"{case['name']} from {src} differs from its plain edition")
+            times[which].append(kernel_ms(case["kernel"], case["symbol"])[0])
+    log(f"{case['name']} {case['tag']} A/B: own {times['own']} other {times['other']} ms")
+    return times
 
 
 def breakdown(store, name, queries):
@@ -945,7 +1049,8 @@ def breakdown(store, name, queries):
         and e.self_device_time_total and not e.key.startswith("geomesa.")
     }
     busy_ms = sum(device_us.values()) / 1e3
-    top = sorted(device_us.items(), key=lambda kv: -kv[1])[:6]
+    # the first 100 characters of a kernel's name (templated names run long)
+    top = [(k[:100], v) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]]
     reps = 20_000
     t0 = clock()
     for _ in range(reps):
@@ -970,6 +1075,9 @@ def main() -> int:
     ap.add_argument("--dens", type=int, default=DENS_ROWS, help="config #6 points")
     ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
+    ap.add_argument("--ab", default=None, metavar="DIR",
+                    help="time each kernel whose source DIR/<name>.cu holds another design "
+                         "(same C interface) in turns with its own")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -988,6 +1096,14 @@ def main() -> int:
     kernels.build_all()
     build_s = time.perf_counter() - t0
     log(f"kernels built in {build_s:.2f} s")
+    for name, text in kernels.ptxas_report().items():
+        for line in text.splitlines():
+            if "registers" in line or "Compiling entry" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    ab = {}
+    if args.ab:
+        ab = {f[:-3]: os.path.join(args.ab, f) for f in sorted(os.listdir(args.ab))
+              if f.endswith(".cu") and f[:-3] in kernels.SOURCES}
 
     # -- phase 2: data, ingest, device columns --------------------------------
     store = TorchDataStore()  # the default executor: TorchScanExecutor on cuda:0
@@ -1002,26 +1118,22 @@ def main() -> int:
     log(f"INT32 peak: {int32_per_s:.4g} ops/s; FP32 {fp32_per_s:.4g} ops/s")
     entries = kernel_checks(
         point_cases(store, plans1) + xz_cases(store, plans3) + density_cases(store, streams6),
-        int32_per_s, fp32_per_s)
+        int32_per_s, fp32_per_s, ab)
 
     # -- phase 4: each main path through the entry points, launches counted ---
     launched = {}
     kernels.reset_launches()
     metrics1 = config1_path(store, data1, streams1)
-    launched["config1"] = dict(kernels.LAUNCHES)
+    launched["config1"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
     kernels.reset_launches()
     metrics3 = config3_path(store, streams3, oracle3)
-    launched["config3"] = dict(kernels.LAUNCHES)
+    launched["config3"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
     metrics6 = density_path(store, streams6, oracle6, launched)
-    log(f"main-path launches: {launched}")
+    log(f"main-path launches: { {p: s for p, (_n, s) in launched.items()} }")
 
-    # -- phase 5: each path went through its kernels --------------------------
-    for e in entries:
-        path = e.pop("path") or ("config3" if e["name"].startswith("xz_") else "config1")
-        e["launches"] = launched[path][e["name"]]
-    missing = [e["name"] for e in entries if e["launches"] == 0]
-    if missing or {e["name"] for e in entries} != set(kernels.LAUNCHES):
-        raise AssertionError(f"kernels never launched on their main path: {missing}")
+    # -- phase 5: each path went through its kernels, at every timed shape ----
+    ranking = check_launches(entries, launched, set(kernels.LAUNCHES))
+    log(f"launches x (ms - bound) per smoke run: {json.dumps(ranking)}")
 
     # -- phase 6: host splits and the host-tested rows --------------------------
     split1 = breakdown(store, "gdelt", [Query.cql(c, properties=[]) for c in streams1["config1"][1]])
@@ -1048,6 +1160,7 @@ def main() -> int:
         "int32_ops_per_s": int32_per_s,
         "fp32_ops_per_s": fp32_per_s,
         "breakdown": split1,
+        "ranking_ms": ranking,
         "config3": {**setup3, "streams": metrics3, "breakdown_xz2_bbox": split3},
         "density": {**setup6, "streams": metrics6},
         "script_s": time.perf_counter() - t_start,
@@ -1055,8 +1168,8 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump({"kernels": entries, "metrics": metrics}, f, indent=1)
-    print(json.dumps({"kernels": entries}))
     print(json.dumps({"metrics": metrics}))
+    print(json.dumps({"kernels": entries}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
@@ -1065,6 +1178,37 @@ def main() -> int:
     }}))
     return 0
 
+
+
+def check_launches(entries, launched, names):
+    """Fill each entry's ``launches``: the launches at its kernel and shape
+    over every path (stream (i)'s host route runs config #1's lone exact
+    query). Fail unless every entry's own path launched it, every shape a
+    path launched is timed (so the shapes' launches add up to the paths'
+    count per kernel) and every kernel has an entry. Returns the ranking:
+    per kernel, the sum over its shapes of launches x (ms - bound),
+    largest first."""
+    total = {}
+    for _counts, shapes in launched.values():
+        for key, count in shapes.items():
+            total[key] = total.get(key, 0) + count
+    missing = []
+    for e in entries:
+        path = e.pop("path")
+        key = (e["name"], e["shape_tag"])
+        e["launches"] = total.get(key, 0)
+        if not launched[path][1].get(key):
+            missing.append(f"{path}: {key[0]} {key[1]}")
+    timed = {(e["name"], e["shape_tag"]) for e in entries}
+    untimed = [f"{name} {tag}" for (name, tag), count in total.items()
+               if count and (name, tag) not in timed]
+    if missing or untimed or {e["name"] for e in entries} != names:
+        raise AssertionError(f"kernel shapes never launched on their main path: {missing}; "
+                             f"launched but not timed: {untimed}")
+    ranking = {}
+    for e in entries:
+        ranking[e["name"]] = ranking.get(e["name"], 0.0) + e["launches"] * (e["ms"] - e["bound_ms"])
+    return dict(sorted(ranking.items(), key=lambda kv: -kv[1]))
 
 
 def config1(store, n):
@@ -1140,6 +1284,8 @@ def config1_path(store, data, streams):
         expect_fids(r, brute_force(x, y, t, b), f"config #1 stream query {i}")
 
     bbox_boxes, bbox_cqls = streams["bbox"]
+    res = store.query("gdelt", bbox_cqls[0])  # a lone bbox-only query (z2 exact, q = 1)
+    expect_fids(res, np.flatnonzero(in_box(x, y, bbox_boxes[0])), "bbox-only lone query")
     t0 = time.perf_counter()
     results = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in bbox_cqls])
     bbox_s = (time.perf_counter() - t0) / len(bbox_cqls)
@@ -1381,7 +1527,7 @@ def density_path(store, streams, oracle, launched):
         pipe_s = (time.perf_counter() - t0) / len(queries)
         for i, res in enumerate(results):
             expect_grid(res, oracle[name][i], route, f"{name} pipelined query {i}")
-        launched[name] = dict(kernels.LAUNCHES)
+        launched[name] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
         out[name] = {
             "queries": len(queries),
             "grid": list(items[0][3]),

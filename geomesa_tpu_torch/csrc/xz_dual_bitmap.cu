@@ -33,16 +33,35 @@
 // int64 time) and writes q/4 B per row; each row and query costs at least
 // 20 integer instructions (two per int64 compare: eight compares for
 // overlap and inside, two more for the window, 24 in all; plus a ballot
-// and a store per plane and 32-row word). Design (as exact_bitmap.cu): each thread
-// loads its row once and loops over the q descriptors, which sit in shared
-// memory and are read as broadcasts. __ballot_sync forms each 32-row word
-// of both planes; __brev + __byte_perm put it into packbits byte and bit
-// order, so one lane stores 4 bytes per plane, warp and query. __popc and
-// the first and last set lanes of the hit word give warp partials, which
-// each warp folds into its own shared-memory slot per query (no atomics in
-// the loop); at the end the block reduces its warps' slots and issues one
-// atomic per header field and query. The grid is bounded and loops over
-// rows. Row counts are a multiple of 32.
+// and a store per plane and 32-row word). Row counts are a multiple of 32.
+//
+// The first design (one row a thread per grid-stride step; per row and
+// query the descriptor's 8 int64 fields read again from shared memory, and
+// lane 0 alone storing both words and updating the warp's header slot
+// while 31 lanes waited; at q = 1 one 8-byte load per column and thread in
+// flight) ran at 1.3x its bound at q = 1 and 2.2x at q = 24. This design:
+//   * each warp takes a chunk of kR = 4 consecutive 32-row words; lane l
+//     holds rows 32 j + l of it (j < kR), so each ballot is still one
+//     packbits word, and a lane has kR rows of loads in flight;
+//   * each descriptor is read from shared memory once per chunk (four
+//     16-byte broadcasts), not once per row;
+//   * the decided plane's compares and ballots run only when a row of the
+//     chunk hits and the query is a rectangle (a box's hits are few and
+//     clustered, so most chunks skip them; the decided words are then 0);
+//   * after the ballots, lanes 0..kR-1 store the chunk's hit words and
+//     lanes kR..2kR-1 its decided words in one store instruction; the
+//     warp's (count, first, last) slot in shared memory is updated once per
+//     chunk and query, and only when the chunk hits; at the end the block
+//     folds its warps' slots and issues one atomic per header field and
+//     query;
+//   * the grid is the resident blocks of the card, from the occupancy of
+//     the instantiation and its shared memory.
+// Measured by chip_smoke.py --ab on an H100 80GB HBM3 at 700 W, device time
+// per launch, the first design's in turns on the same inputs (8M rows):
+// xz2 q = 1 0.0947 ms (was 0.1065), q = 4 0.1020 (was 0.1318), q = 24
+// 0.2581 (was 0.5082); xz3 q = 1 0.1156 (was 0.1204), q = 24 0.3016 (was
+// 0.5777); 1.2x, 1.2x, 2.0x, 1.1x and 1.7x the bound chip_smoke.py counts
+// from the run's hits. 80 registers (90 with time), no spills.
 
 #include <climits>
 #include <cuda_runtime.h>
@@ -57,8 +76,12 @@ __device__ __forceinline__ unsigned int packbits_order(unsigned int ballot) {
   return __byte_perm(__brev(ballot), 0, 0x0123);
 }
 
+constexpr int kR = 4;  // 32-row words per warp and chunk (rows per lane)
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
+
 template <bool HAS_TIME>
-__global__ void xz_dual_bitmap_kernel(
+__global__ void __launch_bounds__(kThreads) xz_dual_bitmap_kernel(
     const long long* __restrict__ bxmin, const long long* __restrict__ bymin,
     const long long* __restrict__ bxmax, const long long* __restrict__ bymax,
     const unsigned char* __restrict__ isrect,
@@ -80,43 +103,81 @@ __global__ void xz_dual_bitmap_kernel(
   }
   __syncthreads();
   const long long zero = sdesc[4];
+  int* wacc = acc + 3 * warp * q;
 
   const long long nwords = n >> 5;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // n % 32 == 0 and blockDim % 32 == 0: whole warps enter or leave together
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       row < n; row += stride) {
-    const long long x0 = bxmin[row];
-    const long long y0 = bymin[row];
-    const long long x1 = bxmax[row];
-    const long long y1 = bymax[row];
-    const long long t = HAS_TIME ? tk[row] : 0;
-    const bool v = valid[row] != 0;
-    const bool rect_row = isrect[row] != 0;
-    const bool real =
-        !((x0 == zero) & (y0 == zero) & (x1 == zero) & (y1 == zero));
-    const long long word = row >> 5;
-    const int base = (int)(row - lane);
-    int* wacc = acc + 3 * warp * q;
+  const long long nchunks = (nwords + kR - 1) / kR;
+  const long long gwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  // one warp per chunk: the loop and every ballot below are warp-uniform
+  for (long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; c < nchunks;
+       c += gwarps) {
+    const long long word0 = c * kR;
+    long long x0[kR], y0[kR], x1[kR], y1[kR], t[kR];
+    bool v[kR], rect_row[kR], real[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      const bool in = word0 + j < nwords;
+      const long long row = (word0 + j) * 32 + lane;
+      x0[j] = in ? bxmin[row] : 0;
+      y0[j] = in ? bymin[row] : 0;
+      x1[j] = in ? bxmax[row] : 0;
+      y1[j] = in ? bymax[row] : 0;
+      t[j] = HAS_TIME && in ? tk[row] : 0;
+      v[j] = in && valid[row] != 0;
+      rect_row[j] = in && isrect[row] != 0;
+      real[j] = !((x0[j] == zero) & (y0[j] == zero) & (x1[j] == zero) & (y1[j] == zero));
+    }
     for (int i = 0; i < q; ++i) {
-      const long long* d = sdesc + kDesc * i;
-      bool hit = v & (d[0] <= x1) & (x0 <= d[2]) & (d[1] <= y1) & (y0 <= d[3]);
-      if (HAS_TIME) hit = hit & (t >= d[6]) & (t <= d[7]);
-      const bool inside =
-          (d[0] <= x0) & (x1 <= d[2]) & (d[1] <= y0) & (y1 <= d[3]);
-      const bool dec = hit & (d[5] != 0) & real & (inside | rect_row);
-      const unsigned int hb = __ballot_sync(0xffffffffu, hit);
-      const unsigned int db = __ballot_sync(0xffffffffu, dec);
-      if (lane == 0) {
-        const long long at = (long long)i * nwords + word;
-        hit_bits[at] = packbits_order(hb);
-        dec_bits[at] = packbits_order(db);
-        if (hb) {
-          int* a = wacc + 3 * i;
-          a[0] += __popc(hb);
-          a[1] = min(a[1], base + __ffs(hb) - 1);
-          a[2] = max(a[2], base + 31 - __clz(hb));
+      // (xmin, ymin), (xmax, ymax), (zero, rect), (t_lo, t_hi)
+      const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
+      const longlong2 lo = d[0], hi = d[1], rect = d[2], win = d[3];
+      bool hit[kR];
+      unsigned hb[kR], db[kR];
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        hit[j] = v[j] & (lo.x <= x1[j]) & (x0[j] <= hi.x) & (lo.y <= y1[j]) & (y0[j] <= hi.y);
+        if (HAS_TIME) hit[j] = hit[j] & (t[j] >= win.x) & (t[j] <= win.y);
+        hb[j] = __ballot_sync(kFull, hit[j]);
+        db[j] = 0;
+      }
+      unsigned any = 0;
+#pragma unroll
+      for (int j = 0; j < kR; ++j) any |= hb[j];
+      if (any && rect.y != 0) {
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          const bool inside =
+              (lo.x <= x0[j]) & (x1[j] <= hi.x) & (lo.y <= y0[j]) & (y1[j] <= hi.y);
+          db[j] = __ballot_sync(kFull, hit[j] & real[j] & (inside | rect_row[j]));
         }
+      }
+      if (lane < 2 * kR) {
+        const int j = lane & (kR - 1);
+        unsigned word = 0;
+#pragma unroll
+        for (int jj = 0; jj < kR; ++jj) {
+          if (j == jj) word = lane < kR ? hb[jj] : db[jj];
+        }
+        if (word0 + j < nwords) {
+          unsigned int* plane = lane < kR ? hit_bits : dec_bits;
+          plane[(long long)i * nwords + word0 + j] = packbits_order(word);
+        }
+      }
+      if (any && lane == 0) {
+        int cnt = 0, first = INT_MAX, last = -1;
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          if (hb[j]) {
+            const int base = (int)((word0 + j) * 32);
+            cnt += __popc(hb[j]);
+            first = min(first, base + __ffs(hb[j]) - 1);
+            last = max(last, base + 31 - __clz(hb[j]));
+          }
+        }
+        int* a = wacc + 3 * i;
+        a[0] += cnt;
+        a[1] = min(a[1], first);
+        a[2] = max(a[2], last);
       }
     }
   }
@@ -137,6 +198,39 @@ __global__ void xz_dual_bitmap_kernel(
   }
 }
 
+template <bool HAS_TIME>
+int launch(const void* bxmin, const void* bymin, const void* bxmax, const void* bymax,
+           const void* isrect, const void* valid, const void* tk, const void* descs, int q,
+           void* hit_bits, void* dec_bits, void* hdr, long long n, cudaStream_t s) {
+  auto kern = xz_dual_bitmap_kernel<HAS_TIME>;
+  const size_t smem = sizeof(long long) * kDesc * (size_t)q +
+                      sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
+  // per instantiation: the resident blocks per SM of the last size asked
+  // for (the grid is sized to fill the card once)
+  static size_t last_smem = (size_t)-1;
+  static int sms = 0, per_sm = 0;
+  if (smem != last_smem) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
+    if (err != cudaSuccess) return (int)err;
+    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    last_smem = smem;
+  }
+  long long blocks = (long long)sms * per_sm;
+  const long long rows_per_block = (long long)kThreads * kR;
+  const long long need = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks > need) blocks = need;
+  if (blocks < 1) blocks = 1;
+  kern<<<(unsigned)blocks, kThreads, smem, s>>>(
+      (const long long*)bxmin, (const long long*)bymin, (const long long*)bxmax,
+      (const long long*)bymax, (const unsigned char*)isrect, (const unsigned char*)valid,
+      (const long long*)tk, (const long long*)descs, q, (unsigned int*)hit_bits,
+      (unsigned int*)dec_bits, (int*)hdr, n);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // C interface for ctypes. Device pointers: bxmin, bymin, bxmax, bymax
@@ -152,26 +246,11 @@ extern "C" int xz_dual_bitmap(int has_time, const void* bxmin,
                               void* dec_bits, void* hdr, long long n,
                               void* stream) {
   if (n == 0 || q == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  const size_t smem = sizeof(long long) * kDesc * (size_t)q +
-                      sizeof(int) * 3 * (size_t)(threads / 32) * (size_t)q;
   cudaStream_t s = (cudaStream_t)stream;
   if (has_time) {
-    xz_dual_bitmap_kernel<true><<<(unsigned)blocks, threads, smem, s>>>(
-        (const long long*)bxmin, (const long long*)bymin,
-        (const long long*)bxmax, (const long long*)bymax,
-        (const unsigned char*)isrect, (const unsigned char*)valid,
-        (const long long*)tk, (const long long*)descs, q,
-        (unsigned int*)hit_bits, (unsigned int*)dec_bits, (int*)hdr, n);
-  } else {
-    xz_dual_bitmap_kernel<false><<<(unsigned)blocks, threads, smem, s>>>(
-        (const long long*)bxmin, (const long long*)bymin,
-        (const long long*)bxmax, (const long long*)bymax,
-        (const unsigned char*)isrect, (const unsigned char*)valid, nullptr,
-        (const long long*)descs, q, (unsigned int*)hit_bits,
-        (unsigned int*)dec_bits, (int*)hdr, n);
+    return launch<true>(bxmin, bymin, bxmax, bymax, isrect, valid, tk, descs, q, hit_bits,
+                        dec_bits, hdr, n, s);
   }
-  return (int)cudaGetLastError();
+  return launch<false>(bxmin, bymin, bxmax, bymax, isrect, valid, nullptr, descs, q, hit_bits,
+                       dec_bits, hdr, n, s);
 }

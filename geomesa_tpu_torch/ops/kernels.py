@@ -22,19 +22,23 @@ answers that):
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
 CPU, and for CUDA tensors launches the kernel (counting the launch in
-``LAUNCHES``) or raises. Kernels build at first use with ``nvcc`` for
-``sm_90a`` into a plain-C shared library per source, loaded with
-``ctypes``; the build directory is ``geomesa_tpu_torch/_build``.
+``LAUNCHES`` by instantiation and in ``LAUNCH_SHAPES`` by instantiation and
+shape) or raises. Kernels build at first use with ``nvcc`` for ``sm_90a``
+into a plain-C shared library per source, loaded with ``ctypes``; the
+build directory is ``geomesa_tpu_torch/_build``, and ``ptxas_report``
+returns what ``-Xptxas -v`` said of each kernel (registers, spills).
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import subprocess
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -78,11 +82,16 @@ LAUNCHES: Dict[str, int] = {
     "density_grid_z3": 0,
     "density_grid_z2": 0,
 }
+# launches per (instantiation, shape): "q=<descriptors>" for the bitmap
+# kernels, "K=<boxes> W=<windows>" for the masks, "<W>x<H>" for the grid
+LAUNCH_SHAPES: Counter = Counter()
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
 EXACT_MAX_Q = 256
 # the candidate kernels stage boxes and windows in 48 KB of shared memory
 _CAND_SMEM = 48 * 1024
+# consecutive rows each density_grid thread takes per step (n is a multiple)
+DENSITY_ROWS = 4
 # int64 fields of one extent descriptor: (xmin, ymin, xmax, ymax, zero,
 # rect, t_lo, t_hi)
 XZ_DESC = 8
@@ -93,6 +102,12 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCH_SHAPES.clear()
+
+
+def _count(name: str, shape: str) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_SHAPES[(name, shape)] += 1
 
 
 def _nvcc() -> str:
@@ -101,9 +116,10 @@ def _nvcc() -> str:
     return path if os.path.exists(path) else "nvcc"
 
 
-def _compile(name: str) -> str:
-    """Compile one source into ``_build/<name>.<hash>.so`` unless present."""
-    src = os.path.join(CSRC, SOURCES[name])
+def _compile(name: str, src: Optional[str] = None) -> str:
+    """Compile one source (``name``'s own unless ``src`` is given) into
+    ``_build/<name>.<hash>.so`` unless present."""
+    src = src or os.path.join(CSRC, SOURCES[name])
     flags = _NVCC_FLAGS.get(name, [])
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
@@ -114,12 +130,27 @@ def _compile(name: str) -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", *flags, "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        "-O3", *flags, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
+    with open(out + ".ptxas", "w") as f:
+        f.write(proc.stderr)
     os.replace(tmp, out)
+    return out
+
+
+def ptxas_report() -> Dict[str, str]:
+    """What ``-Xptxas -v`` printed for each built source: per kernel
+    instantiation its registers, shared memory and spill stores."""
+    out = {}
+    for name, lib in _LIBS.items():
+        try:
+            with open(lib._name + ".ptxas") as f:
+                out[name] = f.read()
+        except OSError:
+            out[name] = ""
     return out
 
 
@@ -160,6 +191,19 @@ def _lib(name: str) -> ctypes.CDLL:
     if lib is None:
         lib = _load(name, _compile(name))
     return lib
+
+
+@contextlib.contextmanager
+def using_source(name: str, src: str):
+    """Inside the block, ``name``'s wrapper launches the kernel built from
+    ``src`` (a source with the same C interface): for timing two designs
+    of one kernel in turns on the same inputs."""
+    own = _lib(name)
+    _load(name, _compile(name, src))
+    try:
+        yield
+    finally:
+        _LIBS[name] = own
 
 
 def _check(t: torch.Tensor, what: str, dtype, device, shape=None) -> None:
@@ -229,7 +273,7 @@ def candidate_mask(xi, yi, valid, boxes, bins=None, offs=None, windows=None) -> 
         out.data_ptr(), n, _stream(dev),
     )
     _raise_on(err, "candidate_mask")
-    LAUNCHES["candidate_mask_z3" if has_time else "candidate_mask_z2"] += 1
+    _count("candidate_mask_z3" if has_time else "candidate_mask_z2", f"K={k} W={w}")
     return out
 
 
@@ -300,7 +344,7 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None):
         n, _stream(dev),
     )
     _raise_on(err, "exact_bitmap")
-    LAUNCHES["exact_bitmap_z3" if has_time else "exact_bitmap_z2"] += 1
+    _count("exact_bitmap_z3" if has_time else "exact_bitmap_z2", f"q={q}")
     empty = hdr[:, 0] == 0
     hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
     hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
@@ -390,7 +434,7 @@ def xz_mask(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
         windows.data_ptr() if has_time else None, w, out.data_ptr(), n, _stream(dev),
     )
     _raise_on(err, "xz_mask")
-    LAUNCHES["xz_mask_xz3" if has_time else "xz_mask_xz2"] += 1
+    _count("xz_mask_xz3" if has_time else "xz_mask_xz2", f"K={k} W={w}")
     return out
 
 
@@ -454,7 +498,7 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
         hit_bits.data_ptr(), dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
     )
     _raise_on(err, "xz_dual_bitmap")
-    LAUNCHES["xz_dual_bitmap_xz3" if has_time else "xz_dual_bitmap_xz2"] += 1
+    _count("xz_dual_bitmap_xz3" if has_time else "xz_dual_bitmap_xz2", f"q={q}")
     empty = hdr[:, 0] == 0
     hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
     hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
@@ -492,8 +536,9 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
     if x.device.type != "cuda":
         raise ValueError(f"density_grid: unsupported device {x.device}")
     dev, n = x.device, x.shape[0]
-    if n >= 2**31:
-        raise ValueError(f"density_grid: rows ({n}) must be below 2^31")
+    if n >= 2**31 or n % DENSITY_ROWS:
+        raise ValueError(f"density_grid: rows ({n}) must be a multiple of {DENSITY_ROWS} "
+                         "below 2^31")
     if not (0 < width and 0 < height and width * height < 2**31 // 4):
         raise ValueError(f"density_grid: bad grid {width} x {height}")
     cols = [("x", x, torch.float32), ("y", y, torch.float32), ("valid", valid, torch.bool)]
@@ -501,6 +546,9 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         cols += [("bins", bins, torch.int32), ("offs", offs, torch.int32)]
     for what, t, dtype in cols:
         _check(t, what, dtype, dev, (n,))
+        # each thread loads its 4 rows' valid as 4 bytes, the rest as 16
+        if t.data_ptr() % (4 if t is valid else 16):
+            raise ValueError(f"density_grid: {what} is not {4 if t is valid else 16}-byte aligned")
     _check(boxes, "boxes", torch.float32, dev)
     _check(env, "env", torch.float32, dev, (4,))
     k, w = boxes.shape[0], 0
@@ -509,8 +557,8 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         w = windows.shape[0]
     if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
         raise ValueError("density_grid: boxes must be [K, 4] and windows [W, 3]")
-    # shared memory: the boxes and their margins, and the windows
-    if 4 * (6 * k + 3 * w) > _CAND_SMEM:
+    # shared memory: the boxes, their margins and reject bounds, the windows
+    if 4 * (10 * k + 3 * w) > _CAND_SMEM:
         raise ValueError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
     grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
     band_idx = torch.full((band_cap,), -1, dtype=torch.int32, device=dev)
@@ -524,5 +572,5 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         grid.data_ptr(), band_idx.data_ptr(), count.data_ptr(), band_cap, n, _stream(dev),
     )
     _raise_on(err, "density_grid")
-    LAUNCHES["density_grid_" + ("z3" if has_time else "z2")] += 1
+    _count("density_grid_" + ("z3" if has_time else "z2"), f"{width}x{height}")
     return grid, band_idx, count

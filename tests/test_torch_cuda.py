@@ -206,3 +206,111 @@ def test_density_grid_band_overflow_on_the_card(cuda):
     kept = idx.cpu().numpy()
     assert len(set(kept.tolist())) == cap and (kept >= 0).all()
     assert set(kept.tolist()) <= set(full.cpu().numpy().tolist())
+
+
+def _sorted_density_rows(n: int, seed: int, env):
+    """float32 points around ``env`` sorted by bin (as a z3 table is), with
+    rows on the envelope's cell edges, at the pads' corners, at +-0.0, NaN
+    and inf, and a run of invalid rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(env[0] - 5, env[2] + 5, n).astype(np.float32)
+    y = rng.uniform(env[1] - 5, env[3] + 5, n).astype(np.float32)
+    m = min(n // 4, 4096)
+    x[:m] = env[0] + (env[2] - env[0]) * np.float32(rng.integers(0, 257, m) / 256)
+    # every 16th row on a box edge: x = 10 (the first box), y = 0 (the second)
+    x[m::16] = np.float32(10.0)
+    y[m + 8::16] = np.float32(0.0)
+    special = [(np.inf, np.inf), (-np.inf, 1.0), (np.nan, 0.0), (1.0, 1.0), (0.0, 0.0),
+               (0.5, 0.5), (-0.0, -0.0), (0.0, -0.0)]
+    for i, (sx, sy) in enumerate(special):
+        x[m + i], y[m + i] = sx, sy
+    valid = rng.random(n) > 0.05
+    valid[m + 64:m + 320] = False
+    return {
+        "x": x, "y": y, "valid": valid,
+        "bins": np.sort(rng.integers(0, 8, n)).astype(np.int32),
+        "offs": rng.integers(-1, 604_800_000, n).astype(np.int32),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("real,width,height,n", [
+    (1, 1, 1, 1024),
+    (2, 512, 512, 1024),
+    (3, 64, 32, 2 * 1024 * 1024 + 1024),
+    (1, 512, 512, 2 * 1024 * 1024 + 1024),
+    (2, 1, 1, 2 * 1024 * 1024 + 1024),
+])
+def test_density_grid_real_boxes_and_skipped_warps_on_the_card(cuda, real, width, height, n,
+                                                                has_time):
+    """1-3 real boxes among pads, 1x1 to 512x512 grids, rows sorted by bin
+    with windows over two of eight bins (whole warps skip x and y), and the
+    band at a cap just above its count and just below it."""
+    env = np.array([-60.0, -30.0, 60.0, 40.0], dtype=np.float32)
+    r = {k: torch.from_numpy(v).to(cuda)
+         for k, v in _sorted_density_rows(n, n + real, env).items()}
+    boxes = torch.from_numpy(F.pad_boxes(
+        [(-50.0, -20.0, 10.0, 35.0), (0.0, -30.0, 60.0, 0.0), (-60.0, 30.0, -40.0, 40.0)][:real],
+        dtype=np.float32)).to(cuda)
+    windows = torch.from_numpy(F.pad_windows([(2, 0, 300_000_000), (5, 5, 604_799_999)])).to(cuda)
+    tenv = torch.from_numpy(env).to(cuda)
+
+    def args(cap):
+        return (r["x"], r["y"], r["bins"] if has_time else None,
+                r["offs"] if has_time else None, r["valid"], boxes,
+                windows if has_time else None, tenv, width, height, cap)
+
+    pgrid, full, pcnt = kernels.density_grid_plain(*args(n))
+    c = int(pcnt[0])
+    assert int(pgrid.sum()) > 0 and c > 1
+    every = set(full.cpu().numpy()[:c].tolist())
+    kernels.reset_launches()
+    for cap in (c + 1, c - 1):
+        grid, idx, cnt = kernels.density_grid(*args(cap))
+        torch.cuda.synchronize()
+        assert torch.equal(grid, pgrid) and int(cnt[0]) == c
+        kept = idx.cpu().numpy()
+        if cap > c:
+            assert set(kept[:c].tolist()) == every and (kept[c:] == -1).all()
+        else:
+            assert len(set(kept.tolist())) == cap and set(kept.tolist()) <= every
+    name = "density_grid_" + ("z3" if has_time else "z2")
+    assert kernels.LAUNCH_SHAPES == {(name, f"{width}x{height}"): 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("q", [1, 3, 24, 33, 256])
+def test_xz_dual_bitmap_batch_sizes_on_the_card(cuda, q, has_time):
+    """q from 1 to EXACT_MAX_Q, with queries that hit no row, on a row count
+    that ends inside a warp's chunk of words."""
+    from geomesa_tpu_torch.geom.base import Envelope
+
+    n = 1024 * 1024 + 96
+    cols, isrect, valid = _xz_rows(n, q + 7)
+    t = _rows(n, q + 8)["t"]
+    t0 = 1_767_225_600_000
+    shapes = [((-5.0, -5.0, 5.0, 5.0), True, t0, t0 + 86_400_000),
+              ((100.0, 0.0, 101.0, 1.0), True, None, None),  # no row
+              ((-1.0, -1.0, 1.0, 1.0), False, t0, None),
+              ((-20.0, -20.0, 20.0, 20.0), True, t0, t0 + 3 * 86_400_000),
+              ((18.0, 18.0, 30.0, 30.0), True, t0 - 10, t0 - 1)]  # no row with time
+    shapes = (shapes * (q // len(shapes) + 1))[:q]
+    descs = torch.from_numpy(np.stack([
+        TorchScanExecutor._xz_desc(Envelope(*b), rect, *((lo, hi) if has_time else (None, None)))[0]
+        for b, rect, lo, hi in shapes])).to(cuda)
+    keys = [torch.from_numpy(f64_keys(c)).to(cuda) for c in cols]
+    isrect = torch.from_numpy(isrect).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    kernels.reset_launches()
+    got = kernels.xz_dual_bitmap(*keys, isrect, valid, descs, tk=tk)
+    want = kernels.xz_dual_bitmap_plain(*keys, isrect, valid, descs, tk=tk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    name = "xz_dual_bitmap_" + ("xz3" if has_time else "xz2")
+    assert kernels.LAUNCH_SHAPES == {(name, f"q={q}"): 1}
+    assert want[0].any()
+    if q > 1:
+        assert (want[2][:, 0] == 0).any()  # a query with no hit: (0, 0, n - 1)

@@ -232,6 +232,55 @@ def test_density_dual_matches_reference(mode, has_time):
     assert grid.sum() > 0
 
 
+@pytest.mark.parametrize("real", [1, 2, 3])
+@pytest.mark.parametrize("has_time", [True, False])
+def test_dropping_pad_boxes_keeps_grid_and_band(real, has_time):
+    """The card kernel stages only the boxes that can hold or band a row:
+    it drops ``pad_boxes``' inverted pads (1, 1, 0, 0) when the envelope's
+    margins are below 0.25 and a finite box is left. The dual pass over
+    the real boxes alone gives the grid, band index set and count of the
+    padded pass, and of the JAX package's (Pallas in interpret mode, and
+    XLA), on rows at box and cell edges, at and around the pads' corners,
+    at +-0.0, NaN and inf (one or both coordinates)."""
+    width, height = 100, 60
+    x, y, bins, offs, valid, _boxes, windows, env = _dual_inputs(width, height, 21, has_time)
+    special = [(np.inf, np.inf), (-np.inf, np.inf), (np.inf, -np.inf), (-np.inf, -np.inf),
+               (np.inf, 3.0), (2.0, -np.inf), (np.inf, np.nan), (np.nan, np.inf),
+               (1.0, 1.0), (0.0, 0.0), (0.5, 0.5), (1.0, 0.0), (0.0, 1.0),
+               (-0.0, -0.0), (0.0, -0.0), (-0.0, 0.0), (np.nan, np.nan)]
+    for i, (sx, sy) in enumerate(special):
+        x[800 + i], y[800 + i] = sx, sy
+    valid[800:800 + len(special)] = True
+    boxes_real = [(-10.0, -5.0, 0.0, 6.0), (0.0, 1.0, 1.0, 9.75), (-12.5, -7.25, -9.0, 0.0)]
+    boxes_real = boxes_real[:real]
+    padded = F.pad_boxes(boxes_real, dtype=np.float32)
+    assert padded.shape[0] > real  # at least one pad
+    ref = {}
+    for mode in ("pallas", "xla"):
+        fns = ref_agg.make_sharded_density_dual(default_mesh(), width, height, mode)
+        if has_time:
+            ref[mode] = fns[0](x, y, bins, offs, valid, padded, windows, env)
+        else:
+            ref[mode] = fns[1](x, y, valid, padded, env)
+    t = {k: torch.from_numpy(v) for k, v in dict(x=x, y=y, bins=bins, offs=offs,
+                                                  valid=valid, env=env).items()}
+    tw = torch.from_numpy(windows) if has_time else None
+    outs = []
+    for boxes in (padded, padded[:real]):
+        outs.append(agg.density_dual(
+            t["x"], t["y"], t["bins"] if has_time else None, t["offs"] if has_time else None,
+            t["valid"], torch.from_numpy(np.ascontiguousarray(boxes)), tw, t["env"],
+            width, height, agg.DENSITY_BAND_CAP))
+    (pgrid, pidx, pcnt), (grid, idx, cnt) = outs
+    assert torch.equal(grid, pgrid) and int(grid.sum()) > 0
+    assert torch.equal(idx, pidx) and int(cnt[0]) == int(pcnt[0]) > 0
+    for rgrid, ridx, rcnt in ref.values():
+        assert np.array_equal(grid.numpy(), np.asarray(rgrid).astype(np.int64))
+        ridx = np.asarray(ridx)
+        assert int(cnt[0]) == int(np.asarray(rcnt).sum())
+        assert set(idx.numpy()[: int(cnt[0])].tolist()) == set(ridx[ridx >= 0].tolist())
+
+
 def test_density_dual_band_overflow_keeps_true_count():
     width, height = 64, 32
     x, y, bins, offs, valid, boxes, windows, env = _dual_inputs(width, height, 3, True)
