@@ -26,7 +26,7 @@ against its plain PyTorch edition:
 Run from the repository root with one CUDA device:
 
     python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--seed S] [--out DIR]
-                          [--ab DIR]
+                          [--ab DIR [DIR ...]]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
@@ -45,9 +45,9 @@ Phases (any failure raises and the script exits non-zero):
      edition and its bound: ``ms`` is the kernel's own device time per
      launch, read by name from a torch.profiler window over 50 calls,
      ``call_ms`` the CUDA-event time of 50 back-to-back calls over 50 (the
-     wrapper's cost); with ``--ab DIR``, each kernel whose source has
-     another design in DIR (same C interface) is also timed from it, in
-     turns with its own;
+     wrapper's cost); with ``--ab DIR [DIR ...]``, each kernel whose
+     source has another design in a DIR (same C interface) is also timed
+     from it, in turns with its own;
   4. each main path with the launch counts reset just before and read just
      after: config #1 (one sync query, then 20 jittered queries through
      query_many, a bbox-only stream (z2 exact), the residual streams) and
@@ -56,7 +56,10 @@ Phases (any failure raises and the script exits non-zero):
      checked for fid-set parity; the density streams (f)-(i) (each query
      alone through store.query, then the stream through query_many), every
      grid equal to the oracle and every query on its stream's route (each
-     density stream is a path of its own);
+     density stream is a path of its own); then, outside the counted
+     paths, a small z3 table with null dates: a heatmap whose DURING
+     window holds the epoch, where the nulls are stored, must leave them
+     out (its grid sums to the row query's count and equals its oracle);
   5. every kernel must have launched during its path's run, at every
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
@@ -623,15 +626,74 @@ def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
 # -- phases -----------------------------------------------------------------
 
 
+# rows of one warp chunk of csrc/exact_bitmap.cu (kR = 8 words of 32 rows)
+EXACT_CHUNK_ROWS = 256
+
+
+def envelope_skip_share(xk, yk, tk, boxes, wins) -> float:
+    """Share of (chunk, query) pairs whose chunk envelope (the int64 min and
+    max of each key over EXACT_CHUNK_ROWS consecutive rows, invalid rows
+    included) misses the query's box or window: the pairs the chunk reject
+    of ``exact_bitmap`` skips where it runs."""
+    cols = [(xk, boxes[:, 0], boxes[:, 1]), (yk, boxes[:, 2], boxes[:, 3])]
+    if wins is not None:
+        cols.append((tk, wins[:, 0], wins[:, 1]))
+    miss = None
+    for col, lo, hi in cols:
+        chunks = col.view(-1, EXACT_CHUNK_ROWS)
+        m = (chunks.amax(1)[None, :] < lo[:, None]) | (chunks.amin(1)[None, :] > hi[:, None])
+        miss = m if miss is None else miss | m
+    return float(miss.float().mean())
+
+
+def exact_bitmap_caller_header(xk, yk, tk, valid, boxes, wins):
+    """The ``exact_bitmap`` library called as a design whose launcher left
+    the header to its caller was: the header preset to (0, n, -1), the
+    empty rule applied after the launch. A launcher that initialises and
+    decodes the header itself overwrites the preset, so any design runs
+    through this (for ``--ab``)."""
+    from geomesa_tpu_torch.ops import kernels
+
+    n, q = xk.shape[0], boxes.shape[0]
+    has_time = wins is not None
+    bits = torch.empty((q, n // 8), dtype=torch.uint8, device=xk.device)
+    buf = torch.empty(3 * q + 1, dtype=torch.int32, device=xk.device)
+    hdr = buf[:3 * q].view(q, 3)
+    hdr[:, 0] = 0
+    hdr[:, 1] = n
+    hdr[:, 2] = -1
+    err = kernels._lib("exact_bitmap").exact_bitmap(
+        int(has_time), xk.data_ptr(), yk.data_ptr(), tk.data_ptr() if has_time else None,
+        valid.data_ptr(), boxes.data_ptr(), wins.data_ptr() if has_time else None, q,
+        bits.data_ptr(), buf.data_ptr(), n, kernels._stream(xk.device))
+    if err:
+        raise RuntimeError(f"exact_bitmap launch failed: CUDA error {err}")
+    empty = hdr[:, 0] == 0
+    hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
+    hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
+    return bits, hdr
+
+
 def exact_case(name, seg, boxes, wins, path):
-    """One ``exact_bitmap`` shape: q = the descriptors given. Operations by
-    ``point_cases``'s rule: 6 int64 compares plus 2 (14) per row and query
-    with the window, 4 plus 2 (10) without."""
+    """One ``exact_bitmap`` shape: q = the descriptors given.
+
+    Bound: a floor for any exact implementation on this run's data. Bytes:
+    the key columns and valid read once, the bits written once. Operations
+    by ``point_cases``'s rule, counted from the plain edition's bits (not
+    from the kernel's path): every 32-row word of every query needs its
+    ballot and its store (2 per row and query); only a word that holds a
+    hit of the query needs the compare chain, 6 int64 compares (12) per
+    row with the window, 4 (8) without. A word with no hit can be decided
+    without it (a chunk reject does exactly that), so counting the chain
+    for every row and query, as the first count did, was no floor."""
     from geomesa_tpu_torch.ops import kernels
 
     n, q = seg.n_padded, boxes.shape[0]
     xk, yk, tk, valid = seg._exact_cols(wins is not None)
     key = 8 * (3 if wins is not None else 2)
+    bits = kernels.exact_bitmap_plain(xk, yk, tk, valid, boxes, wins)[0]
+    hit_words = int((bits.view(q, n // 32, 4) != 0).any(-1).sum())
+    skip = envelope_skip_share(xk, yk, tk, boxes, wins)
     return dict(
         name=name,
         path=path,
@@ -641,9 +703,12 @@ def exact_case(name, seg, boxes, wins, path):
         source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
         kernel=lambda: kernels.exact_bitmap(xk, yk, tk, valid, boxes, wins),
         plain=lambda: kernels.exact_bitmap_plain(xk, yk, tk, valid, boxes, wins),
+        ab_kernel=lambda: exact_bitmap_caller_header(xk, yk, tk, valid, boxes, wins),
         bytes=n * (key + 1) + q * n // 8 + q * (2 * key + 12),
-        ops=q * n * (2 * (6 if wins is not None else 4) + 2),
-        shape=f"rows={n} q={q}" + (" time" if wins is not None else ""),
+        ops=q * n * 2 + 32 * hit_words * 2 * (6 if wins is not None else 4),
+        extra={"hit_words": hit_words, "envelope_skip_share": skip},
+        shape=f"rows={n} q={q} hit_words={hit_words} envelope_skip={skip:.4f}"
+              + (" time" if wins is not None else ""),
     )
 
 
@@ -937,9 +1002,9 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
     the kernels-line entries (their launch counts are filled in from the
     main path's run). The bound is the larger of the bytes over HBM
     bandwidth and the counted instructions over the card's rate for their
-    type. ``ab`` maps a kernel source's name to another source with the
-    same C interface: that kernel is then also timed from it, in turns
-    with its own (own, other, other, own), under ``ab_ms``."""
+    type. ``ab`` maps a kernel source's name to other sources with the
+    same C interface: that kernel is then also timed from each, in turns
+    with its own (own, other, other, own), under ``ab_ms`` by source."""
     from geomesa_tpu_torch.ops import kernels
 
     out = []
@@ -980,11 +1045,12 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             "shape_tag": c["tag"],
             "shape": c["shape"],
             "path": c["path"],
+            **c.get("extra", {}),
             **{k: event_ms(fn, reps=50) for k, fn in c.get("aside", {}).items()},
         })
-        src = (ab or {}).get(c["source"].rsplit("/", 1)[1][:-3])
-        if src:
-            out[-1]["ab_ms"] = ab_times(c, src)
+        srcs = (ab or {}).get(c["source"].rsplit("/", 1)[1][:-3])
+        if srcs:
+            out[-1]["ab_ms"] = {src: ab_times(c, src) for src in srcs}
         log(f"{c['name']} {c['tag']}: {ms:.4f} ms device ({ms_source}), {call_ms:.4f} ms "
             f"per call (plain {plain_ms:.4f} ms, bound {out[-1]['bound_ms']:.4f} ms) "
             f"{c['shape']}")
@@ -994,7 +1060,8 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
 def ab_times(case, src):
     """Device ms per launch of ``case``'s kernel built from its own source
     and from ``src``, in turns (own, other, other, own), each checked
-    against the plain edition first."""
+    against the plain edition first; the other design is called through
+    ``case["ab_kernel"]`` where the case has one."""
     from geomesa_tpu_torch.ops import kernels
 
     lib = case["source"].rsplit("/", 1)[1][:-3]
@@ -1004,15 +1071,16 @@ def ab_times(case, src):
         if which == "own":
             times[which].append(kernel_ms(case["kernel"], case["symbol"])[0])
             continue
+        other = case.get("ab_kernel", case["kernel"])
         with kernels.using_source(lib, src):
-            got = case["kernel"]()
+            got = other()
             torch.cuda.synchronize()
             ok = case["check"](got, want)[0] if "check" in case else \
                 all(torch.equal(g, w) for g, w in zip(got, want))
             if not ok:
                 raise AssertionError(f"{case['name']} from {src} differs from its plain edition")
-            times[which].append(kernel_ms(case["kernel"], case["symbol"])[0])
-    log(f"{case['name']} {case['tag']} A/B: own {times['own']} other {times['other']} ms")
+            times[which].append(kernel_ms(other, case["symbol"])[0])
+    log(f"{case['name']} {case['tag']} A/B vs {src}: own {times['own']} other {times['other']} ms")
     return times
 
 
@@ -1075,9 +1143,9 @@ def main() -> int:
     ap.add_argument("--dens", type=int, default=DENS_ROWS, help="config #6 points")
     ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
-    ap.add_argument("--ab", default=None, metavar="DIR",
+    ap.add_argument("--ab", nargs="+", default=[], metavar="DIR",
                     help="time each kernel whose source DIR/<name>.cu holds another design "
-                         "(same C interface) in turns with its own")
+                         "(same C interface) in turns with its own, for each DIR")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1101,9 +1169,10 @@ def main() -> int:
             if "registers" in line or "Compiling entry" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     ab = {}
-    if args.ab:
-        ab = {f[:-3]: os.path.join(args.ab, f) for f in sorted(os.listdir(args.ab))
-              if f.endswith(".cu") and f[:-3] in kernels.SOURCES}
+    for d in args.ab:
+        for f in sorted(os.listdir(d)):
+            if f.endswith(".cu") and f[:-3] in kernels.SOURCES:
+                ab.setdefault(f[:-3], []).append(os.path.join(d, f))
 
     # -- phase 2: data, ingest, device columns --------------------------------
     store = TorchDataStore()  # the default executor: TorchScanExecutor on cuda:0
@@ -1129,6 +1198,7 @@ def main() -> int:
     metrics3 = config3_path(store, streams3, oracle3)
     launched["config3"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
     metrics6 = density_path(store, streams6, oracle6, launched)
+    nulls = null_dates_check(store)
     log(f"main-path launches: { {p: s for p, (_n, s) in launched.items()} }")
 
     # -- phase 5: each path went through its kernels, at every timed shape ----
@@ -1162,7 +1232,7 @@ def main() -> int:
         "breakdown": split1,
         "ranking_ms": ranking,
         "config3": {**setup3, "streams": metrics3, "breakdown_xz2_bbox": split3},
-        "density": {**setup6, "streams": metrics6},
+        "density": {**setup6, "streams": metrics6, "null_dates": nulls},
         "script_s": time.perf_counter() - t_start,
     }
     os.makedirs(args.out, exist_ok=True)
@@ -1539,6 +1609,47 @@ def density_path(store, streams, oracle, launched):
         log(f"{name}: {sync_s * 1e3:.3f} ms/query sync, {pipe_s * 1e3:.3f} ms pipelined, "
             f"routes {routes}")
     torch.cuda.synchronize()
+    return out
+
+
+NULL_ROWS, NULL_DATES = 2000, 100
+NULL_BOX = (-10.0, -10.0, 10.0, 10.0)
+NULL_DURING = "dtg DURING 1969-12-31T12:00:00Z/1970-01-01T12:00:00Z"
+
+
+def null_dates_check(store) -> dict:
+    """A z3 density grid over a table with null dates (stored as 0, the
+    epoch, with a ``dtg__null`` mask): a DURING window over the epoch must
+    not count them. The grid must take the device route, sum to the row
+    query's count and equal a numpy oracle that drops the null dates."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    rng = np.random.default_rng(31)
+    n = NULL_ROWS
+    x, y = rng.uniform(-20, 20, n), rng.uniform(-20, 20, n)
+    t = rng.integers(0, 2 * 86_400_000, n)
+    nulls = np.zeros(n, dtype=bool)
+    nulls[rng.choice(n, NULL_DATES, replace=False)] = True
+    t[nulls] = 0
+    ft = parse_spec("nulls", "dtg:Date,*geom:Point:srid=4326")
+    store.create_schema(ft)
+    store._insert_columns(ft, {"__fid__": np.char.add("f", np.arange(n).astype(str)),
+                               "dtg": t, "dtg__null": nulls, "geom__x": x, "geom__y": y})
+    cql = f"{bbox_cql(NULL_BOX)} AND {NULL_DURING}"
+    m = in_box(x, y, NULL_BOX) & ~nulls & (t < 43_200_000)
+    w = (NULL_BOX[2] - NULL_BOX[0]) / 16
+    col = np.clip(np.floor((x[m] - NULL_BOX[0]) / w).astype(np.int64), 0, 15)
+    row = np.clip(np.floor((y[m] - NULL_BOX[1]) / w).astype(np.int64), 0, 15)
+    want = np.bincount(row * 16 + col, minlength=256).reshape(16, 16).astype(np.float64)
+    # the route is read off the plan before the row query, which shares it
+    res = store.query("nulls", Query.cql(cql, hints=density_hint(NULL_BOX, 16, 16)))
+    expect_grid(res, want, "device-density", "null-date heatmap")
+    rows = store.query("nulls", Query.cql(cql))
+    expect_fids(rows, np.flatnonzero(m), "null-date row query")
+    out = {"rows": int(m.sum()), "grid_sum": float(res.aggregate["density"].sum()),
+           "null_dates_in_box": int((in_box(x, y, NULL_BOX) & nulls).sum())}
+    log(f"null-date heatmap: {out}")
     return out
 
 

@@ -70,6 +70,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr float kEps = 1.9073486328125e-06f;  // 16 * 2^-23
@@ -336,20 +338,10 @@ int launch(const void* x, const void* y, const void* bins, const void* offs,
   // the boxes, margins, reject bounds and windows (the wrapper keeps them
   // within 48 KB)
   const size_t smem = sizeof(float) * (10 * (size_t)k + 3 * (size_t)w);
-  // per instantiation: the resident blocks per SM of the last size asked
-  // for (the grid is sized to fill the card once)
-  static size_t last_smem = (size_t)-1;
-  static int sms = 0, per_sm = 0;
-  if (smem != last_smem) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    last_smem = smem;
-  }
-  long long blocks = (long long)sms * per_sm;
+  // the grid fills the device once
+  long long blocks = 0;
+  const cudaError_t err = launch_grid::resident_blocks(kern, kThreads, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
   const long long rows_per_block = (long long)kThreads * kV;
   const long long need = (n + rows_per_block - 1) / rows_per_block;
   if (blocks > need) blocks = need;
@@ -368,8 +360,8 @@ int launch(const void* x, const void* y, const void* bins, const void* offs,
 // int32[n] (ignored unless has_time); valid bool[n]; boxes float32[k, 4];
 // windows int32[w, 3]; env float32[4]; grid int32[height * width] zeroed;
 // band_idx int32[band_cap]; band_count int32[1] zeroed. rw, rh = f32(1 /
-// width), f32(1 / height). n is a multiple of 8; x, y, bins and offs are
-// 16-byte aligned, valid 8-byte aligned. Launches on `stream`; returns a
+// width), f32(1 / height). n is a multiple of 4 (kV); x, y, bins and offs
+// are 16-byte aligned, valid 4-byte aligned. Launches on `stream`; returns a
 // CUDA error code.
 extern "C" int density_grid(int has_time, const void* x,
                             const void* y, const void* bins, const void* offs,

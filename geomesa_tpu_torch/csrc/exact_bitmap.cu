@@ -1,5 +1,5 @@
-// exact_bitmap<HAS_TIME>: q exact bbox(+window) predicates -> packed bitmaps
-// and (cnt, lo, hi) headers in ONE sweep of the key columns.
+// exact_bitmap<HAS_TIME, REJECT>: q exact bbox(+window) predicates ->
+// packed bitmaps and (cnt, lo, hi) headers in ONE sweep of the key columns.
 //
 // Replaces the batched exact predicate of the reference's
 // geomesa_tpu/parallel/executor.py _exact_bitmap_batch_fn (an XLA lax.scan
@@ -14,106 +14,296 @@
 // where `valid` is the segment's temporal-valid column when HAS_TIME.
 // Outputs: bits u8[q, n/8], MSB-first like jnp.packbits (byte j = rows
 // 8j..8j+7, row 8j in bit 7); hdr int32[q, 3] = (count, first row, last
-// row), accumulated with integer atomics (exact in any order) into a
-// header the caller initialises to (0, n, -1).
+// row), with the reference's empty rule: no hit gives (0, 0, n - 1).
 //
-// Bound on Hopper: instruction issue from q of about 9 up, HBM below. The
-// sweep reads 25 B per row (three int64 keys and one bool) and writes q/8 B
-// per row; each row and query costs at least 14 integer instructions (two
-// per int64 compare, plus the ballot and the store per 32-row word), 10
-// without the window.
-// Design: each thread loads its row once and loops over the q
-// descriptors, which sit in shared memory and are read as broadcasts.
-// __ballot_sync forms each 32-row word of a query's mask; __brev +
-// __byte_perm put it into packbits byte and bit order, so one lane stores
-// 4 bytes per warp and query. __popc and the first and last set lanes give
-// warp partials, which each warp folds into its own shared-memory slot per
-// query (no atomics in the loop); at the end the block reduces its warps'
-// slots and issues one atomic per header field and query. The grid is
-// bounded and loops over rows, so the number of global atomics stays
-// small. Row counts are a multiple of 32.
+// Bound on Hopper: HBM at every q the paths launch. The sweep reads 25 B
+// per row (three int64 keys and one bool; 17 B without the window) and
+// writes q/8 B per row. No exact implementation can skip a word's store,
+// nor the compare chain of a 32-row word that holds a hit; chip_smoke.py
+// exact_case counts that much work from the plain edition's bits.
+//
+// The first design (one row a thread per grid-stride step, one 8-byte load
+// per column and thread in flight; per row and query the descriptor's 4-6
+// int64 fields read again from shared memory; lane 0 alone storing the
+// word and updating the warp's header slot while 31 lanes waited; every
+// row tested against every query; a grid of 132 x 8 blocks) took 0.7124
+// ms at z3 q = 20 against a 0.3348 ms operations bound, and 0.2748 ms at
+// z2 q = 8 against a 0.1075 ms bytes bound, on an H100 80GB HBM3 at 700 W.
+// This design:
+//   * each warp takes a chunk of kR = 8 consecutive 32-row words; lane l
+//     holds rows 32 j + l of it (j < kR), so each ballot is one packbits
+//     word and a lane has kR rows of loads in flight per column (8 words
+//     ran z3 q = 20 11% faster than 4, the other shapes within 1%);
+//   * each descriptor is read from shared memory into registers once per
+//     chunk (once more where it survives the reject below), as 16-byte
+//     broadcasts;
+//   * lanes 0..kR-1 store the chunk's kR words in one store instruction;
+//     the warp's header slot in shared memory is touched only when the
+//     chunk hits; at the end the block folds its warps' slots and issues
+//     one atomic per header field and query;
+//   * from kRejectMinQ queries up, the chunk's envelope (the exact int64
+//     min and max of xk, yk and tk over its rows, invalid rows included)
+//     is formed once per chunk with warp reductions; a query whose box or
+//     window the envelope misses cannot hit any row of the chunk (the same
+//     inclusive compares, so NaN keys, +-0.0, pads and invalid rows keep
+//     their answer), and stores zero words without the row compares. The
+//     z3 and z2 segments hold rows in z-key order, so a chunk covers a
+//     tiny x/y/t envelope and most (chunk, query) pairs are rejected. The
+//     lanes test 32 queries at once (lane l takes query g + l and stores
+//     its zero words), and the warp scans only the survivors of a ballot,
+//     so a rejected pair costs a lane's share of one pass, not a warp
+//     step of its own;
+//   * the launcher zeroes the header (one memset: count, n - first and
+//     last + 1 accumulate with atomicAdd / atomicMax from 0) and the last
+//     block to finish, found by a ticket, decodes it in place with the
+//     empty rule, so the wrapper adds no launch of its own;
+//   * the grid is the blocks the device holds at once, from its own SM
+//     count and the instantiation's occupancy (launch_grid.cuh).
+// Its device times against the first design's, in turns on the same inputs
+// (chip_smoke.py --ab), are in PERF.md. Row counts are a multiple of 32.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
-template <bool HAS_TIME>
-__global__ void exact_bitmap_kernel(const long long* __restrict__ xk,
-                                    const long long* __restrict__ yk,
-                                    const long long* __restrict__ tk,
-                                    const unsigned char* __restrict__ valid,
-                                    const long long* __restrict__ boxes,
-                                    const long long* __restrict__ wins, int q,
-                                    unsigned int* __restrict__ bits,
-                                    int* __restrict__ hdr, long long n) {
-  extern __shared__ long long smem[];
-  long long* sbox = smem;            // [q, 4]
-  long long* swin = smem + 4 * q;    // [q, 2]
-  int* acc = (int*)(smem + 6 * q);   // [warps, q, 3]
+constexpr int kR = 8;  // 32-row words per warp and chunk (rows per lane)
+static_assert(kR % 4 == 0, "a chunk's words are stored as 16-byte vectors");
+constexpr int kThreads = 256;
+constexpr int kDesc = 6;  // (xmin, xmax, ymin, ymax, t_lo, t_hi) per query
+constexpr unsigned kFull = 0xffffffffu;
+// The chunk reject runs from this many queries up: at q = 1 its envelope
+// (six warp reductions a chunk) saved nothing (z3 1% slower, z2 equal).
+constexpr int kRejectMinQ = 2;
+
+__device__ __forceinline__ unsigned int packbits_order(unsigned int ballot) {
+  // lane j -> bit 31-j, then reverse the byte order: byte 0 of the stored
+  // word holds lanes 0..7 with lane 0 in its bit 7
+  return __byte_perm(__brev(ballot), 0, 0x0123);
+}
+
+__device__ __forceinline__ long long join64(int hi, unsigned lo) {
+  return (long long)(((unsigned long long)(unsigned)hi << 32) | lo);
+}
+
+// Exact int64 min / max over the warp: the signed high words first, then
+// the unsigned low words of the lanes that hold the extreme high word.
+__device__ __forceinline__ long long warp_min(long long v) {
+  const int hi = (int)(v >> 32);
+  const int mh = __reduce_min_sync(kFull, hi);
+  return join64(mh, __reduce_min_sync(kFull, hi == mh ? (unsigned)v : 0xffffffffu));
+}
+
+__device__ __forceinline__ long long warp_max(long long v) {
+  const int hi = (int)(v >> 32);
+  const int mh = __reduce_max_sync(kFull, hi);
+  return join64(mh, __reduce_max_sync(kFull, hi == mh ? (unsigned)v : 0u));
+}
+
+template <bool HAS_TIME, bool REJECT>
+__global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
+    const long long* __restrict__ xk, const long long* __restrict__ yk,
+    const long long* __restrict__ tk, const unsigned char* __restrict__ valid,
+    const long long* __restrict__ boxes, const long long* __restrict__ wins, int q,
+    unsigned int* __restrict__ bits, int* __restrict__ hdr, long long n) {
+  extern __shared__ __align__(16) long long smem[];
+  long long* sdesc = smem;              // [q, 6]
+  int* acc = (int*)(smem + kDesc * q);  // [warps, q, 3]: cnt, n - first, last + 1
+  __shared__ int s_last;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  for (int i = threadIdx.x; i < 4 * q; i += blockDim.x) sbox[i] = boxes[i];
-  if (HAS_TIME) {
-    for (int i = threadIdx.x; i < 2 * q; i += blockDim.x) swin[i] = wins[i];
+  for (int i = threadIdx.x; i < q; i += blockDim.x) {
+    long long* d = sdesc + kDesc * i;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) d[c] = boxes[4 * i + c];
+    d[4] = HAS_TIME ? wins[2 * i] : 0;
+    d[5] = HAS_TIME ? wins[2 * i + 1] : 0;
   }
-  for (int i = threadIdx.x; i < nwarps * q; i += blockDim.x) {
-    acc[3 * i] = 0;
-    acc[3 * i + 1] = INT_MAX;
-    acc[3 * i + 2] = -1;
-  }
+  for (int i = threadIdx.x; i < 3 * nwarps * q; i += blockDim.x) acc[i] = 0;
   __syncthreads();
+  int* wacc = acc + 3 * warp * q;
+  const int rows = (int)n;
 
   const long long nwords = n >> 5;
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  // n % 32 == 0 and blockDim % 32 == 0: whole warps enter or leave together
-  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       row < n; row += stride) {
-    const long long x = xk[row];
-    const long long y = yk[row];
-    const long long t = HAS_TIME ? tk[row] : 0;
-    const bool v = valid[row] != 0;
-    const long long word = row >> 5;
-    const int base = (int)(row - lane);
-    int* wacc = acc + 3 * warp * q;
-    for (int i = 0; i < q; ++i) {
-      const long long* b = sbox + 4 * i;
-      bool m = v & (x >= b[0]) & (x <= b[1]) & (y >= b[2]) & (y <= b[3]);
-      if (HAS_TIME) {
-        const long long* tw = swin + 2 * i;
-        m = m & (t >= tw[0]) & (t <= tw[1]);
-      }
-      const unsigned int ballot = __ballot_sync(0xffffffffu, m);
-      if (lane == 0) {
-        // lane j -> bit 31-j, then reverse the byte order: byte 0 of the
-        // stored word holds lanes 0..7 with lane 0 in its bit 7
-        bits[(long long)i * nwords + word] =
-            __byte_perm(__brev(ballot), 0, 0x0123);
-        if (ballot) {
-          int* a = wacc + 3 * i;
-          a[0] += __popc(ballot);
-          a[1] = min(a[1], base + __ffs(ballot) - 1);
-          a[2] = max(a[2], base + 31 - __clz(ballot));
+  const long long nchunks = (nwords + kR - 1) / kR;
+  // every chunk is whole and every query's words start 16-byte aligned:
+  // a rejected chunk's kR zero words go out as 16-byte stores
+  const bool vec_store = (nwords % kR) == 0;
+  const long long gwarps = ((long long)gridDim.x * blockDim.x) >> 5;
+  // one warp per chunk: the loop, the reject and every ballot are warp-uniform
+  for (long long c = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5; c < nchunks;
+       c += gwarps) {
+    const long long word0 = c * kR;
+    long long x[kR], y[kR], t[kR];
+    bool v[kR];
+#pragma unroll
+    for (int j = 0; j < kR; ++j) {
+      // a word past the end repeats word 0's keys (the envelope stays the
+      // chunk's) and is invalid; it is never stored
+      const bool in = word0 + j < nwords;
+      const long long row = (word0 + (in ? j : 0)) * 32 + lane;
+      x[j] = xk[row];
+      y[j] = yk[row];
+      t[j] = HAS_TIME ? tk[row] : 0;
+      v[j] = in && valid[row] != 0;
+    }
+    long long x0 = x[0], x1 = x[0], y0 = y[0], y1 = y[0], t0 = t[0], t1 = t[0];
+    if (REJECT) {
+#pragma unroll
+      for (int j = 1; j < kR; ++j) {
+        x0 = min(x0, x[j]);
+        x1 = max(x1, x[j]);
+        y0 = min(y0, y[j]);
+        y1 = max(y1, y[j]);
+        if (HAS_TIME) {
+          t0 = min(t0, t[j]);
+          t1 = max(t1, t[j]);
         }
+      }
+      x0 = warp_min(x0);
+      x1 = warp_max(x1);
+      y0 = warp_min(y0);
+      y1 = warp_max(y1);
+      if (HAS_TIME) {
+        t0 = warp_min(t0);
+        t1 = warp_max(t1);
+      }
+    }
+    const bool store_lane = lane < kR && word0 + lane < nwords;
+    // query i against the chunk's rows: kR ballots, the words stored by
+    // lanes 0..kR-1, the warp's header slot when a row hits
+    auto scan = [&](int i) {
+      // (xmin, xmax), (ymin, ymax), (t_lo, t_hi)
+      const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
+      const longlong2 bx = d[0], by = d[1];
+      const longlong2 tw = HAS_TIME ? d[2] : make_longlong2(0, 0);
+      unsigned hb[kR];
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        bool m = v[j] & (x[j] >= bx.x) & (x[j] <= bx.y) & (y[j] >= by.x) & (y[j] <= by.y);
+        if (HAS_TIME) m = m & (t[j] >= tw.x) & (t[j] <= tw.y);
+        hb[j] = __ballot_sync(kFull, m);
+      }
+      unsigned word = 0, any = 0;
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        if (lane == j) word = hb[j];
+        any |= hb[j];
+      }
+      if (store_lane) bits[(long long)i * nwords + word0 + lane] = packbits_order(word);
+      if (any && lane == 0) {
+        int cnt = 0, first = INT_MAX, last = -1;
+#pragma unroll
+        for (int j = 0; j < kR; ++j) {
+          if (hb[j]) {
+            const int base = (int)((word0 + j) * 32);
+            cnt += __popc(hb[j]);
+            first = min(first, base + __ffs(hb[j]) - 1);
+            last = max(last, base + 31 - __clz(hb[j]));
+          }
+        }
+        int* a = wacc + 3 * i;
+        a[0] += cnt;
+        a[1] = max(a[1], rows - first);
+        a[2] = max(a[2], last + 1);
+      }
+    };
+    if (!REJECT) {
+      for (int i = 0; i < q; ++i) scan(i);
+      continue;
+    }
+    // the reject, 32 queries at a time: lane l tests query g + l against
+    // the envelope and stores the zero words of a query it rejects; the
+    // warp then scans only the queries that survive
+    for (int g = 0; g < q; g += 32) {
+      const int i = g + lane;
+      bool live = false;
+      if (i < q) {
+        const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
+        const longlong2 bx = d[0], by = d[1];
+        bool miss = (x1 < bx.x) | (x0 > bx.y) | (y1 < by.x) | (y0 > by.y);
+        if (HAS_TIME) {
+          const longlong2 tw = d[2];
+          miss = miss | (t1 < tw.x) | (t0 > tw.y);
+        }
+        live = !miss;
+        if (miss) {
+          unsigned int* out = bits + (long long)i * nwords + word0;
+          if (vec_store) {
+#pragma unroll
+            for (int j = 0; j < kR; j += 4) {
+              *reinterpret_cast<uint4*>(out + j) = make_uint4(0u, 0u, 0u, 0u);
+            }
+          } else {
+            for (int j = 0; j < kR && word0 + j < nwords; ++j) out[j] = 0u;
+          }
+        }
+      }
+      for (unsigned live_q = __ballot_sync(kFull, live); live_q; live_q &= live_q - 1) {
+        scan(g + __ffs(live_q) - 1);
       }
     }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < q; i += blockDim.x) {
-    int cnt = 0, lo = INT_MAX, hi = -1;
+    int cnt = 0, lo = 0, hi = 0;
     for (int w = 0; w < nwarps; ++w) {
       const int* a = acc + 3 * (w * q + i);
       cnt += a[0];
-      lo = min(lo, a[1]);
+      lo = max(lo, a[1]);
       hi = max(hi, a[2]);
     }
     if (cnt) {
       atomicAdd(hdr + 3 * i, cnt);
-      atomicMin(hdr + 3 * i + 1, lo);
+      atomicMax(hdr + 3 * i + 1, lo);
       atomicMax(hdr + 3 * i + 2, hi);
     }
   }
+  // the last block to finish decodes the header: (cnt, first, last), and
+  // (0, 0, n - 1) for a query with no hit
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    s_last = atomicAdd((unsigned int*)(hdr + 3 * q), 1u) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  for (int i = threadIdx.x; i < q; i += blockDim.x) {
+    const int cnt = atomicOr(hdr + 3 * i, 0);
+    const int lo = atomicOr(hdr + 3 * i + 1, 0);
+    const int hi = atomicOr(hdr + 3 * i + 2, 0);
+    hdr[3 * i + 1] = cnt ? rows - lo : 0;
+    hdr[3 * i + 2] = cnt ? hi - 1 : rows - 1;
+  }
+}
+
+template <bool HAS_TIME, bool REJECT>
+int launch(const void* xk, const void* yk, const void* tk, const void* valid,
+           const void* boxes, const void* wins, int q, void* bits, void* hdr,
+           long long n, cudaStream_t s) {
+  auto kern = exact_bitmap_kernel<HAS_TIME, REJECT>;
+  const size_t smem = sizeof(long long) * kDesc * (size_t)q +
+                      sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
+  cudaError_t err = cudaMemsetAsync(hdr, 0, sizeof(int) * (3 * (size_t)q + 1), s);
+  if (err != cudaSuccess) return (int)err;
+  // the grid fills the device once (at least one block: it decodes the
+  // header even when there are no rows)
+  long long blocks = 0;
+  err = launch_grid::resident_blocks(kern, kThreads, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows_per_block = (long long)kThreads * kR;
+  const long long need = (n + rows_per_block - 1) / rows_per_block;
+  if (blocks > need) blocks = need;
+  if (blocks < 1) blocks = 1;
+  kern<<<(unsigned)blocks, kThreads, smem, s>>>(
+      (const long long*)xk, (const long long*)yk, (const long long*)tk,
+      (const unsigned char*)valid, (const long long*)boxes, (const long long*)wins, q,
+      (unsigned int*)bits, (int*)hdr, n);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -121,29 +311,21 @@ __global__ void exact_bitmap_kernel(const long long* __restrict__ xk,
 // C interface for ctypes. Device pointers: xk, yk, tk int64[n] (tk and wins
 // ignored when has_time is 0), valid bool[n], boxes int64[q, 4] as (xmin,
 // xmax, ymin, ymax) keys, wins int64[q, 2]; outputs bits u8[q, n/8] and hdr
-// int32[q, 3] (pre-set to (0, n, -1)). n is a multiple of 32 below 2^31.
-// Launches on `stream` and returns cudaGetLastError().
+// int32[3 q + 1], whose first 3 q words become the [q, 3] header (the last
+// is the launch's block ticket); the launcher initialises it. bits is
+// 16-byte aligned; n is a multiple of 32 below 2^31. Launches on `stream` and returns a CUDA error
+// code.
 extern "C" int exact_bitmap(int has_time, const void* xk, const void* yk,
                             const void* tk, const void* valid,
                             const void* boxes, const void* wins, int q,
                             void* bits, void* hdr, long long n, void* stream) {
-  if (n == 0 || q == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  long long blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 8) blocks = 132 * 8;
-  const size_t smem = sizeof(long long) * 6 * (size_t)q +
-                      sizeof(int) * 3 * (size_t)(threads / 32) * (size_t)q;
+  if (q == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
+  const bool reject = q >= kRejectMinQ;
   if (has_time) {
-    exact_bitmap_kernel<true><<<(unsigned)blocks, threads, smem, s>>>(
-        (const long long*)xk, (const long long*)yk, (const long long*)tk,
-        (const unsigned char*)valid, (const long long*)boxes,
-        (const long long*)wins, q, (unsigned int*)bits, (int*)hdr, n);
-  } else {
-    exact_bitmap_kernel<false><<<(unsigned)blocks, threads, smem, s>>>(
-        (const long long*)xk, (const long long*)yk, nullptr,
-        (const unsigned char*)valid, (const long long*)boxes, nullptr, q,
-        (unsigned int*)bits, (int*)hdr, n);
+    return reject ? launch<true, true>(xk, yk, tk, valid, boxes, wins, q, bits, hdr, n, s)
+                  : launch<true, false>(xk, yk, tk, valid, boxes, wins, q, bits, hdr, n, s);
   }
-  return (int)cudaGetLastError();
+  return reject ? launch<false, true>(xk, yk, nullptr, valid, boxes, nullptr, q, bits, hdr, n, s)
+                : launch<false, false>(xk, yk, nullptr, valid, boxes, nullptr, q, bits, hdr, n, s);
 }

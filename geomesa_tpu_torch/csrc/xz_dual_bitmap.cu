@@ -66,6 +66,8 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 constexpr int kDesc = 8;
@@ -205,20 +207,10 @@ int launch(const void* bxmin, const void* bymin, const void* bxmax, const void* 
   auto kern = xz_dual_bitmap_kernel<HAS_TIME>;
   const size_t smem = sizeof(long long) * kDesc * (size_t)q +
                       sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
-  // per instantiation: the resident blocks per SM of the last size asked
-  // for (the grid is sized to fill the card once)
-  static size_t last_smem = (size_t)-1;
-  static int sms = 0, per_sm = 0;
-  if (smem != last_smem) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads, smem);
-    if (err != cudaSuccess) return (int)err;
-    if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    last_smem = smem;
-  }
-  long long blocks = (long long)sms * per_sm;
+  // the grid fills the device once
+  long long blocks = 0;
+  const cudaError_t err = launch_grid::resident_blocks(kern, kThreads, smem, &blocks);
+  if (err != cudaSuccess) return (int)err;
   const long long rows_per_block = (long long)kThreads * kR;
   const long long need = (n + rows_per_block - 1) / rows_per_block;
   if (blocks > need) blocks = need;

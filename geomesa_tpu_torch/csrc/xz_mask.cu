@@ -26,6 +26,8 @@
 
 #include <cuda_runtime.h>
 
+#include "launch_grid.cuh"
+
 namespace {
 
 template <bool HAS_TIME>
@@ -107,8 +109,12 @@ extern "C" int xz_mask(int has_time, const void* bxmin, const void* bymin,
   const long long n4 = n / 4;
   if (n4 == 0) return (int)cudaSuccess;
   const int threads = 256;
+  // at most 16 blocks per SM of the device (the grid-stride loop takes the rest)
+  int sms = 0;
+  const cudaError_t err = launch_grid::device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
   long long blocks = (n4 + threads - 1) / threads;
-  if (blocks > 132 * 16) blocks = 132 * 16;
+  if (blocks > 16LL * sms) blocks = 16LL * sms;
   const size_t smem =
       sizeof(float) * 4 * (size_t)k + (has_time ? sizeof(int) * 3 * (size_t)w : 0);
   cudaStream_t s = (cudaStream_t)stream;

@@ -21,9 +21,11 @@ answers that):
     around it.
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
-CPU, and for CUDA tensors launches the kernel (counting the launch in
-``LAUNCHES`` by instantiation and in ``LAUNCH_SHAPES`` by instantiation and
-shape) or raises. Kernels build at first use with ``nvcc`` for ``sm_90a``
+CPU, and for CUDA tensors launches the kernel on the current stream of the
+tensors' device, under ``torch.cuda.device`` (the launchers size their
+grids from that device's own SM count, ``csrc/launch_grid.cuh``), counting
+the launch in ``LAUNCHES`` by instantiation and in ``LAUNCH_SHAPES`` by
+instantiation and shape, or raises. Kernels build at first use with ``nvcc`` for ``sm_90a``
 into a plain-C shared library per source, loaded with ``ctypes``; the
 build directory is ``geomesa_tpu_torch/_build``, and ``ptxas_report``
 returns what ``-Xptxas -v`` said of each kernel (registers, spills).
@@ -33,6 +35,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import glob
 import hashlib
 import os
 import subprocess
@@ -121,8 +124,12 @@ def _compile(name: str, src: Optional[str] = None) -> str:
     ``_build/<name>.<hash>.so`` unless present."""
     src = src or os.path.join(CSRC, SOURCES[name])
     flags = _NVCC_FLAGS.get(name, [])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(flags).encode()).hexdigest()[:12]
+    h = hashlib.sha256(" ".join(flags).encode())
+    # the source and every header it may include from csrc
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    digest = h.hexdigest()[:12]
     out = os.path.join(BUILD_DIR, f"{name}.{digest}.so")
     if os.path.exists(out):
         return out
@@ -130,7 +137,8 @@ def _compile(name: str, src: Optional[str] = None) -> str:
     tmp = f"{out}.{os.getpid()}.tmp"
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-        "-O3", *flags, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp, src,
+        "-O3", *flags, "-I", CSRC, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
+        src,
     ]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
@@ -263,15 +271,16 @@ def candidate_mask(xi, yi, valid, boxes, bins=None, offs=None, windows=None) -> 
         raise ValueError("candidate_mask: boxes must be [K, 4] and windows [W, 3]")
     if 4 * (4 * k + 3 * w) > _CAND_SMEM:
         raise ValueError(f"candidate_mask: {k} boxes / {w} windows exceed shared memory")
-    out = torch.empty(n, dtype=torch.bool, device=dev)
     fn = _lib("candidate_mask").candidate_mask
-    err = fn(
-        int(has_time), xi.data_ptr(), yi.data_ptr(),
-        bins.data_ptr() if has_time else None, offs.data_ptr() if has_time else None,
-        valid.data_ptr(), boxes.data_ptr(), k,
-        windows.data_ptr() if has_time else None, w,
-        out.data_ptr(), n, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        err = fn(
+            int(has_time), xi.data_ptr(), yi.data_ptr(),
+            bins.data_ptr() if has_time else None, offs.data_ptr() if has_time else None,
+            valid.data_ptr(), boxes.data_ptr(), k,
+            windows.data_ptr() if has_time else None, w,
+            out.data_ptr(), n, _stream(dev),
+        )
     _raise_on(err, "candidate_mask")
     _count("candidate_mask_z3" if has_time else "candidate_mask_z2", f"K={k} W={w}")
     return out
@@ -331,24 +340,21 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None):
     _check(boxes, "boxes", torch.int64, dev, (q, 4))
     if has_time:
         _check(wins, "wins", torch.int64, dev, (q, 2))
-    bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
-    hdr = torch.empty((q, 3), dtype=torch.int32, device=dev)
-    hdr[:, 0] = 0
-    hdr[:, 1] = n
-    hdr[:, 2] = -1
     fn = _lib("exact_bitmap").exact_bitmap
-    err = fn(
-        int(has_time), xk.data_ptr(), yk.data_ptr(),
-        tk.data_ptr() if has_time else None, valid.data_ptr(), boxes.data_ptr(),
-        wins.data_ptr() if has_time else None, q, bits.data_ptr(), hdr.data_ptr(),
-        n, _stream(dev),
-    )
+    with torch.cuda.device(dev):
+        bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+        # the launcher initialises and decodes the header in place; its
+        # last word is the launch's block ticket
+        hdr = torch.empty(3 * q + 1, dtype=torch.int32, device=dev)
+        err = fn(
+            int(has_time), xk.data_ptr(), yk.data_ptr(),
+            tk.data_ptr() if has_time else None, valid.data_ptr(), boxes.data_ptr(),
+            wins.data_ptr() if has_time else None, q, bits.data_ptr(), hdr.data_ptr(),
+            n, _stream(dev),
+        )
     _raise_on(err, "exact_bitmap")
     _count("exact_bitmap_z3" if has_time else "exact_bitmap_z2", f"q={q}")
-    empty = hdr[:, 0] == 0
-    hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
-    hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
-    return bits, hdr
+    return bits, hdr[:3 * q].view(q, 3)
 
 
 def frame_bitmaps(bits: torch.Tensor, hdr: torch.Tensor, span_cap: int):
@@ -426,13 +432,15 @@ def xz_mask(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
         raise ValueError("xz_mask: boxes must be [K, 4] and windows [W, 3]")
     if 4 * (4 * k + 3 * w) > _CAND_SMEM:
         raise ValueError(f"xz_mask: {k} boxes / {w} windows exceed shared memory")
-    out = torch.empty(n, dtype=torch.bool, device=dev)
-    err = _lib("xz_mask").xz_mask(
-        int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
-        bymax.data_ptr(), bins.data_ptr() if has_time else None,
-        offs.data_ptr() if has_time else None, valid.data_ptr(), boxes.data_ptr(), k,
-        windows.data_ptr() if has_time else None, w, out.data_ptr(), n, _stream(dev),
-    )
+    fn = _lib("xz_mask").xz_mask
+    with torch.cuda.device(dev):
+        out = torch.empty(n, dtype=torch.bool, device=dev)
+        err = fn(
+            int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
+            bymax.data_ptr(), bins.data_ptr() if has_time else None,
+            offs.data_ptr() if has_time else None, valid.data_ptr(), boxes.data_ptr(), k,
+            windows.data_ptr() if has_time else None, w, out.data_ptr(), n, _stream(dev),
+        )
     _raise_on(err, "xz_mask")
     _count("xz_mask_xz3" if has_time else "xz_mask_xz2", f"K={k} W={w}")
     return out
@@ -485,18 +493,20 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
     _check(isrect, "isrect", torch.bool, dev, (n,))
     _check(valid, "valid", torch.bool, dev, (n,))
     _check(descs, "descs", torch.int64, dev, (q, XZ_DESC))
-    hit_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
-    dec_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
-    hdr = torch.empty((q, 3), dtype=torch.int32, device=dev)
-    hdr[:, 0] = 0
-    hdr[:, 1] = n
-    hdr[:, 2] = -1
-    err = _lib("xz_dual_bitmap").xz_dual_bitmap(
-        int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
-        bymax.data_ptr(), isrect.data_ptr(), valid.data_ptr(),
-        tk.data_ptr() if has_time else None, descs.data_ptr(), q,
-        hit_bits.data_ptr(), dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
-    )
+    fn = _lib("xz_dual_bitmap").xz_dual_bitmap
+    with torch.cuda.device(dev):
+        hit_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+        dec_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+        hdr = torch.empty((q, 3), dtype=torch.int32, device=dev)
+        hdr[:, 0] = 0
+        hdr[:, 1] = n
+        hdr[:, 2] = -1
+        err = fn(
+            int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
+            bymax.data_ptr(), isrect.data_ptr(), valid.data_ptr(),
+            tk.data_ptr() if has_time else None, descs.data_ptr(), q,
+            hit_bits.data_ptr(), dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
+        )
     _raise_on(err, "xz_dual_bitmap")
     _count("xz_dual_bitmap_xz3" if has_time else "xz_dual_bitmap_xz2", f"q={q}")
     empty = hdr[:, 0] == 0
@@ -560,17 +570,19 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
     # shared memory: the boxes, their margins and reject bounds, the windows
     if 4 * (10 * k + 3 * w) > _CAND_SMEM:
         raise ValueError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
-    grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
-    band_idx = torch.full((band_cap,), -1, dtype=torch.int32, device=dev)
-    count = torch.zeros(1, dtype=torch.int32, device=dev)
-    err = _lib("density_grid").density_grid(
-        int(has_time), x.data_ptr(), y.data_ptr(),
-        bins.data_ptr() if has_time else None, offs.data_ptr() if has_time else None,
-        valid.data_ptr(), boxes.data_ptr(), k,
-        windows.data_ptr() if has_time else None, w, env.data_ptr(),
-        reciprocal_f32(width), reciprocal_f32(height), width, height,
-        grid.data_ptr(), band_idx.data_ptr(), count.data_ptr(), band_cap, n, _stream(dev),
-    )
+    fn = _lib("density_grid").density_grid
+    with torch.cuda.device(dev):
+        grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
+        band_idx = torch.full((band_cap,), -1, dtype=torch.int32, device=dev)
+        count = torch.zeros(1, dtype=torch.int32, device=dev)
+        err = fn(
+            int(has_time), x.data_ptr(), y.data_ptr(),
+            bins.data_ptr() if has_time else None, offs.data_ptr() if has_time else None,
+            valid.data_ptr(), boxes.data_ptr(), k,
+            windows.data_ptr() if has_time else None, w, env.data_ptr(),
+            reciprocal_f32(width), reciprocal_f32(height), width, height,
+            grid.data_ptr(), band_idx.data_ptr(), count.data_ptr(), band_cap, n, _stream(dev),
+        )
     _raise_on(err, "density_grid")
     _count("density_grid_" + ("z3" if has_time else "z2"), f"{width}x{height}")
     return grid, band_idx, count

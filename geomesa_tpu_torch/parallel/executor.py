@@ -169,7 +169,8 @@ class DeviceSegment:
     the four int64 envelope keys ``xz_keys``, ``xz_isrect`` and, for xz3,
     ``xz_tk`` and ``xz_tvalid``; pad keys are int64 min. Raw columns of
     points (``load_raw``, the density push-down): float32 ``xf, yf`` and,
-    for z3, the int32 in-bin ms offset ``t_ms``; pads are 0.0, 0.0, -1."""
+    for z3, the int32 in-bin ms offset ``t_ms`` (and ``tvalid``); pads are
+    0.0, 0.0, -1."""
 
     def __init__(self, kind: str, device: torch.device, n: int,
                  columns: Dict[str, np.ndarray],
@@ -265,15 +266,22 @@ class DeviceSegment:
             self.tk = self._pack_keys(np.concatenate(
                 [b.full_col(dtg).astype(np.int64) for b in self.blocks]
             ))
-            # null dates are stored as 0 + a __null mask: the host evaluator
-            # rejects them for any temporal predicate, so the exact TEMPORAL
-            # mask needs its own valid column (bbox-only queries keep them)
-            nulls = np.concatenate([b.full_col(dtg + "__null") for b in self.blocks])
-            if nulls.any():
-                self.tvalid = upload(pad_to_multiple(~nulls, GRANULE, False), self.device)
-            else:
-                self.tvalid = self.valid
+            self._load_tvalid(ft)
         self._exact_loaded = True
+
+    def _load_tvalid(self, ft) -> None:
+        """``tvalid``: null dates are stored as 0 + a __null mask, and the
+        host evaluator rejects them for any temporal predicate, so a
+        temporal device test (the exact mask, the density windows) needs
+        its own valid column (bbox-only queries keep them)."""
+        if self.tvalid is not None:
+            return
+        dtg = ft.default_date.name
+        nulls = np.concatenate([b.full_col(dtg + "__null") for b in self.blocks])
+        if nulls.any():
+            self.tvalid = upload(pad_to_multiple(~nulls, GRANULE, False), self.device)
+        else:
+            self.tvalid = self.valid
 
     def load_exact_xz(self, table: IndexTable) -> None:
         """Pack the int64 sort keys of the envelope companions, the isrect
@@ -335,6 +343,7 @@ class DeviceSegment:
                 )
                 traw.append(t_ms - starts)
             self.t_ms = pack(traw, np.int32, -1)
+            self._load_tvalid(ft)
         return True
 
     def remember_rcap(self, nruns: int) -> None:
@@ -1391,9 +1400,12 @@ class TorchScanExecutor:
             wins = None if windows is None else upload(pad_windows(windows), self.device)
             outs = []
             for seg in dev.segments:
+                # with windows, the temporal-valid column: a null date is
+                # stored as 0, a real in-bin offset, and must not count
                 grid, idx, cnt = kernels.density_grid(
                     seg.xf, seg.yf, seg.bins if wins is not None else None,
-                    seg.t_ms if wins is not None else None, seg.valid, boxes, wins, env,
+                    seg.t_ms if wins is not None else None,
+                    seg.tvalid if wins is not None else seg.valid, boxes, wins, env,
                     width, height, band_cap,
                 )
                 # one D2H copy per segment: count, band indices, grid

@@ -94,6 +94,97 @@ def _xz_rows(n: int, seed: int):
     return (x0, y0, x1, y1), rng.random(n) < 0.2, rng.random(n) > 0.1
 
 
+
+T0 = 1_767_225_600_000
+DAY = 86_400_000
+FAR = (150.0, 80.0)  # only the first and the last row lie there
+
+
+def _exact_table(n: int, order: str, seed: int):
+    """Points in (-20, 20)^2 over 10 days, in z-key order (so a chunk of
+    consecutive rows covers a small envelope and the chunk reject fires) or
+    shuffled (so it fires only for a query outside the data); whole chunks and a run across chunks with
+    no valid row; NaN, +-0.0 and +-inf coordinates; the first and the last
+    row alone at FAR."""
+    rng = np.random.default_rng(seed)
+    x, y = rng.uniform(-20, 20, n), rng.uniform(-20, 20, n)
+    t = T0 + rng.integers(0, 10 * DAY, n)
+    if order == "z":
+        qx = ((x + 20) / 40 * 1023).astype(np.int64)
+        qy = ((y + 20) / 40 * 1023).astype(np.int64)
+        z = sum((((qx >> b) & 1) << (2 * b)) | (((qy >> b) & 1) << (2 * b + 1)) for b in range(10))
+        idx = np.argsort(z, kind="stable")
+    else:
+        idx = rng.permutation(n)
+    x, y, t = x[idx], y[idx], t[idx]
+    valid = rng.random(n) > 0.05
+    valid[128 * 3:128 * 6] = False
+    valid[1000:1300] = False
+    x[200:208] = [np.nan, -0.0, 0.0, np.inf, -np.inf, 1.0, -0.0, 0.0]
+    y[200:208] = [1.0, np.nan, -np.inf, -0.0, 0.0, np.inf, -0.0, 0.0]
+    x[0] = x[-1] = FAR[0]
+    y[0] = y[-1] = FAR[1]
+    t[0] = t[-1] = T0 + DAY
+    valid[0] = valid[-1] = True
+    return x, y, t, valid
+
+
+def _exact_queries(q: int, seed: int):
+    """(xmin, ymin, xmax, ymax, t_lo, t_hi) shapes: FAR's rows, an empty
+    query, an all-hit query, boxes with +-0.0 edges, then small boxes."""
+    rng = np.random.default_rng(seed)
+    inf = np.inf
+    shapes = [(FAR[0] - 0.5, FAR[1] - 0.5, FAR[0] + 0.5, FAR[1] + 0.5, T0, T0 + 2 * DAY),
+              (100.0, 0.0, 101.0, 1.0, None, None),
+              (-inf, -inf, inf, inf, None, None),
+              (-0.0, -5.0, 5.0, 0.0, T0 + DAY, T0 + 4 * DAY),
+              (-5.0, -0.0, 0.0, 5.0, None, T0 + 6 * DAY)]
+    while len(shapes) < q:
+        cx, cy = rng.uniform(-20, 20, 2)
+        w, h = rng.uniform(0.2, 4.0, 2)
+        lo = T0 + int(rng.integers(0, 8 * DAY))
+        shapes.append((cx - w, cy - h, cx + w, cy + h, lo, lo + int(rng.integers(0, 3 * DAY))))
+    boxes = np.stack([f64_keys(np.asarray([s[0], s[2], s[1], s[3]])) for s in shapes[:q]])
+    wins = np.asarray([[np.iinfo(np.int64).min + 1 if s[4] is None else s[4],
+                        np.iinfo(np.int64).max if s[5] is None else s[5]] for s in shapes[:q]],
+                      dtype=np.int64)
+    return boxes, wins
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("order", ["z", "shuffled"])
+@pytest.mark.parametrize("q", [1, 20, kernels.EXACT_MAX_Q])
+@pytest.mark.parametrize("n", [32 * (4 * 100 + 1), 32 * (4 * 100 + 3), 2 * 1024 * 1024 + 96])
+def test_exact_bitmap_chunks_and_reject_on_the_card(cuda, n, q, order, has_time):
+    """The chunked design with its chunk reject, bitwise against the plain
+    edition: word counts that end inside a warp's chunk, q from 1 to
+    EXACT_MAX_Q, rows in z-key order (the reject fires) and shuffled (it
+    fires only for a query outside the data), the header's first and last row at 0 and n - 1, chunks
+    with no valid row, NaN / +-0.0 / +-inf keys, an empty and an all-hit
+    query."""
+    x, y, t, valid = _exact_table(n, order, n + q)
+    boxes, wins = _exact_queries(q, q)
+    xk, yk = (torch.from_numpy(f64_keys(c)).to(cuda) for c in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    valid = torch.from_numpy(valid).to(cuda)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    wins = torch.from_numpy(wins).to(cuda) if has_time else None
+    kernels.reset_launches()
+    got = kernels.exact_bitmap(xk, yk, tk, valid, boxes, wins)
+    want = kernels.exact_bitmap_plain(xk, yk, tk, valid, boxes, wins)
+    assert got[0].shape == want[0].shape and got[1].shape == want[1].shape
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    name = "exact_bitmap_" + ("z3" if has_time else "z2")
+    assert kernels.LAUNCH_SHAPES == {(name, f"q={q}"): 1}
+    hdr = want[1].cpu().tolist()
+    assert hdr[0] == [2, 0, n - 1]  # FAR: the first and the last row alone
+    if q > 1:
+        assert hdr[1] == [0, 0, n - 1]  # no hit
+        assert hdr[2][0] > int(valid.sum()) // 2  # every valid finite row
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("has_time", [True, False])
 @pytest.mark.parametrize("n", [1024, 3 * 1024 * 1024 + 4096])

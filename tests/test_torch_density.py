@@ -335,6 +335,52 @@ def test_load_raw_and_segment_from_reference(stores, index):
     assert int(got[2][0]) == int(np.asarray(want[2]).sum())
 
 
+
+def test_z3_grid_leaves_out_null_dates(_env):
+    """A null date is stored as 0 with a ``dtg__null`` mask; a DURING window
+    over the epoch must not count it. The port's device grid equals its own
+    row count and the reference's host reducer; the reference's device
+    route counts the null-date rows in the box (a departure, on purpose:
+    its docstring promises host parity)."""
+    rng = np.random.default_rng(31)
+    n, spec = 2000, "dtg:Date,*geom:Point:srid=4326"
+    x, y = rng.uniform(-20, 20, n), rng.uniform(-20, 20, n)
+    t = rng.integers(0, 2 * DAY, n)
+    nulls = np.zeros(n, dtype=bool)
+    nulls[rng.choice(n, 100, replace=False)] = True
+    t[nulls] = 0
+    cols = {"__fid__": np.char.add("f", np.arange(n).astype(str)), "dtg": t,
+            "dtg__null": nulls, "geom__x": x, "geom__y": y}
+    ref = TpuDataStore(
+        executor=TpuScanExecutor(Mesh(np.asarray(jax.devices()[:1]), ("shards",)))
+    )
+    host = TpuDataStore(executor=HostScanExecutor())
+    for s in (ref, host):
+        ft = ref_parse_spec("nulls", spec)
+        s.create_schema(ft)
+        s._insert_columns(ft, dict(cols))
+    port = TorchDataStore(executor=TorchScanExecutor(device="cpu"))
+    ft = parse_spec("nulls", spec)
+    port.create_schema(ft)
+    port._insert_columns(ft, dict(cols))
+
+    box = (-10.0, -10.0, 10.0, 10.0)
+    cql = f"{_bbox(box)} AND dtg DURING 1969-12-31T12:00:00Z/1970-01-01T12:00:00Z"
+    hints = _density(box, 16, 16)
+    got = port.query("nulls", Query.cql(cql, hints=hints))
+    assert got.plan.scan_path == "device-density"
+    rows = port.query("nulls", Query.cql(cql))
+    inside = (x >= box[0]) & (x <= box[2]) & (y >= box[1]) & (y <= box[3])
+    want = inside & ~nulls & (t < DAY // 2)
+    assert len(rows) == int(want.sum())
+    grid = got.aggregate["density"]
+    assert grid.sum() == len(rows)
+    assert np.array_equal(grid, host.query("nulls", RefQuery.cql(cql, hints=hints))
+                          .aggregate["density"])
+    ref_grid = ref.query("nulls", RefQuery.cql(cql, hints=hints)).aggregate["density"]
+    assert ref_grid.sum() == grid.sum() + int((inside & nulls).sum())
+
+
 # -- the store: push-down, declines, overflow, empty plan, query_many -----------
 
 DEVICE_QUERIES = [
