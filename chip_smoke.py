@@ -23,6 +23,12 @@ against its plain PyTorch edition:
     (h) its 20 jittered boxes AND its DURING at 64x32 (z3), (i) its base
     box AND DURING at 256x256, whose band overflows: the host reducer.
 
+Every stream above runs under ``GEOMESA_SEEK=0`` (the device routes, as
+bench.py pins for the reference's device figures). Beside them, the host
+layer (the C++ libraries of ``geomesa_tpu_torch/native``) and the host-seek
+route: config #1's 20 queries under ``GEOMESA_SEEK=auto``, the chooser's
+default.
+
 Run from the repository root with one CUDA device:
 
     python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--seed S] [--out DIR]
@@ -30,8 +36,10 @@ Run from the repository root with one CUDA device:
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
-     nvcc build time (one nvcc per source, all at once) and what
-     ``-Xptxas -v`` reports of each kernel (registers, spills);
+     nvcc build time (one nvcc per source, all at once, beside one g++ per
+     native host library) and what ``-Xptxas -v`` reports of each kernel
+     (registers, spills); the run fails unless all four native libraries
+     load;
   2. config #1: ingest N points (20M by default), upload the z3/z2 device
      columns; config #3: make N ways (8M by default) from the seed, ingest
      them with precomputed envelope companions, upload the xz3/xz2 device
@@ -64,7 +72,19 @@ Phases (any failure raises and the script exits non-zero):
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
      its shapes;
-  6. torch.profiler traces of the config #1 stream and of stream (a): the
+  6. the host-seek stream: config #1's 20 queries under
+     ``GEOMESA_SEEK=auto`` (one sync query timed, the stream pipelined with
+     fids unread and read), every query checked against brute force, its
+     routes and its launches recorded; the chooser's cutoff swept
+     (``seek_crossover``: four wider selectivities, each under the seek
+     and the device route, checked against brute force, pipelined with
+     fids unread and read); the native host libraries at the
+     main path's shapes, each against its plain edition on the same
+     inputs (equal results required) and timed: the decode of config #1's
+     and stream (a)'s span windows, the z range walks of config #1's plans,
+     the xz walks of config #3's plans, the seek scans of config #1's
+     plans;
+  7. torch.profiler traces of the config #1 stream and of stream (a): the
      host time of each step (the ``geomesa.*`` ranges of the store and
      executor, ``geomesa.ring`` for the per-geometry test) and the device's
      busy and idle shares; the rows per query the host tests after the
@@ -73,17 +93,24 @@ Phases (any failure raises and the script exits non-zero):
      copy; ``geomesa.band``: the host certification) and the band rows
      per query.
 
-Prints a metrics line, a ``{"kernels": [...]}`` line (one entry per kernel
-and shape), the card's name and power limit, and last ``{"ok": true,
-"device": {...}}``.
+Prints a ``{"native": {...}}`` line (each host library's load status and
+its host ms per call beside its plain edition's), a metrics line, a
+``{"kernels": [...]}`` line (one entry per kernel and shape), the card's
+name and power limit, and last ``{"ok": true, "device": {...}}``. Pipelined
+times leave the fid gather out, as bench.py's do (it reads ``res.fids``
+after its timed window); ``*_fids_read`` figures read every result's fids
+inside the window.
 """
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import time
+
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -623,6 +650,19 @@ def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
         )
 
 
+def fid_rows(fids: np.ndarray) -> np.ndarray:
+    """Sorted row numbers of fids "f<row>" (a fixed-width unicode array),
+    read from the code points, for result sets too large for a set of
+    strings."""
+    a = np.ascontiguousarray(fids)
+    width = a.dtype.itemsize // 4
+    c = a.view(np.uint32).reshape(-1, width)[:, 1:].astype(np.int64)
+    digit = c > 0
+    power = digit.sum(1)[:, None] - 1 - np.arange(width - 1)[None, :]
+    val = (np.where(digit, c - 48, 0) * 10 ** np.clip(power, 0, None)).sum(1)
+    return np.sort(val)
+
+
 # -- phases -----------------------------------------------------------------
 
 
@@ -1084,22 +1124,62 @@ def ab_times(case, src):
     return times
 
 
+TRACE_LEADS_S = (0.2, 1.0, 3.0, 8.0)
+
+
 def breakdown(store, name, queries):
     """Where one pipelined stream spends its time, from one torch.profiler
     trace of ``store.query_many``: the host time of each step, read from
     the ``geomesa.*`` ranges the store and the executor open, and the
     device's busy share (device kernel and copy time over the traced
-    wall). Also the cost of one range with no profiler running."""
+    wall). Then, untraced, the lazy fid gather of the results; and the
+    cost of one range with no profiler running.
+
+    A trace must hold a device event of every hand kernel the stream
+    launched (``kernels.LAUNCHES``). Late in a long run the card's trace
+    can drop the device events of a session's first moments, where the
+    stream's launches and copies fall, so each session runs a spin kernel
+    and waits ``lead`` seconds before the stream; a trace
+    that still misses a launched kernel is taken again with the next,
+    longer lead, and the busy and idle figures are null when every lead
+    missed one."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
+    from geomesa_tpu_torch.ops import kernels
+
     clock = time.perf_counter
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = clock()
-        results = store.query_many(name, queries)
-        torch.cuda.synchronize()
-        wall_ms = (clock() - t0) * 1e3
     n = len(queries)
-    events = prof.key_averages()
+    for lead in TRACE_LEADS_S:
+        before = dict(kernels.LAUNCHES)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)  # the spin kernel, left out below
+            torch.cuda.synchronize()
+            time.sleep(lead)
+            t0 = clock()
+            results = store.query_many(name, queries)
+            torch.cuda.synchronize()
+            wall_ms = (clock() - t0) * 1e3
+        events = prof.key_averages()
+        # device-side events only (kernels and copies): the CPU-side aten
+        # ops carry their kernels' time too and would count it twice, and
+        # the ranges' device-side mirrors span the idle gaps
+        device_us = {
+            e.key: e.self_device_time_total
+            for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total
+            and not e.key.startswith("geomesa.") and "spin_kernel" not in e.key
+        }
+        launched = {k.rsplit("_", 1)[0] for k, v in kernels.LAUNCHES.items()
+                    if v > before.get(k, 0)}
+        missing = sorted(k for k in launched if not any(k in key for key in device_us))
+        if not missing:
+            break
+        log(f"{name} trace with a {lead} s lead: no device event of {missing} "
+            f"({len(device_us)} device ops traced)")
+    t0 = clock()
+    for r in results:
+        r.fids  # noqa: B018 - the lazy fid gather, outside the trace
+    gather_ms = (clock() - t0) * 1e3
     # the geomesa.* ranges are disjoint; their CPU totals include the aten
     # ops they run
     host_ms = {
@@ -1107,16 +1187,7 @@ def breakdown(store, name, queries):
         for e in events
         if e.key.startswith("geomesa.") and e.device_type == torch.autograd.DeviceType.CPU
     }
-    # device-side events only (kernels and copies): the CPU-side aten ops
-    # carry their kernels' time too and would count it twice, and the
-    # ranges' device-side mirrors span the idle gaps
-    device_us = {
-        e.key: e.self_device_time_total
-        for e in events
-        if e.device_type == torch.autograd.DeviceType.CUDA
-        and e.self_device_time_total and not e.key.startswith("geomesa.")
-    }
-    busy_ms = sum(device_us.values()) / 1e3
+    busy_ms = None if missing else sum(device_us.values()) / 1e3
     # the first 100 characters of a kernel's name (templated names run long)
     top = [(k[:100], v) for k, v in sorted(device_us.items(), key=lambda kv: -kv[1])[:6]]
     reps = 20_000
@@ -1127,10 +1198,14 @@ def breakdown(store, name, queries):
     span_us = (clock() - t0) / reps * 1e6
     return {
         "traced_wall_ms_per_query": wall_ms / n,
+        "fid_gather_ms_per_query": gather_ms / n,
         "host_step_ms_per_query": host_ms,
         "hits_per_query": sum(len(r) for r in results) / n,
-        "device_busy_ms_per_query": busy_ms / n,
-        "device_idle_share": 1.0 - busy_ms / wall_ms,
+        "routes": sorted({str(getattr(r.plan, "scan_path", None)) for r in results}),
+        "kernels_launched": sorted(launched),
+        "trace_lead_s": lead,
+        "device_busy_ms_per_query": None if busy_ms is None else busy_ms / n,
+        "device_idle_share": None if busy_ms is None else 1.0 - busy_ms / wall_ms,
         "top_device_ops_ms": {k: v / 1e3 for k, v in top},
         "span_cost_us_unprofiled": span_us,
     }
@@ -1151,6 +1226,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is false: this script needs a CUDA device")
         return 2
+    # the device routes: every path below but the seek stream
+    os.environ["GEOMESA_SEEK"] = "0"
 
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import kernels
@@ -1161,9 +1238,13 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"device {torch.cuda.get_device_name(0)}")
     t0 = time.perf_counter()
-    kernels.build_all()
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        built = pool.submit(kernels.build_all)
+        native_status = pool.submit(native_build).result()
+        built.result()
     build_s = time.perf_counter() - t0
-    log(f"kernels built in {build_s:.2f} s")
+    log(f"kernels and native libraries built in {build_s:.2f} s: "
+        f"{json.dumps({k: (v['flags'], round(v['build_s'], 2)) for k, v in native_status.items()})}")
     for name, text in kernels.ptxas_report().items():
         for line in text.splitlines():
             if "registers" in line or "Compiling entry" in line or "spill" in line:
@@ -1176,8 +1257,10 @@ def main() -> int:
 
     # -- phase 2: data, ingest, device columns --------------------------------
     store = TorchDataStore()  # the default executor: TorchScanExecutor on cuda:0
-    data1, plans1, streams1, setup1 = config1(store, args.rows)
-    streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
+    walks = {}
+    with recording_range_walks(walks):
+        data1, plans1, streams1, setup1 = config1(store, args.rows)
+        streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
     streams6, oracle6, setup6 = config6(store, args.dens, data1, args.rows >= 20_000_000)
     log(f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
@@ -1205,9 +1288,24 @@ def main() -> int:
     ranking = check_launches(entries, launched, set(kernels.LAUNCHES))
     log(f"launches x (ms - bound) per smoke run: {json.dumps(ranking)}")
 
-    # -- phase 6: host splits and the host-tested rows --------------------------
+    # -- phase 6: the host-seek route and the native host libraries -------------
+    seek = seek_stream(store, data1, streams1)
+    seek["crossover"] = seek_crossover(store, data1)
+    host = native_timings(store, data1, plans1, plans3, walks)
+    host["libraries"] = native_status
+    host["plan_config1_ms_per_query"] = setup1["plan_ms_per_query"]
+    host["plan_config3_s"] = setup3["first_plan_s"]
+
+    # -- phase 7: host splits and the host-tested rows --------------------------
     split1 = breakdown(store, "gdelt", [Query.cql(c, properties=[]) for c in streams1["config1"][1]])
     log(f"config #1 stream breakdown: {json.dumps(split1)}")
+    os.environ["GEOMESA_SEEK"] = "auto"
+    try:
+        seek["breakdown"] = breakdown(
+            store, "gdelt", [Query.cql(c, properties=[]) for c in streams1["config1"][1]])
+    finally:
+        os.environ["GEOMESA_SEEK"] = "0"
+    log(f"config #1 host-seek breakdown: {json.dumps(seek['breakdown'])}")
     split3 = breakdown(store, "ways", [Query.cql(c, properties=[]) for c, _ in streams3["xz2_bbox"]])
     log(f"config #3 xz2 stream breakdown: {json.dumps(split3)}")
     for name, rows in host_tested_rows(store, plans3).items():
@@ -1230,6 +1328,7 @@ def main() -> int:
         "int32_ops_per_s": int32_per_s,
         "fp32_ops_per_s": fp32_per_s,
         "breakdown": split1,
+        "seek_stream": seek,
         "ranking_ms": ranking,
         "config3": {**setup3, "streams": metrics3, "breakdown_xz2_bbox": split3},
         "density": {**setup6, "streams": metrics6, "null_dates": nulls},
@@ -1237,7 +1336,8 @@ def main() -> int:
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": entries, "metrics": metrics}, f, indent=1)
+        json.dump({"kernels": entries, "metrics": metrics, "native": host}, f, indent=1)
+    print(json.dumps({"native": host}))
     print(json.dumps({"metrics": metrics}))
     print(json.dumps({"kernels": entries}))
     print(card)
@@ -1306,12 +1406,16 @@ def config1(store, n):
         "resid_z3": (resid, [f"({bbox_cql(a)} OR {bbox_cql(b)}) AND {DURING}" for a, b in resid]),
         "resid_z2": (resid, [f"{bbox_cql(a)} OR {bbox_cql(b)}" for a, b in resid]),
     }
+    t0 = time.perf_counter()
     plans = {
         "config1": [store._plan_cached("gdelt", Query.cql(c)) for c in cqls],
+    }
+    plan_ms = (time.perf_counter() - t0) * 1e3 / len(cqls)
+    plans.update({
         "bbox": [store._plan_cached("gdelt", Query.cql(c)) for c in streams["bbox"][1]],
         "resid_z3": store._plan_cached("gdelt", Query.cql(streams["resid_z3"][1][0])),
         "resid_z2": store._plan_cached("gdelt", Query.cql(streams["resid_z2"][1][0])),
-    }
+    })
     idx = {p.index.name for p in plans["config1"]}, {p.index.name for p in plans["bbox"]}
     if idx != ({"z3"}, {"z2"}) or plans["resid_z3"].index.name != "z3" \
             or plans["resid_z2"].index.name != "z2":
@@ -1324,7 +1428,8 @@ def config1(store, n):
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
     log(f"config #1 device columns uploaded in {upload_s:.1f} s")
-    return (x, y, t), plans, streams, {"ingest_rec_per_s": n / ingest_s, "upload_s": upload_s}
+    return (x, y, t), plans, streams, {"ingest_rec_per_s": n / ingest_s, "upload_s": upload_s,
+                                       "plan_ms_per_query": plan_ms}
 
 
 def config1_path(store, data, streams):
@@ -1352,6 +1457,7 @@ def config1_path(store, data, streams):
     pipe_s = (time.perf_counter() - t0) / len(queries)
     for i, (r, b) in enumerate(zip(results, boxes)):
         expect_fids(r, brute_force(x, y, t, b), f"config #1 stream query {i}")
+    read_s = timed_fids_read(store, "gdelt", queries)
 
     bbox_boxes, bbox_cqls = streams["bbox"]
     res = store.query("gdelt", bbox_cqls[0])  # a lone bbox-only query (z2 exact, q = 1)
@@ -1381,6 +1487,7 @@ def config1_path(store, data, streams):
         "features_per_s": len(x) / pipe_s,
         "query_ms_sync": sync_s * 1e3,
         "query_ms_pipelined": pipe_s * 1e3,
+        "query_ms_pipelined_fids_read": read_s * 1e3,
         "bbox_query_ms_pipelined": bbox_s * 1e3,
         "residual_z3_query_ms_pipelined": resid3_s * 1e3,
         "residual_z2_query_ms_pipelined": resid2_s * 1e3,
@@ -1466,6 +1573,7 @@ def config3_path(store, streams, oracle):
             expect_fids(r, oracle[name][i], f"{name} query {i}", prefix="w")
             if (r.plan.index.name, r.plan.scan_path) != (index, path):
                 raise AssertionError(f"{name} query {i}: {r.plan.index.name} {r.plan.scan_path}")
+        read_s = timed_fids_read(store, "ways", queries)
         for i, (cql, _spec) in enumerate(items):
             res = store.query("ways", cql)
             expect_fids(res, oracle[name][i], f"{name} lone query {i}", prefix="w")
@@ -1478,6 +1586,7 @@ def config3_path(store, streams, oracle):
         out[name] = {
             "queries": len(items),
             "query_ms_pipelined": pipe_s * 1e3,
+            "query_ms_pipelined_fids_read": read_s * 1e3,
             "query_ms_sync": sync_s * 1e3,
             "hits_per_query": sum(len(r) for r in results) / len(results),
         }
@@ -1674,6 +1783,301 @@ def density_band_rows(store, streams):
             out[name] = sum(seen) / device if device else None
     finally:
         del ex._certify_density_band
+    return out
+
+
+# -- the host layer: native libraries and the host-seek route ---------------
+
+
+def native_build():
+    """Build and load the four native host libraries (one g++ each, in
+    parallel); fail unless every one loaded, with the loader's reason."""
+    from geomesa_tpu_torch import native
+
+    status = native.build_all()
+    bad = {k: v["reason"] for k, v in status.items() if not v["loaded"]}
+    if bad:
+        raise AssertionError(f"native libraries did not load: {bad}")
+    return status
+
+
+@contextlib.contextmanager
+def recording_range_walks(walks):
+    """Record the inputs of every z range walk (``native.zranges_native``)
+    and xz range walk (``ranges_boxes``) that planning makes, to time them
+    again at the main path's shapes."""
+    from geomesa_tpu_torch import native
+    from geomesa_tpu_torch.curve.xz import _XZSFC
+
+    zwalk, xzwalk = native.zranges_native, _XZSFC.ranges_boxes
+
+    def zrec(*args):
+        walks.setdefault("zranges", []).append(args)
+        return zwalk(*args)
+
+    def xzrec(sfc, windows, max_ranges=None):
+        walks.setdefault("xzranges", []).append((sfc, windows, max_ranges))
+        return xzwalk(sfc, windows, max_ranges)
+
+    native.zranges_native, _XZSFC.ranges_boxes = zrec, xzrec
+    try:
+        yield walks
+    finally:
+        native.zranges_native, _XZSFC.ranges_boxes = zwalk, xzwalk
+
+
+@contextlib.contextmanager
+def plain_editions():
+    """The native libraries off: every call site takes its plain edition."""
+    os.environ["GEOMESA_TPU_NO_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        del os.environ["GEOMESA_TPU_NO_NATIVE"]
+
+
+def host_ms(fn, reps: int = 3):
+    """(ms per call of ``fn`` on the host clock after one warm call, its
+    last result)."""
+    out = fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        out = fn()
+    return (time.perf_counter() - t0) * 1e3 / reps, out
+
+
+def timed_fids_read(store, name, queries) -> float:
+    """Seconds per query of a pipelined stream that reads every result's
+    fids inside the timed window (the lazy gather included)."""
+    t0 = time.perf_counter()
+    for r in store.query_many(name, queries):
+        r.fids  # noqa: B018 - the gather is what is timed
+    return (time.perf_counter() - t0) / len(queries)
+
+
+def seek_stream(store, data, streams):
+    """Config #1's 20 queries under GEOMESA_SEEK=auto, the chooser's
+    default: a lone query (checked, then timed 3 times), the stream through
+    query_many (warm, then timed with fids unread and read), every answer
+    held against brute force; the routes taken and the kernels launched."""
+    from collections import Counter
+
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import kernels
+
+    x, y, t = data
+    boxes, cqls = streams["config1"]
+    queries = [Query.cql(c, properties=[]) for c in cqls]
+    os.environ["GEOMESA_SEEK"] = "auto"
+    try:
+        kernels.reset_launches()
+        res = store.query("gdelt", QUERY)
+        expect_fids(res, brute_force(x, y, t), "seek stream: sync query")
+        lone = res.plan.scan_path
+        t0 = time.perf_counter()
+        for _ in range(3):
+            store.query("gdelt", QUERY)
+        sync_s = (time.perf_counter() - t0) / 3
+        store.query_many("gdelt", queries)
+        t0 = time.perf_counter()
+        results = store.query_many("gdelt", queries)
+        pipe_s = (time.perf_counter() - t0) / len(queries)
+        for i, (r, b) in enumerate(zip(results, boxes)):
+            expect_fids(r, brute_force(x, y, t, b), f"seek stream query {i}")
+        read_s = timed_fids_read(store, "gdelt", queries)
+        launches = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    finally:
+        os.environ["GEOMESA_SEEK"] = "0"
+    out = {
+        "mode": "auto",
+        "lone_scan_path": lone,
+        "scan_paths": dict(Counter(r.plan.scan_path for r in results)),
+        "query_ms_sync": sync_s * 1e3,
+        "query_ms_pipelined": pipe_s * 1e3,
+        "query_ms_pipelined_fids_read": read_s * 1e3,
+        "hits_per_query": sum(len(r) for r in results) / len(results),
+        "launches": launches,
+    }
+    log(f"host-seek stream (GEOMESA_SEEK=auto): {json.dumps(out)}")
+    return out
+
+
+# the chooser's cutoff, swept: config #1's table under wider boxes and
+# windows, (box, DURING days) -> about 0.24, 0.37, 0.53 and 0.72 of the rows
+# in the plan's ranges (the chooser's own measure; config #1's stream: 0.09)
+CROSSOVER = (
+    ((-165.0, -6.5, 15.0, 83.5), (5, 19)),
+    ((-180.0, -51.5, 105.0, 90.0), (5, 19)),
+    ((-180.0, -51.5, 105.0, 90.0), (3, 25)),
+    ((-180.0, -51.5, 105.0, 90.0), (2, 31)),
+)
+CROSSOVER_REPS = 2
+
+
+def seek_crossover(store, data):
+    """The host seek against the device route where the chooser's cutoff
+    (``SEEK_FRAC``) decides: per CROSSOVER case, 2 queries (its window
+    shifted by 0 and 1 hour) under ``GEOMESA_SEEK=1`` and ``0``, each
+    pipelined (a warm query_many, then timed with fids unread and read),
+    both routes' answers held against brute force; the share of the table
+    in the plans' ranges and the route ``auto`` takes."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.parallel.executor import SEEK_FRAC
+
+    x, y, t = data
+    table = store._tables["gdelt"]["z3"]
+    day = np.datetime64("2026-01-01T00:00:00", "ms").astype(np.int64)
+    out = []
+    for box, (d0, d1) in CROSSOVER:
+        cqls, masks = [], []
+        for h in range(CROSSOVER_REPS):
+            lo, hi = day + (d0 - 1) * 86400_000 + h * 3600_000, day + (d1 - 1) * 86400_000 + h * 3600_000
+            cqls.append(f"{bbox_cql(box)} AND dtg DURING {iso(lo)}/{iso(hi)}")
+            masks.append(np.flatnonzero(in_box(x, y, box) & (t > lo) & (t < hi)))
+        queries = [Query.cql(c, properties=[]) for c in cqls]
+        plans = [store._plan_cached("gdelt", q) for q in queries]
+        cand = [sum(int(np.maximum(e - s, 0).sum())
+                    for b in table.blocks for s, e, _f in [b.scan_intervals(p.ranges)])
+                for p in plans]
+        row = {"box": box, "days": [d0, d1], "candidate_share": sum(cand) / len(cand) / len(x),
+               "hits_per_query": sum(map(len, masks)) / len(masks)}
+        for mode in ("1", "0", "auto"):
+            os.environ["GEOMESA_SEEK"] = mode
+            try:
+                if mode == "auto":
+                    row["auto_routes"] = sorted({r.plan.scan_path
+                                                 for r in store.query_many("gdelt", queries)})
+                    continue
+                store.query_many("gdelt", queries)
+                t0 = time.perf_counter()
+                results = store.query_many("gdelt", queries)
+                unread = (time.perf_counter() - t0) / len(queries)
+                for i, (r, want) in enumerate(zip(results, masks)):
+                    if not np.array_equal(fid_rows(r.fids), want):
+                        raise AssertionError(f"crossover {box} {d0}-{d1} GEOMESA_SEEK={mode} "
+                                             f"query {i}: fid-set parity failed")
+                route = "seek" if mode == "1" else "device"
+                row[route + "_routes"] = sorted({r.plan.scan_path for r in results})
+                row[route + "_ms_pipelined"] = unread * 1e3
+                row[route + "_ms_pipelined_fids_read"] = \
+                    timed_fids_read(store, "gdelt", queries) * 1e3
+            finally:
+                os.environ["GEOMESA_SEEK"] = "0"
+        want_auto = ["host-seek"] if row["candidate_share"] <= SEEK_FRAC else row["device_routes"]
+        if row["auto_routes"] != want_auto or row["seek_routes"] != ["host-seek"]:
+            raise AssertionError(f"crossover routes: {row}")
+        out.append(row)
+        log(f"seek crossover: {json.dumps(row)}")
+    return out
+
+
+def decode_case(windows):
+    """The native decode of span windows [(bits, start, header count)]
+    against numpy's unpack of the same windows: equal rows required; host
+    ms per window of each."""
+    from geomesa_tpu_torch import native
+
+    nat_ms, got = host_ms(lambda: [native.bitmap_rows_native(w, s, c) for w, s, c in windows])
+    np_ms, want = host_ms(lambda: [s + np.flatnonzero(np.unpackbits(w)).astype(np.int64)
+                                   for w, s, _c in windows])
+    for g, w in zip(got, want):
+        if not np.array_equal(g, w):
+            raise AssertionError("native bitmap decode differs from np.unpackbits")
+    k = len(windows)
+    return {
+        "windows": k,
+        "bytes_per_window": sum(len(w) for w, _s, _c in windows) / k,
+        "rows_per_window": sum(len(g) for g in got) / k,
+        "native_ms": nat_ms / k,
+        "numpy_ms": np_ms / k,
+    }
+
+
+def batch_windows(store, table, plans):
+    """Every (query, segment) span window of one batched dispatch of
+    ``plans``: [(bits, start, header count)], a dual window as its hit and
+    its decided plane (both bounded by the hit count)."""
+    scans = store.executor.dispatch_many([(table, p) for p in plans])
+    out = []
+    for p in plans:
+        for _seg, ph in scans[id(p)].pending:
+            cnt, _lo, hi, start = (int(v) for v in ph.batch.header(ph.i))
+            if not cnt or hi - start + 1 > ph.batch.span_cap:
+                continue
+            bits = ph.batch.query_bits(ph.i)
+            if type(ph).__name__ == "_PendingXZBitmapHits":
+                h = len(bits) // 2
+                out += [(bits[:h], start, cnt), (bits[h:], start, cnt)]
+            else:
+                out.append((bits, start, cnt))
+    return out
+
+
+def native_timings(store, data, plans1, plans3, walks):
+    """Each native library at the main path's shapes against its plain
+    edition on the same inputs (equal results required), host ms per call:
+    the decode of config #1's and stream (a)'s span windows (one batched
+    dispatch each, device route), the z range walks of config #1's plans
+    and the xz walks of config #3's plans (as planning made them; the
+    Python xz walk only for its first 2 calls, ~1 s each), the seek scans
+    of config #1's 20 plans."""
+    from geomesa_tpu_torch.curve import zorder
+    from geomesa_tpu_torch.parallel.executor import _HostSeekScan
+    from geomesa_tpu_torch import native
+
+    out = {
+        "decode_config1": decode_case(
+            batch_windows(store, store._tables["gdelt"]["z3"], plans1["config1"])),
+        "decode_xz2_bbox": decode_case(
+            batch_windows(store, store._tables["ways"]["xz2"], plans3["xz2_bbox"])),
+    }
+    zcalls = walks["zranges"]
+    nat_ms, got = host_ms(lambda: [native.zranges_native(*a) for a in zcalls])
+    with plain_editions():
+        py_ms, want = host_ms(lambda: [zorder.zranges(*a) for a in zcalls], reps=1)
+    for g, w in zip(got, want):
+        if list(zip(*(v.tolist() for v in g))) != [tuple(r) for r in w]:
+            raise AssertionError("native z range walk differs from the Python walk")
+    out["zranges_config1"] = {
+        "calls": len(zcalls), "ranges_per_call": sum(len(g[0]) for g in got) / len(zcalls),
+        "native_ms": nat_ms / len(zcalls), "python_ms": py_ms / len(zcalls),
+    }
+    xcalls = walks["xzranges"]
+    nat_ms, got = host_ms(lambda: [sfc.ranges_boxes(w, m) for sfc, w, m in xcalls])
+    head = xcalls[:2]
+    with plain_editions():
+        py_ms, want = host_ms(lambda: [sfc.ranges_boxes(w, m) for sfc, w, m in head], reps=1)
+    if got[:len(head)] != want:
+        raise AssertionError("native xz range walk differs from the Python walk")
+    out["xzranges_config3"] = {
+        "calls": len(xcalls), "ranges_per_call": sum(map(len, got)) / len(xcalls),
+        "native_ms": nat_ms / len(xcalls), "python_ms": py_ms / len(head),
+        "python_calls": len(head),
+    }
+    table = store._tables["gdelt"]["z3"]
+    ex = store.executor
+    seeks = []
+    for p in plans1["config1"]:
+        per_block = [(b, *b.scan_intervals(p.ranges)) for b in table.blocks]
+        seeks.append(_HostSeekScan(table, per_block, ex._native_seek_pred(table, p)))
+    if any(sc.pred is None for sc in seeks):
+        raise AssertionError("config #1's plans must take the native seek scan")
+    nat_ms, got = host_ms(lambda: [list(sc) for sc in seeks])
+    with plain_editions():
+        np_ms, want = host_ms(lambda: [list(sc) for sc in seeks])
+    for g, w in zip(got, want):
+        if len(g) != len(w) or not all(b1 is b2 and np.array_equal(r1, r2)
+                                       for (b1, r1), (b2, r2) in zip(g, w)):
+            raise AssertionError("native seek scan differs from its numpy edition")
+    k = len(seeks)
+    out["seek_config1"] = {
+        "queries": k,
+        "candidates_per_query": sum(int(np.maximum(e - s, 0).sum()) for sc in seeks
+                                    for _b, s, e, _f in sc.per_block) / k,
+        "rows_per_query": sum(len(r) for g in got for _b, r in g) / k,
+        "native_ms": nat_ms / k, "numpy_ms": np_ms / k,
+    }
+    log(f"native host libraries: {json.dumps(out)}")
     return out
 
 if __name__ == "__main__":

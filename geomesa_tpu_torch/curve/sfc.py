@@ -1,6 +1,9 @@
 """Point space-filling curves: Z2 (lon/lat) and Z3 (lon/lat/time-offset).
 
-Port of ``geomesa_tpu/curve/sfc.py`` without the native range BFS.
+Port of ``geomesa_tpu/curve/sfc.py``. ``ranges_arrays``, the planner's
+entry, runs the C++ range BFS (``geomesa_tpu_torch/native`` ``zranges.cpp``),
+or the Python walk when that library is unavailable; ``ranges`` is the
+Python walk (``zorder.zranges``), the plain edition.
 
 Vectorized rebuilds of the reference's Z2SFC/Z3SFC (geomesa-z3
 .../curve/Z2SFC.scala:15-54, Z3SFC.scala:23-77): ``index`` normalizes doubles
@@ -25,6 +28,7 @@ from geomesa_tpu_torch.curve.zorder import (
     z3_decode,
     z3_encode,
     zranges,
+    zranges_arrays,
 )
 
 
@@ -84,6 +88,19 @@ class Z2SFC:
         args = self._range_inputs(xy, exact_skip)
         return zranges(*args[:2], self.precision, 2, max_ranges, precision,
                        skip_mins=args[2], skip_maxs=args[3])
+
+    def ranges_arrays(
+        self,
+        xy: Sequence[Tuple[float, float, float, float]],
+        precision: int = 64,
+        max_ranges: Optional[int] = None,
+        exact_skip: bool = False,
+    ):
+        """:meth:`ranges` as (lower[], upper[], contained[]) arrays
+        (``zorder.zranges_arrays``: the C++ BFS first)."""
+        args = self._range_inputs(xy, exact_skip)
+        return zranges_arrays(*args[:2], self.precision, 2, max_ranges, precision,
+                              skip_mins=args[2], skip_maxs=args[3])
 
     def _range_inputs(self, xy, exact_skip: bool):
         mins, maxs = [], []
@@ -199,6 +216,20 @@ class Z3SFC:
         args = self._range_inputs(xy, t, exact_skip)
         return zranges(*args[:2], self.precision, 3, max_ranges, precision,
                        skip_mins=args[2], skip_maxs=args[3])
+
+    def ranges_arrays(
+        self,
+        xy: Sequence[Tuple[float, float, float, float]],
+        t: Sequence[Tuple[int, int]],
+        precision: int = 64,
+        max_ranges: Optional[int] = None,
+        exact_skip: bool = False,
+    ):
+        """:meth:`ranges` as (lower[], upper[], contained[]) arrays
+        (``zorder.zranges_arrays``: the C++ BFS first)."""
+        args = self._range_inputs(xy, t, exact_skip)
+        return zranges_arrays(*args[:2], self.precision, 3, max_ranges, precision,
+                              skip_mins=args[2], skip_maxs=args[3])
 
     def _range_inputs(self, xy, t, exact_skip: bool):
         # one normalized unit per side guards the normalize() floor; the

@@ -1,9 +1,10 @@
 """XZ-ordering curves for geometries with extent (polygons/lines).
 
-Port of ``geomesa_tpu/curve/xz.py``. ``ranges_boxes`` runs the pure-Python
-BFS only: the reference's native C++ walk (``geomesa_tpu/native``
-``xzranges_native``, tried first there) is not ported, so callers pass a
-``max_ranges`` budget (an unbounded XZ3 walk takes minutes).
+Port of ``geomesa_tpu/curve/xz.py``. ``ranges_boxes`` runs the C++ BFS
+(``geomesa_tpu_torch/native`` ``xzranges.cpp``) first, and the pure-Python
+BFS, its plain edition, when the library is unavailable or the curve is
+outside its domain (g > 20). Callers pass a ``max_ranges`` budget: an
+unbounded XZ3 walk in Python takes minutes.
 
 Rebuild of the reference's XZ2SFC/XZ3SFC (geomesa-z3 .../curve/XZ2SFC.scala,
 XZ3SFC.scala), implementing 'XZ-Ordering: A Space-Filling Curve for Objects
@@ -161,6 +162,16 @@ class _XZSFC:
                     tuple(float(v[0]) for v in nmaxs),
                 )
             )
+
+        # latency-critical planning path: the C++ BFS (same semantics,
+        # tested against the Python walk below) unless it is unavailable
+        from geomesa_tpu_torch.native import xzranges_native
+
+        native = xzranges_native(
+            [q[0] for q in queries], [q[1] for q in queries], self.dims, self.g, max_ranges
+        )
+        if native is not None:
+            return [IndexRange(lo, hi, c) for lo, hi, c in native]
 
         dims, base, g = self.dims, self.base, self.g
         ranges: List[IndexRange] = []

@@ -1,7 +1,9 @@
 """Z-order (Morton) bit interleaving and range decomposition.
 
 Port of ``geomesa_tpu/curve/zorder.py``: the numpy encode/decode and the
-pure-Python range walk, without the reference's native C++ range BFS.
+range walk. ``zranges_arrays``, the planner's entry, runs the C++ BFS
+(``geomesa_tpu_torch/native`` ``zranges.cpp``) and, when that library is
+unavailable, the pure-Python walk ``zranges``, its plain edition.
 
 The reference module replaces the external ``org.locationtech.sfcurve:sfcurve-zorder`` library
 the reference delegates to (imported at Z2SFC.scala:13 / Z3SFC.scala:14; range
@@ -157,6 +159,34 @@ def merge_ranges(ranges: List[IndexRange]) -> List[IndexRange]:
             cur = r
     merged.append(cur)
     return merged
+
+
+def zranges_arrays(
+    mins,
+    maxs,
+    bits: int,
+    dims: int,
+    max_ranges: Optional[int] = None,
+    precision: int = 64,
+    skip_mins=None,
+    skip_maxs=None,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`zranges` as arrays (lower[] u64, upper[] u64, contained[]
+    bool): the C++ BFS, or the Python walk when its library is
+    unavailable."""
+    from geomesa_tpu_torch.native import zranges_native
+
+    arrays = zranges_native(
+        mins, maxs, bits, dims, max_ranges, precision, skip_mins, skip_maxs
+    )
+    if arrays is not None:
+        return arrays
+    rs = zranges(mins, maxs, bits, dims, max_ranges, precision, skip_mins, skip_maxs)
+    return (
+        np.array([r.lower for r in rs], dtype=np.uint64),
+        np.array([r.upper for r in rs], dtype=np.uint64),
+        np.array([r.contained for r in rs], dtype=bool),
+    )
 
 
 def zranges(

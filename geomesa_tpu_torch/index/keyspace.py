@@ -267,14 +267,10 @@ def times_by_bin(
 
 
 def _group_arrays(sfc, boxes, window, per_group, skip):
-    """(lower[], upper[], contained[]) for one decomposition group from the
-    Python range walk. ``window`` None = 2D (Z2)."""
+    """(lower[], upper[], contained[]) for one decomposition group (the
+    C++ BFS when its library is available). ``window`` None = 2D (Z2)."""
     targs = () if window is None else ([window],)
-    rs = sfc.ranges(boxes, *targs, max_ranges=per_group, exact_skip=skip)
-    lo = np.array([r.lower for r in rs], dtype=np.uint64)
-    hi = np.array([r.upper for r in rs], dtype=np.uint64)
-    cont = np.array([r.contained for r in rs], dtype=bool)
-    return lo, hi, cont
+    return sfc.ranges_arrays(boxes, *targs, max_ranges=per_group, exact_skip=skip)
 
 
 class Z3KeySpace(IndexKeySpace):

@@ -33,16 +33,27 @@ stream takes there:
     certifies the band from its f64 columns (``_certify_density_band``),
     so the grid equals the host reducer's cell for cell.
 
-There is no host-seek chooser in this slice: the executor behaves as the
-reference does under ``GEOMESA_SEEK=0``, with the exact path and batched
-dispatch always on, except that a lone extent query takes the dual route
-(the reference sends it to the candidate route there). Unlike the
-reference, segment rows pad to the kernels' granule (``GRANULE``) rather
-than to a power-of-two bucket, because PyTorch compiles no per-shape
-programs.
+  * the HOST SEEK (``_seek_scan``, the reference's cost-based chooser): a
+    plan whose ranges cover at most ``SEEK_FRAC`` (0.4) of the
+    table's rows is answered on the host by a searchsorted seek of the
+    sorted blocks (``_HostSeekScan``), through the C++ seek scans
+    (``geomesa_tpu_torch/native`` ``seekscan.cpp``) when the query reduces
+    to one exact box(+window) on a point index or one spatial predicate on
+    an xz2 index. ``GEOMESA_SEEK`` = ``auto`` (the default) | ``0`` (never)
+    | ``1`` (whenever the plan has ranges), read at each call. The
+    reference's device-assisted seek (``GEOMESA_DEVSEEK``, off by default)
+    and its attribute residual shape are not in this slice.
+
+The exact path and batched dispatch are always on. A lone extent query
+takes the dual route (the reference sends it to the candidate route).
+Unlike the reference, segment rows pad to the kernels' granule
+(``GRANULE``) rather than to a power-of-two bucket, because PyTorch compiles
+no per-shape programs. Span windows decode on the host through the C++
+bitmap decode (``bitdecode.cpp``), numpy's unpack when it is unavailable.
 
 The host steps of a scan carry ``torch.profiler`` ranges (``geomesa.fetch``,
-``geomesa.decode``, ``geomesa.block_rows``, ``geomesa.ring``; the store adds
+``geomesa.decode``, ``geomesa.block_rows``, ``geomesa.ring``, ``geomesa.seek``
+around each block's host-seek scan; the store adds
 ``geomesa.plan``, ``geomesa.dispatch``, ``geomesa.post_filter`` and
 ``geomesa.assemble``; a density query opens ``geomesa.density`` around its
 launches and grid fetch and ``geomesa.band`` around the host certification),
@@ -51,6 +62,7 @@ so a profiler trace of a query stream splits its host time by step.
 
 from __future__ import annotations
 
+import os
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -61,6 +73,12 @@ from torch.profiler import record_function
 from geomesa_tpu_torch.curve import time_to_binned, zorder
 from geomesa_tpu_torch.curve.binnedtime import TimePeriod, binned_to_time
 from geomesa_tpu_torch.index.planner import QueryPlan
+from geomesa_tpu_torch.native import (
+    bitmap_rows_native,
+    env_seek_scan_native,
+    load_seek,
+    seek_scan_native,
+)
 from geomesa_tpu_torch.ops import aggregations, kernels
 from geomesa_tpu_torch.ops.filters import pad_boxes, pad_windows
 from geomesa_tpu_torch.ops.zkernels import (
@@ -75,7 +93,7 @@ from geomesa_tpu_torch.parallel.mesh import (
     pad_to_multiple,
     upload,
 )
-from geomesa_tpu_torch.store.blocks import FeatureBlock, IndexTable
+from geomesa_tpu_torch.store.blocks import FeatureBlock, IndexTable, expand_intervals
 
 # initial hit-run capacity: 4096 runs * 8B = 32 KiB per segment transfer
 HIT_CAPACITY0 = 4096
@@ -87,6 +105,9 @@ DENSE_BITMAP_FACTOR = 64
 # segment row granule: a multiple of the candidate kernel's 4-row vectors
 # and of the exact kernel's 32-row ballot words
 GRANULE = 1024
+# the host seek answers a plan whose ranges cover at most this share of the
+# table's rows (the reference's default cutoff; PERF.md on the H100)
+SEEK_FRAC = 0.4
 
 _INT64_MIN = np.iinfo(np.int64).min
 _INT64_MAX = np.iinfo(np.int64).max
@@ -135,10 +156,16 @@ def _np_local(t: torch.Tensor) -> np.ndarray:
         return t.cpu().numpy()
 
 
-def _decode_bitmap_rows(bits: np.ndarray, start: int) -> np.ndarray:
-    """Span-window bitmap -> global row indices (numpy unpack; the
-    reference's native decoder is not ported)."""
+def _decode_bitmap_rows(bits: np.ndarray, start: int, max_out: int) -> np.ndarray:
+    """Span-window bitmap -> global row indices: the C++ decode
+    (``native/bitdecode.cpp``), numpy's unpack when the library is
+    unavailable. ``max_out`` is the wire header's hit count (every set bit
+    lies inside the span window by construction); a window with more set
+    bits raises."""
     with record_function("geomesa.decode"):
+        rows = bitmap_rows_native(bits, start, max_out)
+        if rows is not None:
+            return rows
         return start + np.flatnonzero(np.unpackbits(bits)).astype(np.int64)
 
 
@@ -661,7 +688,7 @@ class _PendingBitmapHits:
             return np.empty(0, dtype=np.int64)
         if hi - start + 1 > self.batch.span_cap:
             return self._single().rows()
-        return _decode_bitmap_rows(self.batch.query_bits(self.i), start)
+        return _decode_bitmap_rows(self.batch.query_bits(self.i), start, cnt)
 
 
 class _PendingXZHits:
@@ -750,8 +777,8 @@ class _PendingXZBitmapHits:
         both = self.batch.query_bits(self.i)
         h = len(both) // 2
         return (
-            _decode_bitmap_rows(both[:h], start),
-            _decode_bitmap_rows(both[h:], start),  # decided <= hit
+            _decode_bitmap_rows(both[:h], start, cnt),
+            _decode_bitmap_rows(both[h:], start, cnt),  # decided <= hit
         )
 
 
@@ -829,6 +856,141 @@ class _PendingScan:
             yield from seg.to_block_rows(ph.rows())
 
 
+def _merge_overlapping_intervals(starts, ends, flags):
+    """Coalesce overlapping [start, end) row intervals (flags AND-merge:
+    False is safe in both seek modes, the row merely takes the test it
+    would pass anyway). Disjoint inputs return unchanged."""
+    if len(starts) <= 1:
+        return starts, ends, flags
+    order = np.argsort(starts, kind="stable")
+    s, e, f = starts[order], ends[order], flags[order]
+    run_end = np.maximum.accumulate(e)
+    if (s[1:] >= run_end[:-1]).all():
+        return s, e, f  # already disjoint (sorted)
+    heads = np.flatnonzero(np.concatenate(([True], s[1:] >= run_end[:-1])))
+    return (
+        s[heads],
+        np.maximum.reduceat(e, heads),
+        np.minimum.reduceat(f.astype(np.int8), heads).astype(bool),
+    )
+
+
+class _HostSeekScan:
+    """A host searchsorted block seek in the scan shape: the executor chose
+    seeking over a device dispatch for a selective plan (the reference's
+    ``_HostSeekScan``). It carries the per-block (starts, ends, flags)
+    intervals the chooser's cost probe computed; rows expand at iteration.
+
+    Without ``pred``, ``exact`` is False and iteration yields (block, rows,
+    covered) triples: ``covered`` rows came from ``contained`` ranges and
+    satisfy the plan's primary predicate, so the caller applies only the
+    residual (secondary) filter to them. With ``pred`` (the query reduced
+    to one exact box(+window) on a point index, or one spatial predicate on
+    an xz2 index, and the C++ seek-scan library loaded) iteration runs the
+    one-pass C++ scan, ``exact`` is True and the yielded (block, rows) ARE
+    the result set."""
+
+    __slots__ = ("table", "per_block", "pred", "exact")
+
+    def __init__(self, table: IndexTable, per_block, pred=None):
+        self.exact = pred is not None
+        self.table = table
+        self.per_block = per_block
+        self.pred = pred
+
+    def __iter__(self):
+        if self.pred is not None:
+            if self.pred[0] == "xz":
+                yield from self._iter_native_xz()
+            else:
+                yield from self._iter_native()
+            return
+        for block, starts, ends, flags in self.per_block:
+            with record_function("geomesa.seek"):
+                rows, covered = expand_intervals(starts, ends, flags)
+            if len(rows):
+                yield block, rows, covered
+
+    def _iter_native_xz(self):
+        """Extent plans: the C++ envelope scan decides overlap and inside
+        per candidate row; only the boundary ring takes the exact
+        per-geometry test."""
+        from geomesa_tpu_torch.filter.evaluate import _eval_spatial, _geom_predicate
+
+        _, geom, node, qenv, rect = self.pred
+        qbox = (qenv.xmin, qenv.ymin, qenv.xmax, qenv.ymax)
+        for block, starts, ends, flags in self.per_block:
+            bx = block.columns[geom + "__bxmin"]
+            by = block.columns[geom + "__bymin"]
+            cx = block.columns[geom + "__bxmax"]
+            cy = block.columns[geom + "__bymax"]
+            with record_function("geomesa.seek"):
+                got = env_seek_scan_native(
+                    bx, by, cx, cy, starts, ends, qbox, rect,
+                    isrect=block.columns.get(geom + "__isrect"),
+                )
+            if got is None:
+                # the library became unavailable (GEOMESA_TPU_NO_NATIVE):
+                # the same rules through the host's vectorized prescreen
+                cand, _cov = expand_intervals(starts, ends, flags)
+                if not len(cand):
+                    continue
+                sub = {geom: block.gather(geom, cand)}
+                for sfx, col in (("__bxmin", bx), ("__bymin", by), ("__bxmax", cx),
+                                 ("__bymax", cy)):
+                    sub[geom + sfx] = col[cand]
+                final = cand[_eval_spatial(node, self.table.ft, sub)]
+                if len(final):
+                    yield block, final
+                continue
+            rows, decided = got
+            if not len(rows):
+                continue
+            ring = rows[~decided]
+            if len(ring):
+                with record_function("geomesa.ring"):
+                    geoms = block.gather(geom, ring)
+                    keep = np.fromiter(
+                        (g is not None and _geom_predicate(node, g) for g in geoms),
+                        bool,
+                        len(ring),
+                    )
+                final = np.sort(np.concatenate([rows[decided], ring[keep]]))
+            else:
+                final = rows[decided]
+            if len(final):
+                yield block, final
+
+    def _iter_native(self):
+        """Point plans: the C++ one-pass box(+window) test over the
+        candidate intervals of the block's own sorted x/y(/t) columns."""
+        _z, geom, dtg, box, t_lo, t_hi = self.pred
+        want_t = t_lo is not None or t_hi is not None
+        lo = _INT64_MIN + 1 if t_lo is None else t_lo
+        hi = _INT64_MAX if t_hi is None else t_hi
+        for block, starts, ends, flags in self.per_block:
+            # the scan takes intervals verbatim: overlapping ones would emit
+            # shared rows once per interval
+            starts, ends, flags = _merge_overlapping_intervals(starts, ends, flags)
+            xs = block.columns[geom + "__x"]
+            ys = block.columns[geom + "__y"]
+            t = block.full_col(dtg) if want_t else None
+            with record_function("geomesa.seek"):
+                rows = seek_scan_native(xs, ys, t, starts, ends, flags, box, lo, hi)
+                if rows is None:
+                    # the library became unavailable (GEOMESA_TPU_NO_NATIVE):
+                    # numpy edition of the same exact test
+                    rows, _cov = expand_intervals(starts, ends, flags)
+                    xc, yc = xs[rows], ys[rows]
+                    m = (xc >= box[0]) & (xc <= box[2]) & (yc >= box[1]) & (yc <= box[3])
+                    if want_t:
+                        tc = t[rows]
+                        m &= (tc >= lo) & (tc <= hi)
+                    rows = rows[m]
+            if len(rows):
+                yield block, rows
+
+
 class DeviceIndex:
     """Segmented device-resident mirror of one index table: appended blocks
     become new segments, and past MAX_SEGMENTS (or after blocks were
@@ -895,13 +1057,22 @@ class TorchScanExecutor:
 
     _DESC_UNSET = object()  # sentinel: caller did not precompute desc
 
-    def dispatch_candidates(self, table: IndexTable, plan: QueryPlan, desc=_DESC_UNSET):
-        """Start the device pre-filter; None -> the caller scans host ranges.
-        Pure bbox(+interval) point filters take the EXACT route (no host
+    def dispatch_candidates(self, table: IndexTable, plan: QueryPlan):
+        """Start the scan of one plan; None -> the caller scans host ranges.
+        A selective plan takes the host seek (``_seek_scan``); otherwise
+        pure bbox(+interval) point filters take the EXACT route (no host
         post-filter), one spatial predicate on an extent table (+ xz3 time
-        bounds) the DUAL route, everything else the candidate route.
-        ``desc`` lets dispatch_many pass an already-computed exact point
-        descriptor."""
+        bounds) the DUAL route, everything else the candidate route."""
+        seek = self._seek_scan(table, plan)
+        if seek is not None:
+            return seek
+        return self._dispatch_nonseek(table, plan)
+
+    scan_candidates = dispatch_candidates
+
+    def _dispatch_nonseek(self, table: IndexTable, plan: QueryPlan, desc=_DESC_UNSET):
+        """The device dispatch after the seek choice declined. ``desc`` lets
+        dispatch_many pass an already-computed exact point descriptor."""
         if not self._scan_eligible(table, plan):
             return None
         if desc is TorchScanExecutor._DESC_UNSET:
@@ -923,8 +1094,6 @@ class TorchScanExecutor:
         return _PendingScan(
             [(seg, seg.dispatch_hits(boxes_dev, windows_dev)) for seg in dev.segments]
         )
-
-    scan_candidates = dispatch_candidates
 
     def _dispatch_xz_single(self, table: IndexTable, dev: DeviceIndex, qdesc: np.ndarray,
                             has_time: bool, geom: str, node) -> _XZBatchScan:
@@ -950,16 +1119,21 @@ class TorchScanExecutor:
     def dispatch_many(self, items: Sequence[Tuple[IndexTable, QueryPlan]]):
         """Dispatch a query stream; returns {id(plan): scan | None}.
 
-        Point plans whose full filter reduces to one exact box(+window)
-        test on the same table fuse into ONE ``exact_bitmap`` launch per
-        segment, extent plans with a dual descriptor into ONE
-        ``xz_dual_bitmap`` launch (chunks of BATCH_MAX); the rest dispatch
-        as dispatch_candidates would."""
+        Each plan first meets the seek choice (``_seek_scan``). Of the
+        rest, point plans whose full filter reduces to one exact
+        box(+window) test on the same table fuse into ONE ``exact_bitmap``
+        launch per segment, extent plans with a dual descriptor into ONE
+        ``xz_dual_bitmap`` launch (chunks of BATCH_MAX); the others
+        dispatch as dispatch_candidates would."""
         out: Dict[int, object] = {}
         batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         xz_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         for table, plan in items:
             if id(plan) in out:
+                continue
+            seek = self._seek_scan(table, plan)
+            if seek is not None:
+                out[id(plan)] = seek
                 continue
             eligible = self._scan_eligible(table, plan)
             desc = self._exact_descriptor(table, plan) if eligible else None
@@ -972,7 +1146,7 @@ class TorchScanExecutor:
                     group[2].append((id(plan), qdesc, geom, node))
                     out[id(plan)] = None  # placeholder, filled below
                     continue
-                out[id(plan)] = self.dispatch_candidates(table, plan, desc=None)
+                out[id(plan)] = self._dispatch_nonseek(table, plan, desc=None)
                 continue
             has_time = desc[1] is not None
             group = batchable.setdefault((id(table), has_time), (table, has_time, []))
@@ -988,7 +1162,7 @@ class TorchScanExecutor:
                 chunk = lst[i : i + self.BATCH_MAX]
                 if len(chunk) == 1:
                     pid, plan, d = chunk[0]
-                    out[pid] = self.dispatch_candidates(table, plan, desc=d)
+                    out[pid] = self._dispatch_nonseek(table, plan, desc=d)
                     continue
                 descs = [d for _pid, _p, d in chunk]
                 per_seg = [seg.dispatch_exact_batch(descs, has_time) for seg in dev.segments]
@@ -1052,6 +1226,75 @@ class TorchScanExecutor:
             if ok and widest:
                 # +8: the window start aligns down to a byte boundary
                 seg.seed_span(widest + 8)
+
+    # -- the host-seek chooser -----------------------------------------------
+
+    def _seek_scan(self, table: IndexTable, plan: QueryPlan) -> Optional[_HostSeekScan]:
+        """Cost-based execution choice (the reference's ``_seek_scan``):
+        when the plan's ranges cover a small fraction of the sorted blocks,
+        a host searchsorted seek touches only candidate rows and beats a
+        device full scan. ``GEOMESA_SEEK``: auto (default) | 0 (never) | 1
+        (whenever ranges exist), read at each call; ``SEEK_FRAC`` is the
+        cutoff of auto. The reference's device-assisted
+        seek (``GEOMESA_DEVSEEK``, off by default) is not ported: this is
+        its choice with that seek off."""
+        mode = os.environ.get("GEOMESA_SEEK", "auto")
+        if mode == "0" or not plan.ranges:
+            return None
+        nrows = table.num_rows
+        if nrows == 0:
+            return None
+        # one searchsorted pass serves the cost probe and, if the seek wins,
+        # the scan itself
+        per_block = []
+        total = 0
+        for b in table.blocks:
+            starts, ends, flags = b.scan_intervals(plan.ranges)
+            if len(starts):
+                total += int(np.maximum(ends - starts, 0).sum())
+                per_block.append((b, starts, ends, flags))
+        if mode != "1":
+            if total > SEEK_FRAC * nrows:
+                return None
+        pred = self._native_seek_pred(table, plan)
+        if pred is None:
+            pred = self._xz_native_pred(table, plan)
+        return _HostSeekScan(table, per_block, pred)
+
+    def _native_seek_pred(self, table: IndexTable, plan: QueryPlan):
+        """("z", geom, dtg, box, t_lo, t_hi) for the one-pass C++ seek scan
+        when the point plan's FULL filter is one exact bbox(+interval) test
+        (``_exact_predicate_shape``) and the library is loaded; None -> the
+        covered-split scan. Range ``contained`` flags then mean "satisfies
+        the whole predicate", so the scan passes those runs untested. (The
+        reference's value-exact attribute residual shape is not in this
+        slice.)"""
+        shape = self._exact_predicate_shape(table, plan)
+        if shape is None or load_seek() is None:
+            return None
+        xmin, ymin, xmax, ymax, t_lo, t_hi = shape
+        ft = table.ft
+        dtg = ft.default_date.name if ft.default_date is not None else None
+        if t_lo is not None or t_hi is not None:
+            # null dates are stored as 0 + a __null mask: the raw test would
+            # admit them when the window holds the epoch
+            if any(b.has_nulls(dtg) for b in table.blocks):
+                return None
+        return ("z", ft.default_geometry.name, dtg, (xmin, ymin, xmax, ymax), t_lo, t_hi)
+
+    def _xz_native_pred(self, table: IndexTable, plan: QueryPlan):
+        """("xz", geom, node, qenv, rect) for the C++ envelope seek scan
+        (xz2 only: one spatial predicate, ``_xz_pred_shape``) when the
+        blocks carry envelope companions and the library is loaded."""
+        shape = self._xz_pred_shape(table, plan)
+        if shape is None or table.index.name != "xz2":
+            return None
+        geom, node, qenv, rect, _t_lo, _t_hi = shape
+        if not table.blocks or any(geom + "__bxmin" not in b.columns for b in table.blocks):
+            return None
+        if load_seek() is None:
+            return None
+        return ("xz", geom, node, qenv, rect)
 
     # -- exact descriptors ---------------------------------------------------
 

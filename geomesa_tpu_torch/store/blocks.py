@@ -411,14 +411,6 @@ class FeatureBlock:
             return np.zeros(self.n, dtype=bool)
         raise KeyError(k)
 
-    def record_part(self, rows: np.ndarray) -> Tuple[object, np.ndarray]:
-        """(record block, record rows) for result assembly: downstream
-        consumers (LazyColumns) read full feature columns from the record
-        table, never from the reduced index block."""
-        if self.record is None:
-            return self, rows
-        return self.record, self.rowid[rows]
-
     @classmethod
     def build(
         cls,

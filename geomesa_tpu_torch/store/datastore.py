@@ -5,9 +5,12 @@ schema creation, writers and bulk column ingest, ``query`` and the
 pipelined ``query_many``. The executor seam and the host-scan fallback are
 the reference's: an executor returns a device scan or None, and None scans
 the host blocks over the plan's ranges. Execution per query: PLAN
-(cached) -> ROUTE (union arms) -> SCAN (device or host candidates, then the
-host post-filter unless the device evaluated the exact predicate) -> MERGE
-(fid dedupe across union arms, sort/limit/projection).
+(cached) -> ROUTE (union arms) -> SCAN (the executor's host seek or device
+scan, or host candidates, then the host post-filter unless the scan
+evaluated the exact predicate) -> MERGE (``LazyColumns``: a result holds
+(block, rows) parts and gathers a column only when something reads it; fid
+dedupe across union arms, sort/limit/projection and the host reducer
+materialize the columns first).
 
 The density aggregation hint (``hints={"density": {"envelope": (xmin,
 ymin, xmax, ymax), "width": W, "height": H}}``) is pushed down to the
@@ -27,6 +30,7 @@ host.
 from __future__ import annotations
 
 import uuid
+from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -59,9 +63,73 @@ from geomesa_tpu_torch.store.blocks import (
 DEFAULT_FLUSH_SIZE = 100_000
 
 
+class LazyColumns(Mapping):
+    """Deferred column materialization over scanned (block, rows) parts
+    (the reference's ``LazyColumns``, the KryoBufferSimpleFeature lazy-read
+    analog): a query result holds row indices into the immutable sealed
+    blocks and gathers a column only when something reads it, once. A
+    fid-only stream or ``len(result)`` never pays for a gather.
+
+    Parts hold index-block rows; a column resolves the block's own
+    (key-sorted) column first and falls through to the shared record block
+    via the block's rowid mapping, computed at most once per part.
+    Read-only; ``materialize()`` returns a plain dict for the code that
+    re-orders or mutates columns (dedupe, sort, limit, aggregation)."""
+
+    __slots__ = ("_parts", "_keys", "_cache", "_rmap", "num_rows")
+
+    def __init__(self, parts, keys):
+        self._parts = parts  # [(FeatureBlock, row-index array)]
+        self._keys = frozenset(keys)
+        self._cache: Dict[str, np.ndarray] = {}
+        self._rmap: Dict[int, np.ndarray] = {}  # part index -> record rows
+        self.num_rows = int(sum(len(r) for _, r in parts))
+
+    def _part_col(self, i: int, block, rows, k: str) -> np.ndarray:
+        if k not in block.columns and block.record is not None:
+            rr = self._rmap.get(i)
+            if rr is None:
+                rr = self._rmap[i] = block.rowid[rows]
+            got = block.gather(k, rows, record_rows=rr)
+        else:
+            got = block.gather(k, rows)
+        vocab = self._vocab_for(block, k)
+        return got if vocab is None else dict_decode(got, vocab)
+
+    @staticmethod
+    def _vocab_for(block, k: str):
+        if k.startswith("__") or k.endswith("__null"):
+            return None
+        cols = block.record.columns if block.record is not None else block.columns
+        return cols.get(k + "__vocab")
+
+    def __getitem__(self, k: str) -> np.ndarray:
+        if k not in self._keys:
+            raise KeyError(k)
+        got = self._cache.get(k)
+        if got is None:
+            pieces = [self._part_col(i, b, rows, k) for i, (b, rows) in enumerate(self._parts)]
+            got = np.concatenate(pieces) if pieces else np.empty(0, dtype=object)
+            self._cache[k] = got
+        return got
+
+    def __iter__(self):
+        return iter(self._keys)
+
+    def __len__(self):
+        return len(self._keys)
+
+    def __contains__(self, k):
+        return k in self._keys
+
+    def materialize(self) -> Columns:
+        return {k: self[k] for k in self._keys}
+
+
 class QueryResult:
-    """Columnar query result; ``aggregate`` holds the density grid when the
-    query's hints asked for one."""
+    """Columnar query result; ``columns`` is a plain dict or a
+    ``LazyColumns``; ``aggregate`` holds the density grid when the query's
+    hints asked for one."""
 
     def __init__(self, ft: FeatureType, columns: Columns, plan: Optional[QueryPlan] = None,
                  aggregate: Optional[Dict[str, Any]] = None):
@@ -71,7 +139,12 @@ class QueryResult:
         self.aggregate = aggregate or {}
 
     def __len__(self):
-        return len(self.fids)
+        n = getattr(self.columns, "num_rows", None)
+        if n is not None:
+            return n
+        for v in self.columns.values():
+            return len(v)
+        return 0
 
     @property
     def fids(self) -> np.ndarray:
@@ -248,14 +321,10 @@ class TorchDataStore:
         for arm in self._route(plan):
             parts.extend(self._scan_parts(name, ft, arm, pending))
         with record_function("geomesa.assemble"):
-            columns = _columns_from_parts(ft, parts, query.properties)
+            columns = _columns_from_parts(ft, query, parts)
             if plan.union is not None:
-                columns = _dedupe_by_fid(columns)
-            if aggregating:
-                # the host reducer over the scanned rows
-                return QueryResult(ft, _empty_columns(ft), plan,
-                                   run_aggregation(ft, query.hints, columns))
-            return QueryResult(ft, _apply_query_options(query, columns), plan)
+                columns = _dedupe_by_fid(_materialize(columns))
+            return _finish(ft, query, plan, columns)
 
     def _route(self, plan: QueryPlan) -> List[QueryPlan]:
         """Decompose a plan into independently scannable units: the
@@ -283,15 +352,20 @@ class TorchDataStore:
 
     def _consume(self, ft, plan: QueryPlan, scan, exact: bool) -> List[tuple]:
         """Post-filter each (block, rows) candidate set with the full
-        filter, unless the device evaluated the query's own predicate."""
+        filter, unless the scan evaluated the query's own predicate. A host
+        seek's (block, rows, covered) triples take the covered split."""
         pf_props = (
             set(ast.properties(plan.post_filter))
             if plan.post_filter is not None and not exact
             else None
         )
         parts = []
-        for block, rows in scan:
-            if pf_props is not None and len(rows):
+        for item in scan:
+            block, rows = item[0], item[1]
+            covered = item[2] if len(item) == 3 else None
+            if covered is not None and pf_props is not None and covered.any():
+                rows = self._filter_block_covered(ft, plan, block, rows, covered, pf_props)
+            elif pf_props is not None and len(rows):
                 with record_function("geomesa.post_filter"):
                     fcols = _gather_filter_cols(block, rows, pf_props)
                     mask = self.executor.post_filter(ft, plan, fcols)
@@ -300,6 +374,27 @@ class TorchDataStore:
             if len(rows):
                 parts.append((block, rows))
         return parts
+
+    def _filter_block_covered(self, ft, plan: QueryPlan, block, rows, covered,
+                              pf_props) -> np.ndarray:
+        """Covered-split filtering of one block (the reference's
+        ``_filter_block_covered``): rows of ``contained`` ranges satisfy the
+        plan's primary predicate, so the full post-filter runs only on the
+        uncovered rest and covered rows take just the residual secondary."""
+        from geomesa_tpu_torch.filter.evaluate import evaluate
+
+        keep = covered.copy()
+        with record_function("geomesa.post_filter"):
+            uncov = np.flatnonzero(~covered)
+            if len(uncov):
+                fcols = _gather_filter_cols(block, rows[uncov], pf_props)
+                keep[uncov] = self.executor.post_filter(ft, plan, fcols)
+            if plan.secondary is not None:
+                cov = np.flatnonzero(covered)
+                scols = _gather_filter_cols(
+                    block, rows[cov], set(ast.properties(plan.secondary)))
+                keep[cov] = evaluate(plan.secondary, ft, scols)
+        return rows if keep.all() else rows[keep]
 
 
 # derived scan-internal companion suffixes (dictionary vocabs, envelope
@@ -323,6 +418,8 @@ def _scan_label(scan) -> str:
     if scan is None:
         return "host-table"
     name = type(scan).__name__
+    if name == "_HostSeekScan":
+        return "host-seek"
     base = (
         "device-batch-dual" if name == "_XZBatchScan"
         else "device-exact" if scan.exact
@@ -369,31 +466,69 @@ def _gather_filter_cols(block, rows, props) -> Columns:
     return fcols
 
 
-def _columns_from_parts(ft: FeatureType, parts: List[tuple], properties=None) -> Columns:
-    """(index block, rows) parts -> record columns (dictionary columns
-    decoded to values): every attribute, or ``__fid__`` plus the projected
-    ``properties`` — a fid-only query gathers only fids."""
+def _output_columns(query: Query) -> Optional[set]:
+    """Base names the query result must carry; None = everything. A
+    superset of the projection: sort reads the result's columns (the
+    reference's ``_output_columns``, which adds sampling's)."""
+    props = query.properties
+    if props is None or has_aggregation(query.hints):
+        return None
+    if any("=" in p for p in props):
+        return None  # derived transforms read arbitrary source columns
+    out = set(props)
+    if query.sort_by:
+        out.update(a for a, _ in query.sort_by)
+    return out
+
+
+def _columns_from_parts(ft: FeatureType, query: Query, parts: List[tuple]):
+    """(index block, rows) parts -> ``LazyColumns`` over the query's
+    observable keys: the record columns present in every part (a missing
+    ``__null`` companion means "no nulls"), less scan internals, restricted
+    to ``_output_columns``; ``__fid__`` always."""
     if not parts:
         return _empty_columns(ft)
-    records = [block.record_part(rows) for block, rows in parts]
-    keys = set.intersection(*(set(rb.columns) for rb, _ in records))
-    keys |= {k for rb, _ in records for k in rb.columns if k.endswith("__null")}
-    out: Columns = {}
-    for k in keys:
-        if k == "__vis__" or k.endswith(_INTERNAL_SUFFIXES):
-            continue  # scan internals never leak into results
-        if properties is not None and k != "__fid__" and _column_base(k) not in properties:
-            continue
-        pieces = []
-        for rb, rows in records:
-            col = rb.columns.get(k)
-            if col is None:  # a missing __null companion means "no nulls"
-                pieces.append(np.zeros(len(rows), dtype=bool))
-                continue
-            vocab = rb.columns.get(k + "__vocab")
-            pieces.append(col[rows] if vocab is None else dict_decode(col[rows], vocab))
-        out[k] = np.concatenate(pieces)
-    return out
+    out_needed = _output_columns(query)
+    keysets = [
+        set(b.record.columns) if b.record is not None else set(b.columns) for b, _ in parts
+    ]
+    common = set.intersection(*keysets)
+    keys = {"__fid__"}
+    keys.update(
+        k
+        for k in set.union(*keysets)
+        if k != "__vis__"
+        and not k.endswith(_INTERNAL_SUFFIXES)  # scan internals never leak
+        and (k in common or k.endswith("__null"))
+        and (out_needed is None or _column_base(k) in out_needed)
+    )
+    return LazyColumns(parts, keys)
+
+
+def _materialize(columns) -> Columns:
+    """LazyColumns -> plain dict (for code that re-orders or mutates);
+    plain dicts pass through."""
+    if isinstance(columns, LazyColumns):
+        return columns.materialize()
+    return columns
+
+
+def _finish(ft: FeatureType, query: Query, plan: QueryPlan, columns) -> QueryResult:
+    """The host reducer over materialized columns when the query
+    aggregates; a plain stream (no sort, limit or transform) keeps the
+    lazy mapping, already restricted to its keys; anything else
+    materializes and takes sort, limit and projection."""
+    if has_aggregation(query.hints):
+        return QueryResult(ft, _empty_columns(ft), plan,
+                           run_aggregation(ft, query.hints, _materialize(columns)))
+    if (
+        isinstance(columns, LazyColumns)
+        and not query.sort_by
+        and query.max_features is None
+        and _untransformed(query)
+    ):
+        return QueryResult(ft, columns, plan)
+    return QueryResult(ft, _apply_query_options(query, _materialize(columns)), plan)
 
 
 def _empty_columns(ft: FeatureType) -> Columns:

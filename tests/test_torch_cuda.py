@@ -19,7 +19,7 @@ from geomesa_tpu_torch.ops import aggregations as agg
 from geomesa_tpu_torch.ops import filters as F
 from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops.zkernels import f64_keys
-from geomesa_tpu_torch.parallel.executor import TorchScanExecutor
+from geomesa_tpu_torch.parallel.executor import TorchScanExecutor, _decode_bitmap_rows
 
 
 @pytest.fixture
@@ -405,3 +405,101 @@ def test_xz_dual_bitmap_batch_sizes_on_the_card(cuda, q, has_time):
     assert want[0].any()
     if q > 1:
         assert (want[2][:, 0] == 0).any()  # a query with no hit: (0, 0, n - 1)
+
+
+def _native_decode_agrees(header, window, half=None):
+    """Each query's span window through the native decode (header count as
+    its bound) equals numpy's unpack of the same window; ``half`` splits a
+    dual window into its hit and decided planes."""
+    from geomesa_tpu_torch import native
+
+    assert native.build_all()["bitdecode"]["loaded"], native.status()["bitdecode"]
+    decoded = 0
+    for (cnt, _lo, _hi, start), w in zip(header.cpu().numpy(), window.cpu().numpy()):
+        planes = [w] if half is None else [w[:half], w[half:]]
+        for plane in planes:
+            want = int(start) + np.flatnonzero(np.unpackbits(plane)).astype(np.int64)
+            got = _decode_bitmap_rows(plane, int(start), int(cnt))
+            assert got.dtype == np.int64 and np.array_equal(got, want)
+            decoded += len(got)
+    assert decoded
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+def test_native_decode_of_exact_bitmap_windows_on_the_card(cuda, has_time):
+    """The C++ decode reads the exact kernel's MSB-first words as
+    np.unpackbits does: on real span windows and on whole bitmaps."""
+    n = 2 * 1024 * 1024 + 96
+    x, y, t, valid = _exact_table(n, "z", 41)
+    boxes, wins = _exact_queries(20, 42)
+    dev = {k: torch.from_numpy(v).to(cuda) for k, v in
+           (("xk", f64_keys(x)), ("yk", f64_keys(y)), ("tk", t), ("valid", valid))}
+    bits, hdr = kernels.exact_bitmap(
+        dev["xk"], dev["yk"], dev["tk"] if has_time else None, dev["valid"],
+        torch.from_numpy(boxes).to(cuda), torch.from_numpy(wins).to(cuda) if has_time else None)
+    header, window = kernels.frame_bitmaps(bits, hdr, span_cap=n // 4 // 8 * 8)
+    spans = header[:, 2] - header[:, 3] + 1
+    assert bool(((header[:, 0] > 0) & (spans <= n // 4)).any())
+    fits = (header[:, 0] == 0) | (spans <= n // 4)
+    _native_decode_agrees(header[fits], window[fits])
+    for b, cnt in zip(bits.cpu().numpy(), hdr[:, 0].tolist()):
+        want = np.flatnonzero(np.unpackbits(b))
+        assert len(want) == cnt  # pad rows are clear
+        assert np.array_equal(_decode_bitmap_rows(b, 0, cnt), want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+def test_native_decode_of_xz_dual_windows_on_the_card(cuda, has_time):
+    """Hit and decided planes of the dual kernel's span windows: the C++
+    decode with the hit count as bound (decided <= hit) equals numpy."""
+    from geomesa_tpu_torch.geom.base import Envelope
+
+    n = 1024 * 1024 + 96
+    cols, isrect, valid = _xz_rows(n, 43)
+    t = _rows(n, 44)["t"]
+    shapes = [((-5.0, -5.0, 5.0, 5.0), True, T0, T0 + DAY),
+              ((-1.0, -1.0, 1.0, 1.0), False, T0, None),
+              ((100.0, 0.0, 101.0, 1.0), True, None, None),
+              ((-20.0, -20.0, 20.0, 20.0), True, T0, T0 + 3 * DAY)] * 6
+    descs = torch.from_numpy(np.stack([
+        TorchScanExecutor._xz_desc(Envelope(*b), rect, *((lo, hi) if has_time else (None, None)))[0]
+        for b, rect, lo, hi in shapes])).to(cuda)
+    keys = [torch.from_numpy(f64_keys(c)).to(cuda) for c in cols]
+    hit, dec, hdr = kernels.xz_dual_bitmap(
+        *keys, torch.from_numpy(isrect).to(cuda), torch.from_numpy(valid).to(cuda), descs,
+        tk=torch.from_numpy(t).to(cuda) if has_time else None)
+    span_cap = (n // 8) * 8
+    header, window = kernels.frame_dual_bitmaps(hit, dec, hdr, span_cap)
+    _native_decode_agrees(header, window, half=span_cap // 8)
+
+
+@pytest.mark.cuda
+def test_host_seek_equals_the_device_route_on_the_card(cuda, monkeypatch):
+    """A config-#1-shaped stream (GDELT-style points, jittered bbox AND
+    DURING) under GEOMESA_SEEK=1 (the C++ seek scan) returns the device
+    route's fid sets (GEOMESA_SEEK=0, ``exact_bitmap``)."""
+    import chip_smoke as cs
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+    from geomesa_tpu_torch.store.datastore import TorchDataStore
+
+    n = 400_000
+    x, y, t = cs.synthesize(n, seed=45)
+    store = TorchDataStore(device=cuda)
+    ft = parse_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
+    store.create_schema(ft)
+    store._insert_columns(ft, {"__fid__": np.char.add("f", np.arange(n).astype(str)),
+                               "geom__x": x, "geom__y": y, "dtg": t})
+    boxes, cqls = cs.make_queries(8)
+    got = {}
+    for mode, path in (("0", "device-exact/bitmap"), ("1", "host-seek")):
+        monkeypatch.setenv("GEOMESA_SEEK", mode)
+        res = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
+        assert {r.plan.scan_path for r in res} == {path}
+        got[mode] = [set(r.fids.tolist()) for r in res]
+    assert got["0"] == got["1"]
+    for b, fids in zip(boxes, got["1"]):
+        want = np.flatnonzero(cs.in_box(x, y, b) & (t > cs.T_LO) & (t < cs.T_HI))
+        assert fids == {f"f{i}" for i in want} and fids

@@ -1,8 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, no hidden CPU.
 
-``import geomesa_tpu_torch`` and config #1, density (z3, z2) and config #3
-(xz2, xz3) queries through it must load neither ``jax`` nor any
-``geomesa_tpu`` module.
+``import geomesa_tpu_torch`` and config #1, density (z3, z2), config #3
+(xz2, xz3) and host-seek queries through it, with the native range walks
+and decode, must load neither ``jax`` nor any ``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -25,7 +25,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(ROOT, "geomesa_tpu_torch")
 
 _SUBPROCESS = r"""
+import os
 import sys
+# the device routes first: a selective plan would take the host seek
+os.environ["GEOMESA_SEEK"] = "0"
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -79,6 +82,17 @@ for name in ("xz2_bbox", "xz3_bbox_during"):
         assert set(r.fids) == {f"w{j}" for j in cs.oracle_rows(ways, *spec)}, c
         assert r.plan.index.name == name[:3], c
         assert r.plan.scan_path == "device-batch-dual/bitmap", c
+# the host-seek route, and the native libraries every route above ran
+# (the z/xz range walks of planning, the span-window decode)
+os.environ["GEOMESA_SEEK"] = "1"
+res = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
+for i, r in enumerate(res):
+    m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
+    assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
+    assert r.plan.scan_path == "host-seek", r.plan.scan_path
+from geomesa_tpu_torch import native
+st = native.status()
+assert all(v["loaded"] for v in st.values()), st
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "geomesa_tpu"
              or m.startswith("geomesa_tpu."))
@@ -88,8 +102,8 @@ assert not bad, bad
 
 
 def test_port_runs_config1_without_jax_or_the_reference():
-    """Config #1 (z3), density (z3, z2) and config #3 (xz2, xz3) queries
-    load no JAX."""
+    """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3) and
+    host-seek queries, and the native libraries they run, load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

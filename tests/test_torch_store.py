@@ -126,6 +126,63 @@ def test_config1_query_many(stores, data):
         _same(r, p, np.flatnonzero(_in_box(data, b) & _during(data)))
 
 
+@pytest.mark.parametrize("seek", ["0", "1"])
+def test_lazy_result_gathers_only_when_read(stores, data, monkeypatch, seek):
+    """A plain fid-only ``query_many`` (device route, or the host seek's
+    C++ scan) returns lazy columns: no block gather until ``.fids`` is
+    read, none for ``len(result)``, and one per part then."""
+    from geomesa_tpu_torch.store import blocks
+    from geomesa_tpu_torch.store.datastore import LazyColumns
+
+    ref, port = stores
+    monkeypatch.setenv("GEOMESA_SEEK", seek)
+    calls = []
+    orig = blocks.FeatureBlock.gather
+
+    def spy(self, k, rows, record_rows=None):
+        calls.append(k)
+        return orig(self, k, rows, record_rows)
+
+    monkeypatch.setattr(blocks.FeatureBlock, "gather", spy)
+    boxes, cqls = bench.make_queries(6)
+    got = port.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
+    assert {p.plan.scan_path for p in got} == (
+        {"device-exact/bitmap"} if seek == "0" else {"host-seek"})
+    assert all(isinstance(p.columns, LazyColumns) for p in got)
+    sizes = [len(p) for p in got]
+    assert calls == [] and min(sizes) > 0
+    monkeypatch.setenv("GEOMESA_SEEK", "0")
+    want = ref.query_many("gdelt", [RefQuery.cql(c, properties=[]) for c in cqls])
+    for b, r, p, n in zip(boxes, want, got, sizes):
+        _same(r, p, np.flatnonzero(_in_box(data, b) & _during(data)))
+        assert len(p.fids) == n == len(r)
+    assert calls and set(calls) == {"__fid__"}
+    assert len(calls) == sum(len(p.columns._parts) for p in got)
+
+
+@pytest.mark.parametrize("options", ["plain", "projected", "sorted", "limited"])
+def test_materialized_columns_equal_the_reference(stores, options):
+    """Every column of a result, lazy or materialized by sort or limit,
+    equals the reference's, key for key and row for row."""
+    from geomesa_tpu.store.datastore import _materialize as ref_materialize
+    from geomesa_tpu_torch.store.datastore import LazyColumns, _materialize
+
+    ref, port = stores
+    kw = {"plain": {}, "projected": {"properties": ["dtg"]},
+          "sorted": {"sort_by": [("dtg", False)]}, "limited": {"max_features": 7}}[options]
+    res = port.query("gdelt", Query.cql(bench.QUERY, **kw))
+    want = ref.query("gdelt", RefQuery.cql(bench.QUERY, **kw))
+    assert isinstance(res.columns, LazyColumns) == (options in ("plain", "projected"))
+    got, exp = _materialize(res.columns), ref_materialize(want.columns)
+    assert set(got) == set(exp) and len(res) == len(want) > 0
+    if options in ("plain", "projected"):  # row order may differ: key by fid
+        o, r = np.argsort(got["__fid__"].astype(str)), np.argsort(exp["__fid__"].astype(str))
+    else:
+        o = r = slice(None)
+    for k in exp:
+        assert np.array_equal(got[k][o], exp[k][r]), k
+
+
 def _or_queries(k: int):
     a = bench.make_queries(k)[0]
     rng = np.random.default_rng(5)
