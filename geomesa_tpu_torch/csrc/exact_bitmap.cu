@@ -1,24 +1,40 @@
-// exact_bitmap<HAS_TIME, REJECT>: q exact bbox(+window) predicates ->
-// packed bitmaps and (cnt, lo, hi) headers in ONE sweep of the key columns.
+// exact_bitmap<HAS_TIME, REJECT, ATTR>: q exact bbox(+window) predicates,
+// each with an optional attribute-code test, -> packed bitmaps and (cnt,
+// lo, hi) headers in ONE sweep of the key columns.
 //
 // Replaces the batched exact predicate of the reference's
 // geomesa_tpu/parallel/executor.py _exact_bitmap_batch_fn (an XLA lax.scan
 // over the q descriptors of ops/filters.py exact_st_mask + _span_bounds +
-// _bitmap_frame_step + jnp.packbits). The reference sweeps the key
-// columns once per query; this kernel reads each row once for all q.
+// _bitmap_frame_step + jnp.packbits), with its attribute plane
+// (_exact_mask_body's `attr`, the combine of _attr_combine) fused in. The
+// reference sweeps the key columns once per query; this kernel reads each
+// row once for all q.
 //
 // Per row r and descriptor i (inclusive int64 sort-key compares):
 //   m[i, r] = valid[r] & box[i].xmin <= xk[r] <= box[i].xmax
 //                      & box[i].ymin <= yk[r] <= box[i].ymax
 //                      (& win[i].lo <= tk[r] <= win[i].hi when HAS_TIME)
-// where `valid` is the segment's temporal-valid column when HAS_TIME.
+//                      (& attr(codes[r], qcodes[i]) when ATTR)
+// where `valid` is the segment's temporal-valid column when HAS_TIME and
+// the attribute editions (codes: int32 ranks into the segment's sorted
+// value space, -1 for null, NaN and pad rows) are
+//   kMember     codes[r] is one of qcodes[i, 0..K) (pads are -2);
+//   kRange      qcodes[i, 0] <= codes[r] <= qcodes[i, 1] (no codes >= 0
+//               guard: IS NULL is the interval [-1, -1]);
+//   kNotMember  codes[r] >= 0 and none of qcodes[i, 0..K);
+//   kVocabMask  codes[r] >= 0 and lut[i, min(codes[r], U_pad - 1)] != 0,
+//               the u8 lookup table of the query in device memory (up to
+//               64 KiB a query: it stays out of shared memory).
+// The header is the combined mask's: the span window and every refetch
+// follow it.
 // Outputs: bits u8[q, n/8], MSB-first like jnp.packbits (byte j = rows
 // 8j..8j+7, row 8j in bit 7); hdr int32[q, 3] = (count, first row, last
 // row), with the reference's empty rule: no hit gives (0, 0, n - 1).
 //
 // Bound on Hopper: HBM at every q the paths launch. The sweep reads 25 B
-// per row (three int64 keys and one bool; 17 B without the window) and
-// writes q/8 B per row. No exact implementation can skip a word's store,
+// per row (three int64 keys and one bool; 17 B without the window; the
+// attribute editions add the 4 B code of each row of a chunk whose box
+// test holds a row of some query) and writes q/8 B per row. No exact implementation can skip a word's store,
 // nor the compare chain of a 32-row word that holds a hit; chip_smoke.py
 // exact_case counts that much work from the plain edition's bits.
 //
@@ -58,7 +74,14 @@
 //     block to finish, found by a ticket, decodes it in place with the
 //     empty rule, so the wrapper adds no launch of its own;
 //   * the grid is the blocks the device holds at once, from its own SM
-//     count and the instantiation's occupancy (launch_grid.cuh).
+//     count and the instantiation's occupancy (launch_grid.cuh);
+//   * the attribute test runs after the box test, only where the warp's
+//     box test holds some row of the chunk (one vote): an AND can only
+//     narrow the hits, so the chunk reject stays on the keys alone, and a
+//     chunk's codes (128 B a word) are read the first time a query needs
+//     them. The query's codes, interval or lookup entries are read through
+//     the read-only cache (one broadcast address a warp for the codes and
+//     the interval; a lookup entry per row that passes the box test).
 // Its device times against the first design's, in turns on the same inputs
 // (chip_smoke.py --ab), are in PERF.md. Row counts are a multiple of 32.
 
@@ -77,6 +100,8 @@ constexpr unsigned kFull = 0xffffffffu;
 // The chunk reject runs from this many queries up: at q = 1 its envelope
 // (six warp reductions a chunk) saved nothing (z3 1% slower, z2 equal).
 constexpr int kRejectMinQ = 2;
+// the attribute editions (the ATTR template parameter)
+constexpr int kNone = 0, kMember = 1, kRange = 2, kNotMember = 3, kVocabMask = 4;
 
 __device__ __forceinline__ unsigned int packbits_order(unsigned int ballot) {
   // lane j -> bit 31-j, then reverse the byte order: byte 0 of the stored
@@ -102,11 +127,12 @@ __device__ __forceinline__ long long warp_max(long long v) {
   return join64(mh, __reduce_max_sync(kFull, hi == mh ? (unsigned)v : 0u));
 }
 
-template <bool HAS_TIME, bool REJECT>
+template <bool HAS_TIME, bool REJECT, int ATTR>
 __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
     const long long* __restrict__ xk, const long long* __restrict__ yk,
     const long long* __restrict__ tk, const unsigned char* __restrict__ valid,
     const long long* __restrict__ boxes, const long long* __restrict__ wins, int q,
+    const int* __restrict__ codes, const void* __restrict__ qcodes, int kq,
     unsigned int* __restrict__ bits, int* __restrict__ hdr, long long n) {
   extern __shared__ __align__(16) long long smem[];
   long long* sdesc = smem;              // [q, 6]
@@ -139,6 +165,10 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
     const long long word0 = c * kR;
     long long x[kR], y[kR], t[kR];
     bool v[kR];
+    // the chunk's codes, read the first time a query's box test holds a
+    // row of the chunk (have_codes is warp-uniform)
+    int cd[kR];
+    bool have_codes = false;
 #pragma unroll
     for (int j = 0; j < kR; ++j) {
       // a word past the end repeats word 0's keys (the envelope stays the
@@ -180,13 +210,55 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
       const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
       const longlong2 bx = d[0], by = d[1];
       const longlong2 tw = HAS_TIME ? d[2] : make_longlong2(0, 0);
-      unsigned hb[kR];
+      bool m[kR];
+      bool any_row = false;
 #pragma unroll
       for (int j = 0; j < kR; ++j) {
-        bool m = v[j] & (x[j] >= bx.x) & (x[j] <= bx.y) & (y[j] >= by.x) & (y[j] <= by.y);
-        if (HAS_TIME) m = m & (t[j] >= tw.x) & (t[j] <= tw.y);
-        hb[j] = __ballot_sync(kFull, m);
+        m[j] = v[j] & (x[j] >= bx.x) & (x[j] <= bx.y) & (y[j] >= by.x) & (y[j] <= by.y);
+        if (HAS_TIME) m[j] = m[j] & (t[j] >= tw.x) & (t[j] <= tw.y);
+        any_row |= m[j];
       }
+      if (ATTR != kNone && __any_sync(kFull, any_row)) {
+        if (!have_codes) {
+#pragma unroll
+          for (int j = 0; j < kR; ++j) {
+            const long long row = (word0 + (word0 + j < nwords ? j : 0)) * 32 + lane;
+            cd[j] = codes[row];
+          }
+          have_codes = true;
+        }
+        // m[j] &= the attribute test of query i on the chunk's codes
+        if (ATTR == kMember || ATTR == kNotMember) {
+          const int* qc = static_cast<const int*>(qcodes) + (long long)i * kq;
+          bool hit[kR];
+#pragma unroll
+          for (int j = 0; j < kR; ++j) hit[j] = false;
+          for (int k = 0; k < kq; ++k) {
+            const int code = __ldg(qc + k);
+#pragma unroll
+            for (int j = 0; j < kR; ++j) hit[j] |= cd[j] == code;
+          }
+#pragma unroll
+          for (int j = 0; j < kR; ++j) {
+            m[j] = m[j] & (ATTR == kMember ? hit[j] : (cd[j] >= 0) & !hit[j]);
+          }
+        } else if (ATTR == kRange) {
+          const int* qc = static_cast<const int*>(qcodes) + 2LL * i;
+          const int lo = __ldg(qc), hi = __ldg(qc + 1);
+#pragma unroll
+          for (int j = 0; j < kR; ++j) m[j] = m[j] & (cd[j] >= lo) & (cd[j] <= hi);
+        } else if (ATTR == kVocabMask) {
+          const unsigned char* lut =
+              static_cast<const unsigned char*>(qcodes) + (long long)i * kq;
+#pragma unroll
+          for (int j = 0; j < kR; ++j) {
+            if (m[j]) m[j] = cd[j] >= 0 && __ldg(lut + min(cd[j], kq - 1)) != 0;
+          }
+        }
+      }
+      unsigned hb[kR];
+#pragma unroll
+      for (int j = 0; j < kR; ++j) hb[j] = __ballot_sync(kFull, m[j]);
       unsigned word = 0, any = 0;
 #pragma unroll
       for (int j = 0; j < kR; ++j) {
@@ -281,11 +353,11 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
   }
 }
 
-template <bool HAS_TIME, bool REJECT>
+template <bool HAS_TIME, bool REJECT, int ATTR>
 int launch(const void* xk, const void* yk, const void* tk, const void* valid,
-           const void* boxes, const void* wins, int q, void* bits, void* hdr,
-           long long n, cudaStream_t s) {
-  auto kern = exact_bitmap_kernel<HAS_TIME, REJECT>;
+           const void* boxes, const void* wins, int q, const void* codes,
+           const void* qcodes, int kq, void* bits, void* hdr, long long n, cudaStream_t s) {
+  auto kern = exact_bitmap_kernel<HAS_TIME, REJECT, ATTR>;
   const size_t smem = sizeof(long long) * kDesc * (size_t)q +
                       sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
   cudaError_t err = cudaMemsetAsync(hdr, 0, sizeof(int) * (3 * (size_t)q + 1), s);
@@ -302,30 +374,63 @@ int launch(const void* xk, const void* yk, const void* tk, const void* valid,
   kern<<<(unsigned)blocks, kThreads, smem, s>>>(
       (const long long*)xk, (const long long*)yk, (const long long*)tk,
       (const unsigned char*)valid, (const long long*)boxes, (const long long*)wins, q,
-      (unsigned int*)bits, (int*)hdr, n);
+      (const int*)codes, qcodes, kq, (unsigned int*)bits, (int*)hdr, n);
   return (int)cudaGetLastError();
+}
+
+template <bool HAS_TIME, bool REJECT>
+int launch_attr(int attr, const void* xk, const void* yk, const void* tk, const void* valid,
+                const void* boxes, const void* wins, int q, const void* codes,
+                const void* qcodes, int kq, void* bits, void* hdr, long long n,
+                cudaStream_t s) {
+  switch (attr) {
+    case kNone:
+      return launch<HAS_TIME, REJECT, kNone>(xk, yk, tk, valid, boxes, wins, q, codes, qcodes,
+                                             kq, bits, hdr, n, s);
+    case kMember:
+      return launch<HAS_TIME, REJECT, kMember>(xk, yk, tk, valid, boxes, wins, q, codes,
+                                               qcodes, kq, bits, hdr, n, s);
+    case kRange:
+      return launch<HAS_TIME, REJECT, kRange>(xk, yk, tk, valid, boxes, wins, q, codes, qcodes,
+                                              kq, bits, hdr, n, s);
+    case kNotMember:
+      return launch<HAS_TIME, REJECT, kNotMember>(xk, yk, tk, valid, boxes, wins, q, codes,
+                                                  qcodes, kq, bits, hdr, n, s);
+    case kVocabMask:
+      return launch<HAS_TIME, REJECT, kVocabMask>(xk, yk, tk, valid, boxes, wins, q, codes,
+                                                  qcodes, kq, bits, hdr, n, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
 // C interface for ctypes. Device pointers: xk, yk, tk int64[n] (tk and wins
 // ignored when has_time is 0), valid bool[n], boxes int64[q, 4] as (xmin,
-// xmax, ymin, ymax) keys, wins int64[q, 2]; outputs bits u8[q, n/8] and hdr
-// int32[3 q + 1], whose first 3 q words become the [q, 3] header (the last
-// is the launch's block ticket); the launcher initialises it. bits is
-// 16-byte aligned; n is a multiple of 32 below 2^31. Launches on `stream` and returns a CUDA error
-// code.
+// xmax, ymin, ymax) keys, wins int64[q, 2]; attr 0 (none: codes and qcodes
+// ignored), 1 member or 3 notmember (qcodes int32[q, kq], kq <= 32), 2
+// range (int32[q, 2]) or 4 vocabmask (u8[q, kq], kq <= 65536), with codes
+// int32[n]; outputs bits u8[q, n/8] and hdr int32[3 q + 1], whose first 3 q
+// words become the [q, 3] header (the last is the launch's block ticket);
+// the launcher initialises it. bits is 16-byte aligned; n is a multiple of
+// 32 below 2^31. Launches on `stream` and returns a CUDA error code.
 extern "C" int exact_bitmap(int has_time, const void* xk, const void* yk,
                             const void* tk, const void* valid,
-                            const void* boxes, const void* wins, int q,
+                            const void* boxes, const void* wins, int q, int attr,
+                            const void* codes, const void* qcodes, int kq,
                             void* bits, void* hdr, long long n, void* stream) {
   if (q == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   const bool reject = q >= kRejectMinQ;
   if (has_time) {
-    return reject ? launch<true, true>(xk, yk, tk, valid, boxes, wins, q, bits, hdr, n, s)
-                  : launch<true, false>(xk, yk, tk, valid, boxes, wins, q, bits, hdr, n, s);
+    return reject ? launch_attr<true, true>(attr, xk, yk, tk, valid, boxes, wins, q, codes,
+                                            qcodes, kq, bits, hdr, n, s)
+                  : launch_attr<true, false>(attr, xk, yk, tk, valid, boxes, wins, q, codes,
+                                             qcodes, kq, bits, hdr, n, s);
   }
-  return reject ? launch<false, true>(xk, yk, nullptr, valid, boxes, nullptr, q, bits, hdr, n, s)
-                : launch<false, false>(xk, yk, nullptr, valid, boxes, nullptr, q, bits, hdr, n, s);
+  return reject ? launch_attr<false, true>(attr, xk, yk, nullptr, valid, boxes, nullptr, q,
+                                           codes, qcodes, kq, bits, hdr, n, s)
+                : launch_attr<false, false>(attr, xk, yk, nullptr, valid, boxes, nullptr, q,
+                                            codes, qcodes, kq, bits, hdr, n, s);
 }

@@ -1,7 +1,7 @@
 """Index key spaces: pure key logic per index family.
 
-Port of ``geomesa_tpu/index/keyspace.py`` limited to the z3, z2 and id key
-spaces.
+Port of ``geomesa_tpu/index/keyspace.py``: the z3, z2, xz3, xz2, id and
+attribute key spaces.
 
 Rebuild of the reference's IndexKeySpace hierarchy (geomesa-index-api
 .../index/IndexKeySpace.scala:18-62 and the z2/z3/xz2/xz3/attribute/id
@@ -544,7 +544,189 @@ def _extract_ids(f: ast.Filter, out: List[str]) -> bool:
     return False
 
 
-ALL_INDICES = ("z3", "z2", "xz3", "xz2", "id")
+class AttributeKeySpace(IndexKeySpace):
+    """Attribute value index with lexicographic ordering
+    (AttributeIndex.scala:43-46; value lexicoding via Mango LexiTypeEncoders
+    in the reference -- here native value ordering on sorted columns)."""
+
+    name = "attr"
+
+    def __init__(self, attribute: str):
+        self.attribute = attribute
+        self.name = f"attr:{attribute}"
+
+    def supports(self, ft: FeatureType) -> bool:
+        return ft.has(self.attribute) and ft.attr(self.attribute).indexed
+
+    # z2 tiebreak decomposition budget: each range costs one searchsorted
+    # pair per equality span at scan time
+    TIEBREAK_MAX_RANGES = 32
+
+    def key_columns(self, ft: FeatureType, columns) -> Dict[str, np.ndarray]:
+        col = columns[self.attribute]
+        # null attribute values are not indexed (the reference skips writing
+        # attribute-index rows for null values)
+        vocab = columns.get(self.attribute + "__vocab")
+        if vocab is not None:
+            valid = col >= 0  # dictionary codes: -1 is the null sentinel
+        elif col.dtype == object:
+            valid = np.array([v is not None for v in col], dtype=bool)
+        elif col.dtype.kind == "f":
+            valid = ~np.isnan(col)
+        else:
+            nulls = columns.get(self.attribute + "__null")
+            valid = ~nulls if nulls is not None else np.ones(len(col), dtype=bool)
+        out = {"__key__": col, "__valid__": valid}
+        if vocab is not None:
+            # sorted per-batch vocab rides with the block (NOT row-aligned):
+            # scan ranges arrive with VALUE bounds and map to code space
+            # per block (FeatureBlock._to_code_ranges)
+            out["__key_vocab__"] = vocab
+        geom = ft.default_geometry
+        if geom is not None and ft.is_points:
+            # secondary sort by z2 within each attribute value
+            # (AttributeIndex.scala:43-46 z-curve tiebreak)
+            x = columns[geom.name + "__x"]
+            y = columns[geom.name + "__y"]
+            ok = ~(np.isnan(x) | np.isnan(y))
+            tb = np.full(len(col), -1, dtype=np.int64)
+            if ok.any():
+                tb[ok] = Z2SFC().index(x[ok], y[ok], lenient=True)
+            out["__tiebreak__"] = tb
+        return out
+
+    def get_index_values(self, ft: FeatureType, f: ast.Filter) -> IndexValues:
+        bounds = _extract_attr_bounds(f, self.attribute, ft)
+        geoms = FilterValues.empty()
+        if ft.default_geometry is not None and ft.is_points:
+            geoms = extract_geometries(f, ft.default_geometry.name)
+        return IndexValues(
+            geoms,
+            attr_bounds=bounds.values if bounds.values else None,
+            attr_precise=bounds.precise,
+            disjoint=bounds.disjoint or geoms.disjoint,
+        )
+
+    def get_ranges(
+        self, ft: FeatureType, values: IndexValues, max_ranges: Optional[int] = None
+    ) -> List[ScanRange]:
+        if values.disjoint or not values.attr_bounds:
+            return []
+        # one z2 decomposition shared by every equality span: prune within
+        # a value's rows to z sub-spans when the query is ALSO spatial.
+        # Only equality spans are z-sorted, so skip the decomposition when
+        # no bound can use it.
+        tiebreaks: Optional[List[Tuple[int, int]]] = None
+        any_equality = any(
+            b.lower.value is not None and b.lower.value == b.upper.value
+            for b in values.attr_bounds
+        )
+        if values.geometries.values and any_equality:
+            zr = Z2SFC().ranges(
+                _boxes(values), max_ranges=self.TIEBREAK_MAX_RANGES
+            )
+            tiebreaks = [(int(r.lower), int(r.upper)) for r in zr]
+        out = []
+        for b in values.attr_bounds:
+            equality = b.lower.value is not None and b.lower.value == b.upper.value
+            out.append(
+                ScanRange(
+                    0,
+                    b.lower.value,
+                    b.upper.value,
+                    # exact in value space only when the bounds are precise
+                    # (LIKE-prefix ranges over-cover and must post-filter)
+                    values.attr_precise,
+                    b.lower.inclusive,
+                    b.upper.inclusive,
+                    tiebreaks if equality else None,
+                )
+            )
+        return out
+
+
+def _extract_attr_bounds(f: ast.Filter, attribute: str, ft: FeatureType) -> FilterValues:
+    """Value bounds for the attribute index: equality, ranges, IN lists,
+    LIKE prefixes (AttributeFilterStrategy semantics)."""
+    from geomesa_tpu_torch.filter.bounds import Bound
+    from geomesa_tpu_torch.filter.evaluate import _coerce
+
+    if isinstance(f, ast.And):
+        current: Optional[List[Bounds]] = None
+        precise = True
+        for c in f.children():
+            child = _extract_attr_bounds(c, attribute, ft)
+            if child.disjoint:
+                return FilterValues.disjoint_values()
+            if child.is_empty:
+                continue
+            precise = precise and child.precise
+            if current is None:
+                current = child.values
+            else:
+                nxt = []
+                for a in current:
+                    for b in child.values:
+                        inter = a.intersection(b)
+                        if inter is not None:
+                            nxt.append(inter)
+                if not nxt:
+                    return FilterValues.disjoint_values()
+                current = nxt
+        return FilterValues(current or [], precise=precise)
+    if isinstance(f, ast.Or):
+        out: List[Bounds] = []
+        precise = True
+        for c in f.children():
+            child = _extract_attr_bounds(c, attribute, ft)
+            if child.is_empty and not child.disjoint:
+                return FilterValues.empty()
+            precise = precise and child.precise
+            out.extend(child.values)
+        return FilterValues(out, precise=precise) if out else FilterValues.empty()
+    if isinstance(f, ast.Cmp) and f.prop == attribute:
+        v = _coerce(ft, attribute, f.literal)
+        if f.op == "=":
+            return FilterValues([Bounds(Bound(v, True), Bound(v, True))])
+        if f.op == "<":
+            return FilterValues([Bounds(Bound(None, True), Bound(v, False))])
+        if f.op == "<=":
+            return FilterValues([Bounds(Bound(None, True), Bound(v, True))])
+        if f.op == ">":
+            return FilterValues([Bounds(Bound(v, False), Bound(None, True))])
+        if f.op == ">=":
+            return FilterValues([Bounds(Bound(v, True), Bound(None, True))])
+        return FilterValues.empty()
+    if isinstance(f, ast.Between) and f.prop == attribute:
+        from geomesa_tpu_torch.filter.bounds import Bound
+
+        lo = _coerce(ft, attribute, f.lo)
+        hi = _coerce(ft, attribute, f.hi)
+        return FilterValues([Bounds(Bound(lo, True), Bound(hi, True))])
+    if isinstance(f, ast.InList) and f.prop == attribute:
+        from geomesa_tpu_torch.filter.bounds import Bound
+
+        out = []
+        for v in f.values:
+            cv = _coerce(ft, attribute, v)
+            out.append(Bounds(Bound(cv, True), Bound(cv, True)))
+        return FilterValues(out)
+    if isinstance(f, ast.Like) and f.prop == attribute and not f.case_insensitive:
+        from geomesa_tpu_torch.filter.bounds import Bound
+
+        # prefix scans: 'abc%' -> [abc, abd)
+        pat = f.pattern
+        prefix = pat.split("%")[0].split("_")[0]
+        if prefix and pat.startswith(prefix):
+            hi = prefix[:-1] + chr(ord(prefix[-1]) + 1)
+            return FilterValues(
+                [Bounds(Bound(prefix, True), Bound(hi, False))], precise=False
+            )
+        return FilterValues.empty()
+    return FilterValues.empty()
+
+
+ALL_INDICES = ("z3", "z2", "xz3", "xz2", "id", "attr")
 
 
 def default_indices(ft: FeatureType) -> List[IndexKeySpace]:
@@ -560,6 +742,9 @@ def default_indices(ft: FeatureType) -> List[IndexKeySpace]:
         XZ2KeySpace(),
         IdKeySpace(),
     ]
+    for a in ft.attributes:
+        if a.indexed and not a.type.is_geometry:
+            candidates.append(AttributeKeySpace(a.name))
     for ks in candidates:
         base = ks.name.split(":")[0]
         if enabled is not None and base not in enabled:

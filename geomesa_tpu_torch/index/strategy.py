@@ -1,7 +1,7 @@
 """Filter strategies: which index can answer a filter, and at what cost.
 
-Port of ``geomesa_tpu/index/strategy.py`` limited to the z3, xz3, z2, xz2
-and id strategies.
+Port of ``geomesa_tpu/index/strategy.py``: the z3, xz3, z2, xz2, id and
+attribute strategies.
 
 Rebuild of the reference's strategy extraction + cost model
 (geomesa-index-api .../index/strategies/SpatioTemporalFilterStrategy.scala,
@@ -21,6 +21,7 @@ from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.ast import and_option
 from geomesa_tpu_torch.filter.bounds import FilterValues
 from geomesa_tpu_torch.index.keyspace import (
+    AttributeKeySpace,
     IdKeySpace,
     IndexKeySpace,
     IndexValues,
@@ -34,6 +35,8 @@ from geomesa_tpu_torch.schema.featuretype import FeatureType
 # index-based cost constants, mirroring the reference's heuristic ordering
 # (id cheapest, then attribute equality, then st indices, then full scan)
 _COST_ID = 1.0
+_COST_ATTR_EQ = 10.0
+_COST_ATTR_RANGE = 5000.0
 _COST_Z3 = 200.0
 _COST_XZ3 = 250.0
 _COST_Z2 = 400.0
@@ -106,6 +109,12 @@ def _is_temporal(ft: FeatureType, node: ast.Filter) -> bool:
     return False
 
 
+def _is_attr(attribute: str, node: ast.Filter) -> bool:
+    if isinstance(node, (ast.Cmp, ast.Between, ast.InList, ast.Like)):
+        return node.prop == attribute
+    return False
+
+
 def get_filter_strategies(
     ft: FeatureType, indices: List[IndexKeySpace], f: ast.Filter, stats=None
 ) -> List[FilterStrategy]:
@@ -169,6 +178,28 @@ def _strategy_for(
             and_option(rest) if rest else None,
             values,
             _COST_ID * max(1, len(values.ids)),
+        )
+
+    if isinstance(index, AttributeKeySpace):
+        if not values.attr_bounds:
+            return None
+        hits, rest = _split_nodes(f, lambda n: _is_attr(index.attribute, n))
+        equality = all(
+            b.lower.value is not None and b.lower.value == b.upper.value
+            for b in values.attr_bounds
+        )
+        if equality:
+            cost = _COST_ATTR_EQ * max(1, len(values.attr_bounds))
+        else:
+            # open ranges have unknown selectivity: assume expensive until
+            # stats say otherwise (AttributeFilterStrategy index-based cost)
+            cost = _COST_ATTR_RANGE
+        return FilterStrategy(
+            index,
+            and_option(hits) if hits else None,
+            and_option(rest) if rest else None,
+            values,
+            cost,
         )
 
     if isinstance(index, (Z3KeySpace, XZ3KeySpace)):

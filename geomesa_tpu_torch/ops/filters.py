@@ -15,7 +15,10 @@ the hand kernels in :mod:`geomesa_tpu_torch.ops.kernels`:
   * ``bbox_mask_f32``: the raw f32 coordinate box mask of the density
     aggregation (the reference's ``bbox_mask_f32``);
   * ``exact_st_mask``: the query's own inclusive f64 bbox + ms window test
-    over int64 sort keys (see :mod:`geomesa_tpu_torch.ops.zkernels`);
+    over int64 sort keys (see :mod:`geomesa_tpu_torch.ops.zkernels`), and
+    ``attr_combine``, the attribute-code test a point query ANDs onto it
+    (the reference's ``_attr_combine`` in
+    ``geomesa_tpu/parallel/executor.py``);
   * ``xz_exact_planes``: the extent query's exact (hit, decided) planes
     over int64 envelope keys (the reference's ``_xz_exact_mask_body`` in
     ``geomesa_tpu/parallel/executor.py``).
@@ -136,6 +139,35 @@ def exact_st_mask(
     if window is not None:
         m &= (tk >= window[0]) & (tk <= window[1])
     return m & valid
+
+
+# the editions of the attribute plane: a qcode of each is
+#   member, notmember  int32[K]: codes (K a pow2 bucket, padded with -2)
+#   range              int32[2]: the inclusive code interval [lo, hi]
+#   vocabmask          uint8[U_pad]: a 0/1 lookup over the code space
+ATTR_KINDS = ("member", "range", "notmember", "vocabmask")
+
+
+def attr_combine(m: torch.Tensor, codes: torch.Tensor, qcode: torch.Tensor,
+                 kind: str) -> torch.Tensor:
+    """AND one query's attribute-code test onto the mask ``m``.
+
+    ``codes`` int32[n] are ranks into the segment's sorted value space
+    (null, NaN and pad rows rank -1). member: the code is one of the K;
+    range: lo <= code <= hi, with no ``code >= 0`` guard, because IS NULL
+    is the interval [-1, -1] (pad rows are out through ``valid`` in ``m``);
+    notmember: a non-null code none of the K; vocabmask: a non-null code
+    whose lookup entry is set (index clipped to the table)."""
+    if kind == "range":
+        return m & (codes >= qcode[0]) & (codes <= qcode[1])
+    if kind == "notmember":
+        return m & (codes >= 0) & ~(codes[:, None] == qcode[None, :]).any(-1)
+    if kind == "vocabmask":
+        lut = qcode[torch.clamp(codes, 0, qcode.shape[0] - 1).long()]
+        return m & (codes >= 0) & (lut > 0)
+    if kind != "member":
+        raise ValueError(f"unknown attribute plane edition {kind!r}")
+    return m & (codes[:, None] == qcode[None, :]).any(-1)
 
 
 def xz_exact_planes(

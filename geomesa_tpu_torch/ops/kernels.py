@@ -9,7 +9,8 @@ answers that):
     ``geomesa_tpu/ops/pallas_kernels.py``;
   * ``exact_bitmap`` (``csrc/exact_bitmap.cu``) replaces the batched exact
     predicate of ``geomesa_tpu/parallel/executor.py``
-    ``_exact_bitmap_batch_fn``;
+    ``_exact_bitmap_batch_fn``, with the attribute plane of ``_attr_combine``
+    (member, range, notmember, vocabmask) fused in;
   * ``xz_mask`` (``csrc/xz_mask.cu``) replaces the Pallas
     ``_xz2_mask_kernel`` / ``_xz3_mask_kernel``;
   * ``xz_dual_bitmap`` (``csrc/xz_dual_bitmap.cu``) replaces the batched
@@ -47,6 +48,8 @@ import torch
 
 from geomesa_tpu_torch.ops.aggregations import density_dual, reciprocal_f32
 from geomesa_tpu_torch.ops.filters import (
+    ATTR_KINDS,
+    attr_combine,
     bbox_overlap_mask,
     exact_st_mask,
     temporal_mask,
@@ -78,6 +81,7 @@ LAUNCHES: Dict[str, int] = {
     "candidate_mask_z2": 0,
     "exact_bitmap_z3": 0,
     "exact_bitmap_z2": 0,
+    **{f"exact_bitmap_{z}_{kind}": 0 for z in ("z3", "z2") for kind in ATTR_KINDS},
     "xz_mask_xz2": 0,
     "xz_mask_xz3": 0,
     "xz_dual_bitmap_xz2": 0,
@@ -86,11 +90,16 @@ LAUNCHES: Dict[str, int] = {
     "density_grid_z2": 0,
 }
 # launches per (instantiation, shape): "q=<descriptors>" for the bitmap
-# kernels, "K=<boxes> W=<windows>" for the masks, "<W>x<H>" for the grid
+# kernels (+ " K=<codes>" for member and notmember, " U=<lookup size>" for
+# vocabmask), "K=<boxes> W=<windows>" for the masks, "<W>x<H>" for the grid
 LAUNCH_SHAPES: Counter = Counter()
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
 EXACT_MAX_Q = 256
+# the attribute plane: at most this many codes per query (member and
+# notmember) and this many lookup entries per query (vocabmask)
+ATTR_MAX_K = 32
+ATTR_MAX_U = 1 << 16
 # the candidate kernels stage boxes and windows in 48 KB of shared memory
 _CAND_SMEM = 48 * 1024
 # consecutive rows each density_grid thread takes per step (n is a multiple)
@@ -177,7 +186,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # each C entry point's arguments (pointers and the stream as c_void_p)
 _ARGTYPES = {
     "candidate_mask": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
-    "exact_bitmap": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _LL, _P],
+    "exact_bitmap": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _LL, _P],
     "xz_mask": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
     "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
     "density_grid": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
@@ -301,11 +310,14 @@ def _span_bounds(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Ten
     return cnt, torch.where(empty, 0, lo), torch.where(empty, n - 1, hi)
 
 
-def exact_bitmap_plain(xk, yk, tk, valid, boxes, wins=None):
+def exact_bitmap_plain(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
+                       attr_kind=None):
     """Plain edition of :func:`exact_bitmap`, one query at a time."""
     bits, hdr = [], []
     for i in range(boxes.shape[0]):
         m = exact_st_mask(xk, yk, valid, boxes[i], tk, None if wins is None else wins[i])
+        if attr_kind is not None:
+            m = attr_combine(m, codes, qcodes[i], attr_kind)
         bits.append(pack_mask_rows(m))
         hdr.append(torch.stack(_span_bounds(m)))
     n8 = xk.shape[0] // 8
@@ -315,17 +327,52 @@ def exact_bitmap_plain(xk, yk, tk, valid, boxes, wins=None):
     return torch.stack(bits), torch.stack(hdr).to(torch.int32)
 
 
-def exact_bitmap(xk, yk, tk, valid, boxes, wins=None):
+def _attr_launch_args(codes, qcodes, attr_kind, n: int, q: int, dev):
+    """(edition number, K or U_pad, shape tag suffix) of an attribute plane
+    launch, after checking its tensors; (0, 0, "") without one."""
+    if attr_kind is None:
+        if codes is not None or qcodes is not None:
+            raise ValueError("exact_bitmap: codes and qcodes need an attr_kind")
+        return 0, 0, ""
+    if attr_kind not in ATTR_KINDS:
+        raise ValueError(f"exact_bitmap: unknown attr_kind {attr_kind!r}")
+    _check(codes, "codes", torch.int32, dev, (n,))
+    if qcodes is None or qcodes.dim() != 2 or qcodes.shape[0] != q:
+        raise ValueError(f"exact_bitmap: qcodes must be [{q}, ...] for {attr_kind}")
+    width = qcodes.shape[1]
+    if attr_kind == "range":
+        _check(qcodes, "qcodes", torch.int32, dev, (q, 2))
+        tag = ""
+    elif attr_kind == "vocabmask":
+        _check(qcodes, "qcodes", torch.uint8, dev)
+        if not 0 < width <= ATTR_MAX_U:
+            raise ValueError(f"exact_bitmap: lookup size {width} not in [1, {ATTR_MAX_U}]")
+        tag = f" U={width}"
+    else:
+        _check(qcodes, "qcodes", torch.int32, dev)
+        if not 0 < width <= ATTR_MAX_K:
+            raise ValueError(f"exact_bitmap: {width} codes not in [1, {ATTR_MAX_K}]")
+        tag = f" K={width}"
+    return ATTR_KINDS.index(attr_kind) + 1, width, tag
+
+
+def exact_bitmap(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
+                 attr_kind=None):
     """q exact predicates -> (bits u8[q, n/8] MSB-first, hdr int32[q, 3]).
 
     ``xk, yk`` (and ``tk``) int64[n] sort keys; ``valid`` bool[n] (the
     temporal-valid column when ``wins`` is given); ``boxes`` int64[q, 4]
     keys of (xmin, xmax, ymin, ymax); ``wins`` int64[q, 2] inclusive (lo,
-    hi) ms. ``hdr`` rows are (count, first hit, last hit), with the empty
-    rule of the reference: no hit gives (0, 0, n - 1)."""
+    hi) ms. With ``attr_kind`` (one of ``ATTR_KINDS``) each query's mask
+    also takes its attribute test (:func:`attr_combine`): ``codes``
+    int32[n] and ``qcodes`` one row per query, int32[q, K] (member,
+    notmember), int32[q, 2] (range) or uint8[q, U_pad] (vocabmask). ``hdr``
+    rows are (count, first hit, last hit) of the combined mask, with the
+    empty rule of the reference: no hit gives (0, 0, n - 1)."""
     has_time = wins is not None
     if xk.device.type == "cpu":
-        return exact_bitmap_plain(xk, yk, tk if has_time else None, valid, boxes, wins)
+        return exact_bitmap_plain(xk, yk, tk if has_time else None, valid, boxes, wins,
+                                  codes, qcodes, attr_kind)
     if xk.device.type != "cuda":
         raise ValueError(f"exact_bitmap: unsupported device {xk.device}")
     dev, n = xk.device, xk.shape[0]
@@ -340,6 +387,7 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None):
     _check(boxes, "boxes", torch.int64, dev, (q, 4))
     if has_time:
         _check(wins, "wins", torch.int64, dev, (q, 2))
+    edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, q, dev)
     fn = _lib("exact_bitmap").exact_bitmap
     with torch.cuda.device(dev):
         bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
@@ -349,11 +397,13 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None):
         err = fn(
             int(has_time), xk.data_ptr(), yk.data_ptr(),
             tk.data_ptr() if has_time else None, valid.data_ptr(), boxes.data_ptr(),
-            wins.data_ptr() if has_time else None, q, bits.data_ptr(), hdr.data_ptr(),
-            n, _stream(dev),
+            wins.data_ptr() if has_time else None, q, edition,
+            codes.data_ptr() if edition else None, qcodes.data_ptr() if edition else None,
+            width, bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
         )
     _raise_on(err, "exact_bitmap")
-    _count("exact_bitmap_z3" if has_time else "exact_bitmap_z2", f"q={q}")
+    name = "exact_bitmap_" + ("z3" if has_time else "z2")
+    _count(name + (f"_{attr_kind}" if edition else ""), f"q={q}{tag}")
     return bits, hdr[:3 * q].view(q, 3)
 
 

@@ -10,7 +10,13 @@ stream takes there:
     segment; the per-query span windows of its packed bitmaps are sliced on
     the device and decoded on the host (the reference's bitmap protocol,
     ``_exact_bitmap_batch_fn`` / ``_BitmapBatch``). A lone query runs the
-    same kernel with q = 1 and returns run-length encoded hits.
+    same kernel with q = 1 and returns run-length encoded hits. A plan
+    whose full filter is one box(+window) AND predicates on one attribute
+    (``_attr_batch_desc``) takes the same route with the kernel's attribute
+    plane: segment-wide rank codes of the attribute (``load_attr_codes``)
+    tested against per-query code vectors (member, range, notmember,
+    vocabmask), so the device also decides the attribute predicate (the
+    reference's attribute batches, ``dispatch_exact_attr``).
   * the DUAL route: an extent plan whose full filter is one spatial
     predicate on the default geometry (+ xz3 time bounds) runs as ONE
     ``xz_dual_bitmap`` launch per segment, giving per query a HIT plane
@@ -40,9 +46,10 @@ stream takes there:
     (``geomesa_tpu_torch/native`` ``seekscan.cpp``) when the query reduces
     to one exact box(+window) on a point index or one spatial predicate on
     an xz2 index. ``GEOMESA_SEEK`` = ``auto`` (the default) | ``0`` (never)
-    | ``1`` (whenever the plan has ranges), read at each call. The
-    reference's device-assisted seek (``GEOMESA_DEVSEEK``, off by default)
-    and its attribute residual shape are not in this slice.
+    | ``1`` (whenever the plan has ranges), read at each call; an attribute
+    or id plan whose residual is one box(+window) also runs the C++ scan
+    over its candidates. The reference's device-assisted seek
+    (``GEOMESA_DEVSEEK``, off by default) is not in this slice.
 
 The exact path and batched dispatch are always on. A lone extent query
 takes the dual route (the reference sends it to the candidate route).
@@ -122,11 +129,28 @@ _CANDIDATE_COLUMNS = {
 _ENV_SUFFIXES = ("__bxmin", "__bymin", "__bxmax", "__bymax")
 
 
+# IN-list / '<>'-chain cap of the attribute plane: values dedupe, then pad
+# to a pow2 bucket {1, 2, 4, 8, 16, 32}; longer lists answer on the
+# candidate route with the host post-filter (the reference's _ATTR_K_CAP)
+_ATTR_K_CAP = 32
+
+
 def _pow2_at_least(n: int, floor: int = 256) -> int:
     p = floor
     while p < n:
         p *= 2
     return p
+
+
+def _str_successor(s: str):
+    """Smallest string greater than every string with prefix ``s`` (the
+    LIKE-prefix upper bound): increment the last code point that can be,
+    dropping trailing U+10FFFF. None = unbounded."""
+    while s and ord(s[-1]) >= 0x10FFFF:
+        s = s[:-1]
+    if not s:
+        return None
+    return s[:-1] + chr(ord(s[-1]) + 1)
 
 
 def _bounded_nonzero(m: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -190,7 +214,10 @@ class DeviceSegment:
         outward one ulp so the cast never loses a true overlap, pad rows
         inverted (min 1, max 0); xz3 adds ``bins, ti`` binned from the
         dates.
-    Exact columns of points (``load_exact``): int64 sort keys ``xk, yk``
+    Attribute code columns of points (``load_attr_codes``): int32 ranks
+    into the segment's sorted value space of one attribute, -1 for null,
+    NaN and pad rows. Exact columns of points (``load_exact``): int64 sort
+    keys ``xk, yk``
     (and ``tk``) plus ``tvalid``, the valid column with null dates cleared;
     pad keys are int64 max. Exact columns of extents (``load_exact_xz``):
     the four int64 envelope keys ``xz_keys``, ``xz_isrect`` and, for xz3,
@@ -220,6 +247,9 @@ class DeviceSegment:
         self._exact_xz_loaded = False
         self.xf = self.yf = self.t_ms = None
         self._raw_loaded = False
+        # attribute -> (codes int32 on the device, sorted unified values) or
+        # None when some block has no device-codable layout
+        self._attr_codes: Dict[str, Optional[Tuple[torch.Tensor, np.ndarray]]] = {}
         # adaptive run capacity: grows on overflow, remembered per segment
         self._rcap = HIT_CAPACITY0
         # bitmap-batch span window (rows): starts at the full segment and
@@ -373,6 +403,181 @@ class DeviceSegment:
             self._load_tvalid(ft)
         return True
 
+    def load_attr_codes(self, attr: str) -> bool:
+        """Upload the unified rank-code column of one attribute (the
+        reference's ``load_attr_codes``): every block's values re-encode
+        into ONE segment-wide SORTED value space, so the device decides
+        ``attr = literal`` with one int32 compare per row and range
+        predicates with one interval test (code order is value order).
+
+        Dictionary-coded string blocks remap their sorted vocab with one
+        searchsorted pass; raw int / long / float / double / date-ms
+        columns (and the fixed-width unicode fallback of high-cardinality
+        strings) take ``np.unique`` of their live values, whose ranks are
+        the codes. Null rows and float NaN carry -1, as do pad rows. False
+        when some block holds the attribute as objects (host only)."""
+        if attr in self._attr_codes:
+            return self._attr_codes[attr] is not None
+
+        def raw_vocab(b):
+            # vocabs are not row-aligned: bypass full_col's record gather
+            v = b.columns.get(attr + "__vocab")
+            if v is None and b.record is not None:
+                v = b.record.columns.get(attr + "__vocab")
+            return v
+
+        per = []  # (kind, column, vocab | nulls)
+        vocab_pool = []  # value arrays feeding the unified space
+        try:
+            for b in self.blocks:
+                col = b.full_col(attr)
+                vocab = raw_vocab(b)
+                if vocab is not None and col.dtype.kind in "iu":
+                    per.append(("dict", col, vocab))
+                    vocab_pool.append(vocab)
+                elif col.dtype.kind in "iufU":
+                    nulls = b.full_col(attr + "__null")
+                    if col.dtype.kind == "f":
+                        nulls = nulls | np.isnan(col)
+                    live = col[~nulls] if nulls.any() else col
+                    per.append(("raw", col, nulls))
+                    vocab_pool.append(np.unique(live))
+                else:
+                    raise KeyError(attr)  # object column: host only
+        except KeyError:
+            self._attr_codes[attr] = None
+            return False
+        unified = (
+            np.unique(np.concatenate(vocab_pool)) if vocab_pool else np.empty(0, dtype=object)
+        )
+        parts = []
+        for kind, col, aux in per:
+            if kind == "dict":
+                remap = np.searchsorted(unified, aux).astype(np.int32)
+                parts.append(
+                    np.where(col >= 0, remap[np.maximum(col, 0)], np.int32(-1)).astype(np.int32)
+                )
+            else:
+                # null / NaN rows rank arbitrarily here and become -1
+                codes = np.searchsorted(unified, col).astype(np.int32)
+                codes[aux] = -1
+                parts.append(codes)
+        packed = pad_to_multiple(
+            np.concatenate(parts) if parts else np.empty(0, np.int32), GRANULE, np.int32(-1))
+        self._attr_codes[attr] = (upload(packed, self.device), unified)
+        return True
+
+    def attr_qcode(self, attr: str, value) -> int:
+        """Segment-local code of ``value``: -2 when absent or not comparable
+        with the value space (matches no row, nulls at -1 included)."""
+        unified = self._attr_codes[attr][1]
+        try:
+            i = int(np.searchsorted(unified, value))
+        except (TypeError, ValueError):
+            return -2
+        if i < len(unified) and unified[i] == value:
+            return i
+        return -2
+
+    def attr_qrange(self, attr: str, preds) -> np.ndarray:
+        """int32[2] inclusive code interval: the intersection of ``preds``
+        mapped into the sorted unified value space. Each pred is (op,
+        literal): =, <, <=, >, >=, between (inclusive pair), the exclusive
+        temporal forms during / before / after, prefix (LIKE with one
+        trailing %), isnull ([-1, -1]: nulls and NaN rank -1) and notnull.
+        Searchsorted sides give the evaluator's code-space semantics;
+        incomparable literals give an empty interval (lo > hi), and every
+        value op keeps lo >= 0 so nulls match no ordinary range."""
+        unified = self._attr_codes[attr][1]
+        u = len(unified)
+        lo, hi = -1, u - 1  # -1 is reachable only through isnull
+        for op, lit in preds:
+            try:
+                if op in ("between", "during"):
+                    a_side, b_side = ("left", "right") if op == "between" else ("right", "left")
+                    a = np.searchsorted(unified, lit[0], side=a_side)
+                    b = np.searchsorted(unified, lit[1], side=b_side) - 1
+                elif op == "=":
+                    a = np.searchsorted(unified, lit, side="left")
+                    b = np.searchsorted(unified, lit, side="right") - 1
+                elif op == ">=":
+                    a, b = np.searchsorted(unified, lit, side="left"), u - 1
+                elif op in (">", "after"):
+                    a, b = np.searchsorted(unified, lit, side="right"), u - 1
+                elif op in ("<", "before"):
+                    a, b = 0, np.searchsorted(unified, lit, side="left") - 1
+                elif op == "<=":
+                    a, b = 0, np.searchsorted(unified, lit, side="right") - 1
+                elif op == "prefix":
+                    a = np.searchsorted(unified, lit, side="left")
+                    succ = _str_successor(lit)
+                    b = (np.searchsorted(unified, succ, side="left") - 1
+                         if succ is not None else u - 1)
+                elif op == "isnull":
+                    a, b = -1, -1
+                elif op == "notnull":
+                    a, b = 0, u - 1
+                else:  # an unknown op claims nothing
+                    a, b = 0, -1
+            except (TypeError, ValueError):
+                a, b = 0, -1
+            lo, hi = max(lo, int(a)), min(hi, int(b))
+        return np.array([lo, hi], dtype=np.int32)
+
+    def attr_qcodes(self, attr: str, values, k: int) -> np.ndarray:
+        """int32[k] codes of an IN list (equality is one value), padded with
+        the match-nothing -2."""
+        out = np.full(k, -2, dtype=np.int32)
+        for j, v in enumerate(values[:k]):
+            out[j] = self.attr_qcode(attr, v)
+        return out
+
+    # the vocabmask edition declines above this many distinct values (its
+    # lookup table rides with every query, built by one host regex pass)
+    ATTR_VOCAB_MASK_CAP = 1 << 16
+
+    def attr_vocab_ok(self, attr: str) -> bool:
+        """Codes loaded and a value space small enough for a per-query
+        lookup table (the vocabmask edition)."""
+        info = self._attr_codes.get(attr)
+        return info is not None and len(info[1]) <= self.ATTR_VOCAB_MASK_CAP
+
+    def attr_qmask(self, attr: str, payload) -> np.ndarray:
+        """uint8[U_pad] lookup over the sorted unified value space for a
+        LIKE / ILIKE pattern, built with the host evaluator's own matcher
+        (``filter/evaluate.py`` ``like_regex``), so the device decides the
+        host's answer. ``payload`` = (pattern, case_insensitive)."""
+        from geomesa_tpu_torch.filter.evaluate import like_regex
+
+        pattern, ci = payload
+        unified = self._attr_codes[attr][1]
+        rx = like_regex(pattern, ci)
+        out = np.zeros(_pow2_at_least(max(len(unified), 1), 8), dtype=np.uint8)
+        for i, v in enumerate(unified):
+            if isinstance(v, (str, np.str_)) and rx.match(str(v)):
+                out[i] = 1
+        return out
+
+    def _attr_batch_vectors(self, attr: str, attr_kind: str, payloads) -> np.ndarray:
+        """The per-query attribute vectors of one batch in this segment's
+        code space: [q, K] codes of the batch's pow2 bucket K (member,
+        notmember), [q, 2] intervals (range) or [q, U_pad] lookup tables
+        (vocabmask)."""
+        if attr_kind == "range":
+            rows = [self.attr_qrange(attr, p) for p in payloads]
+        elif attr_kind == "vocabmask":
+            rows = [self.attr_qmask(attr, p) for p in payloads]
+        else:
+            k = _pow2_at_least(max(len(p) for p in payloads), 1)
+            rows = [self.attr_qcodes(attr, p, k) for p in payloads]
+        return np.stack(rows)
+
+    def _attr_plane_args(self, attr: str, payload, kind: str):
+        """(codes, qcodes int32|uint8 [1, ...] on the device, kind) of one
+        attribute-plane query."""
+        return (self._attr_codes[attr][0],
+                upload(self._attr_batch_vectors(attr, kind, [payload]), self.device), kind)
+
     def remember_rcap(self, nruns: int) -> None:
         """Adapt the run capacity to observed run counts: grow to 2x the
         need (pow2), decay gently when queries shrink, and never exceed the
@@ -450,13 +655,16 @@ class DeviceSegment:
             packed=lambda: pack_mask_rows(mask),
         )
 
-    def dispatch_exact(self, box_dev, win_dev) -> "_PendingHits":
+    def dispatch_exact(self, box_dev, win_dev, plane=None) -> "_PendingHits":
         """Exact predicate scan of one query: ``exact_bitmap`` with q = 1,
-        run-length encoded from its bits on the device."""
+        run-length encoded from its bits on the device. ``plane`` = (codes,
+        qcodes [1, ...], kind) adds the attribute test."""
         has_time = self.tk is not None and win_dev is not None
         xk, yk, tk, valid = self._exact_cols(has_time)
+        codes, qcodes, kind = plane if plane is not None else (None, None, None)
         bits, _hdr = kernels.exact_bitmap(
-            xk, yk, tk, valid, box_dev[None], win_dev[None] if has_time else None
+            xk, yk, tk, valid, box_dev[None], win_dev[None] if has_time else None,
+            codes, qcodes, kind,
         )
         mask = unpack_mask_rows(bits[0])
         rcap = self._rcap
@@ -466,25 +674,48 @@ class DeviceSegment:
             packed=lambda: bits[0],
         )
 
-    def dispatch_exact_batch(self, descs: Sequence[tuple], has_time: bool
+    def dispatch_exact_attr(self, box_dev, win_dev, attr: str, payload,
+                            kind: str = "member") -> "_PendingHits":
+        """One query of the attribute plane (the reference's
+        ``dispatch_exact_attr``): ``exact_bitmap`` with q = 1 and the
+        attribute test, as runs. ``payload`` is the literal tuple (member,
+        notmember), the (op, literal) tuple (range) or (pattern,
+        case_insensitive) (vocabmask); ``load_attr_codes(attr)`` must have
+        succeeded."""
+        return self.dispatch_exact(box_dev, win_dev, self._attr_plane_args(attr, payload, kind))
+
+    def dispatch_exact_batch(self, descs: Sequence[tuple], has_time: bool,
+                             attr: Optional[str] = None, attr_kind: str = "member"
                              ) -> List["_PendingBitmapHits"]:
         """Q exact scans in ONE ``exact_bitmap`` launch. ``descs`` =
-        [(box int64[4], win int64[2] | None)]. The span windows are sliced
-        on the device, so one fetch of (headers, windows) serves all q; a
-        query whose span outgrows the window refetches alone as runs."""
+        [(box int64[4], win int64[2] | None)], or with ``attr``
+        [(box, win, payload)]: the kernel then also decides the attribute
+        predicate per row on the unified codes (``load_attr_codes``), the
+        edition ``attr_kind`` (member, range, notmember, vocabmask; one per
+        batch) mapping each payload to this segment's code space. The span
+        windows are sliced on the device, so one fetch of (headers,
+        windows) serves all q; a query whose span outgrows the window
+        refetches alone as runs."""
         boxes_dev = upload(np.stack([d[0] for d in descs]), self.device)
         wins_dev = upload(np.stack([d[1] for d in descs]), self.device) if has_time else None
         xk, yk, tk, valid = self._exact_cols(has_time)
-        bits, hdr = kernels.exact_bitmap(xk, yk, tk, valid, boxes_dev, wins_dev)
+        codes = qcodes = None
+        if attr is not None:
+            codes = self._attr_codes[attr][0]
+            qcodes = upload(self._attr_batch_vectors(attr, attr_kind, [d[2] for d in descs]),
+                            self.device)
+        bits, hdr = kernels.exact_bitmap(xk, yk, tk, valid, boxes_dev, wins_dev, codes, qcodes,
+                                         attr_kind if attr is not None else None)
         span_cap = self.span_cap()
         header, window = kernels.frame_bitmaps(bits, hdr, span_cap)
         batch = _BitmapBatch(header, window, span_cap, seg=self)
         out = []
         for i in range(len(descs)):
             win_i = wins_dev[i] if has_time else None
+            plane = None if attr is None else (codes, qcodes[i:i + 1], attr_kind)
             out.append(_PendingBitmapHits(
                 self, batch, i,
-                single=lambda b=boxes_dev[i], w=win_i: self.dispatch_exact(b, w),
+                single=lambda b=boxes_dev[i], w=win_i, p=plane: self.dispatch_exact(b, w, p),
             ))
         return out
 
@@ -963,30 +1194,51 @@ class _HostSeekScan:
 
     def _iter_native(self):
         """Point plans: the C++ one-pass box(+window) test over the
-        candidate intervals of the block's own sorted x/y(/t) columns."""
-        _z, geom, dtg, box, t_lo, t_hi = self.pred
+        candidate intervals of the block's own sorted x/y(/t) columns; the
+        blocks of an attribute or id plan (no coordinates of their own)
+        gather their candidates' coordinates from the record first."""
+        _z, geom, dtg, box, t_lo, t_hi, use_covered = self.pred
         want_t = t_lo is not None or t_hi is not None
         lo = _INT64_MIN + 1 if t_lo is None else t_lo
         hi = _INT64_MAX if t_hi is None else t_hi
         for block, starts, ends, flags in self.per_block:
-            # the scan takes intervals verbatim: overlapping ones would emit
+            if not use_covered:
+                flags = np.zeros(len(starts), dtype=bool)
+            # the scan takes intervals verbatim: overlapping ones (z ranges
+            # arrive disjoint, OR'd attribute ranges need not) would emit
             # shared rows once per interval
             starts, ends, flags = _merge_overlapping_intervals(starts, ends, flags)
-            xs = block.columns[geom + "__x"]
-            ys = block.columns[geom + "__y"]
-            t = block.full_col(dtg) if want_t else None
+            cand = None
             with record_function("geomesa.seek"):
-                rows = seek_scan_native(xs, ys, t, starts, ends, flags, box, lo, hi)
+                if geom + "__x" in block.columns:
+                    xs = block.columns[geom + "__x"]
+                    ys = block.columns[geom + "__y"]
+                    t = block.full_col(dtg) if want_t else None
+                    kstarts, kends, kflags = starts, ends, flags
+                else:
+                    cand, _cov = expand_intervals(starts, ends, flags)
+                    if not len(cand):
+                        continue
+                    xs = block.gather(geom + "__x", cand)
+                    ys = block.gather(geom + "__y", cand)
+                    t = block.gather(dtg, cand) if want_t else None
+                    kstarts = np.zeros(1, dtype=np.int64)
+                    kends = np.full(1, len(cand), dtype=np.int64)
+                    kflags = np.zeros(1, dtype=bool)
+                rows = seek_scan_native(xs, ys, t, kstarts, kends, kflags, box, lo, hi)
                 if rows is None:
                     # the library became unavailable (GEOMESA_TPU_NO_NATIVE):
                     # numpy edition of the same exact test
-                    rows, _cov = expand_intervals(starts, ends, flags)
-                    xc, yc = xs[rows], ys[rows]
-                    m = (xc >= box[0]) & (xc <= box[2]) & (yc >= box[1]) & (yc <= box[3])
+                    if cand is None:
+                        cand, _cov = expand_intervals(starts, ends, flags)
+                        xs, ys = xs[cand], ys[cand]
+                        t = t[cand] if want_t else None
+                    m = (xs >= box[0]) & (xs <= box[2]) & (ys >= box[1]) & (ys <= box[3])
                     if want_t:
-                        tc = t[rows]
-                        m &= (tc >= lo) & (tc <= hi)
-                    rows = rows[m]
+                        m &= (t >= lo) & (t <= hi)
+                    rows = cand[m]
+                elif cand is not None:
+                    rows = cand[rows]  # scan positions -> block rows
             if len(rows):
                 yield block, rows
 
@@ -1122,11 +1374,14 @@ class TorchScanExecutor:
         Each plan first meets the seek choice (``_seek_scan``). Of the
         rest, point plans whose full filter reduces to one exact
         box(+window) test on the same table fuse into ONE ``exact_bitmap``
-        launch per segment, extent plans with a dual descriptor into ONE
-        ``xz_dual_bitmap`` launch (chunks of BATCH_MAX); the others
-        dispatch as dispatch_candidates would."""
+        launch per segment, as do those that add predicates on one
+        attribute (per attribute and edition: ``_drain_attr_batches``),
+        extent plans with a dual descriptor into ONE ``xz_dual_bitmap``
+        launch (chunks of BATCH_MAX); the others dispatch as
+        dispatch_candidates would."""
         out: Dict[int, object] = {}
         batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
+        attr_batchable: Dict[tuple, Tuple[IndexTable, bool, str, str, list]] = {}
         xz_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         for table, plan in items:
             if id(plan) in out:
@@ -1137,6 +1392,15 @@ class TorchScanExecutor:
                 continue
             eligible = self._scan_eligible(table, plan)
             desc = self._exact_descriptor(table, plan) if eligible else None
+            adesc = self._attr_batch_desc(table, plan) if eligible and desc is None else None
+            if adesc is not None:
+                attr, akind, d = adesc
+                has_time = d[1] is not None
+                group = attr_batchable.setdefault(
+                    (id(table), has_time, attr, akind), (table, has_time, attr, akind, []))
+                group[4].append((id(plan), plan, d))
+                out[id(plan)] = None  # placeholder, filled below
+                continue
             if desc is None:
                 xz = self._xz_batch_desc(table, plan) if eligible else None
                 if xz is not None:
@@ -1171,8 +1435,48 @@ class TorchScanExecutor:
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
                         exact=True,
                     )
+        self._drain_attr_batches(out, attr_batchable)
         self._drain_xz_batches(out, xz_batchable)
         return out
+
+    def _drain_attr_batches(self, out: Dict[int, object], groups) -> None:
+        """The attribute-plane groups of dispatch_many: per (table,
+        has_time, attribute, edition), chunked ``exact_bitmap`` batches with
+        the attribute test; a lone query takes ``dispatch_exact_attr``
+        (q = 1, runs). When some segment cannot load the codes (an object
+        column) or its value space is too large for the vocabmask lookup,
+        the group takes the candidate route and the host post-filter."""
+        for table, has_time, attr, akind, lst in groups.values():
+            dev = self.device_index(table)
+            for seg in dev.segments:
+                seg.load_exact(table)
+            ok = all(seg.load_attr_codes(attr) for seg in dev.segments) and (
+                akind != "vocabmask" or all(seg.attr_vocab_ok(attr) for seg in dev.segments))
+            if not ok:
+                for pid, plan, _d in lst:
+                    out[pid] = self._dispatch_nonseek(table, plan, desc=None)
+                continue
+            self._seed_spans(dev, [p for _pid, p, _d in lst])
+            for i in range(0, len(lst), self.BATCH_MAX):
+                chunk = lst[i : i + self.BATCH_MAX]
+                if len(chunk) == 1:
+                    pid, _plan, (box_np, win_np, payload) = chunk[0]
+                    box_dev = upload(box_np, self.device)
+                    win_dev = None if win_np is None else upload(win_np, self.device)
+                    out[pid] = _PendingScan(
+                        [(seg, seg.dispatch_exact_attr(box_dev, win_dev, attr, payload, akind))
+                         for seg in dev.segments],
+                        exact=True,
+                    )
+                    continue
+                descs = [d for _pid, _p, d in chunk]
+                per_seg = [seg.dispatch_exact_batch(descs, has_time, attr=attr, attr_kind=akind)
+                           for seg in dev.segments]
+                for qi, (pid, _plan, _d) in enumerate(chunk):
+                    out[pid] = _PendingScan(
+                        [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
+                        exact=True,
+                    )
 
     def _drain_xz_batches(self, out: Dict[int, object], groups) -> None:
         """The extent groups of dispatch_many (the reference's
@@ -1262,14 +1566,22 @@ class TorchScanExecutor:
         return _HostSeekScan(table, per_block, pred)
 
     def _native_seek_pred(self, table: IndexTable, plan: QueryPlan):
-        """("z", geom, dtg, box, t_lo, t_hi) for the one-pass C++ seek scan
-        when the point plan's FULL filter is one exact bbox(+interval) test
-        (``_exact_predicate_shape``) and the library is loaded; None -> the
-        covered-split scan. Range ``contained`` flags then mean "satisfies
-        the whole predicate", so the scan passes those runs untested. (The
-        reference's value-exact attribute residual shape is not in this
-        slice.)"""
+        """("z", geom, dtg, box, t_lo, t_hi, use_covered) for the one-pass
+        C++ seek scan when the remaining per-row work is one exact
+        bbox(+interval) test and the library is loaded; None -> the
+        covered-split scan. Two plan shapes qualify:
+
+          * a point z-index plan whose FULL filter is the box(+window)
+            (``_exact_predicate_shape``): ``use_covered``, range
+            ``contained`` flags mean "satisfies the whole predicate" and
+            the scan passes those runs untested;
+          * a value-exact attribute or id plan whose residual is the
+            box(+window) (``_residual_shape``): the candidates satisfy the
+            primary, and the scan tests every one of them."""
         shape = self._exact_predicate_shape(table, plan)
+        use_covered = shape is not None
+        if shape is None:
+            shape = self._residual_shape(table, plan)
         if shape is None or load_seek() is None:
             return None
         xmin, ymin, xmax, ymax, t_lo, t_hi = shape
@@ -1280,7 +1592,23 @@ class TorchScanExecutor:
             # admit them when the window holds the epoch
             if any(b.has_nulls(dtg) for b in table.blocks):
                 return None
-        return ("z", ft.default_geometry.name, dtg, (xmin, ymin, xmax, ymax), t_lo, t_hi)
+        return ("z", ft.default_geometry.name, dtg, (xmin, ymin, xmax, ymax), t_lo, t_hi,
+                use_covered)
+
+    def _residual_shape(self, table: IndexTable, plan: QueryPlan):
+        """Box(+window) shape of a value-exact plan's residual: every range
+        ``contained`` (attribute equality or id ranges, exact in value
+        space, so every candidate satisfies the primary) and full filter =
+        primary AND secondary, so testing the secondary alone gives the
+        query's result set."""
+        name = table.index.name
+        if not (name == "id" or name.startswith("attr")):
+            return None
+        if plan.primary is None or plan.secondary is None:
+            return None
+        if not plan.ranges or not all(r.contained for r in plan.ranges):
+            return None
+        return self._box_window_shape(table.ft, plan.secondary)
 
     def _xz_native_pred(self, table: IndexTable, plan: QueryPlan):
         """("xz", geom, node, qenv, rect) for the C++ envelope seek scan
@@ -1367,10 +1695,12 @@ class TorchScanExecutor:
         return walk(f), t_lo, t_hi
 
     @staticmethod
-    def _walk_boxes(ft, f):
+    def _walk_boxes(ft, f, extra_match=None):
         """AND-only walk collecting bbox / rect-INTERSECTS tests on the
-        default geometry plus temporal clamps. Returns ((xmin, ymin, xmax,
-        ymax), t_lo, t_hi) or None."""
+        default geometry plus temporal clamps: the one home of the box
+        rules of the plain exact and the attribute planes. ``extra_match``
+        may claim more node shapes. Returns ((xmin, ymin, xmax, ymax), t_lo,
+        t_hi) or None."""
         if f is None:
             return None
         from geomesa_tpu_torch.filter import ast as A
@@ -1387,7 +1717,7 @@ class TorchScanExecutor:
                 if hasattr(g, "is_rectangle") and g.is_rectangle():
                     boxes.append(g.envelope)
                     return True
-            return False
+            return extra_match(node) if extra_match is not None else False
 
         ok, t_lo, t_hi = TorchScanExecutor._and_walk_temporal(ft, f, match)
         if not ok or not boxes:
@@ -1421,6 +1751,159 @@ class TorchScanExecutor:
         if shape is None:
             return None
         return self._shape_keys(shape)
+
+    def _attr_batch_desc(self, table: IndexTable, plan: QueryPlan):
+        """(attribute, edition, (box int64[4], win int64[2] | None, payload))
+        when a z2/z3 plan's FULL filter is one box(+window) AND predicates
+        on exactly one attribute that the unified code space can decide,
+        so the device answers all of it (the reference's
+        ``_attr_batch_desc``, the join attribute strategy evaluated at the
+        data); None otherwise. Editions and payloads: ``_attr_pred_collector``."""
+        if table.index.name not in ("z2", "z3"):
+            return None
+        ft = table.ft
+        if ft.default_geometry is None or not ft.is_points:
+            return None
+        match_attr, finalize = self._attr_pred_collector(ft)
+        got = self._walk_boxes(ft, plan.full_filter, extra_match=match_attr)
+        found = finalize()
+        if got is None or found is None:
+            return None
+        attr, kind, payload = found
+        (xmin, ymin, xmax, ymax), t_lo, t_hi = got
+        if (t_lo is not None or t_hi is not None) and table.index.name != "z3":
+            return None
+        box, win = self._shape_keys((xmin, ymin, xmax, ymax, t_lo, t_hi))
+        return attr, kind, (box, win, payload)
+
+    @staticmethod
+    def _attr_pred_collector(ft):
+        """(match, finalize): the recognizer of the attribute plane's
+        predicates (the reference's ``_attr_pred_collector``).
+        ``match(node)`` claims eligible predicates during an AND walk;
+        ``finalize()`` returns None or (attribute, edition, payload):
+
+          * member: ``a = x`` or ``a IN (...)`` of at most ``_ATTR_K_CAP``
+            distinct values; payload the literal tuple;
+          * notmember: a ``a <> x [AND a <> y ...]`` chain; payload the
+            excluded literals;
+          * range: any AND of <, <=, >, >=, =, BETWEEN, DURING / BEFORE /
+            AFTER on a secondary date, a LIKE with one trailing % (a
+            prefix), IS [NOT] NULL; payload the (op, coerced literal) tuple;
+          * vocabmask: one other LIKE or an ILIKE; payload (pattern,
+            case_insensitive).
+
+        Eligible attributes: String (not json), Integer, Long, Float,
+        Double, Date, other than the default date (the window's)."""
+        from geomesa_tpu_torch.filter import ast as A
+        from geomesa_tpu_torch.filter.evaluate import _coerce
+        from geomesa_tpu_torch.schema.featuretype import AttributeType
+
+        dtg = ft.default_date.name if ft.default_date is not None else None
+        ok_types = (
+            AttributeType.STRING, AttributeType.INT, AttributeType.LONG,
+            AttributeType.FLOAT, AttributeType.DOUBLE, AttributeType.DATE,
+        )
+        inlists: List = []  # (prop, values)
+        ranges: List = []  # (prop, op, coerced literal), '=' included
+        excluded: List = []  # (prop, coerced literal) of '<>' chains
+        likes: List = []  # (prop, pattern, case_insensitive)
+
+        def eligible(prop) -> bool:
+            return (not prop.startswith("$.") and prop != dtg and ft.has(prop)
+                    and ft.attr(prop).type in ok_types and not ft.attr(prop).json)
+
+        def coerced(prop, lit):
+            # NaN sorts past the end but compares false; None never matches
+            v = _coerce(ft, prop, lit)
+            return None if v is None or (isinstance(v, float) and v != v) else v
+
+        def match_attr(node) -> bool:
+            if isinstance(node, A.Cmp) and node.op in ("=", "<", "<=", ">", ">=") \
+                    and eligible(node.prop):
+                lit = coerced(node.prop, node.literal)
+                if lit is None:
+                    return False
+                ranges.append((node.prop, node.op, lit))
+                return True
+            if isinstance(node, A.Cmp) and node.op == "<>" and eligible(node.prop):
+                lit = coerced(node.prop, node.literal)
+                if lit is None:
+                    return False
+                excluded.append((node.prop, lit))
+                return True
+            if isinstance(node, A.Between) and eligible(node.prop):
+                lo, hi = coerced(node.prop, node.lo), coerced(node.prop, node.hi)
+                if lo is None or hi is None:
+                    return False
+                ranges.append((node.prop, "between", (lo, hi)))
+                return True
+            if isinstance(node, A.InList) and eligible(node.prop):
+                # dedupe before the cap
+                raw = [coerced(node.prop, v) for v in node.values]
+                if any(v is None for v in raw):
+                    return False
+                vals = tuple(dict.fromkeys(raw))
+                if 0 < len(vals) <= _ATTR_K_CAP:
+                    inlists.append((node.prop, vals))
+                    return True
+                return False
+            if isinstance(node, A.IsNull) and eligible(node.prop):
+                ranges.append((node.prop, "notnull" if node.negate else "isnull", None))
+                return True
+            if isinstance(node, A.Like) and eligible(node.prop) \
+                    and ft.attr(node.prop).type == AttributeType.STRING:
+                pat = node.pattern
+                if not node.case_insensitive and "_" not in pat and (
+                        "%" not in pat or (pat.count("%") == 1 and pat.endswith("%"))):
+                    # a prefix is a code range; no wildcard is equality
+                    if pat.endswith("%"):
+                        ranges.append((node.prop, "prefix", pat[:-1]))
+                    else:
+                        ranges.append((node.prop, "=", pat))
+                else:
+                    likes.append((node.prop, pat, node.case_insensitive))
+                return True
+            if isinstance(node, (A.During, A.Before, A.After)) and eligible(node.prop) \
+                    and ft.attr(node.prop).type == AttributeType.DATE:
+                if isinstance(node, A.During):
+                    ranges.append((node.prop, "during", (node.lo_ms, node.hi_ms)))
+                elif isinstance(node, A.Before):
+                    ranges.append((node.prop, "before", node.t_ms))
+                else:
+                    ranges.append((node.prop, "after", node.t_ms))
+                return True
+            return False
+
+        def finalize():
+            if not (inlists or ranges or excluded or likes):
+                return None
+            props = ({p for p, *_ in inlists} | {p for p, *_ in ranges}
+                     | {p for p, *_ in excluded} | {p for p, *_ in likes})
+            if len(props) != 1:
+                return None  # one codes column per batch
+            if likes:
+                if inlists or ranges or excluded or len(likes) > 1:
+                    return None
+                prop, pattern, ci = likes[0]
+                return prop, "vocabmask", (pattern, ci)
+            if excluded:
+                if inlists or ranges:
+                    return None
+                vals = tuple(dict.fromkeys(lit for _p, lit in excluded))
+                if len(vals) > _ATTR_K_CAP:
+                    return None
+                return props.pop(), "notmember", vals
+            if inlists and (ranges or len(inlists) > 1):
+                return None
+            attr = props.pop()
+            if inlists:
+                return attr, "member", inlists[0][1]
+            if len(ranges) == 1 and ranges[0][1] == "=":
+                return attr, "member", (ranges[0][2],)  # a lone equality
+            return attr, "range", tuple((op, lit) for _p, op, lit in ranges)
+
+        return match_attr, finalize
 
     @staticmethod
     def _xz_pred_shape(table: IndexTable, plan: QueryPlan):

@@ -1,9 +1,11 @@
 """Stats service: write-time sketches + query-time selectivity estimates.
 
-Port of ``geomesa_tpu/stats/service.py`` limited to what the z2/z3/id
-strategy choice reads: the total count and the lon/lat/dtg histograms
-(MetadataBackedStats; StatsBasedEstimator.scala:27-41). Persistence and
-the attribute sketches wait for a later slice of the port.
+Port of ``geomesa_tpu/stats/service.py`` limited to what the strategy
+choice reads (MetadataBackedStats; StatsBasedEstimator.scala:27-41): the
+total count, the lon/lat/dtg histograms and bounds, a MinMax per numeric
+or date attribute (+ an auto-ranging histogram when it is indexed) and a
+TopK and a Frequency sketch per indexed string. Persistence, merging and
+the z3 histogram are not ported.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import numpy as np
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.extract import extract_geometries, extract_intervals
 from geomesa_tpu_torch.schema.featuretype import AttributeType, FeatureType
-from geomesa_tpu_torch.stats.sketches import CountStat, Histogram
+from geomesa_tpu_torch.stats.sketches import CountStat, Frequency, Histogram, MinMax, TopK
 
 _HIST_BINS = 1000
 
@@ -27,21 +29,39 @@ class SketchStats:
     def __init__(self):
         self._stats: Dict[str, Dict[str, object]] = {}
 
+    def _init_for(self, ft: FeatureType) -> Dict[str, object]:
+        stats: Dict[str, object] = {"count": CountStat()}
+        geom = ft.default_geometry
+        if geom is not None and geom.type == AttributeType.POINT:
+            stats["lon"] = Histogram(geom.name + "__x", _HIST_BINS, -180.0, 180.0)
+            stats["lat"] = Histogram(geom.name + "__y", _HIST_BINS, -90.0, 90.0)
+            stats["minmax:lon"] = MinMax(geom.name + "__x", track_cardinality=False)
+            stats["minmax:lat"] = MinMax(geom.name + "__y", track_cardinality=False)
+        dtg = ft.default_date
+        if dtg is not None:
+            # ms-epoch histogram over 2000..2040 (clamped ends catch outliers)
+            lo = np.datetime64("2000-01-01", "ms").astype(np.int64)
+            hi = np.datetime64("2040-01-01", "ms").astype(np.int64)
+            stats["dtg"] = Histogram(dtg.name, _HIST_BINS, float(lo), float(hi))
+            stats["minmax:dtg"] = MinMax(dtg.name, track_cardinality=False)
+        for a in ft.attributes:
+            if a is geom or a is dtg:
+                continue
+            if a.type in (AttributeType.INT, AttributeType.LONG, AttributeType.FLOAT,
+                          AttributeType.DOUBLE, AttributeType.DATE):
+                stats[f"minmax:{a.name}"] = MinMax(a.name)
+                if a.indexed:
+                    # range-scan selectivity of an indexed numeric
+                    stats[f"hist:{a.name}"] = Histogram(a.name, _HIST_BINS)
+            elif a.type == AttributeType.STRING and a.indexed:
+                stats[f"topk:{a.name}"] = TopK(a.name)
+                stats[f"freq:{a.name}"] = Frequency(a.name)
+        return stats
+
     def stats_for(self, ft: FeatureType) -> Dict[str, object]:
         got = self._stats.get(ft.name)
         if got is None:
-            got = {"count": CountStat()}
-            geom = ft.default_geometry
-            if geom is not None and geom.type == AttributeType.POINT:
-                got["lon"] = Histogram(geom.name + "__x", _HIST_BINS, -180.0, 180.0)
-                got["lat"] = Histogram(geom.name + "__y", _HIST_BINS, -90.0, 90.0)
-            dtg = ft.default_date
-            if dtg is not None:
-                # ms-epoch histogram over 2000..2040 (clamped ends catch outliers)
-                lo = np.datetime64("2000-01-01", "ms").astype(np.int64)
-                hi = np.datetime64("2040-01-01", "ms").astype(np.int64)
-                got["dtg"] = Histogram(dtg.name, _HIST_BINS, float(lo), float(hi))
-            self._stats[ft.name] = got
+            got = self._stats[ft.name] = self._init_for(ft)
         return got
 
     def observe_columns(self, ft: FeatureType, columns: Dict[str, np.ndarray]) -> None:
@@ -49,11 +69,25 @@ class SketchStats:
 
         stats = self.stats_for(ft)
         stats["count"].count += num_rows(columns)
+        decoded: Dict[str, tuple] = {}
         for key, stat in stats.items():
             if key == "count" or stat.attribute not in columns:
                 continue
-            nulls = columns.get(stat.attribute.split("__")[0] + "__null")
-            stat.observe(columns[stat.attribute], nulls)
+            attr = stat.attribute
+            vocab = columns.get(attr + "__vocab")
+            if vocab is not None:
+                # dictionary column: (vocab values, bincount of codes), the
+                # null codes (-1) dropping out of the bincount
+                vc = decoded.get(attr)
+                if vc is None:
+                    codes = columns[attr]
+                    cnt = np.bincount(codes[codes >= 0], minlength=len(vocab))
+                    present = cnt > 0
+                    vc = decoded[attr] = (vocab[present], cnt[present])
+                stat.observe_counts(*vc)
+                continue
+            nulls = columns.get(attr.split("__")[0] + "__null")
+            stat.observe(columns[attr], nulls)
 
     def get_count(self, ft: FeatureType, f: Optional[ast.Filter] = None) -> Optional[float]:
         stats = self.stats_for(ft)
@@ -71,7 +105,10 @@ class SketchStats:
 def _selectivity(ft, f, stats, total) -> Optional[float]:
     """Selectivity from the sketches (StatsBasedEstimator.scala:27-41): bbox
     -> product of lon/lat histogram selectivities; intervals -> dtg
-    histogram; AND multiplies, OR adds (capped), NOT complements."""
+    histogram; attribute equality -> the Frequency count, else
+    1 / cardinality; attribute order predicates -> the attribute's
+    histogram, else a linear guess over its MinMax; AND multiplies, OR adds
+    (capped), NOT complements."""
     if isinstance(f, ast.Include):
         return 1.0
     if isinstance(f, ast.Exclude):
@@ -124,4 +161,43 @@ def _selectivity(ft, f, stats, total) -> Optional[float]:
                 hi = float(b.upper.value) if b.upper.value is not None else h.hi
                 sel += h.count_between(lo, hi) / max(1, total)
             return min(1.0, sel)
+
+    if isinstance(f, ast.Cmp) and f.op == "=":
+        freq = stats.get(f"freq:{f.prop}")
+        if freq is not None and not freq.is_empty:
+            return freq.count(f.literal) / max(1, total)
+        mm = stats.get(f"minmax:{f.prop}")
+        if mm is not None and not mm.is_empty and mm.cardinality > 0:
+            return 1.0 / mm.cardinality
+    if isinstance(f, ast.Cmp) and f.op in ("<", "<=", ">", ">="):
+        h = stats.get(f"hist:{f.prop}")
+        if h is not None and not h.is_empty:
+            try:
+                v = float(f.literal)
+            except (TypeError, ValueError):
+                return None
+            # normalized by the histogram's own mass
+            mass = max(1.0, float(h.counts.sum()))
+            if f.op in ("<", "<="):
+                return h.count_between(h.lo, v) / mass
+            return h.count_between(v, h.hi) / mass
+        mm = stats.get(f"minmax:{f.prop}")
+        if mm is not None and not mm.is_empty:
+            try:
+                lo, hi = float(mm.min), float(mm.max)
+                v = float(f.literal)
+                if hi <= lo:
+                    return 1.0
+                frac = max(0.0, min(1.0, (v - lo) / (hi - lo)))
+                return frac if f.op in ("<", "<=") else 1.0 - frac
+            except (TypeError, ValueError):
+                return None
+    if isinstance(f, ast.Between):
+        h = stats.get(f"hist:{f.prop}")
+        if h is not None and not h.is_empty:
+            try:
+                mass = max(1.0, float(h.counts.sum()))
+                return h.count_between(float(f.lo), float(f.hi)) / mass
+            except (TypeError, ValueError):
+                return None
     return None

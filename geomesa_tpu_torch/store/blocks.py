@@ -320,15 +320,22 @@ class FeatureBlock:
         columns: Columns,
         key: np.ndarray,
         bins: Optional[np.ndarray],
+        tiebreak: Optional[np.ndarray] = None,
         record: Optional[RecordBlock] = None,
         rowid: Optional[np.ndarray] = None,
+        key_vocab: Optional[np.ndarray] = None,
     ):
         self.index = index
         self.columns = columns
         self.key = key
         self.bins = bins
+        # secondary z2 sort within equal keys (attribute index only)
+        self.tiebreak = tiebreak
         self.record = record
         self.rowid = rowid
+        # dictionary-encoded attr key: sorted value vocab for this block's
+        # int32 code keys (scan ranges map value bounds -> code bounds)
+        self.key_vocab = key_vocab
         self.n = len(key)
         # per-bin row slices (contiguous after the sort)
         self.bin_slices: Dict[int, Tuple[int, int]] = {}
@@ -430,10 +437,12 @@ class FeatureBlock:
         key = key_cols["__key__"]
         bins = key_cols.get("__bin__")
         valid = key_cols.get("__valid__")
+        tiebreak = key_cols.get("__tiebreak__")
+        key_vocab = key_cols.get("__key_vocab__")
         own: Columns = {
             k: v
             for k, v in key_cols.items()
-            if k not in ("__key__", "__bin__", "__valid__")
+            if k not in ("__key__", "__bin__", "__valid__", "__tiebreak__", "__key_vocab__")
         }
         for name in _hot_names(index, ft):
             col = record.columns.get(name)
@@ -447,14 +456,21 @@ class FeatureBlock:
             rowid = rowid[rows]
             if bins is not None:
                 bins = bins[rows]
+            if tiebreak is not None:
+                tiebreak = tiebreak[rows]
         if bins is not None:
             order = np.lexsort((key, bins))
             bins = bins[order]
+            if tiebreak is not None:  # row-aligned, though no binned index
+                tiebreak = tiebreak[order]  # emits one today
+        elif tiebreak is not None:
+            order = np.lexsort((tiebreak, key))
+            tiebreak = tiebreak[order]
         else:
             order = np.argsort(key, kind="stable")
         key = key[order]
         sorted_cols = take_rows(own, order)
-        return cls(index, sorted_cols, key, bins, record, rowid[order])
+        return cls(index, sorted_cols, key, bins, tiebreak, record, rowid[order], key_vocab)
 
     def scan(self, ranges: Sequence[ScanRange]) -> np.ndarray:
         """Row indices whose keys fall in any range (sorted, deduped)."""
@@ -472,7 +488,7 @@ class FeatureBlock:
             return z, z, np.empty(0, dtype=bool)
         from geomesa_tpu_torch.index.keyspace import RangeSet
 
-        if isinstance(ranges, RangeSet) and self.key.dtype != object:
+        if isinstance(ranges, RangeSet) and self.key.dtype != object and self.tiebreak is None:
             return self._scan_intervals_arrays(ranges)
         pieces: List[Tuple[np.ndarray, np.ndarray, np.ndarray]] = []
         if self.bins is not None:
@@ -522,11 +538,42 @@ class FeatureBlock:
             return z, z, np.empty(0, dtype=bool)
         return np.concatenate(outs), np.concatenate(oute), np.concatenate(outf)
 
+    def _to_code_ranges(self, ranges: Sequence[ScanRange]) -> List[ScanRange]:
+        """VALUE-space scan ranges -> this block's CODE space (inclusive
+        int bounds). The vocab is sorted, so order-preserving: a value
+        bound maps by binary search; exclusive bounds shift by choosing
+        the searchsorted side. ``contained`` flags carry over — codes
+        represent exact values."""
+        vocab = self.key_vocab
+        out = []
+        for r in ranges:
+            if r.lower is None:
+                lo = 0
+            else:
+                side = "left" if r.lower_inclusive else "right"
+                lo = int(np.searchsorted(vocab, r.lower, side=side))
+            if r.upper is None:
+                hi = len(vocab) - 1
+            else:
+                side = "right" if r.upper_inclusive else "left"
+                hi = int(np.searchsorted(vocab, r.upper, side=side)) - 1
+            if hi < lo:
+                continue
+            out.append(
+                ScanRange(r.bin, lo, hi, r.contained, True, True, r.tiebreak_ranges)
+            )
+        return out
+
     def _slice_intervals(
         self, s: int, e: int, ranges: Sequence[ScanRange]
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
         sub = self.key[s:e]
-        if sub.dtype.kind == "S":
+        if self.key_vocab is not None:
+            ranges = self._to_code_ranges(ranges)
+            if not ranges:
+                z = np.empty(0, dtype=np.int64)
+                return z, z, np.empty(0, dtype=bool)
+        elif sub.dtype.kind == "S":
             # bytes keys (the id index, ASCII): encode str bounds the
             # same way — byte value == code point, so order is unchanged.
             # A non-ASCII bound cannot exist in an ASCII block: drop it.
@@ -557,6 +604,38 @@ class FeatureBlock:
                     mapped.append(r._replace(lower=lo, upper=hi))
                 ranges = mapped
         numeric = sub.dtype != object
+        if self.tiebreak is not None and any(r.tiebreak_ranges for r in ranges):
+            # attribute scans with a z2 tiebreak: within each equality span
+            # rows are z-sorted, so spatial predicates reduce to z sub-spans
+            # (the tiered-range scan of the reference's AttributeIndex).
+            # Tiebreak sub-spans are spatial over-approximations, so their
+            # covered flag is always False.
+            outs, oute, outf = [], [], []
+            for r in ranges:
+                side = "left" if r.lower is None or r.lower_inclusive else "right"
+                st = s if r.lower is None else int(np.searchsorted(sub, r.lower, side=side)) + s
+                side = "right" if r.upper is None or r.upper_inclusive else "left"
+                en = e if r.upper is None else int(np.searchsorted(sub, r.upper, side=side)) + s
+                if en <= st:
+                    continue
+                if not r.tiebreak_ranges:
+                    outs.append(st)
+                    oute.append(en)
+                    outf.append(r.contained)
+                    continue
+                tb = self.tiebreak[st:en]
+                for zlo, zhi in r.tiebreak_ranges:
+                    s2 = int(np.searchsorted(tb, zlo, side="left"))
+                    e2 = int(np.searchsorted(tb, zhi, side="right"))
+                    if e2 > s2:
+                        outs.append(st + s2)
+                        oute.append(st + e2)
+                        outf.append(False)
+            return (
+                np.asarray(outs, dtype=np.int64),
+                np.asarray(oute, dtype=np.int64),
+                np.asarray(outf, dtype=bool),
+            )
         if numeric and all(
             r.lower is not None
             and r.upper is not None

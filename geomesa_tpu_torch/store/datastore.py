@@ -458,7 +458,7 @@ def _gather_filter_cols(block, rows, props) -> Columns:
         if k.endswith("__vocab"):
             # dictionary vocab: whole sorted array, NOT row-aligned — the
             # evaluator maps literals through it in code space
-            fcols[k] = block.full_col(k)
+            fcols[k] = block.columns[k] if k in block.columns else block.record.columns[k]
         else:
             fcols[k] = block.gather(k, rows, record_rows=rr)
     if not fcols:

@@ -185,6 +185,83 @@ def test_exact_bitmap_chunks_and_reject_on_the_card(cuda, n, q, order, has_time)
         assert hdr[2][0] > int(valid.sum()) // 2  # every valid finite row
 
 
+def _attr_vectors(kind: str, q: int, width: int, rng):
+    """Per-query vectors of one attribute edition: codes with -2 (a literal
+    the segment lacks) and -1 (null) among them (member, notmember), an
+    IS NULL interval [-1, -1], an empty and a wide interval (range), a
+    lookup table of ``width`` entries (vocabmask)."""
+    if kind == "range":
+        lo = rng.integers(-1, 300, q)
+        out = np.stack([lo, lo + rng.integers(0, 200, q)], 1)
+        out[:3] = [(-1, -1), (9, 3), (0, 10**6)][:q]
+        return out.astype(np.int32)
+    if kind == "vocabmask":
+        return (rng.random((q, width)) < 0.4).astype(np.uint8)
+    out = rng.integers(-2, 300, (q, width)).astype(np.int32)
+    out[0, -1] = -2
+    if q > 1:
+        out[1, 0] = -1
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", F.ATTR_KINDS)
+@pytest.mark.parametrize("q", [1, 2, 12, 24])
+@pytest.mark.parametrize("n", [32 * (4 * 100 + 1), 2 * 1024 * 1024 + 96])
+def test_exact_bitmap_attr_editions_on_the_card(cuda, n, q, kind, has_time):
+    """Each attribute edition bitwise against its plain edition: row counts
+    that end inside a warp's chunk, q = 1 (no chunk reject) to 24, K = 1, 4,
+    8 and 32 codes a query, lookup tables of 8 to 65536 entries (codes past
+    the table clip to its last entry), null codes, the empty query's
+    (0, 0, n - 1) header and the header of the combined mask."""
+    x, y, t, valid = _exact_table(n, "z", n + q)
+    boxes, wins = _exact_queries(q, q)
+    rng = np.random.default_rng(q)
+    codes = rng.integers(0, 300, n).astype(np.int32)
+    codes[rng.random(n) < 0.1] = -1
+    xk, yk = (torch.from_numpy(f64_keys(c)).to(cuda) for c in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    valid = torch.from_numpy(valid).to(cuda)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    wins = torch.from_numpy(wins).to(cuda) if has_time else None
+    codes = torch.from_numpy(codes).to(cuda)
+    widths = {"range": [2], "vocabmask": [8, 4096, kernels.ATTR_MAX_U]}.get(
+        kind, [1, 4, 8, kernels.ATTR_MAX_K])
+    name = "exact_bitmap_" + ("z3" if has_time else "z2") + "_" + kind
+    for width in widths:
+        qcodes = torch.from_numpy(_attr_vectors(kind, q, width, rng)).to(cuda)
+        kernels.reset_launches()
+        got = kernels.exact_bitmap(xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
+        want = kernels.exact_bitmap_plain(xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
+        for g, w in zip(got, want):
+            assert g.shape == w.shape and torch.equal(g, w), (kind, width)
+        tag = "" if kind == "range" else (f" U={width}" if kind == "vocabmask" else f" K={width}")
+        assert kernels.LAUNCH_SHAPES == {(name, f"q={q}{tag}"): 1}
+        if q > 1:
+            assert want[1][1].cpu().tolist() == [0, 0, n - 1]  # the empty query
+
+
+@pytest.mark.cuda
+def test_exact_bitmap_attr_header_follows_the_combined_mask(cuda):
+    """A box that holds rows 0 and n - 1, with an attribute test that only
+    row n - 1 passes: the header is (1, n - 1, n - 1), not the box's."""
+    n = 32 * 1000
+    x, y, t, valid = _exact_table(n, "z", 5)
+    boxes, _wins = _exact_queries(1, 1)
+    codes = np.full(n, 3, dtype=np.int32)
+    codes[-1] = 7
+    args = [torch.from_numpy(a).to(cuda)
+            for a in (f64_keys(x), f64_keys(y), valid, boxes, codes)]
+    for kind, qc in (("member", [[7]]), ("range", [[5, 9]]), ("notmember", [[3]])):
+        qcodes = torch.tensor(qc, dtype=torch.int32, device=cuda)
+        bits, hdr = kernels.exact_bitmap(args[0], args[1], None, args[2], args[3], None,
+                                         args[4], qcodes, kind)
+        assert hdr.cpu().tolist() == [[1, n - 1, n - 1]], kind
+        assert torch.equal(bits, kernels.exact_bitmap_plain(
+            args[0], args[1], None, args[2], args[3], None, args[4], qcodes, kind)[0])
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("has_time", [True, False])
 @pytest.mark.parametrize("n", [1024, 3 * 1024 * 1024 + 4096])

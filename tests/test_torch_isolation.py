@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of the JAX package, no hidden CPU.
 
 ``import geomesa_tpu_torch`` and config #1, density (z3, z2), config #3
-(xz2, xz3) and host-seek queries through it, with the native range walks
+(xz2, xz3), config #4 (the attribute planes) and host-seek queries through
+it, with the native range walks
 and decode, must load neither ``jax`` nor any ``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
@@ -82,6 +83,23 @@ for name in ("xz2_bbox", "xz3_bbox_during"):
         assert set(r.fids) == {f"w{j}" for j in cs.oracle_rows(ways, *spec)}, c
         assert r.plan.index.name == name[:3], c
         assert r.plan.scan_path == "device-batch-dual/bitmap", c
+# config #4: attribute-plane queries on the device (the member and range
+# editions of exact_bitmap), then one through the host seek
+data, rng = cs.synthesize_attr(4000)
+attr_streams = cs.attr_streams(rng, reps=4)
+aft = parse_spec("attr", cs.ATTR_SPEC)
+store.create_schema(aft)
+store._insert_columns(aft, cs.attr_columns(data, np.char.add("f", np.arange(4000).astype(str))))
+res = store.query_many("attr", [c for c, _ in attr_streams["j"]])
+for (c, spec), r in zip(attr_streams["j"], res):
+    assert set(r.fids) == {f"f{j}" for j in cs.attr_oracle(data, spec)}, c
+    assert r.plan.scan_path == "device-exact/bitmap", (c, r.plan.scan_path)
+os.environ["GEOMESA_SEEK"] = "auto"
+lone, spec = attr_streams["lone"][0]
+r = store.query("attr", lone)
+assert set(r.fids) == {f"f{j}" for j in cs.attr_oracle(data, spec)}
+assert r.plan.scan_path == "host-seek", r.plan.scan_path
+os.environ["GEOMESA_SEEK"] = "0"
 # the host-seek route, and the native libraries every route above ran
 # (the z/xz range walks of planning, the span-window decode)
 os.environ["GEOMESA_SEEK"] = "1"
@@ -102,8 +120,9 @@ assert not bad, bad
 
 
 def test_port_runs_config1_without_jax_or_the_reference():
-    """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3) and
-    host-seek queries, and the native libraries they run, load no JAX."""
+    """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3), config #4
+    (device and host-seek routes) and host-seek queries, and the native
+    libraries they run, load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
