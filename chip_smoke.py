@@ -1,6 +1,6 @@
 """Chip smoke test of the PyTorch/CUDA port on one GPU.
 
-Drives the port's four main paths on the card and holds every hand kernel
+Drives the port's main paths on the card and holds every hand kernel
 against its plain PyTorch edition:
 
   * BASELINE config #1: GDELT-style points, a bbox + DURING query stream
@@ -30,7 +30,23 @@ against its plain PyTorch edition:
     ``goldstein > lo AND goldstein <= hi AND bbox`` and stream (k) 16
     queries reaching the other editions (IN, a ``<>`` chain, LIKE '%R%',
     ILIKE, LIKE prefixes; half of them with a DURING, on z3): the attribute
-    editions of ``exact_bitmap`` (member, range, notmember, vocabmask).
+    editions of ``exact_bitmap`` (member, range, notmember, vocabmask);
+  * BASELINE config #5, kNN and TubeSelect (bench_suite.py bench_knn: 8M
+    points from default_rng(8), 30 days, schema ``knn`` =
+    ``dtg:Date,*geom:Point:srid=4326``: z3, z2, id) through
+    ``geomesa_tpu_torch.process``: (n) bench_knn's query (2.35, 48.85), k =
+    10, KNN_REPS calls; (o) 16 seeded query points (lon 179.95 and lat 84
+    among them) at k = 1, 10 and 1000; (p) TubeSelect of one track of 8
+    samples over a day with the reference's default buffers (1000 m, 10
+    min), then wide ones: the ``knn_topk`` kernel (and ``candidate_mask``
+    under the tube's query);
+  * the banded polygon plane (bench_suite.py bench_poly: 8M points from
+    default_rng(9), schema ``poly`` = ``*geom:Point:srid=4326``: z2, id): its
+    star alone through ``store.query`` under ``GEOMESA_SEEK=auto`` (the host
+    seek) and ``0`` (the candidate mask), (l) its 24 jittered stars through
+    ``query_many``, (m) 8 jittered stars (one with a hole, one a disjoint
+    MultiPolygon) AND a 7-day DURING on config #5's table (z3): the
+    ``poly_dual_bitmap`` kernel.
 
 Every stream above runs under ``GEOMESA_SEEK=0`` (the device routes, as
 bench.py pins for the reference's device figures). Beside them, the host
@@ -40,8 +56,8 @@ default.
 
 Run from the repository root with one CUDA device:
 
-    python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--attr N] [--seed S]
-                          [--out DIR] [--ab DIR [DIR ...]]
+    python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--attr N] [--knn N]
+                          [--poly N] [--seed S] [--out DIR] [--ab DIR [DIR ...]]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
@@ -60,7 +76,10 @@ Phases (any failure raises and the script exits non-zero):
      rows (8M by default; each table's build timed), upload the z3 / z2
      exact columns and the actor1 and goldstein code columns, and answer
      its streams by numpy brute force over the generator's arrays
-     (``attr_oracle``);
+     (``attr_oracle``); config #5 and the polygon table: ingest N points
+     each (8M by default), upload the f32 coordinates and sort keys, and
+     answer every kNN, tube and polygon query by f64 brute force
+     (``knn_oracle``, ``tube_oracle``, bench_poly's even-odd ``pip``);
   3. every kernel instantiation against its plain edition at each shape
      its paths launch it at (bitwise equality), timed beside its plain
      edition and its bound: ``ms`` is the kernel's own device time per
@@ -91,6 +110,13 @@ Phases (any failure raises and the script exits non-zero):
      and timed, as in phase 3; then, outside the counted paths, a small
      table with null actors and NaN goldstein (``attr_nulls_check``: IS
      [NOT] NULL, ``<>``, a literal the segment lacks) against numpy;
+     config #5 ((n), (o), (p), every kNN call on ``device-topk``) and the
+     polygon path (the lone star under auto and 0, (l) and (m) on
+     ``device-batch-dual/bitmap``), each a path of its own, then their
+     kernel phase: ``knn_topk`` at each k the path launched (k plus the
+     certificate's margin; beside it ``torch.topk`` of the same distances,
+     the selection alone) and ``poly_dual_bitmap`` at each shape (a q = 1
+     refetch included where the data made one), as in phase 3;
   5. every kernel must have launched during its path's run, at every
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
@@ -114,7 +140,10 @@ Phases (any failure raises and the script exits non-zero):
      device (the ring, or the candidates of the mask route); per density
      stream the same split (``geomesa.density``: launches + the grid's D2H
      copy; ``geomesa.band``: the host certification) and the band rows
-     per query; the same trace of config #4's streams (j) and (k).
+     per query; the same trace of config #4's streams (j) and (k), of
+     config #5's (n) (``geomesa.dispatch``, ``fetch``, ``certify``,
+     ``block_rows``, ``rerank``) and of the polygon stream (l), with the
+     ring rows per query of (l) and (m).
 
 Prints a ``{"native": {...}}`` line (each host library's load status and
 its host ms per call beside its plain edition's), a metrics line, a
@@ -724,6 +753,174 @@ def attr_null_oracle(data, cql: str) -> np.ndarray:
     return np.flatnonzero(m & in_box(data["x"], data["y"], ATTR_NULL_BOX))
 
 
+# -- config #5 (kNN, TubeSelect) and the polygon plane: copies of bench_suite.py
+# bench_knn's and bench_poly's generators and oracles ----------------------
+
+KNN_ROWS = 8_000_000  # bench_suite.py main()'s default size
+KNN_SPEC = "dtg:Date,*geom:Point:srid=4326"
+KNN_TABLE = "knn"
+KNN_QUERY = (2.35, 48.85)  # bench_knn's query point and k
+KNN_K = 10
+KNN_REPS = 10
+KNN_KS = (1, 10, 1000)
+EARTH_RADIUS_M = 6371008.8
+TUBE_BUFFERS = ((1000.0, 600_000), (50_000.0, 86_400_000))  # the default, then wide
+POLY_ROWS = 8_000_000
+POLY_SPEC = "*geom:Point:srid=4326"
+POLY_TABLE = "poly"
+POLY_STREAM = 24  # bench_poly's jittered stream (l)
+POLY_TIMED = 8  # stream (m): stars AND a 7-day DURING on config #5's table
+POLY_DURING = "dtg DURING 2026-01-08T00:00:00Z/2026-01-15T00:00:00Z"
+POLY_T_LO = np.datetime64("2026-01-08T00:00:00", "ms").astype(np.int64)
+POLY_T_HI = np.datetime64("2026-01-15T00:00:00", "ms").astype(np.int64)
+
+
+def synthesize_knn(n: int):
+    """bench_knn's table from default_rng(8): uniform points and 30 days."""
+    rng = np.random.default_rng(8)
+    x = rng.uniform(-180, 180, n)
+    y = rng.uniform(-85, 85, n)
+    base_ms = np.datetime64("2026-01-01T00:00:00", "ms").astype(np.int64)
+    t = base_ms + rng.integers(0, 30 * 86400_000, n)
+    return x, y, t
+
+
+def knn_points(k: int = 16, seed: int = 81):
+    """Stream (o)'s query points: bench_knn's, one at lon 179.95 (the
+    antimeridian), one at lat 84 (the polar cap), the rest uniform."""
+    rng = np.random.default_rng(seed)
+    pts = [KNN_QUERY, (179.95, float(rng.uniform(-60, 60))), (float(rng.uniform(-180, 180)), 84.0)]
+    while len(pts) < k:
+        pts.append((float(rng.uniform(-180, 180)), float(rng.uniform(-85, 85))))
+    return pts
+
+
+def haversine_np(lon1, lat1, lon2, lat2) -> np.ndarray:
+    """f64 great-circle metres on the WGS84 mean sphere."""
+    lon1, lat1, lon2, lat2 = (np.radians(np.asarray(v, dtype=np.float64))
+                              for v in (lon1, lat1, lon2, lat2))
+    a = np.sin((lat2 - lat1) / 2) ** 2 + \
+        np.cos(lat1) * np.cos(lat2) * np.sin((lon2 - lon1) / 2) ** 2
+    return 2 * EARTH_RADIUS_M * np.arcsin(np.minimum(1.0, np.sqrt(a)))
+
+
+def knn_oracle(d: np.ndarray, k: int, max_radius_m: float = 2_000_000.0):
+    """[(fid, metres)] of the k nearest rows by f64 brute force over the
+    rows' distances ``d`` (``haversine_np``), ascending (equal distances by
+    row), none beyond ``max_radius_m`` (knn_search's default)."""
+    kth = np.partition(d, k - 1)[k - 1]
+    cand = np.flatnonzero(d <= kth)
+    order = cand[np.lexsort((cand, d[cand]))][:k]
+    return [(f"f{i}", float(d[i])) for i in order if d[i] <= max_radius_m]
+
+
+def tube_track(t0: int, seed: int = 82):
+    """Stream (p)'s track: 8 samples over a day, ~25 km apart."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = float(rng.uniform(-60, 60)), float(rng.uniform(-40, 40))
+    return [(x0 + 0.25 * i, y0 + 0.1 * i, t0 + i * 3 * 3600_000) for i in range(8)]
+
+
+def tube_oracle(x, y, t, track, buffer_m: float, time_buffer_ms: int) -> np.ndarray:
+    """Rows within ``buffer_m`` of a sample of the track resampled to gaps
+    of at most 2 ``buffer_m`` (TubeBuilder's interpolated gaps) and within
+    ``time_buffer_ms`` of its time."""
+    gap = max(buffer_m * 2, 1.0)
+    samples = [track[0]]
+    for (x0, y0, t0), (x1, y1, t1) in zip(track, track[1:]):
+        steps = max(1, int(np.ceil(float(haversine_np(x0, y0, x1, y1)) / gap)))
+        for s in range(1, steps + 1):
+            f = s / steps
+            samples.append((x0 + (x1 - x0) * f, y0 + (y1 - y0) * f, t0 + (t1 - t0) * f))
+    keep = np.zeros(len(x), dtype=bool)
+    for sx, sy, st in samples:
+        near = np.abs(t.astype(np.float64) - st) <= time_buffer_ms
+        idx = np.flatnonzero(near)
+        keep[idx[haversine_np(x[idx], y[idx], sx, sy) <= buffer_m]] = True
+    return np.flatnonzero(keep)
+
+
+def synthesize_poly(n: int):
+    """bench_poly's table from default_rng(9): uniform points."""
+    rng = np.random.default_rng(9)
+    return rng.uniform(-180, 180, n), rng.uniform(-85, 85, n)
+
+
+def star(cx: float, cy: float, r: float) -> np.ndarray:
+    """bench_poly's 12-point star, a closed ring, snapped to its WKT text."""
+    ang = np.linspace(0, 2 * np.pi, 13)[:-1]
+    rad = np.where(np.arange(12) % 2 == 0, r, 0.45 * r)
+    pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], axis=1)
+    return snapped(np.vstack([pts, pts[:1]]))
+
+
+def ring_wkt(ring) -> str:
+    return "(" + ", ".join(f"{a:.6f} {b:.6f}" for a, b in ring) + ")"
+
+
+def snapped(ring) -> np.ndarray:
+    """The ring's vertices as its WKT text (``ring_wkt``) gives them, so
+    that the oracle tests the polygon the query carries."""
+    return np.array([[float(f"{a:.6f}"), float(f"{b:.6f}")] for a, b in ring])
+
+
+def pip(rings, px, py) -> np.ndarray:
+    """bench_poly's f64 even-odd test over every ring (shells and holes of
+    one polygon or of disjoint members), rows outside the rings' envelope
+    left out first."""
+    allpts = np.concatenate(rings)
+    lo, hi = allpts.min(0), allpts.max(0)
+    idx = np.flatnonzero((px >= lo[0]) & (px <= hi[0]) & (py >= lo[1]) & (py <= hi[1]))
+    qx, qy = px[idx], py[idx]
+    inside = np.zeros(len(idx), bool)
+    for ring in rings:
+        for (x1, y1), (x2, y2) in zip(ring[:-1], ring[1:]):
+            cond = (y1 > qy) != (y2 > qy)
+            if y1 != y2:
+                xint = x1 + (qy - y1) * (x2 - x1) / (y2 - y1)
+                inside ^= cond & (qx < xint)
+    return idx[inside]
+
+
+def poly_streams():
+    """The polygon queries: name -> [(cql, rings)]. "lone" is bench_poly's
+    star; (l) its 24 jittered stars (default_rng(99), +-6 deg); (m) 8 more
+    jittered stars (default_rng(98)) AND POLY_DURING, on config #5's table,
+    the third with a hole (a reversed star at 40% of the size) and the
+    sixth a MultiPolygon of two disjoint stars."""
+    lone = star(2.0, 10.0, 14.0)
+    out = {"lone": [(f"intersects(geom, POLYGON ({ring_wkt(lone)}))", [lone])]}
+    jit = np.random.default_rng(99)
+    out["l"] = []
+    for _ in range(POLY_STREAM):
+        dx, dy = jit.uniform(-6, 6, 2)
+        ring = star(2.0 + dx, 10.0 + dy, 14.0)
+        out["l"].append((f"intersects(geom, POLYGON ({ring_wkt(ring)}))", [ring]))
+    jit = np.random.default_rng(98)
+    out["m"] = []
+    for i in range(POLY_TIMED):
+        dx, dy = jit.uniform(-6, 6, 2)
+        ring = star(2.0 + dx, 10.0 + dy, 14.0)
+        if i == 2:
+            hole = star(2.0 + dx, 10.0 + dy, 5.6)[::-1]
+            rings, geom = [ring, hole], f"POLYGON ({ring_wkt(ring)}, {ring_wkt(hole)})"
+        elif i == 5:
+            other = star(40.0 + dx, -20.0 + dy, 8.0)
+            rings = [ring, other]
+            geom = f"MULTIPOLYGON (({ring_wkt(ring)}), ({ring_wkt(other)}))"
+        else:
+            rings, geom = [ring], f"POLYGON ({ring_wkt(ring)})"
+        out["m"].append((f"intersects(geom, {geom}) AND {POLY_DURING}", rings))
+    return out
+
+
+def poly_oracle(x, y, t, rings, timed: bool) -> np.ndarray:
+    rows = pip(rings, x, y)
+    if timed:
+        rows = rows[(t[rows] > POLY_T_LO) & (t[rows] < POLY_T_HI)]
+    return rows
+
+
 # -- helpers ----------------------------------------------------------------
 
 
@@ -770,13 +967,14 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_ms(fn, symbol: str, reps: int = 50):
+def kernel_ms(fn, symbol: str, reps: int = 50, per_call: int = 1):
     """(ms, call_ms, launches seen, source) of a hand kernel: ``call_ms``
-    from ``event_ms``; ``ms`` is the kernel's own device time per launch,
-    the CUDA time of the kernels whose name holds ``symbol`` in a
-    torch.profiler window over another ``reps`` calls. Where the profiler
-    shows no device time for it, ``ms`` is ``call_ms`` and the source says
-    "events"."""
+    from ``event_ms``; ``ms`` is the kernel's own device time per call of
+    ``fn``, the CUDA time of the kernels whose name holds ``symbol`` in a
+    torch.profiler window over another ``reps`` calls, over the calls
+    their events cover (``per_call`` kernels a call: a launcher that runs
+    several passes). Where the profiler shows no device time for it, ``ms``
+    is ``call_ms`` and the source says "events"."""
     from torch.profiler import ProfilerActivity, profile
 
     call_ms = event_ms(fn, reps)
@@ -790,7 +988,8 @@ def kernel_ms(fn, symbol: str, reps: int = 50):
     seen = sum(e.count for e in hits)
     if not seen:
         return call_ms, call_ms, 0, "events"
-    return sum(e.self_device_time_total for e in hits) / 1e3 / seen, call_ms, seen, "profiler"
+    calls = seen / per_call
+    return sum(e.self_device_time_total for e in hits) / 1e3 / calls, call_ms, seen, "profiler"
 
 
 def max_abs_err(got, want) -> int:
@@ -1248,7 +1447,8 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
                 f"{c['name']} {c['tag']}: kernel differs from its plain edition "
                 f"(max abs err {err})"
             )
-        ms, call_ms, seen, ms_source = kernel_ms(c["kernel"], c["symbol"])
+        ms, call_ms, seen, ms_source = kernel_ms(c["kernel"], c["symbol"],
+                                                 per_call=c.get("launches", lambda: 1)())
         plain_ms = event_ms(c["plain"], reps=10, warmup=1)
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
@@ -1301,8 +1501,9 @@ def ab_times(case, src):
     want = case["plain"]()
     times = {"own": [], "other": []}
     for which in ("own", "other", "other", "own"):
+        per_call = case.get("launches", lambda: 1)
         if which == "own":
-            times[which].append(kernel_ms(case["kernel"], case["symbol"])[0])
+            times[which].append(kernel_ms(case["kernel"], case["symbol"], per_call=per_call())[0])
             continue
         other = case.get("ab_kernel", case["kernel"])
         with kernels.using_source(lib, src):
@@ -1312,7 +1513,7 @@ def ab_times(case, src):
                 all(torch.equal(g, w) for g, w in zip(got, want))
             if not ok:
                 raise AssertionError(f"{case['name']} from {src} differs from its plain edition")
-            times[which].append(kernel_ms(other, case["symbol"])[0])
+            times[which].append(kernel_ms(other, case["symbol"], per_call=per_call())[0])
     log(f"{case['name']} {case['tag']} A/B vs {src}: own {times['own']} other {times['other']} ms")
     return times
 
@@ -1320,7 +1521,7 @@ def ab_times(case, src):
 TRACE_LEADS_S = (0.2, 1.0, 3.0, 8.0)
 
 
-def breakdown(store, name, queries):
+def breakdown(store, name, queries, run=None):
     """Where one pipelined stream spends its time, from one torch.profiler
     trace of ``store.query_many``: the host time of each step, read from
     the ``geomesa.*`` ranges the store and the executor open, and the
@@ -1335,7 +1536,8 @@ def breakdown(store, name, queries):
     and waits ``lead`` seconds before the stream; a trace
     that still misses a launched kernel is taken again with the next,
     longer lead, and the busy and idle figures are null when every lead
-    missed one."""
+    missed one. ``run``, when given, is traced in place of the stream and
+    returns (results, routes): one result per entry of ``queries``."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from geomesa_tpu_torch.ops import kernels
@@ -1349,7 +1551,10 @@ def breakdown(store, name, queries):
             torch.cuda.synchronize()
             time.sleep(lead)
             t0 = clock()
-            results = store.query_many(name, queries)
+            if run is None:
+                results = store.query_many(name, queries)
+            else:
+                results, routes = run()
             torch.cuda.synchronize()
             wall_ms = (clock() - t0) * 1e3
         events = prof.key_averages()
@@ -1371,8 +1576,10 @@ def breakdown(store, name, queries):
         log(f"{name} trace with a {lead} s lead: no device event of {missing} "
             f"({len(device_us)} device ops traced)")
     t0 = clock()
-    for r in results:
-        r.fids  # noqa: B018 - the lazy fid gather, outside the trace
+    if run is None:
+        for r in results:
+            r.fids  # noqa: B018 - the lazy fid gather, outside the trace
+        routes = sorted({str(getattr(r.plan, "scan_path", None)) for r in results})
     gather_ms = (clock() - t0) * 1e3
     # the geomesa.* ranges are disjoint; their CPU totals include the aten
     # ops they run
@@ -1395,7 +1602,7 @@ def breakdown(store, name, queries):
         "fid_gather_ms_per_query": gather_ms / n,
         "host_step_ms_per_query": host_ms,
         "hits_per_query": sum(len(r) for r in results) / n,
-        "routes": sorted({str(getattr(r.plan, "scan_path", None)) for r in results}),
+        "routes": routes,
         "kernels_launched": sorted(launched),
         "trace_lead_s": lead,
         "device_busy_ms_per_query": None if busy_ms is None else busy_ms / n,
@@ -1411,6 +1618,8 @@ def main() -> int:
     ap.add_argument("--ways", type=int, default=WAYS_ROWS, help="config #3 extents")
     ap.add_argument("--dens", type=int, default=DENS_ROWS, help="config #6 points")
     ap.add_argument("--attr", type=int, default=ATTR_ROWS, help="config #4 points")
+    ap.add_argument("--knn", type=int, default=KNN_ROWS, help="config #5 points")
+    ap.add_argument("--poly", type=int, default=POLY_ROWS, help="polygon-plane points")
     ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
     ap.add_argument("--ab", nargs="+", default=[], metavar="DIR",
@@ -1421,8 +1630,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("torch.cuda.is_available() is false: this script needs a CUDA device")
         return 2
-    # the device routes: every path below but the seek stream
+    # the device routes: every path below but the seek stream; the kNN's
+    # path choice on auto
     os.environ["GEOMESA_SEEK"] = "0"
+    os.environ.pop("GEOMESA_KNN_DEVICE", None)
 
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import kernels
@@ -1458,6 +1669,9 @@ def main() -> int:
         streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
     streams6, oracle6, setup6 = config6(store, args.dens, data1, args.rows >= 20_000_000)
     _data4, streams4, plans4, oracle4, setup4 = config4(store, args.attr)
+    _data5, track5, oracle5, plans_m, setup5 = config5(store, args.knn)
+    streams_p, plans_p, oracle_p, setup_p = config_poly(store, args.poly, plans_m)
+    oracle_p["m"] = oracle5["m"]
     log(f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
 
     # -- phase 3: kernels against their plain editions ------------------------
@@ -1483,6 +1697,17 @@ def main() -> int:
     # config #4's kernel phase follows its path: a query whose span outgrew
     # the learned window refetched alone, at a q = 1 shape the data decides
     entries += kernel_checks(attr_cases(store, plans4, launched["config4"][1]),
+                             int32_per_s, fp32_per_s, ab)
+    kernels.reset_launches()
+    metrics5 = config5_path(store, track5, oracle5)
+    launched["config5"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    kernels.reset_launches()
+    metrics_p = poly_path(store, streams_p, oracle_p)
+    launched["poly"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    # their kernel phase follows the paths: the top-k's k carries the
+    # certificate's margin, and a polygon refetch's q = 1 shape is the data's
+    entries += kernel_checks(knn_cases(store, launched["config5"][1])
+                             + poly_cases(store, plans_p, launched["poly"][1]),
                              int32_per_s, fp32_per_s, ab)
     nulls = null_dates_check(store)
     attr_nulls = attr_nulls_check(store)
@@ -1524,6 +1749,15 @@ def main() -> int:
             store, ATTR_TABLE, [Query.cql(c, properties=[]) for c, _ in streams4[stream]])
         log(f"config #4 ({stream}) breakdown: "
             f"{json.dumps(metrics4[f'stream_{stream}']['breakdown'])}")
+    metrics5["breakdown_n"] = breakdown(store, KNN_TABLE, [None] * KNN_REPS,
+                                      run=lambda: knn_stream(store))
+    log(f"config #5 (n) breakdown: {json.dumps(metrics5['breakdown_n'])}")
+    metrics_p["stream_l"]["breakdown"] = breakdown(
+        store, POLY_TABLE, [Query.cql(c, properties=[]) for c, _ in streams_p["l"]])
+    log(f"polygon (l) breakdown: {json.dumps(metrics_p['stream_l']['breakdown'])}")
+    for name, table_name in (("l", POLY_TABLE), ("m", KNN_TABLE)):
+        rows = host_tested_rows(store, {name: plans_p[name]}, table_name)[name]
+        metrics_p[f"stream_{name}"]["host_tested_rows_per_query"] = rows
 
     metrics = {
         "rows": args.rows,
@@ -1542,6 +1776,8 @@ def main() -> int:
         "config3": {**setup3, "streams": metrics3, "breakdown_xz2_bbox": split3},
         "density": {**setup6, "streams": metrics6, "null_dates": nulls},
         "config4": {**setup4, **metrics4, "nulls": attr_nulls},
+        "config5": {**setup5, **metrics5},
+        "poly": {**setup_p, **metrics_p},
         "script_s": time.perf_counter() - t_start,
     }
     os.makedirs(args.out, exist_ok=True)
@@ -1806,13 +2042,13 @@ def config3_path(store, streams, oracle):
     return out
 
 
-def host_tested_rows(store, plans):
+def host_tested_rows(store, plans, table_name="ways"):
     """Per stream, the rows per query the host tests after the device: the
-    ring (hit minus decided) of the dual route, the candidates of the mask
-    route (all post-filtered)."""
+    ring (hit minus decided) of the dual route (extents, or polygons over
+    points), the candidates of the mask route (all post-filtered)."""
     from geomesa_tpu_torch.parallel.executor import _XZBatchScan
 
-    tables = store._tables["ways"]
+    tables = store._tables[table_name]
     out = {}
     for name, ps in plans.items():
         scans = store.executor.dispatch_many([(tables[p.index.name], p) for p in ps])
@@ -2197,6 +2433,350 @@ def attr_nulls_check(store) -> dict:
             raise AssertionError(f"attr nulls: {cql} took {r.plan.scan_path}")
         out[cql.split(" AND bbox", 1)[0]] = {"rows": int(len(rows)), "route": r.plan.scan_path}
     log(f"attr nulls: {json.dumps(out)}")
+    return out
+
+
+# -- config #5: kNN and TubeSelect; the polygon plane ------------------------
+
+# lane operations of the kNN distance a row (knn_topk.cu row_key), counted
+# from ``cuobjdump -sass`` of its first pass built for sm_90a: the fast path
+# of a row is 176 instructions, 92 of them on the FP32 pipe (the two sinf,
+# the cosf, the sqrtf and the asinf, the multiplies, adds and the clamp);
+# the bound counts those 92 at the FP32 rate and the key's packing (6) at
+# the INT32 rate, and leaves out addressing and the loop
+KNN_ROW_FOPS = 92
+KNN_ROW_IOPS = 6
+# per row and non-degenerate edge of an enveloped row (poly_dual_bitmap.cu
+# ray_cast), counted the same way: 35 instructions, 18 on the FP32 pipe (the
+# subtractions, the IEEE division's reciprocal, Newton steps and check, the
+# multiply and add of xint, the compares); the bound counts those 18 at the
+# FP32 rate and the crossing count and band updates (4) at the INT32 rate
+POLY_EDGE_FOPS = 18
+POLY_EDGE_IOPS = 4
+
+
+def config5(store, n):
+    """Config #5: bench_knn's N points in KNN_TABLE (z3, z2, id), the
+    device columns of its z3 table (the kNN's f32 coordinates, the sort
+    keys of stream (m)), and the f64 oracle's answers of (n), (o), (p) and
+    (m)."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    x, y, t = synthesize_knn(n)
+    ft = parse_spec(KNN_TABLE, KNN_SPEC)
+    store.create_schema(ft)
+    fids = np.char.add("f", np.arange(n).astype(f"<U{len(str(n - 1))}"))
+    t0 = time.perf_counter()
+    store._insert_columns(ft, {"__fid__": fids, "geom__x": x, "geom__y": y, "dtg": t})
+    ingest_s = time.perf_counter() - t0
+    log(f"config #5 ingest: {n / ingest_s:,.0f} rec/s ({ingest_s:.1f} s)")
+    table = store._tables[KNN_TABLE]["z3"]
+    t0 = time.perf_counter()
+    for seg in store.executor.device_index(table).segments:
+        if not seg.load_poly(table):
+            raise AssertionError("config #5: no polygon columns on z3")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base_ms = np.datetime64("2026-01-01T00:00:00", "ms").astype(np.int64)
+    track = tube_track(int(base_ms) + 10 * 86400_000)
+    oracle = {"n": knn_oracle(haversine_np(x, y, *KNN_QUERY), KNN_K), "o": {}}
+    for pt in knn_points():
+        d = haversine_np(x, y, *pt)
+        for k in KNN_KS:
+            oracle["o"][(pt, k)] = knn_oracle(d, k)
+    oracle["p"] = [tube_oracle(x, y, t, track, b, tb) for b, tb in TUBE_BUFFERS]
+    streams = poly_streams()
+    oracle["m"] = [poly_oracle(x, y, t, rings, True) for _c, rings in streams["m"]]
+    plans = [store._plan_cached(KNN_TABLE, Query.cql(c)) for c, _r in streams["m"]]
+    if {p.index.name for p in plans} != {"z3"}:
+        raise AssertionError(f"stream (m) planned on {[p.index.name for p in plans]}")
+    oracle_s = time.perf_counter() - t0
+    log(f"config #5 device columns uploaded in {upload_s:.1f} s; oracle {oracle_s:.1f} s; "
+        f"tube hits {[len(r) for r in oracle['p']]}")
+    return (x, y, t), track, oracle, plans, {
+        "rows": n, "ingest_rec_per_s": n / ingest_s, "ingest_s": ingest_s,
+        "upload_s": upload_s, "oracle_s": oracle_s,
+        "indices": [i.name for i in store._indices[KNN_TABLE]],
+    }
+
+
+def expect_knn(got, want, what: str) -> None:
+    """A kNN answer equal to the oracle's: the same fids in the same order,
+    the same distances (both f64 haversines of the same coordinates), and
+    on the device top-k."""
+    from geomesa_tpu_torch.process import last_knn_path
+
+    if [f for f, _ in got] != [f for f, _ in want] or any(
+            abs(a - b) > 1e-9 * max(1.0, b) for (_f, a), (_g, b) in zip(got, want)):
+        raise AssertionError(f"{what}: differs from f64 brute force ({len(got)} vs {len(want)})")
+    if last_knn_path() != "device-topk":
+        raise AssertionError(f"{what} took {last_knn_path()}")
+
+
+def config5_path(store, track, oracle):
+    """Config #5's main path through the entry points under
+    ``GEOMESA_KNN_DEVICE`` auto (the device, on a CUDA card with a local
+    link): (n) bench_knn's query, KNN_REPS calls timed; (o) the 16 query
+    points at each k in KNN_KS; (p) TubeSelect of one track with the
+    reference's default buffers, then wide ones. Every answer equals the
+    f64 oracle's and every kNN call reports ``device-topk``."""
+    from geomesa_tpu_torch.process import knn_search, tube_select
+
+    out = {}
+    expect_knn(knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K), oracle["n"], "(n) warm")
+    times = []
+    for i in range(KNN_REPS):
+        t0 = time.perf_counter()
+        got = knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K)
+        times.append(time.perf_counter() - t0)
+        expect_knn(got, oracle["n"], f"(n) call {i}")
+    out["n_ms_per_query"] = sum(times) / len(times) * 1e3
+    out["n_ms_min"] = min(times) * 1e3
+    out["n_features_per_s"] = store._tables[KNN_TABLE]["z3"].num_rows / (sum(times) / len(times))
+    per_k = {k: [] for k in KNN_KS}
+    for pt in knn_points():
+        for k in KNN_KS:
+            t0 = time.perf_counter()
+            got = knn_search(store, KNN_TABLE, *pt, k=k)
+            per_k[k].append(time.perf_counter() - t0)
+            expect_knn(got, oracle["o"][(pt, k)], f"(o) {pt} k={k}")
+    out["o_ms_per_query"] = {k: sum(v) / len(v) * 1e3 for k, v in per_k.items()}
+    out["p"] = []
+    for (buf, tbuf), want in zip(TUBE_BUFFERS, oracle["p"]):
+        t0 = time.perf_counter()
+        res = tube_select(store, KNN_TABLE, track, buffer_m=buf, time_buffer_ms=tbuf)
+        ms = (time.perf_counter() - t0) * 1e3
+        expect_fids(res, want, f"(p) tube {buf} m / {tbuf} ms")
+        out["p"].append({"buffer_m": buf, "time_buffer_ms": tbuf, "ms": ms,
+                         "hits": int(len(res)), "scan_path": res.plan.scan_path})
+    log(f"config #5 path: {json.dumps(out)}")
+    return out
+
+
+def knn_stream(store):
+    """bench_knn's query KNN_REPS times: (answers, the paths that took them)."""
+    from geomesa_tpu_torch.process import knn_search, last_knn_path
+
+    out, paths = [], set()
+    for _ in range(KNN_REPS):
+        out.append(knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K))
+        paths.add(last_knn_path())
+    return out, sorted(paths)
+
+
+def config_poly(store, n, knn_plans):
+    """The polygon plane: bench_poly's N points in POLY_TABLE (z2), its
+    device columns (sort keys and f32 coordinates), the plans of the lone
+    star and stream (l), and the f64 oracle's answers."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    x, y = synthesize_poly(n)
+    ft = parse_spec(POLY_TABLE, POLY_SPEC)
+    store.create_schema(ft)
+    fids = np.char.add("f", np.arange(n).astype(f"<U{len(str(n - 1))}"))
+    t0 = time.perf_counter()
+    store._insert_columns(ft, {"__fid__": fids, "geom__x": x, "geom__y": y})
+    ingest_s = time.perf_counter() - t0
+    log(f"polygon table ingest: {n / ingest_s:,.0f} rec/s ({ingest_s:.1f} s)")
+    table = store._tables[POLY_TABLE]["z2"]
+    t0 = time.perf_counter()
+    for seg in store.executor.device_index(table).segments:
+        if not seg.load_poly(table):
+            raise AssertionError("polygon table: no polygon columns on z2")
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    streams = poly_streams()
+    plans = {k: [store._plan_cached(POLY_TABLE, Query.cql(c)) for c, _r in streams[k]]
+             for k in ("lone", "l")}
+    plans["m"] = knn_plans
+    if {p.index.name for k in ("lone", "l") for p in plans[k]} != {"z2"}:
+        raise AssertionError("polygon plans left z2")
+    t0 = time.perf_counter()
+    oracle = {k: [poly_oracle(x, y, None, rings, False) for _c, rings in streams[k]]
+              for k in ("lone", "l")}
+    oracle_s = time.perf_counter() - t0
+    log(f"polygon device columns uploaded in {upload_s:.1f} s; oracle {oracle_s:.1f} s")
+    return streams, plans, oracle, {
+        "rows": n, "ingest_rec_per_s": n / ingest_s, "ingest_s": ingest_s,
+        "upload_s": upload_s, "oracle_s": oracle_s,
+        "indices": [i.name for i in store._indices[POLY_TABLE]],
+    }
+
+
+def poly_path(store, streams, oracle):
+    """The polygon plane's main path through the entry points: the lone
+    star through ``store.query`` under ``GEOMESA_SEEK=auto`` (the host
+    seek: its envelope covers ~1.3% of the table) and under ``0`` (the
+    candidate mask and the host post-filter, the reference's route for a
+    polygon alone), each checked and timed; stream (l) through
+    ``query_many`` (warm, timed with fids unread and read) and stream (m)
+    on config #5's z3 table, every query on ``device-batch-dual/bitmap``.
+    Every answer equals the f64 even-odd oracle's."""
+    from collections import Counter
+
+    from geomesa_tpu_torch.index.planner import Query
+
+    out = {}
+    lone, _rings = streams["lone"][0]
+
+    def timed(route, what):
+        res = store.query(POLY_TABLE, lone)
+        expect_fids(res, oracle["lone"][0], what)
+        if res.plan.scan_path != route:
+            raise AssertionError(f"{what} took {res.plan.scan_path}, not {route}")
+        t0 = time.perf_counter()
+        for _ in range(3):
+            store.query(POLY_TABLE, lone)
+        return (time.perf_counter() - t0) / 3 * 1e3
+
+    os.environ["GEOMESA_SEEK"] = "auto"
+    try:
+        out["lone_ms_sync_auto"] = timed("host-seek", "lone star (auto)")
+    finally:
+        os.environ["GEOMESA_SEEK"] = "0"
+    out["lone_ms_sync_mask"] = timed("device-mask/runs", "lone star (GEOMESA_SEEK=0)")
+    out["hits_lone"] = int(len(oracle["lone"][0]))
+    for name, table in (("l", POLY_TABLE), ("m", KNN_TABLE)):
+        queries = [Query.cql(c, properties=[]) for c, _r in streams[name]]
+        store.query_many(table, queries)  # warm: span window learning
+        t0 = time.perf_counter()
+        results = store.query_many(table, queries)
+        pipe_s = (time.perf_counter() - t0) / len(queries)
+        routes = Counter(r.plan.scan_path for r in results)
+        for i, (r, rows) in enumerate(zip(results, oracle[name])):
+            expect_fids(r, rows, f"polygon stream ({name}) query {i}")
+        if set(routes) != {"device-batch-dual/bitmap"}:
+            raise AssertionError(f"polygon stream ({name}) left the dual plane: {routes}")
+        out[f"stream_{name}"] = {
+            "queries": len(queries),
+            "query_ms_pipelined": pipe_s * 1e3,
+            "query_ms_pipelined_fids_read": timed_fids_read(store, table, queries) * 1e3,
+            "hits_per_query": sum(len(r) for r in results) / len(results),
+            "routes": dict(routes),
+        }
+    log(f"polygon path: {json.dumps(out)}")
+    return out
+
+
+def knn_cases(store, launched_shapes):
+    """``knn_topk`` on config #5's z3 segment at each k its path launched
+    (k plus the certificate's margin), for bench_knn's query point.
+
+    Bound: bytes, the f32 coordinates and valid read once (9 B a row) and
+    the rows written; operations, KNN_ROW_FOPS at the FP32 rate and
+    KNN_ROW_IOPS at the INT32 rate a row. ``topk_ms`` times ``torch.topk``
+    of the kernel's own distances (the selection alone; no single PyTorch
+    call computes distance and selection)."""
+    from geomesa_tpu_torch.ops import kernels
+
+    seg = store.executor.device_index(store._tables[KNN_TABLE]["z3"]).segments[0]
+    n = seg.n_padded
+    d = kernels.knn_distances(seg.xf, seg.yf, seg.valid, *KNN_QUERY)
+    out = []
+    for name, tag in sorted(k for k in launched_shapes if k[0] == "knn_topk"):
+        kk = int(tag.split("=")[1])
+        out.append(dict(
+            name=name, path="config5", tag=tag, symbol="knn_topk_",
+            replaces="geomesa_tpu/parallel/executor.py:2210",
+            source="geomesa_tpu_torch/csrc/knn_topk.cu",
+            kernel=lambda kk=kk: (kernels.knn_topk(seg.xf, seg.yf, seg.valid, *KNN_QUERY, kk),),
+            plain=lambda kk=kk: (kernels.knn_topk_plain(seg.xf, seg.yf, seg.valid, *KNN_QUERY,
+                                                        kk),),
+            bytes=9 * n + 8 * kk,
+            ops=KNN_ROW_IOPS * n,
+            fops=KNN_ROW_FOPS * n,
+            aside={"topk_ms": lambda kk=kk: torch.topk(d, kk, largest=False)},
+            # the passes of a call, of whichever build is loaded
+            launches=lambda kk=kk: kernels.knn_topk_launches(seg.xf.device, n, kk),
+            extra={"launches_per_call": kernels.knn_topk_launches(seg.xf.device, n, kk)},
+            shape=f"rows={n} k={kk} query={KNN_QUERY}",
+        ))
+    return out
+
+
+def poly_case(store, table, descs, has_time, path):
+    """One ``poly_dual_bitmap`` shape: the descriptors of ``descs`` (the
+    executor's ``_poly_batch_desc``) as ``dispatch_poly_batch`` pads them.
+
+    Bound, counted from this run's data: bytes, the key columns and valid
+    read once, the f32 coordinates of every row that some query's envelope
+    holds, both planes written; operations (``point_cases``'s rule), per
+    row and query the two planes' stores, per 32-row word holding an
+    envelope row of a query that query's envelope chain and ballots, and
+    per enveloped row and non-degenerate edge of its query POLY_EDGE_FOPS
+    (FP32) and POLY_EDGE_IOPS (INT32)."""
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.filters import exact_st_mask
+    from geomesa_tpu_torch.parallel.executor import _pow2_at_least
+
+    dev = store.executor.device
+    seg = store.executor.device_index(table).segments[0]
+    q = len(descs)
+    ecap = _pow2_at_least(max(len(d[0]) for d in descs), 8)
+    edges = np.zeros((q, ecap, 4), np.float32)
+    for i, d in enumerate(descs):
+        edges[i, :len(d[0])] = d[0]
+    edges = torch.as_tensor(edges, device=dev)
+    boxes = torch.as_tensor(np.stack([d[1] for d in descs]), device=dev)
+    wins = torch.as_tensor(np.stack([d[2] for d in descs]), device=dev) if has_time else None
+    xk, yk, valid, xf, yf, tk = seg._poly_cols(has_time)
+    n = seg.n_padded
+    env_any = torch.zeros(n, dtype=torch.bool, device=dev)
+    env_words = env_rows = edge_rows = 0
+    for i, d in enumerate(descs):
+        env = exact_st_mask(xk, yk, valid, boxes[i], tk, None if wins is None else wins[i])
+        env_any |= env
+        rows = int(env.sum())
+        env_rows += rows
+        env_words += int(env.view(-1, 32).any(1).sum())
+        e = d[0]
+        edge_rows += rows * int((~((e[:, 0] == e[:, 2]) & (e[:, 1] == e[:, 3]))).sum())
+    key = 8 * (3 if has_time else 2)
+    chain = 2 * (6 if has_time else 4)
+    return dict(
+        name="poly_dual_bitmap_" + ("z3" if has_time else "z2"), path=path,
+        tag=f"q={q} E={ecap}", symbol="poly_dual_bitmap_kernel",
+        replaces="geomesa_tpu/parallel/executor.py:2110",
+        source="geomesa_tpu_torch/csrc/poly_dual_bitmap.cu",
+        kernel=lambda: kernels.poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins, tk),
+        plain=lambda: kernels.poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins,
+                                                     tk),
+        bytes=n * (key + 1) + 8 * int(env_any.sum()) + 2 * q * n // 8 + edges.numel() * 4,
+        ops=2 * q * n + 32 * env_words * (chain + 2) + POLY_EDGE_IOPS * edge_rows,
+        fops=POLY_EDGE_FOPS * edge_rows,
+        extra={"env_rows": env_rows, "edge_rows": edge_rows},
+        shape=f"rows={n} q={q} E={ecap} env_rows={env_rows} edge_rows={edge_rows}"
+              + (" time" if has_time else ""),
+    )
+
+
+def poly_cases(store, plans, launched_shapes):
+    """``poly_dual_bitmap`` at each shape the polygon path launched: the
+    batches of streams (l) (z2) and (m) (z3) as ``dispatch_poly_batch``
+    pads them and, where a query refetched alone (its span outgrew the
+    learned window: the data decides which), the stream's first query at
+    q = 1 with the batch's padded edge list."""
+    from geomesa_tpu_torch.parallel.executor import _pow2_at_least
+
+    ex = store.executor
+    out, seen = [], set()
+    for stream, table_name, index in (("l", POLY_TABLE, "z2"), ("m", KNN_TABLE, "z3")):
+        table = store._tables[table_name][index]
+        descs = [ex._poly_batch_desc(table, p)[:3] for p in plans[stream]]
+        batch = descs + [descs[-1]] * ((len(descs) + 3) // 4 * 4 - len(descs))
+        ecap = _pow2_at_least(max(len(d[0]) for d in descs), 8)
+        first = descs[0]
+        lone = [(np.concatenate([first[0], np.zeros((ecap - len(first[0]), 4), np.float32)]),)
+                + tuple(first[1:])]
+        for group in (batch, lone):
+            case = poly_case(store, table, group, index == "z3", "poly")
+            key = (case["name"], case["tag"])
+            if key in launched_shapes and key not in seen:
+                seen.add(key)
+                out.append(case)
     return out
 
 

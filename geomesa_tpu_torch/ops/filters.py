@@ -21,7 +21,9 @@ the hand kernels in :mod:`geomesa_tpu_torch.ops.kernels`:
     ``geomesa_tpu/parallel/executor.py``);
   * ``xz_exact_planes``: the extent query's exact (hit, decided) planes
     over int64 envelope keys (the reference's ``_xz_exact_mask_body`` in
-    ``geomesa_tpu/parallel/executor.py``).
+    ``geomesa_tpu/parallel/executor.py``);
+  * ``poly_planes``: the banded f32 point-in-polygon (hit, decided) planes
+    of a point query (the reference's ``_poly_mask_body``).
 """
 
 from __future__ import annotations
@@ -198,3 +200,68 @@ def xz_exact_planes(
     inside = (desc[0] <= bxmin) & (bxmax <= desc[2]) & (desc[1] <= bymin) & (bymax <= desc[3])
     decided = hit & (desc[5] != 0) & ~placeholder & (inside | isrect)
     return hit, decided
+
+
+# the banded polygon ray cast: rows within POLY_EPS of a ring vertex's
+# latitude, or within POLY_XINT_K * POLY_EPS (scaled by the edge's slope) of a
+# computed crossing, are BAND rows that f32 cannot certify: they stay hit but
+# undecided and take the host's exact test. EPS covers f32 coordinate
+# rounding (an ulp at |lon| <= 180 is ~1.5e-5) plus the crossing's arithmetic
+# error with a wide margin. The f32 constants are those of the reference:
+# f32(1e-4) and f32(1e-4 * 16.0), not f32(1e-4) * 16.
+POLY_EPS = 1e-4
+POLY_XINT_K = 16.0
+# elements of one [edges, rows] block of poly_planes (its edges go in blocks)
+_POLY_BLOCK = 1 << 24
+
+
+def poly_planes(
+    xk: torch.Tensor,
+    yk: torch.Tensor,
+    valid: torch.Tensor,
+    box: torch.Tensor,
+    xf: torch.Tensor,
+    yf: torch.Tensor,
+    edges: torch.Tensor,
+    tk: Optional[torch.Tensor] = None,
+    window: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Banded point-in-polygon planes of one query -> (hit, decided).
+
+    ``env`` is the exact envelope (+ window) test on the sort keys
+    (:func:`exact_st_mask`: ``box`` int64[4] keys of (xmin, xmax, ymin,
+    ymax), ``window`` int64[2] inclusive ms); ``edges`` f32[E, 4] as (x1,
+    y1, x2, y2) of every ring, degenerate (x1 == x2 and y1 == y2) pad edges
+    adding nothing. Per edge and row, in f32 with one rounding per
+    operation, as the reference's step:
+    ``straddle = (y1 > yf) != (y2 > yf)``, ``dy = y2 - y1`` (1 when 0),
+    ``xint = x1 + (yf - y1) / dy * (x2 - x1)``, ``cross = straddle & xf <
+    xint``, ``near = |yf - y1| < eps | |yf - y2| < eps``, ``nearx =
+    straddle & |xf - xint| < keps * (1 + |x2 - x1| / max(|dy|, eps))``,
+    and ``band`` collects ``near | nearx``. ``hit = env & (odd crossings |
+    band)``, ``decided = hit & ~band``. The edges run in blocks of
+    ``[edges, rows]``; each element's arithmetic is the same."""
+    env = exact_st_mask(xk, yk, valid, box, tk, window)
+    eps = torch.tensor(np.float32(POLY_EPS), device=xf.device)
+    keps = torch.tensor(np.float32(POLY_EPS * POLY_XINT_K), device=xf.device)
+    one = torch.tensor(np.float32(1.0), device=xf.device)
+    crossings = torch.zeros(xf.shape, dtype=torch.int32, device=xf.device)
+    band = torch.zeros(xf.shape, dtype=torch.bool, device=xf.device)
+    step = max(1, _POLY_BLOCK // max(1, xf.shape[0]))
+    px, py = xf[None, :], yf[None, :]
+    for e0 in range(0, edges.shape[0], step):
+        e = edges[e0:e0 + step]
+        x1, y1, x2, y2 = (e[:, j:j + 1] for j in range(4))
+        degen = (x1 == x2) & (y1 == y2)
+        straddle = (y1 > py) != (y2 > py)
+        dy = torch.where(y2 == y1, one, y2 - y1)
+        xint = x1 + (py - y1) / dy * (x2 - x1)
+        cross = straddle & (px < xint) & ~degen
+        near = ((py - y1).abs() < eps) | ((py - y2).abs() < eps)
+        slope_tol = keps * (one + (x2 - x1).abs() / torch.maximum(dy.abs(), eps))
+        nearx = straddle & ((px - xint).abs() < slope_tol)
+        crossings += cross.sum(0, dtype=torch.int32)
+        band |= ((near | nearx) & ~degen).any(0)
+    odd = (crossings & 1) == 1
+    hit = env & (odd | band)
+    return hit, hit & ~band

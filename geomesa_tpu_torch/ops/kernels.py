@@ -19,7 +19,13 @@ answers that):
   * ``density_grid`` (``csrc/density_grid.cu``) replaces the Pallas
     ``_density_kernel`` and fuses the density band, masks and band indices
     of ``geomesa_tpu/ops/aggregations.py`` ``make_sharded_density_dual``
-    around it.
+    around it;
+  * ``knn_topk`` (``csrc/knn_topk.cu``) replaces ``_knn_fn`` of
+    ``geomesa_tpu/parallel/executor.py`` (the f32 haversine distance of
+    every row and its top-k);
+  * ``poly_dual_bitmap`` (``csrc/poly_dual_bitmap.cu``) replaces the banded
+    polygon ray cast of ``geomesa_tpu/parallel/executor.py``
+    ``_poly_bitmap_batch_fn`` (the (hit, decided) planes).
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
 CPU, and for CUDA tensors launches the kernel on the current stream of the
@@ -44,6 +50,7 @@ from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from geomesa_tpu_torch.ops.aggregations import density_dual, reciprocal_f32
@@ -52,6 +59,7 @@ from geomesa_tpu_torch.ops.filters import (
     attr_combine,
     bbox_overlap_mask,
     exact_st_mask,
+    poly_planes,
     temporal_mask,
     xz_exact_planes,
     z2_query_mask,
@@ -70,10 +78,13 @@ SOURCES = {
     "xz_mask": "xz_mask.cu",
     "xz_dual_bitmap": "xz_dual_bitmap.cu",
     "density_grid": "density_grid.cu",
+    "knn_topk": "knn_topk.cu",
+    "poly_dual_bitmap": "poly_dual_bitmap.cu",
 }
-# extra nvcc flags per source: the density band's f32 arithmetic must not
-# contract into FMAs that the reference does not do
-_NVCC_FLAGS = {"density_grid": ["-fmad=false"]}
+# extra nvcc flags per source: the f32 arithmetic of the density band, the
+# kNN distance and the polygon ray cast must not contract into FMAs that the
+# reference does not do
+_NVCC_FLAGS = {name: ["-fmad=false"] for name in ("density_grid", "knn_topk", "poly_dual_bitmap")}
 
 # launches per kernel instantiation, counted where the wrapper launches
 LAUNCHES: Dict[str, int] = {
@@ -88,10 +99,14 @@ LAUNCHES: Dict[str, int] = {
     "xz_dual_bitmap_xz3": 0,
     "density_grid_z3": 0,
     "density_grid_z2": 0,
+    "knn_topk": 0,
+    "poly_dual_bitmap_z3": 0,
+    "poly_dual_bitmap_z2": 0,
 }
 # launches per (instantiation, shape): "q=<descriptors>" for the bitmap
 # kernels (+ " K=<codes>" for member and notmember, " U=<lookup size>" for
-# vocabmask), "K=<boxes> W=<windows>" for the masks, "<W>x<H>" for the grid
+# vocabmask, " E=<edges a query>" for the polygons), "K=<boxes> W=<windows>"
+# for the masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k
 LAUNCH_SHAPES: Counter = Counter()
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
@@ -107,6 +122,8 @@ DENSITY_ROWS = 4
 # int64 fields of one extent descriptor: (xmin, ymin, xmax, ymax, zero,
 # rect, t_lo, t_hi)
 XZ_DESC = 8
+# queries of one polygon launch
+POLY_MAX_Q = 64
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -191,6 +208,8 @@ _ARGTYPES = {
     "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
     "density_grid": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
                      _P, _P, _P, _I, _LL, _P],
+    "knn_topk": [_P, _P, _P, _F, _F, _LL, _LL, _P, _P, _P],
+    "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P],
 }
 
 
@@ -199,6 +218,10 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     fn = getattr(lib, name)
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name]
+    if name == "knn_topk":
+        for aux in (lib.knn_topk_scratch, lib.knn_topk_launches):
+            aux.restype = ctypes.c_longlong
+            aux.argtypes = [_LL, _LL]
     _LIBS[name] = lib
     return lib
 
@@ -636,3 +659,151 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
     _raise_on(err, "density_grid")
     _count("density_grid_" + ("z3" if has_time else "z2"), f"{width}x{height}")
     return grid, band_idx, count
+
+
+# -- K6: kNN top-k -------------------------------------------------------------
+
+# f32(pi / 180): the factor of jnp.radians / torch.deg2rad in float32
+_RAD = np.float32(np.pi / 180.0)
+
+
+def knn_distances(xf, yf, valid, qx: float, qy: float) -> torch.Tensor:
+    """Plain f32 haversine half-angle of every row to (qx, qy), +inf where
+    ``valid`` is false (the reference's ``dists`` in ``_knn_fn``): one
+    rounding per operation, each op its own kernel on the rows' device."""
+    dev = xf.device
+    rad = torch.tensor(_RAD, device=dev)
+    qxr = torch.tensor(np.float32(qx), device=dev) * rad
+    qyr = torch.tensor(np.float32(qy), device=dev) * rad
+    rx = xf * rad
+    ry = yf * rad
+    sdy = torch.sin((ry - qyr) * 0.5)
+    sdx = torch.sin((rx - qxr) * 0.5)
+    a = sdy * sdy + torch.cos(ry) * torch.cos(qyr) * sdx * sdx
+    d = torch.asin(torch.sqrt(torch.clamp(a, 0.0, 1.0)))
+    return torch.where(valid, d, torch.tensor(np.float32(np.inf), device=dev))
+
+
+def knn_topk_plain(xf, yf, valid, qx: float, qy: float, k: int) -> torch.Tensor:
+    """Plain edition of :func:`knn_topk`: a stable sort of the distances,
+    the first ``min(k, n)`` rows (equal distances by row; ``torch.topk``
+    promises no order for them)."""
+    d = knn_distances(xf, yf, valid, qx, qy)
+    return torch.sort(d, stable=True).indices[:min(k, d.shape[0])]
+
+
+def knn_topk(xf, yf, valid, qx: float, qy: float, k: int) -> torch.Tensor:
+    """The ``min(k, n)`` rows nearest (qx, qy) -> int64 rows ascending by
+    (f32 distance, row) (see :func:`knn_distances`; invalid rows rank at
+    +inf, by row). ``xf, yf`` float32[n] degrees, ``valid`` bool[n], k >= 1."""
+    if k < 1:
+        raise ValueError(f"knn_topk: k ({k}) must be at least 1")
+    if xf.device.type == "cpu":
+        return knn_topk_plain(xf, yf, valid, qx, qy, k)
+    if xf.device.type != "cuda":
+        raise ValueError(f"knn_topk: unsupported device {xf.device}")
+    dev, n = xf.device, xf.shape[0]
+    if n >= 2**31:
+        raise ValueError(f"knn_topk: rows ({n}) must be below 2^31")
+    _check(xf, "xf", torch.float32, dev, (n,))
+    _check(yf, "yf", torch.float32, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    lib = _lib("knn_topk")
+    kk = min(k, n)
+    with torch.cuda.device(dev):
+        words = lib.knn_topk_scratch(n, kk)
+        if words < 0:
+            raise RuntimeError("knn_topk: CUDA error sizing the scratch")
+        scratch = torch.empty(max(1, words), dtype=torch.int64, device=dev)
+        out = torch.empty(kk, dtype=torch.int64, device=dev)
+        err = lib.knn_topk(xf.data_ptr(), yf.data_ptr(), valid.data_ptr(), float(np.float32(qx)),
+                           float(np.float32(qy)), n, kk, scratch.data_ptr(), out.data_ptr(),
+                           _stream(dev))
+    _raise_on(err, "knn_topk")
+    _count("knn_topk", f"k={kk}")
+    return out
+
+
+def knn_topk_launches(device, n: int, k: int) -> int:
+    """Kernel launches of one ``knn_topk`` call over ``n`` rows on a CUDA
+    ``device`` (its passes: the count timings divide a call's device time
+    by)."""
+    with torch.cuda.device(device):
+        got = _lib("knn_topk").knn_topk_launches(n, k)
+    if got < 0:
+        raise RuntimeError("knn_topk_launches: CUDA error")
+    return int(got)
+
+
+# -- K7: banded polygon dual-plane bitmap ---------------------------------------
+
+
+def poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
+    """Plain edition of :func:`poly_dual_bitmap`, one query at a time
+    (:func:`geomesa_tpu_torch.ops.filters.poly_planes`)."""
+    n8 = xk.shape[0] // 8
+    hits, decs, hdr = [], [], []
+    for i in range(boxes.shape[0]):
+        hit, dec = poly_planes(xk, yk, valid, boxes[i], xf, yf, edges[i], tk,
+                               None if wins is None else wins[i])
+        hits.append(pack_mask_rows(hit))
+        decs.append(pack_mask_rows(dec))
+        hdr.append(torch.stack(_span_bounds(hit)))
+    if not hits:
+        empty = torch.empty((0, n8), dtype=torch.uint8, device=xk.device)
+        return empty, empty.clone(), torch.empty((0, 3), dtype=torch.int32, device=xk.device)
+    return torch.stack(hits), torch.stack(decs), torch.stack(hdr).to(torch.int32)
+
+
+def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
+    """q banded point-in-polygon queries -> (hit bits u8[q, n/8], decided
+    bits u8[q, n/8], hdr int32[q, 3]), both planes MSB-first.
+
+    ``xk, yk`` (and ``tk``) int64[n] sort keys, ``valid`` bool[n] (the
+    temporal-valid column when ``wins`` is given), ``xf, yf`` float32[n]
+    raw coordinates; ``edges`` float32[q, E, 4] as (x1, y1, x2, y2), every
+    query's edge list padded to E with degenerate (zero) edges; ``boxes``
+    int64[q, 4] keys of each polygon's envelope (xmin, xmax, ymin, ymax);
+    ``wins`` int64[q, 2] inclusive (lo, hi) ms. The planes are those of
+    :func:`geomesa_tpu_torch.ops.filters.poly_planes`; ``hdr`` rows are the
+    HIT plane's (count, first, last), no hit giving (0, 0, n - 1)."""
+    has_time = wins is not None
+    if xk.device.type == "cpu":
+        return poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins,
+                                      tk if has_time else None)
+    if xk.device.type != "cuda":
+        raise ValueError(f"poly_dual_bitmap: unsupported device {xk.device}")
+    dev, n = xk.device, xk.shape[0]
+    q = boxes.shape[0]
+    if n % 32 or n >= 2**31:
+        raise ValueError(f"poly_dual_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
+    if not 0 < q <= POLY_MAX_Q:
+        raise ValueError(f"poly_dual_bitmap: q ({q}) must be in [1, {POLY_MAX_Q}]")
+    for what, t in [("xk", xk), ("yk", yk)] + ([("tk", tk)] if has_time else []):
+        _check(t, what, torch.int64, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    _check(xf, "xf", torch.float32, dev, (n,))
+    _check(yf, "yf", torch.float32, dev, (n,))
+    _check(boxes, "boxes", torch.int64, dev, (q, 4))
+    if has_time:
+        _check(wins, "wins", torch.int64, dev, (q, 2))
+    _check(edges, "edges", torch.float32, dev)
+    if edges.dim() != 3 or edges.shape[0] != q or edges.shape[2] != 4 or edges.shape[1] < 1:
+        raise ValueError(f"poly_dual_bitmap: edges must be [{q}, E, 4], not {tuple(edges.shape)}")
+    ecap = edges.shape[1]
+    fn = _lib("poly_dual_bitmap").poly_dual_bitmap
+    with torch.cuda.device(dev):
+        hit_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+        dec_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
+        # the launcher initialises and decodes the header in place; its
+        # last word is the launch's block ticket
+        hdr = torch.empty(3 * q + 1, dtype=torch.int32, device=dev)
+        err = fn(
+            int(has_time), xk.data_ptr(), yk.data_ptr(), tk.data_ptr() if has_time else None,
+            valid.data_ptr(), xf.data_ptr(), yf.data_ptr(), edges.data_ptr(), q, ecap,
+            boxes.data_ptr(), wins.data_ptr() if has_time else None, hit_bits.data_ptr(),
+            dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
+        )
+    _raise_on(err, "poly_dual_bitmap")
+    _count("poly_dual_bitmap_" + ("z3" if has_time else "z2"), f"q={q} E={ecap}")
+    return hit_bits, dec_bits, hdr[:3 * q].view(q, 3)

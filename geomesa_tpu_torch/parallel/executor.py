@@ -39,6 +39,18 @@ stream takes there:
     certifies the band from its f64 columns (``_certify_density_band``),
     so the grid equals the host reducer's cell for cell.
 
+  * the banded POLYGON route: a point plan whose full filter is one
+    non-rectangular INTERSECTS(polygon) (+ z3 window) runs, in a stream, as
+    ONE ``poly_dual_bitmap`` launch per segment: an f32 even-odd ray cast
+    whose HIT plane holds the envelope's rows that are inside or too near an
+    edge for f32 to tell, and whose DECIDED plane holds those it certifies;
+    the ring takes the host's exact test (the reference's
+    ``_poly_bitmap_batch_fn`` / ``_XZBatchScan``). A polygon alone takes the
+    candidate route, as in the reference.
+
+  * the device kNN (``knn_candidates``): one ``knn_topk`` launch per segment
+    ranks every row by its f32 haversine distance to a point.
+
   * the HOST SEEK (``_seek_scan``, the reference's cost-based chooser): a
     plan whose ranges cover at most ``SEEK_FRAC`` (0.4) of the
     table's rows is answered on the host by a searchsorted seek of the
@@ -64,7 +76,9 @@ around each block's host-seek scan; the store adds
 ``geomesa.plan``, ``geomesa.dispatch``, ``geomesa.post_filter`` and
 ``geomesa.assemble``; a density query opens ``geomesa.density`` around its
 launches and grid fetch and ``geomesa.band`` around the host certification),
-so a profiler trace of a query stream splits its host time by step.
+and the kNN opens ``geomesa.dispatch`` around its launches and
+``geomesa.certify`` around its f64 certificate, so a profiler trace of a
+query stream splits its host time by step.
 """
 
 from __future__ import annotations
@@ -127,6 +141,42 @@ _CANDIDATE_COLUMNS = {
     "xz2": ("bxmin", "bymin", "bxmax", "bymax"),
 }
 _ENV_SUFFIXES = ("__bxmin", "__bymin", "__bxmax", "__bymax")
+
+
+# the device kNN fetches this many candidates beyond k (at least KNN_MARGIN,
+# else k / KNN_MARGIN_DIV) so that its f32 ranking can be certified in f64
+KNN_MARGIN = 16
+KNN_MARGIN_DIV = 8
+
+
+def _knn_a64(x: np.ndarray, y: np.ndarray, qx: float, qy: float) -> np.ndarray:
+    """The f64 haversine term a = sin^2(half the central angle)."""
+    lon1, lat1, lon2, lat2 = (np.radians(np.asarray(v, dtype=np.float64)) for v in (x, y, qx, qy))
+    return np.sin((lat2 - lat1) / 2) ** 2 + np.cos(lat1) * np.cos(lat2) * np.sin((lon2 - lon1) / 2) ** 2
+
+
+def _knn_a_err(a):
+    """A bound of |a32 - a| for the f32 term of ``knn_topk`` (f32 inputs
+    and query, one rounding per operation) against the f64 a of the f64
+    coordinates: the coordinates' f32 rounding moves a by at most ~6e-7
+    sqrt(a), each f32 operation by an ulp of a (measured on the CPU over
+    world-wide points and queries at the poles and the antimeridian); the
+    bound holds five times that."""
+    return 4e-6 * np.sqrt(a) + 1e-6 * a + 1e-12
+
+
+def _knn_d_lo(a):
+    """Least f32 distance ``knn_topk`` can give a row whose f64 term is a
+    (sqrtf and asinf each within a few ulps)."""
+    s = np.sqrt(np.clip(a - _knn_a_err(a), 0.0, 1.0)) * (1 - 1e-6)
+    return np.arcsin(np.minimum(s, 1.0)) * (1 - 1e-6)
+
+
+def _knn_d_hi(a):
+    """Greatest f32 distance ``knn_topk`` can give a row whose f64 term
+    is a."""
+    s = np.sqrt(np.clip(a + _knn_a_err(a), 0.0, 1.0)) * (1 + 1e-6)
+    return np.arcsin(np.minimum(s, 1.0)) * (1 + 1e-6) + 1e-12
 
 
 # IN-list / '<>'-chain cap of the attribute plane: values dedupe, then pad
@@ -757,6 +807,82 @@ class DeviceSegment:
             for i in range(len(descs))
         ]
 
+    def load_poly(self, table: IndexTable) -> bool:
+        """The columns of the banded polygon ray cast (point indices only):
+        the exact sort keys (``load_exact``) and the raw f32 coordinates
+        (``load_raw``'s ``xf, yf``, packed whatever its time columns)."""
+        if self.kind not in ("z2", "z3"):
+            return False
+        self.load_exact(table)
+        if self.xf is None:
+            self.load_raw(table)
+        return self.xf is not None
+
+    def _poly_cols(self, has_time: bool):
+        """(xk, yk, valid, xf, yf, tk | None) of the polygon kernel: the
+        temporal-valid column when the query has time."""
+        xk, yk, tk, valid = self._exact_cols(has_time)
+        return xk, yk, valid, self.xf, self.yf, tk
+
+    def dispatch_poly(self, edges_dev, box_dev, win_dev) -> "_PendingXZHits":
+        """One banded polygon scan: ``poly_dual_bitmap`` with q = 1, both
+        planes run-length encoded on the device (the reference's
+        ``_poly_runs_fn`` role; ``_poly_packed_fn`` for the dense degrade).
+        ``edges_dev`` f32[E, 4], ``box_dev`` int64[4], ``win_dev`` int64[2]
+        or None."""
+        has_time = win_dev is not None
+        xk, yk, valid, xf, yf, tk = self._poly_cols(has_time)
+        hit_bits, dec_bits, _hdr = kernels.poly_dual_bitmap(
+            xk, yk, valid, xf, yf, edges_dev[None], box_dev[None],
+            win_dev[None] if has_time else None, tk)
+        hit = unpack_mask_rows(hit_bits[0])
+        dec = unpack_mask_rows(dec_bits[0])
+
+        def dual_runs(rc: int) -> torch.Tensor:
+            return torch.cat([_runs_from_mask(hit, rc), _runs_from_mask(dec, rc)])
+
+        rcap = self._rcap
+        return _PendingXZHits(
+            self, rcap, dual_runs(rcap), refetch=dual_runs,
+            packed=lambda: torch.cat([hit_bits[0], dec_bits[0]]),
+        )
+
+    def dispatch_poly_batch(self, descs: Sequence[tuple], has_time: bool
+                            ) -> List["_PendingXZBitmapHits"]:
+        """Q banded polygon scans in ONE ``poly_dual_bitmap`` launch (the
+        reference's ``dispatch_poly_batch`` on the bitmap protocol):
+        ``descs`` = [(edges f32[E, 4], box int64[4], win int64[2] | None)].
+        Edge lists pad to the batch's shared pow2 bucket (at least 8) with
+        degenerate zero edges and the batch to a multiple of 4 queries with
+        copies of the last; per query the (hit, decided) span windows keyed
+        on the hit span are sliced on the device and fetched once for all;
+        a query whose span outgrows the window refetches alone
+        (``dispatch_poly``)."""
+        q = len(descs)
+        qpad = (q + 3) // 4 * 4
+        ecap = _pow2_at_least(max(len(d[0]) for d in descs), 8)
+        padded = list(descs) + [descs[-1]] * (qpad - q)
+        edges = np.zeros((qpad, ecap, 4), dtype=np.float32)
+        for i, d in enumerate(padded):
+            edges[i, :len(d[0])] = d[0]
+        edges_dev = upload(edges, self.device)
+        boxes_dev = upload(np.stack([d[1] for d in padded]), self.device)
+        wins_dev = upload(np.stack([d[2] for d in padded]), self.device) if has_time else None
+        xk, yk, valid, xf, yf, tk = self._poly_cols(has_time)
+        hit_bits, dec_bits, hdr = kernels.poly_dual_bitmap(
+            xk, yk, valid, xf, yf, edges_dev, boxes_dev, wins_dev, tk)
+        span_cap = self.span_cap()
+        header, window = kernels.frame_dual_bitmaps(hit_bits, dec_bits, hdr, span_cap)
+        batch = _BitmapBatch(header, window, span_cap, seg=self)
+        out = []
+        for i in range(q):
+            win_i = wins_dev[i] if has_time else None
+            out.append(_PendingXZBitmapHits(
+                self, batch, i,
+                single=lambda e=edges_dev[i], b=boxes_dev[i], w=win_i: self.dispatch_poly(e, b, w),
+            ))
+        return out
+
     def to_block_rows(self, rows: np.ndarray) -> List[Tuple[FeatureBlock, np.ndarray]]:
         """Segment-local candidate rows -> [(block, local rows)]."""
         if not len(rows):
@@ -1027,13 +1153,25 @@ def _ring_split(hit_rows: np.ndarray, dec_rows: np.ndarray) -> np.ndarray:
 
 
 def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, node, geom):
-    """Tail of every extent device scan: ring rows (hit but not decided)
-    take the host's exact per-geometry test, decided rows are final.
-    Yields (block, local_rows)."""
+    """Tail of every dual-plane device scan (extents and polygons over
+    points): ring rows (hit but not decided) take the host's exact
+    per-geometry test, decided rows are final. Yields (block, local_rows)."""
     from geomesa_tpu_torch.filter.evaluate import _geom_predicate
+    from geomesa_tpu_torch.geom.predicates import points_in_geometry
 
     if len(ring):
         for block, local in seg.to_block_rows(np.sort(ring)):
+            if seg.kind in ("z2", "z3"):
+                # the polygon route (one INTERSECTS) over points, whose
+                # schemas hold coordinates, not geometry objects: the host
+                # post-filter's vectorized point test, at once
+                with record_function("geomesa.ring"):
+                    m = points_in_geometry(block.gather(geom + "__x", local),
+                                           block.gather(geom + "__y", local), node.geometry)
+                    m &= ~block.gather(geom + "__null", local).astype(bool)
+                if m.any():
+                    yield block, local[m]
+                continue
             with record_function("geomesa.ring"):
                 geoms = block.gather(geom, local)
                 m = np.fromiter(
@@ -1048,10 +1186,11 @@ def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, n
 
 
 class _XZBatchScan:
-    """Extent scans resolved against the plan's own spatial node: decided
-    rows are final; the ring (hit minus decided) takes the host's exact
-    per-geometry test. ``exact`` is True: the yielded rows ARE the result
-    set (the valid columns carry the null dates)."""
+    """Extent (and banded polygon) scans resolved against the plan's own
+    spatial node: decided rows are final; the ring (hit minus decided)
+    takes the host's exact per-geometry test. ``exact`` is True: the
+    yielded rows ARE the result set (the valid columns carry the null
+    dates)."""
 
     __slots__ = ("pending", "node", "geom", "exact")
 
@@ -1377,12 +1516,14 @@ class TorchScanExecutor:
         launch per segment, as do those that add predicates on one
         attribute (per attribute and edition: ``_drain_attr_batches``),
         extent plans with a dual descriptor into ONE ``xz_dual_bitmap``
-        launch (chunks of BATCH_MAX); the others dispatch as
-        dispatch_candidates would."""
+        launch and point plans of one non-rectangular polygon (+ window)
+        into ONE ``poly_dual_bitmap`` launch (chunks of BATCH_MAX); the
+        others dispatch as dispatch_candidates would."""
         out: Dict[int, object] = {}
         batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         attr_batchable: Dict[tuple, Tuple[IndexTable, bool, str, str, list]] = {}
         xz_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
+        poly_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         for table, plan in items:
             if id(plan) in out:
                 continue
@@ -1402,6 +1543,14 @@ class TorchScanExecutor:
                 out[id(plan)] = None  # placeholder, filled below
                 continue
             if desc is None:
+                poly = self._poly_batch_desc(table, plan) if eligible else None
+                if poly is not None:
+                    edges, box_np, win_np, has_time, geom, node = poly
+                    group = poly_batchable.setdefault(
+                        (id(table), has_time), (table, has_time, []))
+                    group[2].append((id(plan), plan, (edges, box_np, win_np), geom, node))
+                    out[id(plan)] = None  # placeholder, filled below
+                    continue
                 xz = self._xz_batch_desc(table, plan) if eligible else None
                 if xz is not None:
                     qdesc, has_time, geom, node = xz
@@ -1437,6 +1586,7 @@ class TorchScanExecutor:
                     )
         self._drain_attr_batches(out, attr_batchable)
         self._drain_xz_batches(out, xz_batchable)
+        self._drain_poly_batches(out, poly_batchable)
         return out
 
     def _drain_attr_batches(self, out: Dict[int, object], groups) -> None:
@@ -1496,6 +1646,36 @@ class TorchScanExecutor:
                 descs = np.stack([item[1] for item in chunk])
                 per_seg = [seg.dispatch_exact_xz_batch(descs, has_time) for seg in dev.segments]
                 for qi, (pid, _qdesc, geom, node) in enumerate(chunk):
+                    out[pid] = _XZBatchScan(
+                        [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
+                        node, geom,
+                    )
+
+    def _drain_poly_batches(self, out: Dict[int, object], groups) -> None:
+        """The polygon groups of dispatch_many (the reference's
+        ``_drain_dual_batches`` with ``dispatch_poly_batch``): chunked
+        ``poly_dual_bitmap`` batches per segment resolving through
+        _XZBatchScan (the ring: hit rows the f32 ray cast left undecided,
+        tested on the host). A group of one, or a chunk of one, takes the
+        reference's route for a query alone: the candidate mask and the
+        host post-filter."""
+        for table, has_time, lst in groups.values():
+            dev = self.device_index(table)
+            ok = len(lst) > 1 and bool(dev.segments) and all(
+                seg.load_poly(table) for seg in dev.segments)
+            if not ok:
+                for pid, plan, _d, _geom, _node in lst:
+                    out[pid] = self._dispatch_nonseek(table, plan, desc=None)
+                continue
+            for i in range(0, len(lst), self.BATCH_MAX):
+                chunk = lst[i : i + self.BATCH_MAX]
+                if len(chunk) == 1:
+                    pid, plan, _d, _geom, _node = chunk[0]
+                    out[pid] = self._dispatch_nonseek(table, plan, desc=None)
+                    continue
+                descs = [d for _pid, _plan, d, _geom, _node in chunk]
+                per_seg = [seg.dispatch_poly_batch(descs, has_time) for seg in dev.segments]
+                for qi, (pid, _plan, _d, geom, node) in enumerate(chunk):
                     out[pid] = _XZBatchScan(
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
                         node, geom,
@@ -1973,6 +2153,73 @@ class TorchScanExecutor:
         desc, has_time = self._xz_desc(qenv, rect, t_lo, t_hi)
         return desc, has_time, geom, node
 
+    def _poly_batch_desc(self, table: IndexTable, plan: QueryPlan):
+        """(edges f32[E, 4], box int64[4], win int64[2] | None, has_time,
+        geom, node) when this point z-index plan's FULL filter is one
+        non-rectangular INTERSECTS(polygon) on the default geometry (+ z3
+        temporal bounds): the banded ray cast's descriptor (the reference's
+        ``_poly_batch_desc``); None otherwise. A rectangle stays on the box
+        path; a MultiPolygon qualifies only when its members' envelopes are
+        disjoint (crossing parity holds for disjoint members only); the
+        edges are every ring's, shells and holes; box and window are the
+        polygon's envelope and the window as ``_shape_keys`` encodes them.
+        A polygon AND attribute predicates is not claimed (the candidate
+        route and the host post-filter answer it; the reference's attribute
+        edition is not ported)."""
+        if table.index.name not in ("z2", "z3") or plan.secondary is not None:
+            return None
+        ft = table.ft
+        if ft.default_geometry is None or not ft.is_points:
+            return None
+        f = plan.full_filter
+        if f is None:
+            return None
+        from geomesa_tpu_torch.filter import ast as A
+        from geomesa_tpu_torch.geom.base import MultiPolygon, Polygon
+
+        geom = ft.default_geometry.name
+        spatial: List = []
+
+        def match(node) -> bool:
+            if isinstance(node, A.Intersects) and node.prop == geom:
+                spatial.append(node)
+                return True
+            return False
+
+        ok, t_lo, t_hi = self._and_walk_temporal(ft, f, match)
+        if not ok or len(spatial) != 1:
+            return None
+        has_time = t_lo is not None or t_hi is not None
+        if has_time and table.index.name != "z3":
+            return None
+        node = spatial[0]
+        g = node.geometry
+        if hasattr(g, "is_rectangle") and g.is_rectangle():
+            return None
+        if isinstance(g, Polygon):
+            polys = [g]
+        elif isinstance(g, MultiPolygon):
+            polys = list(g.geoms)
+            envs = [p.envelope for p in polys]
+            if any(envs[i].intersects(envs[j])
+                   for i in range(len(envs)) for j in range(i + 1, len(envs))):
+                return None
+        else:
+            return None
+        segs = []
+        for p in polys:
+            for r in [p.shell, *p.holes]:
+                r = np.asarray(r, np.float64)
+                if len(r) < 3:
+                    return None
+                if not np.array_equal(r[0], r[-1]):
+                    r = np.vstack([r, r[:1]])
+                segs.append(np.stack([r[:-1, 0], r[:-1, 1], r[1:, 0], r[1:, 1]], axis=1))
+        edges = np.concatenate(segs).astype(np.float32)
+        e = g.envelope
+        box, win = self._shape_keys((e.xmin, e.ymin, e.xmax, e.ymax, t_lo, t_hi))
+        return edges, box, win, has_time, geom, node
+
     def _query_descriptor(self, table: IndexTable, plan: QueryPlan):
         """(boxes, windows | None) device tensors of the candidate mask."""
         if table.index.name in ("xz2", "xz3"):
@@ -2045,6 +2292,80 @@ class TorchScanExecutor:
         from geomesa_tpu_torch.filter.evaluate import evaluate
 
         return evaluate(plan.post_filter, ft, columns)
+
+    # -- device kNN ------------------------------------------------------------
+
+    def knn_candidates(self, table: IndexTable, x: float, y: float, k: int):
+        """Device top-k nearest candidates to (x, y) (the reference's
+        ``knn_candidates``): one ``knn_topk`` launch per segment ranks every
+        row by its f32 haversine distance and returns its nearest rows;
+        pad and invalid rows are dropped. [(block, local rows)], rows
+        sorted per segment; None when the index is not z2 / z3.
+
+        Unlike the reference, which takes exactly k per segment, a segment
+        returns ``k + max(KNN_MARGIN, k // KNN_MARGIN_DIV)`` rows and holds
+        them to an f64 certificate: every row it did not return has an f32
+        distance at least that of its last candidate, so a true (f64)
+        distance above ``_knn_d_lo`` of that candidate's term; when the k-th
+        smallest f64 term among the candidates stays below it
+        (``_knn_d_hi``), the segment's share of the f64 k nearest is among
+        its candidates, else the segment asks for twice the rows (all of
+        them at the end). The caller's f64 re-rank then gives the f64 k
+        nearest, which f32 ranking alone can miss at the k-th place."""
+        if table.index.name not in ("z2", "z3"):
+            return None
+        if k < 1:
+            return []
+        dev = self.device_index(table)
+        geom = table.ft.default_geometry.name
+        pend = []
+        for seg in dev.segments:
+            if not seg.n:
+                continue
+            if not seg.load_raw(table) and seg.xf is None:
+                return None
+            kk = min(k + max(KNN_MARGIN, k // KNN_MARGIN_DIV), seg.n)
+            with record_function("geomesa.dispatch"):
+                pend.append((seg, kk, self._knn_launch(seg, x, y, kk)))
+        out = []
+        for seg, kk, launched in pend:
+            while True:
+                idx, ok = (_np_local(t) for t in launched)
+                rows = idx[ok]
+                if kk >= seg.n or not ok[-1]:
+                    break
+                with record_function("geomesa.certify"):
+                    if self._knn_certified(seg, geom, rows, x, y, k):
+                        break
+                kk = min(2 * kk, seg.n)
+                with record_function("geomesa.dispatch"):
+                    launched = self._knn_launch(seg, x, y, kk)
+            out.extend(seg.to_block_rows(np.unique(rows[rows < seg.n])))
+        return out
+
+    @staticmethod
+    def _knn_launch(seg: DeviceSegment, x: float, y: float, kk: int):
+        """(rows int64[kk] by f32 distance, their valid flags) on the device."""
+        idx = kernels.knn_topk(seg.xf, seg.yf, seg.valid, x, y, kk)
+        return idx, seg.valid[idx]
+
+    @staticmethod
+    def _knn_certified(seg: DeviceSegment, geom: str, rows: np.ndarray, x: float, y: float,
+                       k: int) -> bool:
+        """Whether a segment's valid candidates ``rows``, in the kernel's
+        order, hold every row of the segment that can be among the f64 k
+        nearest (see ``knn_candidates``)."""
+        if len(rows) < k:
+            return False  # NaN distances rank past the invalid rows
+        order = np.argsort(rows, kind="stable")
+        xs, ys = [], []
+        for block, local in seg.to_block_rows(rows[order]):
+            xs.append(block.gather(geom + "__x", local))
+            ys.append(block.gather(geom + "__y", local))
+        a = np.empty(len(rows), dtype=np.float64)
+        a[order] = _knn_a64(np.concatenate(xs), np.concatenate(ys), x, y)
+        kth = np.partition(a, k - 1)[k - 1]
+        return bool(_knn_d_hi(kth) < _knn_d_lo(a[-1]))
 
     # -- density push-down ---------------------------------------------------
 

@@ -7,12 +7,17 @@ shards rows over a JAX mesh; this slice of the port runs on one CUDA device
 
 from __future__ import annotations
 
-from typing import Optional, Union
+import os
+import time
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 Device = Union[str, torch.device]
+
+# measured host <-> device round trip (ms) per device
+_LINK_LATENCY_MS: Dict[str, float] = {}
 
 
 def default_device(device: Optional[Device] = None) -> torch.device:
@@ -41,3 +46,36 @@ def pad_to_multiple(arr: np.ndarray, multiple: int, fill) -> np.ndarray:
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
     """Host array -> contiguous tensor on ``device``."""
     return torch.as_tensor(np.ascontiguousarray(arr), device=device)
+
+
+def link_latency_ms(device: Optional[Device] = None) -> float:
+    """Measured host <-> device round-trip latency in ms (the reference's
+    ``link_latency_ms``, "link_probe"): the least of 5 round trips of
+    ``x + 1`` on eight floats of ``device`` (the first CUDA device by
+    default), after one warm trip, cached per device. The floor of any
+    device dispatch: the automatic device paths (the kNN top-k) decline
+    over a slow link. 0.0 on the CPU, where device compute is host
+    compute. ``GEOMESA_LINK_LATENCY_MS`` overrides the measurement."""
+    env = os.environ.get("GEOMESA_LINK_LATENCY_MS")
+    if env:
+        try:
+            return float(env)
+        except ValueError:
+            pass
+    dev = default_device(device)
+    if dev.type == "cpu":
+        return 0.0
+    key = str(dev)
+    got = _LINK_LATENCY_MS.get(key)
+    if got is None:
+        x = torch.zeros(8, dtype=torch.float32, device=dev)
+        (x + 1).cpu()  # the first trip pays the allocations
+        samples = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            (x + 1).cpu()
+            samples.append((time.perf_counter() - t0) * 1e3)
+        # the least, not the median: the cost choice wants the link's floor,
+        # and contention on the host only ever inflates a sample
+        got = _LINK_LATENCY_MS[key] = float(min(samples))
+    return got

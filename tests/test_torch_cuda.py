@@ -580,3 +580,150 @@ def test_host_seek_equals_the_device_route_on_the_card(cuda, monkeypatch):
     for b, fids in zip(boxes, got["1"]):
         want = np.flatnonzero(cs.in_box(x, y, b) & (t > cs.T_LO) & (t < cs.T_HI))
         assert fids == {f"f{i}" for i in want} and fids
+
+
+# -- knn_topk -------------------------------------------------------------------
+
+
+def _knn_rows(n: int, seed: int, n_valid=None):
+    """World-wide points with duplicates (ties) and invalid rows; with
+    ``n_valid``, only that many valid rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-180, 180, n).astype(np.float32)
+    y = rng.uniform(-85, 85, n).astype(np.float32)
+    dup = rng.choice(n, min(n, 64), replace=False)
+    x[dup], y[dup] = x[dup[0]], y[dup[0]]
+    x[:16], y[:16] = np.float32(2.35), np.float32(48.85)  # at the query point
+    valid = rng.random(n) > 0.05
+    if n_valid is not None:
+        valid[:] = False
+        valid[rng.choice(n, n_valid, replace=False)] = True
+    return x, y, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("point", [(2.35, 48.85), (179.95, 10.0), (0.0, 84.0)])
+@pytest.mark.parametrize("k", [1, 10, 1000, 4096, 8192, 8193, 20000])
+def test_knn_topk_matches_plain_on_the_card(cuda, k, point):
+    """Index lists equal to the stable sort's, ties by row, at every k
+    (one round of at most 8192 keys, and several)."""
+    x, y, valid = (torch.from_numpy(a).to(cuda) for a in _knn_rows(1 << 20, k))
+    got = kernels.knn_topk(x, y, valid, *point, k)
+    want = kernels.knn_topk_plain(x, y, valid, *point, k)
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    d = kernels.knn_distances(x, y, valid, *point)[got]
+    assert bool((d[1:] >= d[:-1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [2999, 3000, 5000, 1 << 16])
+def test_knn_topk_past_the_valid_rows_on_the_card(cuda, k):
+    """k at and past the 3000 valid rows: the invalid rows come after them,
+    by row, as in the plain edition."""
+    n = 1 << 16
+    x, y, valid = (torch.from_numpy(a).to(cuda) for a in _knn_rows(n, 7, n_valid=3000))
+    got = kernels.knn_topk(x, y, valid, 2.35, 48.85, k)
+    want = kernels.knn_topk_plain(x, y, valid, 2.35, 48.85, k)
+    assert torch.equal(got, want) and len(got) == min(k, n)
+    if k > 3000:
+        tail = got[3000:]
+        assert not valid[tail].any() and bool((tail[1:] > tail[:-1]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 1000, 4097, 300_000])
+@pytest.mark.parametrize("k", [1, 26, 32, 33, 100])
+def test_knn_topk_small_tables_on_the_card(cuda, n, k):
+    """The warp path (k <= 32) and the tile path over tables smaller than a
+    warp's step, a block's tile and the grid, with 20 valid rows among the
+    first 300k."""
+    x, y, valid = _knn_rows(n, n + k, n_valid=min(n, 20) if n == 300_000 else None)
+    x, y, valid = (torch.from_numpy(a).to(cuda) for a in (x, y, valid))
+    got = kernels.knn_topk(x, y, valid, 2.35, 48.85, k)
+    want = kernels.knn_topk_plain(x, y, valid, 2.35, 48.85, k)
+    assert torch.equal(got, want) and len(got) == min(n, k)
+
+
+@pytest.mark.cuda
+def test_knn_topk_counts_its_launches(cuda):
+    x, y, valid = (torch.from_numpy(a).to(cuda) for a in _knn_rows(4096, 3))
+    kernels.reset_launches()
+    kernels.knn_topk(x, y, valid, 0.0, 0.0, 26)
+    kernels.knn_topk(x, y, valid, 0.0, 0.0, 26)
+    assert kernels.LAUNCHES["knn_topk"] == 2
+    assert kernels.LAUNCH_SHAPES[("knn_topk", "k=26")] == 2
+
+
+# -- poly_dual_bitmap -------------------------------------------------------------
+
+
+def _ring(cx, cy, r, m, rng):
+    ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+    rad = r * rng.uniform(0.5, 1.0, m)
+    pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], axis=1)
+    return np.vstack([pts, pts[:1]])
+
+
+def _poly_queries(q: int, e: int, seed: int):
+    """q polygons of about ``e`` edges (a shell and, from 16 edges up, a
+    hole) -> (edges f32[q, ecap, 4] padded with zero edges, boxes as
+    (xmin, ymin, xmax, ymax), the vertices)."""
+    rng = np.random.default_rng(seed)
+    ecap = 8
+    while ecap < e:
+        ecap *= 2
+    out, boxes, verts = np.zeros((q, ecap, 4), np.float32), [], []
+    for i in range(q):
+        cx, cy = rng.uniform(-15, 15, 2)
+        r = rng.uniform(2, 6)
+        rings = [_ring(cx, cy, r, max(3, e // 2 if e >= 16 else e), rng)]
+        if e >= 16:
+            rings.append(_ring(cx, cy, 0.3 * r, e - e // 2, rng)[::-1])
+        segs = np.concatenate([np.stack([g[:-1, 0], g[:-1, 1], g[1:, 0], g[1:, 1]], 1)
+                               for g in rings])[:ecap]
+        out[i, :len(segs)] = segs
+        boxes.append((rings[0][:, 0].min(), rings[0][:, 1].min(), rings[0][:, 0].max(),
+                      rings[0][:, 1].max()))
+        verts.append(rings[0][:-1])
+    return out, boxes, np.concatenate(verts)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("q,e", [(2, 8), (24, 12), (24, 16), (64, 16), (2, 4096), (64, 4000)])
+def test_poly_dual_bitmap_matches_plain_on_the_card(cuda, q, e, has_time):
+    """Hit and decided planes and headers bit for bit against the plain
+    edition: rows in key order (the chunk reject), vertices among the rows
+    (the band), a word count that is not a multiple of the warp's chunk,
+    edges resident in shared memory and streamed through it."""
+    n = 32 * (4 * 1000 + 3) if e < 1000 else 32 * (4 * 300 + 1)
+    rng = np.random.default_rng(q * 7 + e)
+    edges, boxes, verts = _poly_queries(q, e, q + e)
+    x = rng.uniform(-20, 20, n)
+    y = rng.uniform(-20, 20, n)
+    k = min(len(verts), n // 8)
+    x[:k], y[:k] = verts[:k, 0].astype(np.float32), verts[:k, 1].astype(np.float32)
+    t = 1_767_225_600_000 + rng.integers(0, 10 * 86_400_000, n)
+    order = np.lexsort((x, np.floor(y)))  # rows in strips: chunks cover small areas
+    x, y, t = x[order], y[order], t[order]
+    valid = rng.random(n) > 0.05
+    t0 = 1_767_225_600_000
+    descs = [TorchScanExecutor._shape_keys(b + (t0 + i * 3_600_000, t0 + 6 * 86_400_000))
+             for i, b in enumerate(boxes)]
+    xk, yk = (torch.from_numpy(f64_keys(a)).to(cuda) for a in (x, y))
+    xf, yf = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    v = torch.from_numpy(valid).to(cuda)
+    box = torch.from_numpy(np.stack([d[0] for d in descs])).to(cuda)
+    win = torch.from_numpy(np.stack([d[1] for d in descs])).to(cuda) if has_time else None
+    ed = torch.from_numpy(edges).to(cuda)
+    got = kernels.poly_dual_bitmap(xk, yk, v, xf, yf, ed, box, win, tk)
+    want = kernels.poly_dual_bitmap_plain(xk, yk, v, xf, yf, ed, box, win, tk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[2][:, 0].sum()) > 0
+    assert bool((want[0] != want[1]).any())  # a ring: hit rows left undecided
+    kernels.reset_launches()
+    kernels.poly_dual_bitmap(xk, yk, v, xf, yf, ed, box, win, tk)
+    assert kernels.LAUNCH_SHAPES[("poly_dual_bitmap_" + ("z3" if has_time else "z2"),
+                                  f"q={q} E={edges.shape[1]}")] == 1

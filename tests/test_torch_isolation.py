@@ -1,8 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, no hidden CPU.
 
 ``import geomesa_tpu_torch`` and config #1, density (z3, z2), config #3
-(xz2, xz3), config #4 (the attribute planes) and host-seek queries through
-it, with the native range walks
+(xz2, xz3), config #4 (the attribute planes), config #5 (a kNN search and a
+TubeSelect), a polygon stream and host-seek queries through it, with the
+native range walks
 and decode, must load neither ``jax`` nor any ``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
@@ -100,6 +101,32 @@ r = store.query("attr", lone)
 assert set(r.fids) == {f"f{j}" for j in cs.attr_oracle(data, spec)}
 assert r.plan.scan_path == "host-seek", r.plan.scan_path
 os.environ["GEOMESA_SEEK"] = "0"
+# config #5: a kNN search on the device top-k and a TubeSelect, then a
+# polygon stream on the banded ray cast, each against chip_smoke's oracles
+from geomesa_tpu_torch.process import knn_search, last_knn_path, tube_select
+os.environ["GEOMESA_KNN_DEVICE"] = "1"
+kx, ky, kt = cs.synthesize_knn(5000)
+kft = parse_spec("knn", cs.KNN_SPEC)
+store.create_schema(kft)
+store._insert_columns(kft, {"__fid__": np.char.add("f", np.arange(5000).astype(str)),
+                            "geom__x": kx, "geom__y": ky, "dtg": kt})
+got = knn_search(store, "knn", 179.95, 10.0, k=10)
+assert got == cs.knn_oracle(cs.haversine_np(kx, ky, 179.95, 10.0), 10), got
+assert last_knn_path() == "device-topk"
+track = cs.tube_track(int(kt.min()) + 5 * 86400_000)
+r = tube_select(store, "knn", track, buffer_m=500_000.0, time_buffer_ms=2 * 86400_000)
+assert set(r.fids) == {f"f{j}" for j in cs.tube_oracle(kx, ky, kt, track, 500_000.0,
+                                                        2 * 86400_000)}
+px, py = cs.synthesize_poly(5000)
+pft = parse_spec("poly", cs.POLY_SPEC)
+store.create_schema(pft)
+store._insert_columns(pft, {"__fid__": np.char.add("f", np.arange(5000).astype(str)),
+                            "geom__x": px, "geom__y": py})
+items = cs.poly_streams()["l"][:4]
+res = store.query_many("poly", [Query.cql(c, properties=[]) for c, _ in items])
+for (c, rings), r in zip(items, res):
+    assert set(r.fids) == {f"f{j}" for j in cs.pip(rings, px, py)}, c
+    assert r.plan.scan_path == "device-batch-dual/bitmap", r.plan.scan_path
 # the host-seek route, and the native libraries every route above ran
 # (the z/xz range walks of planning, the span-window decode)
 os.environ["GEOMESA_SEEK"] = "1"
@@ -121,8 +148,9 @@ assert not bad, bad
 
 def test_port_runs_config1_without_jax_or_the_reference():
     """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3), config #4
-    (device and host-seek routes) and host-seek queries, and the native
-    libraries they run, load no JAX."""
+    (device and host-seek routes), config #5 (kNN, TubeSelect), the polygon
+    plane and host-seek queries, and the native libraries they run, load no
+    JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
