@@ -1447,8 +1447,8 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
                 f"{c['name']} {c['tag']}: kernel differs from its plain edition "
                 f"(max abs err {err})"
             )
-        ms, call_ms, seen, ms_source = kernel_ms(c["kernel"], c["symbol"],
-                                                 per_call=c.get("launches", lambda: 1)())
+        per_call = c.get("launches", lambda: 1)()
+        ms, call_ms, seen, ms_source = kernel_ms(c["kernel"], c["symbol"], per_call=per_call)
         plain_ms = event_ms(c["plain"], reps=10, warmup=1)
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
@@ -1474,6 +1474,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             "call_ms": call_ms,
             "ms_source": ms_source,
             "profiled_launches": seen,
+            **({"launches_per_call": per_call} if "launches" in c else {}),
             "bitwise_equal": equal,
             "shape_tag": c["tag"],
             "shape": c["shape"],
@@ -2689,9 +2690,9 @@ def knn_cases(store, launched_shapes):
             ops=KNN_ROW_IOPS * n,
             fops=KNN_ROW_FOPS * n,
             aside={"topk_ms": lambda kk=kk: torch.topk(d, kk, largest=False)},
-            # the passes of a call, of whichever build is loaded
-            launches=lambda kk=kk: kernels.knn_topk_launches(seg.xf.device, n, kk),
-            extra={"launches_per_call": kernels.knn_topk_launches(seg.xf.device, n, kk)},
+            # the passes of a call, as the loaded build's launcher reports them
+            launches=lambda kk=kk: (kernels.knn_topk(seg.xf, seg.yf, seg.valid, *KNN_QUERY, kk),
+                                    kernels.LAST_PASSES["knn_topk"])[1],
             shape=f"rows={n} k={kk} query={KNN_QUERY}",
         ))
     return out

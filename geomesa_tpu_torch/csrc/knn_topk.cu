@@ -239,15 +239,17 @@ cudaError_t launch_pass(long long tiles, int S, int m, const float* xf, const fl
 }
 
 // Middle passes over the `count` keys of buf[cur] until one tile is left,
-// whose pass writes the m keys to keys_out and their rows to rows_out.
+// whose pass writes the m keys to keys_out and their rows to rows_out; adds
+// its launches to *passes.
 cudaError_t reduce(u64* const buf[2], int cur, long long count, int S, int m, u64* keys_out,
-                   long long* rows_out, cudaStream_t s) {
+                   long long* rows_out, cudaStream_t s, long long* passes) {
   for (;;) {
     const long long tiles = (count + S - 1) / S;
     const bool last = tiles == 1;
     const cudaError_t err =
         launch_pass<false>(tiles, S, m, nullptr, nullptr, nullptr, 0.f, 0.f, buf[cur], count,
                            nullptr, last ? keys_out : buf[1 - cur], last ? rows_out : nullptr, s);
+    if (err == cudaSuccess) ++*passes;
     if (err != cudaSuccess || last) return err;
     count = tiles * m;
     cur = 1 - cur;
@@ -291,46 +293,17 @@ extern "C" long long knn_topk_scratch(long long n, long long k) {
   return cap < 0 ? -1 : 2 * cap + (kk > 0 ? kk : 0);
 }
 
-// Kernel launches of one knn_topk call over n rows (its passes), on the
-// current device; -1 on a CUDA error.
-extern "C" long long knn_topk_launches(long long n, long long k) {
-  const long long kk = k < n ? k : n;
-  if (kk <= 0) return 0;
-  long long passes = 0, count = 0;
-  int S = 0, m = 0;
-  if (kk <= kWarpK) {
-    long long blocks = 0;
-    if (select_blocks(n, &blocks) != cudaSuccess) return -1;
-    passes = 1;
-    count = blocks * kk;
-    S = tile_of(kk);
-    m = (int)kk;
-  }
-  for (long long done = 0; done < kk; done += kRoundK) {
-    if (kk > kWarpK) {
-      const long long kr = kk - done < kRoundK ? kk - done : kRoundK;
-      S = tile_of(kr);
-      m = (int)(kr < S ? kr : S);
-      count = n;
-    }
-    for (long long tiles = (count + S - 1) / S;; tiles = (count + S - 1) / S) {
-      ++passes;
-      if (tiles == 1) break;
-      count = tiles * m;
-    }
-    if (kk <= kWarpK) break;
-  }
-  return passes;
-}
-
 // C interface for ctypes. Device pointers: xf, yf float32[n], valid
 // bool[n]; scratch int64[knn_topk_scratch(n, k)]; out int64[min(k, n)],
 // the rows in ascending (distance, row) order. qx, qy the query point in
-// degrees (f32). n < 2^31. Launches on `stream` and returns a CUDA error code.
+// degrees (f32). n < 2^31. Launches on `stream`, sets the host's *passes to
+// the kernel launches it made, and returns a CUDA error code.
 extern "C" int knn_topk(const void* xf, const void* yf, const void* valid, float qx, float qy,
-                        long long n, long long k, void* scratch, void* out, void* stream) {
+                        long long n, long long k, void* scratch, void* out, void* stream,
+                        long long* passes) {
   cudaStream_t s = (cudaStream_t)stream;
   const long long kk = k < n ? k : n;
+  *passes = 0;
   if (kk <= 0) return (int)cudaSuccess;
   const long long cap = pass_cap(n, kk);
   if (cap < 0) return (int)cudaErrorInvalidDevice;
@@ -348,7 +321,8 @@ extern "C" int knn_topk(const void* xf, const void* yf, const void* valid, float
                                                                       buf[0]);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
-    return (int)reduce(buf, 0, blocks * kk, tile_of(kk), (int)kk, keys, rows, s);
+    ++*passes;
+    return (int)reduce(buf, 0, blocks * kk, tile_of(kk), (int)kk, keys, rows, s, passes);
   }
   for (long long done = 0; done < kk;) {
     const long long kr = kk - done < kRoundK ? kk - done : kRoundK;
@@ -360,8 +334,9 @@ extern "C" int knn_topk(const void* xf, const void* yf, const void* valid, float
     cudaError_t err = launch_pass<true>(tiles, S, m, x, y, v, qx, qy, nullptr, n, lo_key,
                                         last ? keys + done : buf[0], last ? rows + done : nullptr,
                                         s);
+    if (err == cudaSuccess) ++*passes;
     if (err == cudaSuccess && !last) {
-      err = reduce(buf, 0, tiles * m, S, m, keys + done, rows + done, s);
+      err = reduce(buf, 0, tiles * m, S, m, keys + done, rows + done, s, passes);
     }
     if (err != cudaSuccess) return (int)err;
     done += kr;

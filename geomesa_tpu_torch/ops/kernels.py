@@ -108,6 +108,9 @@ LAUNCHES: Dict[str, int] = {
 # vocabmask, " E=<edges a query>" for the polygons), "K=<boxes> W=<windows>"
 # for the masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k
 LAUNCH_SHAPES: Counter = Counter()
+# kernel launches of the last call of a wrapper that runs several passes
+# (knn_topk), as its launcher reports them
+LAST_PASSES: Dict[str, int] = {}
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
 EXACT_MAX_Q = 256
@@ -208,7 +211,7 @@ _ARGTYPES = {
     "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
     "density_grid": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
                      _P, _P, _P, _I, _LL, _P],
-    "knn_topk": [_P, _P, _P, _F, _F, _LL, _LL, _P, _P, _P],
+    "knn_topk": [_P, _P, _P, _F, _F, _LL, _LL, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong)],
     "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P],
 }
 
@@ -219,9 +222,8 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     fn.argtypes = _ARGTYPES[name]
     if name == "knn_topk":
-        for aux in (lib.knn_topk_scratch, lib.knn_topk_launches):
-            aux.restype = ctypes.c_longlong
-            aux.argtypes = [_LL, _LL]
+        lib.knn_topk_scratch.restype = ctypes.c_longlong
+        lib.knn_topk_scratch.argtypes = [_LL, _LL]
     _LIBS[name] = lib
     return lib
 
@@ -716,23 +718,14 @@ def knn_topk(xf, yf, valid, qx: float, qy: float, k: int) -> torch.Tensor:
             raise RuntimeError("knn_topk: CUDA error sizing the scratch")
         scratch = torch.empty(max(1, words), dtype=torch.int64, device=dev)
         out = torch.empty(kk, dtype=torch.int64, device=dev)
+        passes = ctypes.c_longlong(0)
         err = lib.knn_topk(xf.data_ptr(), yf.data_ptr(), valid.data_ptr(), float(np.float32(qx)),
                            float(np.float32(qy)), n, kk, scratch.data_ptr(), out.data_ptr(),
-                           _stream(dev))
+                           _stream(dev), ctypes.byref(passes))
     _raise_on(err, "knn_topk")
     _count("knn_topk", f"k={kk}")
+    LAST_PASSES["knn_topk"] = passes.value
     return out
-
-
-def knn_topk_launches(device, n: int, k: int) -> int:
-    """Kernel launches of one ``knn_topk`` call over ``n`` rows on a CUDA
-    ``device`` (its passes: the count timings divide a call's device time
-    by)."""
-    with torch.cuda.device(device):
-        got = _lib("knn_topk").knn_topk_launches(n, k)
-    if got < 0:
-        raise RuntimeError("knn_topk_launches: CUDA error")
-    return int(got)
 
 
 # -- K7: banded polygon dual-plane bitmap ---------------------------------------

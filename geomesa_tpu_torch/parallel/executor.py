@@ -1152,33 +1152,43 @@ def _ring_split(hit_rows: np.ndarray, dec_rows: np.ndarray) -> np.ndarray:
     return hit_rows[~in_dec]
 
 
-def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, node, geom):
-    """Tail of every dual-plane device scan (extents and polygons over
-    points): ring rows (hit but not decided) take the host's exact
-    per-geometry test, decided rows are final. Yields (block, local_rows)."""
+def _extent_ring_test(node, geom):
+    """The extent dual scans' ring test: the host's exact per-geometry
+    test, a row at a time. -> test(block, local_rows) -> bool mask."""
     from geomesa_tpu_torch.filter.evaluate import _geom_predicate
+
+    def test(block, local):
+        geoms = block.gather(geom, local)
+        return np.fromiter(
+            (g is not None and _geom_predicate(node, g) for g in geoms), bool, len(local)
+        )
+
+    return test
+
+
+def _point_ring_test(node, geom):
+    """The polygon dual scans' ring test over points, whose schemas hold
+    coordinates, not geometry objects: the host post-filter's vectorized
+    point test, at once. -> test(block, local_rows) -> bool mask."""
     from geomesa_tpu_torch.geom.predicates import points_in_geometry
 
+    def test(block, local):
+        m = points_in_geometry(block.gather(geom + "__x", local),
+                               block.gather(geom + "__y", local), node.geometry)
+        m &= ~block.gather(geom + "__null", local).astype(bool)
+        return m
+
+    return test
+
+
+def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, ring_test):
+    """Tail of every dual-plane device scan: ring rows (hit but not
+    decided) take the host's ``ring_test``, decided rows are final. Yields
+    (block, local_rows)."""
     if len(ring):
         for block, local in seg.to_block_rows(np.sort(ring)):
-            if seg.kind in ("z2", "z3"):
-                # the polygon route (one INTERSECTS) over points, whose
-                # schemas hold coordinates, not geometry objects: the host
-                # post-filter's vectorized point test, at once
-                with record_function("geomesa.ring"):
-                    m = points_in_geometry(block.gather(geom + "__x", local),
-                                           block.gather(geom + "__y", local), node.geometry)
-                    m &= ~block.gather(geom + "__null", local).astype(bool)
-                if m.any():
-                    yield block, local[m]
-                continue
             with record_function("geomesa.ring"):
-                geoms = block.gather(geom, local)
-                m = np.fromiter(
-                    (g is not None and _geom_predicate(node, g) for g in geoms),
-                    bool,
-                    len(local),
-                )
+                m = ring_test(block, local)
             if m.any():
                 yield block, local[m]
     if len(dec_rows):
@@ -1188,16 +1198,15 @@ def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, n
 class _XZBatchScan:
     """Extent (and banded polygon) scans resolved against the plan's own
     spatial node: decided rows are final; the ring (hit minus decided)
-    takes the host's exact per-geometry test. ``exact`` is True: the
-    yielded rows ARE the result set (the valid columns carry the null
-    dates)."""
+    takes the host's ``ring_test`` (``_extent_ring_test`` or
+    ``_point_ring_test``). ``exact`` is True: the yielded rows ARE the
+    result set (the valid columns carry the null dates)."""
 
-    __slots__ = ("pending", "node", "geom", "exact")
+    __slots__ = ("pending", "ring_test", "exact")
 
-    def __init__(self, pending, node, geom):
+    def __init__(self, pending, ring_test):
         self.pending = pending  # [(seg, _PendingXZHits | _PendingXZBitmapHits)]
-        self.node = node
-        self.geom = geom
+        self.ring_test = ring_test
         self.exact = True
 
     def __iter__(self):
@@ -1206,7 +1215,7 @@ class _XZBatchScan:
             if not len(hit_rows):
                 continue
             ring = _ring_split(hit_rows, dec_rows)
-            yield from _yield_xz_rows(seg, dec_rows, ring, self.node, self.geom)
+            yield from _yield_xz_rows(seg, dec_rows, ring, self.ring_test)
 
 
 class _PendingScan:
@@ -1495,7 +1504,7 @@ class TorchScanExecutor:
         for seg in dev.segments:
             seg.load_exact_xz(table)
             pending.append((seg, seg.dispatch_exact_xz(desc_dev, has_time)))
-        return _XZBatchScan(pending, node, geom)
+        return _XZBatchScan(pending, _extent_ring_test(node, geom))
 
     def degrade(self, table: Optional[IndexTable], exc: BaseException) -> None:
         """Evict the failed table's device mirror (None evicts every mirror)
@@ -1648,7 +1657,7 @@ class TorchScanExecutor:
                 for qi, (pid, _qdesc, geom, node) in enumerate(chunk):
                     out[pid] = _XZBatchScan(
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
-                        node, geom,
+                        _extent_ring_test(node, geom),
                     )
 
     def _drain_poly_batches(self, out: Dict[int, object], groups) -> None:
@@ -1678,7 +1687,7 @@ class TorchScanExecutor:
                 for qi, (pid, _plan, _d, geom, node) in enumerate(chunk):
                     out[pid] = _XZBatchScan(
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
-                        node, geom,
+                        _point_ring_test(node, geom),
                     )
 
     @staticmethod

@@ -7,7 +7,6 @@ shards rows over a JAX mesh; this slice of the port runs on one CUDA device
 
 from __future__ import annotations
 
-import os
 import time
 from typing import Dict, Optional, Union
 
@@ -55,13 +54,7 @@ def link_latency_ms(device: Optional[Device] = None) -> float:
     default), after one warm trip, cached per device. The floor of any
     device dispatch: the automatic device paths (the kNN top-k) decline
     over a slow link. 0.0 on the CPU, where device compute is host
-    compute. ``GEOMESA_LINK_LATENCY_MS`` overrides the measurement."""
-    env = os.environ.get("GEOMESA_LINK_LATENCY_MS")
-    if env:
-        try:
-            return float(env)
-        except ValueError:
-            pass
+    compute."""
     dev = default_device(device)
     if dev.type == "cpu":
         return 0.0

@@ -652,6 +652,12 @@ def test_knn_topk_counts_its_launches(cuda):
     kernels.knn_topk(x, y, valid, 0.0, 0.0, 26)
     assert kernels.LAUNCHES["knn_topk"] == 2
     assert kernels.LAUNCH_SHAPES[("knn_topk", "k=26")] == 2
+    # the launcher's own pass count: the warp pass (4 blocks of 1,024 rows,
+    # 26 keys each) and one tile of 1,024 over their 104 keys
+    assert kernels.LAST_PASSES["knn_topk"] == 2
+    # the tile tree: 4 tiles of 1,024 rows, then one over their 400 keys
+    kernels.knn_topk(x, y, valid, 0.0, 0.0, 100)
+    assert kernels.LAST_PASSES["knn_topk"] == 2
 
 
 # -- poly_dual_bitmap -------------------------------------------------------------

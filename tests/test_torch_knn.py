@@ -272,10 +272,8 @@ def test_knn_search_paths(stores, data, monkeypatch):
     assert port_knn.last_knn_path() == "device-topk"
 
 
-def test_link_latency_on_the_cpu(monkeypatch):
+def test_link_latency_on_the_cpu():
     assert link_latency_ms("cpu") == 0.0
-    monkeypatch.setenv("GEOMESA_LINK_LATENCY_MS", "25")
-    assert link_latency_ms("cpu") == 25.0
 
 
 def test_knn_candidates_certify_and_escalate(stores, data, monkeypatch):
