@@ -141,9 +141,10 @@ Phases (any failure raises and the script exits non-zero):
      stream the same split (``geomesa.density``: launches + the grid's D2H
      copy; ``geomesa.band``: the host certification) and the band rows
      per query; the same trace of config #4's streams (j) and (k), of
-     config #5's (n) (``geomesa.dispatch``, ``fetch``, ``certify``,
-     ``block_rows``, ``rerank``) and of the polygon stream (l), with the
-     ring rows per query of (l) and (m).
+     config #5's (n) and of its 16 points of (o) at k = 1000
+     (``geomesa.dispatch``, ``fetch``, ``certify``, ``block_rows``,
+     ``rerank``) and of the polygon stream (l), with the ring rows per
+     query of (l) and (m).
 
 Prints a ``{"native": {...}}`` line (each host library's load status and
 its host ms per call beside its plain edition's), a metrics line, a
@@ -158,6 +159,7 @@ import argparse
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -967,14 +969,17 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_ms(fn, symbol: str, reps: int = 50, per_call: int = 1):
-    """(ms, call_ms, launches seen, source) of a hand kernel: ``call_ms``
+def kernel_ms(fn, symbol: str, reps: int = 50, per_call=None):
+    """(ms, call_ms, launches seen, source, pass_ms) of a hand kernel: ``call_ms``
     from ``event_ms``; ``ms`` is the kernel's own device time per call of
     ``fn``, the CUDA time of the kernels whose name holds ``symbol`` in a
     torch.profiler window over another ``reps`` calls, over the calls
-    their events cover (``per_call`` kernels a call: a launcher that runs
-    several passes). Where the profiler shows no device time for it, ``ms``
-    is ``call_ms`` and the source says "events"."""
+    their events cover: ``per_call`` kernels a call (a launcher that runs
+    a data-dependent number of passes), or else the events of the kernel
+    seen most often (each of the launcher's kernels runs once a call).
+    Where the profiler shows no device time for it, ``ms`` is ``call_ms``
+    and the source says "events". ``pass_ms`` splits ``ms`` by kernel (its
+    name and template arguments)."""
     from torch.profiler import ProfilerActivity, profile
 
     call_ms = event_ms(fn, reps)
@@ -987,9 +992,14 @@ def kernel_ms(fn, symbol: str, reps: int = 50, per_call: int = 1):
             and e.self_device_time_total]
     seen = sum(e.count for e in hits)
     if not seen:
-        return call_ms, call_ms, 0, "events"
-    calls = seen / per_call
-    return sum(e.self_device_time_total for e in hits) / 1e3 / calls, call_ms, seen, "profiler"
+        return call_ms, call_ms, 0, "events", {}
+    calls = seen / per_call if per_call else max(e.count for e in hits)
+    pass_ms = {}
+    for e in hits:
+        m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
+        name = m.group(0) if m else e.key[:80]
+        pass_ms[name] = pass_ms.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
+    return sum(pass_ms.values()), call_ms, seen, "profiler", pass_ms
 
 
 def max_abs_err(got, want) -> int:
@@ -1447,8 +1457,9 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
                 f"{c['name']} {c['tag']}: kernel differs from its plain edition "
                 f"(max abs err {err})"
             )
-        per_call = c.get("launches", lambda: 1)()
-        ms, call_ms, seen, ms_source = kernel_ms(c["kernel"], c["symbol"], per_call=per_call)
+        per_call = c.get("launches", lambda: None)()
+        ms, call_ms, seen, ms_source, pass_ms = kernel_ms(c["kernel"], c["symbol"],
+                                                          per_call=per_call)
         plain_ms = event_ms(c["plain"], reps=10, warmup=1)
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
@@ -1474,6 +1485,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             "call_ms": call_ms,
             "ms_source": ms_source,
             "profiled_launches": seen,
+            "pass_ms": pass_ms,
             **({"launches_per_call": per_call} if "launches" in c else {}),
             "bitwise_equal": equal,
             "shape_tag": c["tag"],
@@ -1487,7 +1499,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             out[-1]["ab_ms"] = {src: ab_times(c, src) for src in srcs}
         log(f"{c['name']} {c['tag']}: {ms:.4f} ms device ({ms_source}), {call_ms:.4f} ms "
             f"per call (plain {plain_ms:.4f} ms, bound {out[-1]['bound_ms']:.4f} ms) "
-            f"{c['shape']}")
+            f"{c['shape']}; by kernel {json.dumps(pass_ms)}")
     return out
 
 
@@ -1502,7 +1514,7 @@ def ab_times(case, src):
     want = case["plain"]()
     times = {"own": [], "other": []}
     for which in ("own", "other", "other", "own"):
-        per_call = case.get("launches", lambda: 1)
+        per_call = case.get("launches", lambda: None)
         if which == "own":
             times[which].append(kernel_ms(case["kernel"], case["symbol"], per_call=per_call())[0])
             continue
@@ -1753,6 +1765,10 @@ def main() -> int:
     metrics5["breakdown_n"] = breakdown(store, KNN_TABLE, [None] * KNN_REPS,
                                       run=lambda: knn_stream(store))
     log(f"config #5 (n) breakdown: {json.dumps(metrics5['breakdown_n'])}")
+    o_points = knn_points()
+    metrics5["breakdown_o_k1000"] = breakdown(
+        store, KNN_TABLE, [None] * len(o_points), run=lambda: knn_stream(store, o_points, 1000))
+    log(f"config #5 (o) k = 1000 breakdown: {json.dumps(metrics5['breakdown_o_k1000'])}")
     metrics_p["stream_l"]["breakdown"] = breakdown(
         store, POLY_TABLE, [Query.cql(c, properties=[]) for c, _ in streams_p["l"]])
     log(f"polygon (l) breakdown: {json.dumps(metrics_p['stream_l']['breakdown'])}")
@@ -2439,20 +2455,26 @@ def attr_nulls_check(store) -> dict:
 
 # -- config #5: kNN and TubeSelect; the polygon plane ------------------------
 
-# lane operations of the kNN distance a row (knn_topk.cu row_key), counted
-# from ``cuobjdump -sass`` of its first pass built for sm_90a: the fast path
-# of a row is 176 instructions, 92 of them on the FP32 pipe (the two sinf,
-# the cosf, the sqrtf and the asinf, the multiplies, adds and the clamp);
-# the bound counts those 92 at the FP32 rate and the key's packing (6) at
-# the INT32 rate, and leaves out addressing and the loop
+# lane operations of the kNN distance a row (knn_topk.cu dist_bits), counted
+# from ``cuobjdump -sass`` of the pass that evaluates it, built for sm_90a:
+# the distance's fast path is 153 instructions (176 with the earlier tile
+# design's key and loop), 92 of them on the FP32 pipe (the two sinf, the cosf, the sqrtf and
+# the asinf, the multiplies, adds and the clamp: 38 FFMA, 21 FMUL, 12 FSEL,
+# 9 FSETP, 3 FADD, 1 FMNMX, 3 F2I, 3 I2FP, 2 MUFU); the bound counts those
+# 92 at the FP32 rate and a key's packing (6) at the INT32 rate, and leaves
+# out addressing and the loop
 KNN_ROW_FOPS = 92
 KNN_ROW_IOPS = 6
-# per row and non-degenerate edge of an enveloped row (poly_dual_bitmap.cu
-# ray_cast), counted the same way: 35 instructions, 18 on the FP32 pipe (the
-# subtractions, the IEEE division's reciprocal, Newton steps and check, the
-# multiply and add of xint, the compares); the bound counts those 18 at the
-# FP32 rate and the crossing count and band updates (4) at the INT32 rate
-POLY_EDGE_FOPS = 18
+# per enveloped row and non-degenerate edge (poly_dual_bitmap.cu ray_cast),
+# counted the same way from its cast kernel: the straddle and vertex-band
+# tests, 6 on the FP32 pipe (two subtractions, four compares); and per
+# enveloped row and edge it straddles, the crossing: 12 more (the IEEE
+# division's reciprocal, check and five Newton FFMAs, xint's multiply and
+# add, the subtraction and two compares of the crossing and the x band).
+# The bound counts those at the FP32 rate and the crossing count and band
+# updates (4 a row and edge) at the INT32 rate
+POLY_EDGE_FOPS = 6
+POLY_STRADDLE_FOPS = 12
 POLY_EDGE_IOPS = 4
 
 
@@ -2556,13 +2578,14 @@ def config5_path(store, track, oracle):
     return out
 
 
-def knn_stream(store):
-    """bench_knn's query KNN_REPS times: (answers, the paths that took them)."""
+def knn_stream(store, points=(KNN_QUERY,) * KNN_REPS, k: int = KNN_K):
+    """A kNN search at each of ``points`` (by default bench_knn's query
+    KNN_REPS times, stream (n)): (answers, the paths that took them)."""
     from geomesa_tpu_torch.process import knn_search, last_knn_path
 
     out, paths = [], set()
-    for _ in range(KNN_REPS):
-        out.append(knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K))
+    for pt in points:
+        out.append(knn_search(store, KNN_TABLE, *pt, k=k))
         paths.add(last_knn_path())
     return out, sorted(paths)
 
@@ -2706,9 +2729,10 @@ def poly_case(store, table, descs, has_time, path):
     read once, the f32 coordinates of every row that some query's envelope
     holds, both planes written; operations (``point_cases``'s rule), per
     row and query the two planes' stores, per 32-row word holding an
-    envelope row of a query that query's envelope chain and ballots, and
-    per enveloped row and non-degenerate edge of its query POLY_EDGE_FOPS
-    (FP32) and POLY_EDGE_IOPS (INT32)."""
+    envelope row of a query that query's envelope chain and ballots, per
+    enveloped row and non-degenerate edge of its query POLY_EDGE_FOPS
+    (FP32) and POLY_EDGE_IOPS (INT32), and per enveloped row and edge it
+    straddles POLY_STRADDLE_FOPS (FP32)."""
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.filters import exact_st_mask
     from geomesa_tpu_torch.parallel.executor import _pow2_at_least
@@ -2726,20 +2750,24 @@ def poly_case(store, table, descs, has_time, path):
     xk, yk, valid, xf, yf, tk = seg._poly_cols(has_time)
     n = seg.n_padded
     env_any = torch.zeros(n, dtype=torch.bool, device=dev)
-    env_words = env_rows = edge_rows = 0
+    env_words = env_rows = edge_rows = straddle_rows = live_pairs = 0
     for i, d in enumerate(descs):
         env = exact_st_mask(xk, yk, valid, boxes[i], tk, None if wins is None else wins[i])
         env_any |= env
         rows = int(env.sum())
         env_rows += rows
         env_words += int(env.view(-1, 32).any(1).sum())
+        live_pairs += int(torch.nn.functional.pad(env, (0, -n % 128)).view(-1, 128).any(1).sum())
         e = d[0]
-        edge_rows += rows * int((~((e[:, 0] == e[:, 2]) & (e[:, 1] == e[:, 3]))).sum())
+        e = torch.as_tensor(e[~((e[:, 0] == e[:, 2]) & (e[:, 1] == e[:, 3]))], device=dev)
+        edge_rows += rows * e.shape[0]
+        fy = yf[env][:, None]
+        straddle_rows += int(((e[:, 1] > fy) != (e[:, 3] > fy)).sum())
     key = 8 * (3 if has_time else 2)
     chain = 2 * (6 if has_time else 4)
     return dict(
         name="poly_dual_bitmap_" + ("z3" if has_time else "z2"), path=path,
-        tag=f"q={q} E={ecap}", symbol="poly_dual_bitmap_kernel",
+        tag=f"q={q} E={ecap}", symbol="poly_dual_bitmap_",
         replaces="geomesa_tpu/parallel/executor.py:2110",
         source="geomesa_tpu_torch/csrc/poly_dual_bitmap.cu",
         kernel=lambda: kernels.poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins, tk),
@@ -2747,8 +2775,10 @@ def poly_case(store, table, descs, has_time, path):
                                                      tk),
         bytes=n * (key + 1) + 8 * int(env_any.sum()) + 2 * q * n // 8 + edges.numel() * 4,
         ops=2 * q * n + 32 * env_words * (chain + 2) + POLY_EDGE_IOPS * edge_rows,
-        fops=POLY_EDGE_FOPS * edge_rows,
-        extra={"env_rows": env_rows, "edge_rows": edge_rows},
+        fops=POLY_EDGE_FOPS * edge_rows + POLY_STRADDLE_FOPS * straddle_rows,
+        # the (chunk, query) pairs whose envelope holds a row: the cast's work items
+        extra={"env_rows": env_rows, "edge_rows": edge_rows, "straddle_rows": straddle_rows,
+               "live_pairs": live_pairs},
         shape=f"rows={n} q={q} E={ecap} env_rows={env_rows} edge_rows={edge_rows}"
               + (" time" if has_time else ""),
     )

@@ -1,0 +1,116 @@
+"""Times the kNN and polygon kernels at the shapes their paths launch, on one GPU.
+
+A kernel round's quick loop: builds config #5's table and the polygon
+table at full size (``chip_smoke.config5`` / ``config_poly``), then runs
+``chip_smoke.kernel_checks`` on ``knn_topk`` at k = 17, 26 and 1125 and on
+``poly_dual_bitmap`` at z2 q=24 E=16 and z3 q=8 E=32: each launch held
+bitwise against its plain edition, its device time split by kernel
+(``pass_ms``) beside its bound, and, for each DIR holding another design
+of a kernel's source (``DIR/knn_topk.cu``, ``DIR/poly_dual_bitmap.cu``,
+same C interface), timed in turns with the committed design. With a DIR
+holding another ``knn_topk.cu`` it also times config #5's searches end to
+end in turns under each design (``knn_search``: (n), bench_knn's query at
+k = 10, and (o)'s 16 points at k = 1000; ms a search on the host's clock,
+SEARCH_ROUNDS rounds). It checks no launch count: ``chip_smoke.py`` does.
+
+    python3 kernel_ab.py [--ab DIR [DIR ...]] [--rows N] [--out DIR]
+
+Prints one line per (kernel, shape); with ``--out DIR`` it also writes
+the entries to ``DIR/kernel_ab.json``.
+"""
+
+import argparse
+import json
+import os
+import sys
+import time
+from contextlib import nullcontext
+
+import torch
+
+import chip_smoke as cs
+
+SHAPES = {("knn_topk", "k=17"), ("knn_topk", "k=26"), ("knn_topk", "k=1125"),
+          ("poly_dual_bitmap_z2", "q=24 E=16"), ("poly_dual_bitmap_z3", "q=8 E=32")}
+
+
+def search_ms(store, points, k: int) -> float:
+    """ms a kNN search over ``points`` at ``k``, on the host's clock."""
+    from geomesa_tpu_torch.process import knn_search
+
+    t0 = time.perf_counter()
+    for pt in points:
+        knn_search(store, cs.KNN_TABLE, *pt, k=k)
+    return (time.perf_counter() - t0) / len(points) * 1e3
+
+
+SEARCH_ROUNDS = 5
+
+
+def search_ab(store, src: str) -> dict:
+    """(n) and (o) at k = 1000 under the committed ``knn_topk`` and the one
+    built from ``src``, in turns (own, other, other, own; SEARCH_ROUNDS
+    times), each reading warmed by two searches."""
+    from geomesa_tpu_torch.ops import kernels
+
+    streams = {"n_k10": ([cs.KNN_QUERY] * cs.KNN_REPS, cs.KNN_K),
+               "o_k1000": (cs.knn_points(), 1000)}
+    out = {name: {"own": [], "other": []} for name in streams}
+    for which in ("own", "other", "other", "own") * SEARCH_ROUNDS:
+        with kernels.using_source("knn_topk", src) if which == "other" else nullcontext():
+            for name, (points, k) in streams.items():
+                search_ms(store, points[:2], k)
+                out[name][which].append(search_ms(store, points, k))
+    cs.log(f"searches A/B vs {src}: {json.dumps(out)}")
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--ab", nargs="+", default=[], metavar="DIR")
+    ap.add_argument("--rows", type=int, default=cs.KNN_ROWS, help="points of each table")
+    ap.add_argument("--out", help="directory for kernel_ab.json (none written without it)")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        cs.log("torch.cuda.is_available() is false: this script needs a CUDA device")
+        return 2
+    os.environ["GEOMESA_SEEK"] = "0"
+
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.store.datastore import TorchDataStore
+
+    cs.log(f"card: {cs.card_line()}")
+    kernels.build_all()
+    for name in ("knn_topk", "poly_dual_bitmap"):
+        for line in kernels.ptxas_report()[name].splitlines():
+            if "registers" in line or "spill" in line:
+                cs.log(f"ptxas {name}: {line.strip()}")
+    ab = {}
+    for d in args.ab:
+        for name in ("knn_topk", "poly_dual_bitmap"):
+            if os.path.exists(os.path.join(d, name + ".cu")):
+                ab.setdefault(name, []).append(os.path.join(d, name + ".cu"))
+    store = TorchDataStore()
+    _data, _track, _oracle, plans_m, _setup = cs.config5(store, args.rows)
+    _streams, plans_p, _oracle_p, _setup_p = cs.config_poly(store, args.rows, plans_m)
+    entries = cs.kernel_checks(
+        cs.knn_cases(store, SHAPES) + cs.poly_cases(store, plans_p, SHAPES),
+        cs.lane_ops_per_s(cs.INT32_LANES_PER_SM), cs.lane_ops_per_s(cs.FP32_LANES_PER_SM), ab)
+    searches = {src: search_ab(store, src) for src in ab.get("knn_topk", [])}
+    if args.out:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:
+            json.dump({"kernels": entries, "searches": searches}, f, indent=1)
+    for e in entries:
+        print(e["name"], e["shape_tag"], f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f}",
+              json.dumps({k: round(v, 4) for k, v in e["pass_ms"].items()}),
+              json.dumps(e.get("ab_ms", {})),
+              {k: e[k] for k in ("live_pairs", "straddle_rows", "edge_rows") if k in e})
+    for src, times in searches.items():
+        print("searches", src, json.dumps(times))
+    print(cs.card_line())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -634,14 +634,69 @@ def test_knn_topk_past_the_valid_rows_on_the_card(cuda, k):
 @pytest.mark.parametrize("n", [1, 31, 1000, 4097, 300_000])
 @pytest.mark.parametrize("k", [1, 26, 32, 33, 100])
 def test_knn_topk_small_tables_on_the_card(cuda, n, k):
-    """The warp path (k <= 32) and the tile path over tables smaller than a
-    warp's step, a block's tile and the grid, with 20 valid rows among the
-    first 300k."""
+    """k around 32 over tables smaller than a warp's step, a block's tile
+    and the grid, with 20 valid rows among the first 300k."""
     x, y, valid = _knn_rows(n, n + k, n_valid=min(n, 20) if n == 300_000 else None)
     x, y, valid = (torch.from_numpy(a).to(cuda) for a in (x, y, valid))
     got = kernels.knn_topk(x, y, valid, 2.35, 48.85, k)
     want = kernels.knn_topk_plain(x, y, valid, 2.35, 48.85, k)
     assert torch.equal(got, want) and len(got) == min(n, k)
+
+
+def _adversarial_knn_rows(table: str, n: int, seed: int):
+    """Tables that put many keys in one histogram bucket: every point at
+    one place (the query's and another), two tight clusters, NaN
+    coordinates among spread points (their NaN distances sort after
+    +inf, by row), and no valid row at all."""
+    rng = np.random.default_rng(seed)
+    x, y, valid = _knn_rows(n, seed)
+    if table == "identical":
+        x[:], y[:] = np.float32(12.5), np.float32(-33.25)
+        valid[:] = True
+    elif table == "at_the_query":
+        x[:], y[:] = np.float32(2.35), np.float32(48.85)
+    elif table == "two_clusters":
+        half = rng.random(n) < 0.5
+        x = np.where(half, 2.35, -70.0).astype(np.float32) + \
+            rng.normal(0, 1e-3, n).astype(np.float32)
+        y = np.where(half, 48.85, 41.0).astype(np.float32) + \
+            rng.normal(0, 1e-3, n).astype(np.float32)
+    elif table == "nan":
+        nan = rng.choice(n, n // 10, replace=False)
+        x[nan[: n // 20]] = np.float32(np.nan)
+        y[nan[n // 20:]] = np.float32(np.nan)
+    elif table == "invalid":
+        valid[:] = False
+    return x, y, valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["identical", "at_the_query", "two_clusters", "nan",
+                                   "invalid"])
+@pytest.mark.parametrize("k", [1, 32, 33, 1125, 8193, 20000, 1 << 16])
+def test_knn_topk_one_bucket_tables_on_the_card(cuda, table, k):
+    """The threshold selection where one bucket holds many or all keys
+    (candidates up to every row, through the tail's levels), at k = n
+    included, bit for bit against the plain edition."""
+    n = 1 << 16
+    x, y, valid = (torch.from_numpy(a).to(cuda)
+                   for a in _adversarial_knn_rows(table, n, k % 1000 + 5))
+    got = kernels.knn_topk(x, y, valid, 2.35, 48.85, k)
+    want = kernels.knn_topk_plain(x, y, valid, 2.35, 48.85, k)
+    assert torch.equal(got, want) and len(got) == min(k, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["identical", "two_clusters"])
+@pytest.mark.parametrize("k", [26, 1125, 8193])
+def test_knn_topk_every_row_a_candidate_on_the_card(cuda, table, k):
+    """Over 2^20 + 3 rows whose boundary bucket holds half the table or all
+    of it: the candidates take several tail levels, whose counts the
+    levels read on the device."""
+    n = (1 << 20) + 3
+    x, y, valid = (torch.from_numpy(a).to(cuda) for a in _adversarial_knn_rows(table, n, 9))
+    got = kernels.knn_topk(x, y, valid, 2.35, 48.85, k)
+    assert torch.equal(got, kernels.knn_topk_plain(x, y, valid, 2.35, 48.85, k))
 
 
 @pytest.mark.cuda
@@ -652,12 +707,22 @@ def test_knn_topk_counts_its_launches(cuda):
     kernels.knn_topk(x, y, valid, 0.0, 0.0, 26)
     assert kernels.LAUNCHES["knn_topk"] == 2
     assert kernels.LAUNCH_SHAPES[("knn_topk", "k=26")] == 2
-    # the launcher's own pass count: the warp pass (4 blocks of 1,024 rows,
-    # 26 keys each) and one tile of 1,024 over their 104 keys
-    assert kernels.LAST_PASSES["knn_topk"] == 2
-    # the tile tree: 4 tiles of 1,024 rows, then one over their 400 keys
+    # the launcher's own pass count: pass A (distances and histogram),
+    # pass B (the candidates) and one tail level, since n = 4,096 keys fit
+    # one 16,384-key tile
+    assert kernels.LAST_PASSES["knn_topk"] == 3
     kernels.knn_topk(x, y, valid, 0.0, 0.0, 100)
-    assert kernels.LAST_PASSES["knn_topk"] == 2
+    assert kernels.LAST_PASSES["knn_topk"] == 3
+    # 2^20 rows: 64 tiles at the first level, 64 x 1,125 = 72,000 keys (5
+    # tiles) at the second, 5 x 1,125 at the third (one tile): 2 + 3
+    x, y, valid = (torch.from_numpy(a).to(cuda) for a in _knn_rows(1 << 20, 3))
+    kernels.knn_topk(x, y, valid, 0.0, 0.0, 1125)
+    assert kernels.LAST_PASSES["knn_topk"] == 5
+    # k = 8,193: two rounds (8,192 keys, then 1), each of 64 tiles, then
+    # 32 (64 x 8,192 keys), 16, 8, 4, 2, 1 at the first round and 64, 1
+    # at the second: 2 + 7 + 2
+    kernels.knn_topk(x, y, valid, 0.0, 0.0, 8193)
+    assert kernels.LAST_PASSES["knn_topk"] == 11
 
 
 # -- poly_dual_bitmap -------------------------------------------------------------
@@ -701,7 +766,7 @@ def test_poly_dual_bitmap_matches_plain_on_the_card(cuda, q, e, has_time):
     """Hit and decided planes and headers bit for bit against the plain
     edition: rows in key order (the chunk reject), vertices among the rows
     (the band), a word count that is not a multiple of the warp's chunk,
-    edges resident in shared memory and streamed through it."""
+    edges resident in shared memory and read from L2."""
     n = 32 * (4 * 1000 + 3) if e < 1000 else 32 * (4 * 300 + 1)
     rng = np.random.default_rng(q * 7 + e)
     edges, boxes, verts = _poly_queries(q, e, q + e)
@@ -733,3 +798,86 @@ def test_poly_dual_bitmap_matches_plain_on_the_card(cuda, q, e, has_time):
     kernels.poly_dual_bitmap(xk, yk, v, xf, yf, ed, box, win, tk)
     assert kernels.LAUNCH_SHAPES[("poly_dual_bitmap_" + ("z3" if has_time else "z2"),
                                   f"q={q} E={edges.shape[1]}")] == 1
+
+
+def _poly_rows(n: int, seed: int, verts=None):
+    """n rows over [-20, 20]^2 in strips (chunks cover small areas), the
+    first of them on ``verts`` (the band)."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-20, 20, n)
+    y = rng.uniform(-20, 20, n)
+    if verts is not None:
+        k = min(len(verts), n // 8)
+        x[:k], y[:k] = verts[:k, 0].astype(np.float32), verts[:k, 1].astype(np.float32)
+    t = 1_767_225_600_000 + rng.integers(0, 10 * 86_400_000, n)
+    order = np.lexsort((x, np.floor(y)))
+    return x[order], y[order], t[order], rng.random(n) > 0.05
+
+
+def _poly_check(cuda, x, y, t, valid, edges, boxes, has_time):
+    t0 = 1_767_225_600_000
+    descs = [TorchScanExecutor._shape_keys(tuple(b) + (t0 + i * 3_600_000, t0 + 6 * 86_400_000))
+             for i, b in enumerate(boxes)]
+    xk, yk = (torch.from_numpy(f64_keys(a)).to(cuda) for a in (x, y))
+    xf, yf = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    v = torch.from_numpy(valid).to(cuda)
+    box = torch.from_numpy(np.stack([d[0] for d in descs])).to(cuda)
+    win = torch.from_numpy(np.stack([d[1] for d in descs])).to(cuda) if has_time else None
+    ed = torch.from_numpy(np.ascontiguousarray(edges)).to(cuda)
+    got = kernels.poly_dual_bitmap(xk, yk, v, xf, yf, ed, box, win, tk)
+    want = kernels.poly_dual_bitmap_plain(xk, yk, v, xf, yf, ed, box, win, tk)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    return want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("layout", ["same_chunks_q64", "whole_table_q64", "whole_table_e4096",
+                                    "q1", "q1_e4096"])
+def test_poly_dual_bitmap_worst_layouts_on_the_card(cuda, layout, has_time):
+    """The layouts that load the cast most: 64 queries on the same chunks,
+    envelopes covering the whole table (every (chunk, query) pair live: the
+    most pairs a launch can hold), E = 4,096 (edges read from L2), q = 1;
+    both planes and the header bit for bit against the plain edition."""
+    n = 32 * (4 * 1000 + 3)
+    q, e = {"same_chunks_q64": (64, 16), "whole_table_q64": (64, 16),
+            "whole_table_e4096": (2, 4096), "q1": (1, 16), "q1_e4096": (1, 4096)}[layout]
+    edges, boxes, verts = _poly_queries(q, e, q + e)
+    if layout == "same_chunks_q64":
+        # one star's jittered copies: every query on the same few chunks
+        rng = np.random.default_rng(3)
+        base = edges[0].copy()
+        for i in range(q):
+            shift = rng.uniform(-0.05, 0.05, 2).astype(np.float32)
+            edges[i] = base + np.tile(shift, 2) * (base != 0).any(1, keepdims=True)
+        real = [edges[i][(edges[i] != 0).any(1)] for i in range(q)]
+        boxes = [(r[:, [0, 2]].min(), r[:, [1, 3]].min(), r[:, [0, 2]].max(),
+                  r[:, [1, 3]].max()) for r in real]
+    elif layout.startswith("whole_table"):
+        # concave rings around the origin reaching past the rows' square
+        rng = np.random.default_rng(4)
+        m = e // 2 if e > 16 else e
+        for i in range(q):
+            ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+            rad = np.where(np.arange(m) % 2 == 0, 40.0, rng.uniform(5, 25, m))
+            ring = np.stack([rad * np.cos(ang), rad * np.sin(ang)], 1)
+            ring = np.vstack([ring, ring[:1]])
+            segs = np.stack([ring[:-1, 0], ring[:-1, 1], ring[1:, 0], ring[1:, 1]], 1)
+            edges[i] = 0.0
+            edges[i, :len(segs)] = segs
+            boxes[i] = (-40.0, -40.0, 40.0, 40.0)
+    x, y, t, valid = _poly_rows(n, q * 7 + e, verts)
+    want = _poly_check(cuda, x, y, t, valid, edges, boxes, has_time)
+    assert int(want[2][:, 0].sum()) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [32, 96, 32 * 4 * 3 + 32, 32 * (4 * 5000 + 1)])
+def test_poly_dual_bitmap_ragged_tables_on_the_card(cuda, n):
+    """Tables of one word, of fewer words than a chunk, and of a last chunk
+    with one word: the sweep's and the cast's partial chunks."""
+    edges, boxes, verts = _poly_queries(24, 16, n)
+    x, y, t, valid = _poly_rows(n, n, verts)
+    _poly_check(cuda, x, y, t, valid, edges, boxes, True)

@@ -205,6 +205,45 @@ def test_knn_topk_ties_take_the_lower_row_first():
     assert pos[20] < pos[900]
 
 
+def _one_bucket_table(table: str, n: int):
+    """Tables whose keys crowd one bucket of the card's distance histogram:
+    every point at one place (away from the query, or at it: distance 0),
+    two exact clusters, NaN coordinates among spread points (NaN distances
+    rank after +inf, by row), no valid row."""
+    rng = np.random.default_rng(5)
+    x = rng.uniform(-180, 180, n).astype(np.float32)
+    y = rng.uniform(-85, 85, n).astype(np.float32)
+    valid = rng.random(n) > 0.05
+    if table == "identical":
+        x[:], y[:], valid[:] = np.float32(12.5), np.float32(-33.25), True
+    elif table == "at_the_query":
+        x[:], y[:] = np.float32(2.35), np.float32(48.85)
+    elif table == "two_clusters":
+        half = rng.random(n) < 0.5
+        x = np.where(half, 2.35, -70.0).astype(np.float32)
+        y = np.where(half, 48.85, 41.0).astype(np.float32)
+    elif table == "nan":
+        nan = rng.choice(n, n // 10, replace=False)
+        x[nan[: n // 20]] = np.float32(np.nan)
+        y[nan[n // 20:]] = np.float32(np.nan)
+    elif table == "invalid":
+        valid[:] = False
+    return x, y, valid
+
+
+@pytest.mark.parametrize("table", ["identical", "at_the_query", "two_clusters", "nan", "invalid"])
+@pytest.mark.parametrize("k", [1, 33, 1125, 4096])
+def test_knn_topk_plain_one_bucket_tables_match_reference(table, k):
+    """The card tests' one-bucket tables, k up to every row: the plain
+    edition's index lists equal ``_knn_fn``'s (ties and +inf by row)."""
+    x, y, valid = _one_bucket_table(table, 4096)
+    want = np.asarray(ref_ex._knn_fn(k, "local", _mesh())(
+        x, y, valid, jnp.float32(2.35), jnp.float32(48.85)))
+    got = kernels.knn_topk(torch.from_numpy(x), torch.from_numpy(y), torch.from_numpy(valid),
+                           2.35, 48.85, k).numpy()
+    assert np.array_equal(got, want)
+
+
 @pytest.mark.parametrize("point", POINTS)
 def test_knn_distances_match_reference(carried, point):
     """The f32 distances against the reference's ``dists``: +inf exactly

@@ -9,7 +9,9 @@ too small raises) and both seek scans. The loader's status says why a
 library did not load, and concurrent builds of one source do not collide.
 """
 
+import os
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -22,10 +24,42 @@ from geomesa_tpu_torch.curve.xz import XZ2SFC, XZ3SFC
 from geomesa_tpu_torch.parallel.executor import _decode_bitmap_rows
 
 
+# the reference's loaders: a library each, the two seek scans sharing one
+_REF_LIBS = ("_BITDECODE", "_ZRANGES", "_XZRANGES", "_SEEKSCAN", "_ENVSCAN")
+# how long a reference library may take to land (each retry may build it)
+_REF_LOAD_S = 180.0
+
+
 @pytest.fixture(autouse=True)
 def _loaded():
     st = native.build_all()
     assert all(v["loaded"] for v in st.values()), st
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _reference_loaded():
+    """Every reference library loaded before a test compares with it.
+
+    ``geomesa_tpu.native`` builds a library at first use into one file
+    shared by every process (``<so>.tmp``, then a rename) and keeps a
+    failed load as None for the life of the process. Under parallel test
+    workers another worker's build of the same file can fail this
+    worker's first load (``tests/test_native.py`` loads at import, in
+    every worker at once), and a comparison would then be against None.
+    So each loader is asked again, once a second, until the build that
+    landed loads; its own retry flag is all that is reset."""
+    if os.environ.get("GEOMESA_TPU_NO_NATIVE"):
+        pytest.fail("GEOMESA_TPU_NO_NATIVE is set: the reference's libraries are disabled")
+    for name in _REF_LIBS:
+        lib = getattr(ref_native, name)
+        deadline = time.monotonic() + _REF_LOAD_S
+        while lib.load() is None:
+            if time.monotonic() > deadline:
+                state = "present" if os.path.exists(lib.so) else "missing"
+                pytest.fail(f"the reference's {os.path.basename(lib.src)} did not load in "
+                            f"{_REF_LOAD_S:.0f} s ({lib.so} {state}; g++ on PATH?)")
+            time.sleep(1.0)
+            lib._tried = False
 
 
 def _plain(monkeypatch, fn, *args, **kw):

@@ -307,6 +307,68 @@ def test_poly_bitmap_batch_matches_reference(stores, carried, index, span):
     assert want_hdr[3, 0] == 0 and (want_hdr[:3, 0] > 0).all()
 
 
+def _ring(m: int, r_out: float, r_in: tuple, seed: int) -> np.ndarray:
+    """A concave ring of m vertices around the origin: every other vertex at
+    r_out, the rest at a seeded radius in r_in."""
+    rng = np.random.default_rng(seed)
+    ang = np.sort(rng.uniform(0, 2 * np.pi, m))
+    rad = np.where(np.arange(m) % 2 == 0, r_out, rng.uniform(*r_in, m))
+    pts = np.stack([rad * np.cos(ang), rad * np.sin(ang)], axis=1)
+    return np.round(np.vstack([pts, pts[:1]]), 6)
+
+
+def _worst_layout(layout: str):
+    """The kernel's heaviest layouts: 64 queries on the same chunks (one
+    star's copies, jittered by 0.05 deg), envelopes over the whole table
+    (every chunk enveloped by every query), ~1,000 edges a query (edges
+    past the shared-memory tile on the card) and a single query."""
+    if layout == "same_chunks_q64":
+        rng = np.random.default_rng(64)
+        return [wkt(star(2.0 + dx, 10.0 + dy, 14.0)) for dx, dy in rng.uniform(-0.05, 0.05, (64, 2))]
+    if layout == "whole_table_q8":
+        rings = [_ring(16, 110.0, (30.0, 90.0), seed) for seed in range(8)]
+        # each envelope holds every row (_points: within [-70, 70] a side)
+        assert all((r.min(0) < -70).all() and (r.max(0) > 70).all() for r in rings)
+        return [wkt(r) for r in rings]
+    if layout == "edges_1000_q3":
+        return [wkt(_ring(1000, 110.0, (60.0, 100.0), seed)) for seed in range(3)]
+    return [STAR]
+
+
+@pytest.mark.parametrize("layout", ["same_chunks_q64", "whole_table_q8", "edges_1000_q3", "q1"])
+@pytest.mark.parametrize("index", ["z2", "z3"])
+def test_poly_bitmap_batch_worst_layouts_match_reference(stores, carried, index, layout):
+    """The layouts of the card's worst-case tests through the reference's
+    ``_poly_bitmap_batch_fn`` and the port's kernel (its plain edition
+    here) + ``frame_dual_bitmaps``: equal headers and windows."""
+    ref, _port, _cols = stores
+    seg, _arrays, pseg = carried[index]
+    during = index == "z3"
+    descs = _descs(ref, index, _worst_layout(layout), during)
+    ecap = 16
+    while ecap < max(len(d[0]) for d in descs):
+        ecap *= 2
+    assert ecap == (1024 if layout == "edges_1000_q3" else 16)
+    edges = _padded_edges(descs, ecap)
+    fn = ref_ex._poly_bitmap_batch_fn(during, seg.n_padded, len(descs), "local", _mesh())
+    wins = np.stack([d[2] if d[2] is not None else np.zeros(4, np.uint32) for d in descs])
+    if during:
+        cols = (seg.xk_hi, seg.xk_lo, seg.yk_hi, seg.yk_lo, seg.tk_hi, seg.tk_lo, seg.tvalid,
+                seg.xf, seg.yf)
+    else:
+        cols = (seg.xk_hi, seg.xk_lo, seg.yk_hi, seg.yk_lo, seg.valid, seg.xf, seg.yf)
+    want_hdr, want_bits = (np.asarray(a) for a in fn(
+        *cols, jnp.asarray(edges), jnp.asarray(np.stack([d[1] for d in descs])), jnp.asarray(wins)))
+    box, win = _port_args(descs, during)
+    hb, db, hdr = kernels.poly_dual_bitmap(
+        pseg.xk, pseg.yk, pseg.tvalid if during else pseg.valid, pseg.xf, pseg.yf,
+        torch.from_numpy(edges), box, win, pseg.tk if during else None)
+    header, window = kernels.frame_dual_bitmaps(hb, db, hdr, seg.n_padded)
+    assert np.array_equal(header.numpy(), want_hdr)
+    assert np.array_equal(window.numpy(), want_bits)
+    assert (want_hdr[:, 0] > 0).all()
+
+
 def _fma_f32(a, b, c):
     """round_f32(a * b + c) with one rounding (a * b of two f32 is exact in f64)."""
     return (a.astype(np.float64) * b.astype(np.float64) + c.astype(np.float64)).astype(np.float32)
