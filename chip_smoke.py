@@ -46,7 +46,21 @@ against its plain PyTorch edition:
     seek) and ``0`` (the candidate mask), (l) its 24 jittered stars through
     ``query_many``, (m) 8 jittered stars (one with a hole, one a disjoint
     MultiPolygon) AND a 7-day DURING on config #5's table (z3): the
-    ``poly_dual_bitmap`` kernel.
+    ``poly_dual_bitmap`` kernel;
+  * the count and stats push-downs and the attribute editions of the dual
+    planes: ``store.count`` under ``GEOMESA_COUNT_DEVICE=1`` of config #1's
+    20 queries (``exact_count`` z3), bench_xz2's count and the same box AND
+    ``kind >= 'polygon'`` on config #3's table (the q = 1 dual planes and
+    their range edition), bench_poly's star (the q = 1 ray cast), and on
+    config #4's table ``actor1 = 'USA' AND bbox``, a goldstein range AND
+    bbox (``exact_count`` z2 member, range) and the star AND the range
+    (the ray cast's range edition); bench_attr_bbox's stats query
+    ``Count();MinMax(goldstein);TopK(actor1)`` under
+    ``GEOMESA_STATS_DEVICE=1`` and ``auto`` (``exact_stat_hist``); stream
+    (a') 8 jittered boxes AND ``kind = X`` on config #3's table (whose
+    schema adds the way's kind to bench_xz2's) and (l') 8 jittered stars
+    AND ``actor1 = X`` on config #4's table, on the dual planes' member
+    editions.
 
 Every stream above runs under ``GEOMESA_SEEK=0`` (the device routes, as
 bench.py pins for the reference's device figures). Beside them, the host
@@ -83,10 +97,13 @@ Phases (any failure raises and the script exits non-zero):
   3. every kernel instantiation against its plain edition at each shape
      its paths launch it at (bitwise equality), timed beside its plain
      edition and its bound: ``ms`` is the kernel's own device time per
-     launch, read by name from a torch.profiler window over 50 calls,
-     ``call_ms`` the CUDA-event time of 50 back-to-back calls over 50 (the
-     wrapper's cost), which also stands in for ``ms`` where the profiler
-     shows no device time or a time below the bound (``ms_source``); with ``--ab DIR [DIR ...]``, each kernel whose
+     launch, read by name in two torch.profiler windows of 50 calls each
+     and the larger reading kept (``ms_windows``; an entry whose windows
+     differ by more than 5%, or one of which is below the bound, is
+     flagged, logged and counted), ``call_ms`` the CUDA-event time of 50
+     back-to-back calls over 50 (the wrapper's cost), which also stands in
+     for ``ms`` where the profiler shows no device time or a time below the
+     bound (``ms_source``); with ``--ab DIR [DIR ...]``, each kernel whose
      source has another design in a DIR (same C interface) is also timed
      from it, in turns with its own;
   4. each main path with the launch counts reset just before and read just
@@ -116,7 +133,14 @@ Phases (any failure raises and the script exits non-zero):
      kernel phase: ``knn_topk`` at each k the path launched (k plus the
      certificate's margin; beside it ``torch.topk`` of the same distances,
      the selection alone) and ``poly_dual_bitmap`` at each shape (a q = 1
-     refetch included where the data made one), as in phase 3;
+     refetch included where the data made one), as in phase 3; then the
+     count path (every count equal to its numpy oracle and answered by
+     ``count_scan``, timed sync), the stats path (bench_attr_bbox's
+     parity) and the dual-attribute path ((a') and (l') on
+     ``device-batch-dual/bitmap``, each query equal to its oracle), each a
+     path of its own, then their kernel phase at every shape they
+     launched that no earlier phase timed (``torch.bincount`` of the
+     histogram's pre-masked codes timed beside ``exact_stat_hist``);
   5. every kernel must have launched during its path's run, at every
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
@@ -147,7 +171,8 @@ Phases (any failure raises and the script exits non-zero):
      query of (l) and (m).
 
 Prints a ``{"native": {...}}`` line (each host library's load status and
-its host ms per call beside its plain edition's), a metrics line, a
+its host ms per call beside its plain edition's), a metrics line (with
+``script_s``, the phases' seconds, and the flagged kernel entries), a
 ``{"kernels": [...]}`` line (one entry per kernel and shape), the card's
 name and power limit, and last ``{"ok": true, "device": {...}}``. Pipelined
 times leave the fid gather out, as bench.py's do (it reads ``res.fids``
@@ -263,12 +288,16 @@ def brute_force(x, y, t, box=BOX):
 # its size, with lines, rotated polygons, rectangles and null geometries) --
 
 WAYS_ROWS = 8_000_000
-WAYS_SPEC = "*geom:Geometry:srid=4326,dtg:Date"
+# bench_xz2's schema and one more column, the way's kind (line, polygon or
+# rect), that the attribute edition of the dual plane reads (stream (a'))
+WAYS_SPEC = "*geom:Geometry:srid=4326,dtg:Date,kind:String"
 YEAR_LO = np.datetime64("2025-01-01T00:00:00", "ms").astype(np.int64)
 YEAR_HI = np.datetime64("2026-01-01T00:00:00", "ms").astype(np.int64)
 XZ2_BOX = (0.0, 0.0, 20.0, 15.0)  # bench_xz2's base box
 WORLD = (-180.0, -90.0, 180.0, 90.0)
 LINE, POLY, RECT, NULL = 0, 1, 2, -1
+# the ways' kind column by kind + 1 (a null geometry's kind is null)
+KIND_NAMES = np.array([None, "line", "polygon", "rect"], dtype=object)
 WAYS_STREAM = 24  # bench_xz2's jittered stream
 TRIANGLES = 4
 XZ_RESIDUAL = 8
@@ -348,8 +377,9 @@ def synthesize_ways(n: int, seed: int = 66, bounds=WORLD, clusters: int = 64):
 def ways_columns(ways, classes=None):
     """The store's ingest columns: one geometry OBJECT per row over views of
     the flat vertex array, with the envelope and isrect companions
-    precomputed columnar (what bench_xz2 ingests). ``classes`` =
-    (LineString, Polygon), the port's by default."""
+    precomputed columnar (what bench_xz2 ingests), and the way's kind as a
+    string (null for a null geometry). ``classes`` = (LineString, Polygon),
+    the port's by default."""
     if classes is None:
         from geomesa_tpu_torch.geom.base import LineString, Polygon
     else:
@@ -365,6 +395,7 @@ def ways_columns(ways, classes=None):
     fids = np.char.add("w", np.arange(n).astype(f"<U{len(str(n - 1))}"))
     return {
         "__fid__": fids, "geom": geoms, "dtg": ways["dtg"],
+        "kind": KIND_NAMES[kind.astype(np.int64) + 1],
         "geom__bxmin": env[:, 0], "geom__bymin": env[:, 1],
         "geom__bxmax": env[:, 2], "geom__bymax": env[:, 3],
         "geom__isrect": (kind == RECT).astype(np.uint8),
@@ -969,20 +1000,23 @@ def event_ms(fn, reps: int, warmup: int = 3) -> float:
     return a.elapsed_time(b) / reps
 
 
-def kernel_ms(fn, symbol: str, reps: int = 50, per_call=None):
-    """(ms, call_ms, launches seen, source, pass_ms) of a hand kernel: ``call_ms``
-    from ``event_ms``; ``ms`` is the kernel's own device time per call of
-    ``fn``, the CUDA time of the kernels whose name holds ``symbol`` in a
-    torch.profiler window over another ``reps`` calls, over the calls
-    their events cover: ``per_call`` kernels a call (a launcher that runs
-    a data-dependent number of passes), or else the events of the kernel
-    seen most often (each of the launcher's kernels runs once a call).
-    Where the profiler shows no device time for it, ``ms`` is ``call_ms``
-    and the source says "events". ``pass_ms`` splits ``ms`` by kernel (its
-    name and template arguments)."""
+# profiler windows a kernel is read in, and the spread between them past
+# which its entry is flagged
+PROFILE_WINDOWS = 2
+WINDOW_SPREAD = 0.05
+
+
+def profiled_ms(fn, symbol: str, reps: int, per_call=None):
+    """(ms, launches seen, pass_ms) of one torch.profiler window over
+    ``reps`` calls of ``fn``: the CUDA time of the kernels whose name holds
+    ``symbol``, over the calls their events cover: ``per_call`` kernels a
+    call (a launcher that runs a data-dependent number of passes), or else
+    the events of the kernel seen most often (each of the launcher's
+    kernels runs once a call); ``pass_ms`` splits it by kernel (its name
+    and template arguments). (None, 0, {}) when the window shows no device
+    time for it."""
     from torch.profiler import ProfilerActivity, profile
 
-    call_ms = event_ms(fn, reps)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
@@ -992,14 +1026,36 @@ def kernel_ms(fn, symbol: str, reps: int = 50, per_call=None):
             and e.self_device_time_total]
     seen = sum(e.count for e in hits)
     if not seen:
-        return call_ms, call_ms, 0, "events", {}
+        return None, 0, {}
     calls = seen / per_call if per_call else max(e.count for e in hits)
     pass_ms = {}
     for e in hits:
         m = re.search(r"(\w+_kernel)(<[^>(]*>)?", e.key)
         name = m.group(0) if m else e.key[:80]
         pass_ms[name] = pass_ms.get(name, 0.0) + e.self_device_time_total / 1e3 / calls
-    return sum(pass_ms.values()), call_ms, seen, "profiler", pass_ms
+    return sum(pass_ms.values()), seen, pass_ms
+
+
+def kernel_ms(fn, symbol: str, reps: int = 50, per_call=None):
+    """(ms, call_ms, launches seen, source, pass_ms, windows) of a hand
+    kernel: ``call_ms`` from ``event_ms``; ``ms`` is the kernel's own
+    device time per call of ``fn``, read in PROFILE_WINDOWS profiler
+    windows of ``reps`` calls each (``profiled_ms``) and the larger reading
+    kept, since the card's trace shortens and drops events but never
+    lengthens them; ``windows`` lists every reading. Where no window shows
+    device time for it, ``ms`` is ``call_ms`` and the source says
+    "events"."""
+    call_ms = event_ms(fn, reps)
+    windows, best = [], (None, 0, {})
+    for _ in range(PROFILE_WINDOWS):
+        got = profiled_ms(fn, symbol, reps, per_call)
+        windows.append(got[0])
+        if got[0] is not None and (best[0] is None or got[0] > best[0]):
+            best = got
+    ms, seen, pass_ms = best
+    if ms is None:
+        return call_ms, call_ms, 0, "events", {}, windows
+    return ms, call_ms, seen, "profiler", pass_ms, windows
 
 
 def max_abs_err(got, want) -> int:
@@ -1215,33 +1271,59 @@ def point_cases(store, plans):
     ]
 
 
-def dual_case(name, seg, descs, has_time, path):
-    """One ``xz_dual_bitmap`` shape: q = the descriptors given. Operations
-    by ``point_cases``'s rule, counted as this run's data needs them: per
-    row and query the overlap test, 4 int64 compares (6 with the window),
-    two instructions each, plus the hit plane's ballot and store and the
+def _attr_tag(kind, qcodes) -> str:
+    """The shape tag suffix of an attribute plane's vectors."""
+    if kind in (None, "range"):
+        return ""
+    return f" U={qcodes.shape[1]}" if kind == "vocabmask" else f" K={qcodes.shape[1]}"
+
+
+def dual_case(name, seg, descs, has_time, path, plane=None):
+    """One ``xz_dual_bitmap`` shape: q = the descriptors given; ``plane`` =
+    (codes, qcodes, edition) adds the attribute test. Operations by
+    ``point_cases``'s rule, counted as this run's data needs them: per row
+    and query the overlap test, 4 int64 compares (6 with the window), two
+    instructions each, plus the hit plane's ballot and store and the
     decided plane's store, 3; the inside test (4 int64 compares) and the
     decided ballot, 9, only per hit row of a rectangle query (the decided
     plane is 0 wherever no row hits); plus 8 per row for the hoisted
-    placeholder test (4 int64 equalities)."""
+    placeholder test (4 int64 equalities). The attribute test adds its
+    ``ATTR_TEST_OPS`` per row of a 32-row word that holds an envelope hit
+    of the query, and the bytes of the codes of the words where some
+    query's envelope test hits, and of the queries' vectors."""
     from geomesa_tpu_torch.ops import kernels
 
     cols = seg._xz_cols(has_time)
     n, q = seg.n_padded, descs.shape[0]
-    hdr = kernels.xz_dual_bitmap_plain(*cols[:6], descs, tk=cols[6])[2]
+    codes, qcodes, kind = plane if plane is not None else (None, None, None)
+    box_hit, _dec, hdr = kernels.xz_dual_bitmap_plain(*cols[:6], descs, cols[6])
     rect_hits = int(hdr[:, 0][descs[:, 5] != 0].sum())
+    attr_bytes = attr_ops = 0
+    extra = {}
+    if plane is not None:
+        words = box_hit.view(q, n // 32, 4) != 0
+        hit_words = words.any(-1)
+        code_words = int(hit_words.any(0).sum())
+        attr_bytes = 4 * 32 * code_words + qcodes.numel() * qcodes.element_size()
+        attr_ops = 32 * int(hit_words.sum()) * ATTR_TEST_OPS[kind](qcodes.shape[1])
+        extra = {"code_words": code_words}
     return dict(
         name=name,
         path=path,
-        tag=f"q={q}",
+        tag=f"q={q}{_attr_tag(kind, qcodes)}",
         symbol="xz_dual_bitmap_kernel",
         replaces="geomesa_tpu/parallel/executor.py:1748",
         source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
-        kernel=lambda: kernels.xz_dual_bitmap(*cols[:6], descs, tk=cols[6]),
-        plain=lambda: kernels.xz_dual_bitmap_plain(*cols[:6], descs, tk=cols[6]),
-        bytes=n * ((5 if has_time else 4) * 8 + 2) + 2 * q * n // 8 + q * (64 + 12),
-        ops=q * n * (2 * (6 if has_time else 4) + 3) + rect_hits * (2 * 4 + 1) + n * 2 * 4,
-        shape=f"rows={n} q={q} rect_hits={rect_hits}" + (" time" if has_time else ""),
+        kernel=lambda: kernels.xz_dual_bitmap(*cols[:6], descs, cols[6], codes, qcodes, kind),
+        plain=lambda: kernels.xz_dual_bitmap_plain(*cols[:6], descs, cols[6], codes, qcodes,
+                                                   kind),
+        no_ab=plane is not None,
+        bytes=n * ((5 if has_time else 4) * 8 + 2) + 2 * q * n // 8 + q * (64 + 12) + attr_bytes,
+        ops=q * n * (2 * (6 if has_time else 4) + 3) + rect_hits * (2 * 4 + 1) + n * 2 * 4
+            + attr_ops,
+        extra=extra,
+        shape=f"rows={n} q={q} rect_hits={rect_hits}" + (" time" if has_time else "")
+              + (f" {kind}{_attr_tag(kind, qcodes)}" if plane is not None else ""),
     )
 
 
@@ -1458,18 +1540,30 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
                 f"(max abs err {err})"
             )
         per_call = c.get("launches", lambda: None)()
-        ms, call_ms, seen, ms_source, pass_ms = kernel_ms(c["kernel"], c["symbol"],
-                                                          per_call=per_call)
+        ms, call_ms, seen, ms_source, pass_ms, windows = kernel_ms(c["kernel"], c["symbol"],
+                                                                   per_call=per_call)
         plain_ms = event_ms(c["plain"], reps=10, warmup=1)
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
-        if ms < max(t_bytes, t_ops):
-            # below the least time the card can take: the profiler's reading
-            # is wrong (it drops and shortens events late in a long run), and
-            # the wrapper's event time, a ceiling of the kernel's, stands in
-            log(f"{c['name']} {c['tag']}: profiler {ms:.4f} ms is below the bound; "
-                f"events {call_ms:.4f} ms")
+        bound = max(t_bytes, t_ops)
+        read = [w for w in windows if w is not None]
+        flags = []
+        if len(read) < len(windows):
+            flags.append("a window without device time")
+        if read and max(read) > (1 + WINDOW_SPREAD) * min(read):
+            flags.append(f"windows differ by {100 * (max(read) / min(read) - 1):.1f}%")
+        if any(w < bound for w in read):
+            flags.append("a window below the bound")
+        if ms < bound:
+            # below the least time the card can take in every window: the
+            # profiler's reading is wrong (it drops and shortens events late
+            # in a long run), and the wrapper's event time, a ceiling of the
+            # kernel's, stands in
             ms, ms_source = call_ms, "events (profiler below the bound)"
+        if flags:
+            log(f"{c['name']} {c['tag']}: profiler windows {windows} ms, bound {bound:.4f} ms, "
+                f"events {call_ms:.4f} ms: {'; '.join(flags)}")
+            ms_source += f" (flagged: {'; '.join(flags)})"
         out.append({
             "name": c["name"],
             "route": "cuda",
@@ -1484,6 +1578,8 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             "library_ms": None,
             "call_ms": call_ms,
             "ms_source": ms_source,
+            "ms_windows": windows,
+            "flagged": bool(flags),
             "profiled_launches": seen,
             "pass_ms": pass_ms,
             **({"launches_per_call": per_call} if "launches" in c else {}),
@@ -1516,7 +1612,8 @@ def ab_times(case, src):
     for which in ("own", "other", "other", "own"):
         per_call = case.get("launches", lambda: None)
         if which == "own":
-            times[which].append(kernel_ms(case["kernel"], case["symbol"], per_call=per_call())[0])
+            times[which].append(kernel_ms(case["kernel"], case["symbol"],
+                                          per_call=per_call())[0])
             continue
         other = case.get("ab_kernel", case["kernel"])
         with kernels.using_source(lib, src):
@@ -1679,9 +1776,9 @@ def main() -> int:
     walks = {}
     with recording_range_walks(walks):
         data1, plans1, streams1, setup1 = config1(store, args.rows)
-        streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
+        ways3, streams3, plans3, oracle3, setup3 = config3(store, args.ways, args.seed)
     streams6, oracle6, setup6 = config6(store, args.dens, data1, args.rows >= 20_000_000)
-    _data4, streams4, plans4, oracle4, setup4 = config4(store, args.attr)
+    data4, streams4, plans4, oracle4, setup4 = config4(store, args.attr)
     _data5, track5, oracle5, plans_m, setup5 = config5(store, args.knn)
     streams_p, plans_p, oracle_p, setup_p = config_poly(store, args.poly, plans_m)
     oracle_p["m"] = oracle5["m"]
@@ -1722,6 +1819,24 @@ def main() -> int:
     entries += kernel_checks(knn_cases(store, launched["config5"][1])
                              + poly_cases(store, plans_p, launched["poly"][1]),
                              int32_per_s, fp32_per_s, ab)
+    # the count and stats push-downs and the attribute editions of the dual
+    # planes, each a path of its own, then their kernel phase
+    t_push = time.perf_counter()
+    items = count_items(data1, streams1, ways3, streams_p["lone"][0], oracle_p["lone"][0], data4)
+    kernels.reset_launches()
+    metrics_count = count_path(store, items)
+    launched["count"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    kernels.reset_launches()
+    metrics_stats = stats_path(store, data4)
+    launched["stats"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    kernels.reset_launches()
+    metrics_dual = dual_attr_path(store, ways3, data4)
+    launched["dual_attr"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    entries += kernel_checks(
+        push_down_cases(store, items, {p: launched[p][1] for p in ("count", "stats", "dual_attr")},
+                        {(e["name"], e["shape_tag"]) for e in entries}),
+        int32_per_s, fp32_per_s, ab)
+    push_s = time.perf_counter() - t_push
     nulls = null_dates_check(store)
     attr_nulls = attr_nulls_check(store)
     log(f"main-path launches: { {p: s for p, (_n, s) in launched.items()} }")
@@ -1729,6 +1844,9 @@ def main() -> int:
     # -- phase 5: each path went through its kernels, at every timed shape ----
     ranking = check_launches(entries, launched, set(kernels.LAUNCHES))
     log(f"launches x (ms - bound) per smoke run: {json.dumps(ranking)}")
+    flagged = [e for e in entries if e["flagged"]]
+    log(f"{len(flagged)} of {len(entries)} kernel entries flagged by their profiler windows: "
+        f"{[(e['name'], e['shape_tag'], e['ms_windows']) for e in flagged]}")
 
     # -- phase 6: the host-seek route and the native host libraries -------------
     seek = seek_stream(store, data1, streams1)
@@ -1795,6 +1913,12 @@ def main() -> int:
         "config4": {**setup4, **metrics4, "nulls": attr_nulls},
         "config5": {**setup5, **metrics5},
         "poly": {**setup_p, **metrics_p},
+        "count": metrics_count,
+        "stats": metrics_stats,
+        "dual_attr": metrics_dual,
+        "push_down_phases_s": push_s,
+        "flagged_kernel_entries": [f"{e['name']} {e['shape_tag']}" for e in entries
+                                   if e["flagged"]],
         "script_s": time.perf_counter() - t_start,
     }
     os.makedirs(args.out, exist_ok=True)
@@ -2010,7 +2134,7 @@ def config3(store, n, seed):
     oracle_s = time.perf_counter() - t0
     log(f"config #3 device columns uploaded in {upload_s:.1f} s; plans {plan_s:.1f} s; "
         f"oracle {oracle_s:.1f} s")
-    return streams, plans, oracle, {
+    return ways, streams, plans, oracle, {
         "ways": n, "ways_made_s": gen_s, "ingest_rec_per_s": n / ingest_s,
         "upload_s": upload_s, "first_plan_s": plan_s, "oracle_s": oracle_s,
     }
@@ -2721,9 +2845,11 @@ def knn_cases(store, launched_shapes):
     return out
 
 
-def poly_case(store, table, descs, has_time, path):
+def poly_case(store, table, descs, has_time, path, plane=None):
     """One ``poly_dual_bitmap`` shape: the descriptors of ``descs`` (the
-    executor's ``_poly_batch_desc``) as ``dispatch_poly_batch`` pads them.
+    executor's ``_poly_batch_desc``) as ``dispatch_poly_batch`` pads them;
+    ``plane`` = (codes, qcodes, edition) adds the attribute test, which the
+    bound counts as ``dual_case`` does, on the envelope words.
 
     Bound, counted from this run's data: bytes, the key columns and valid
     read once, the f32 coordinates of every row that some query's envelope
@@ -2734,7 +2860,7 @@ def poly_case(store, table, descs, has_time, path):
     (FP32) and POLY_EDGE_IOPS (INT32), and per enveloped row and edge it
     straddles POLY_STRADDLE_FOPS (FP32)."""
     from geomesa_tpu_torch.ops import kernels
-    from geomesa_tpu_torch.ops.filters import exact_st_mask
+    from geomesa_tpu_torch.ops.filters import attr_combine, exact_st_mask
     from geomesa_tpu_torch.parallel.executor import _pow2_at_least
 
     dev = store.executor.device
@@ -2749,10 +2875,15 @@ def poly_case(store, table, descs, has_time, path):
     wins = torch.as_tensor(np.stack([d[2] for d in descs]), device=dev) if has_time else None
     xk, yk, valid, xf, yf, tk = seg._poly_cols(has_time)
     n = seg.n_padded
+    codes, qcodes, kind = plane if plane is not None else (None, None, None)
     env_any = torch.zeros(n, dtype=torch.bool, device=dev)
+    word_any = torch.zeros(n // 32, dtype=torch.bool, device=dev)
     env_words = env_rows = edge_rows = straddle_rows = live_pairs = 0
     for i, d in enumerate(descs):
         env = exact_st_mask(xk, yk, valid, boxes[i], tk, None if wins is None else wins[i])
+        word_any |= env.view(-1, 32).any(1)
+        if plane is not None:
+            env = attr_combine(env, codes, qcodes[i], kind)
         env_any |= env
         rows = int(env.sum())
         env_rows += rows
@@ -2765,22 +2896,30 @@ def poly_case(store, table, descs, has_time, path):
         straddle_rows += int(((e[:, 1] > fy) != (e[:, 3] > fy)).sum())
     key = 8 * (3 if has_time else 2)
     chain = 2 * (6 if has_time else 4)
+    attr_bytes = attr_ops = 0
+    if plane is not None:
+        attr_bytes = 4 * 32 * int(word_any.sum()) + qcodes.numel() * qcodes.element_size()
+        attr_ops = ATTR_TEST_OPS[kind](qcodes.shape[1])
+    tag = f"q={q} E={ecap}{_attr_tag(kind, qcodes)}"
     return dict(
-        name="poly_dual_bitmap_" + ("z3" if has_time else "z2"), path=path,
-        tag=f"q={q} E={ecap}", symbol="poly_dual_bitmap_",
+        name="poly_dual_bitmap_" + ("z3" if has_time else "z2") + (f"_{kind}" if kind else ""),
+        path=path, tag=tag, symbol="poly_dual_bitmap_",
         replaces="geomesa_tpu/parallel/executor.py:2110",
         source="geomesa_tpu_torch/csrc/poly_dual_bitmap.cu",
-        kernel=lambda: kernels.poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins, tk),
+        kernel=lambda: kernels.poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins, tk,
+                                                codes, qcodes, kind),
         plain=lambda: kernels.poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins,
-                                                     tk),
-        bytes=n * (key + 1) + 8 * int(env_any.sum()) + 2 * q * n // 8 + edges.numel() * 4,
-        ops=2 * q * n + 32 * env_words * (chain + 2) + POLY_EDGE_IOPS * edge_rows,
+                                                     tk, codes, qcodes, kind),
+        no_ab=plane is not None,
+        bytes=n * (key + 1) + 8 * int(env_any.sum()) + 2 * q * n // 8 + edges.numel() * 4
+              + attr_bytes,
+        ops=2 * q * n + 32 * env_words * (chain + 2 + attr_ops) + POLY_EDGE_IOPS * edge_rows,
         fops=POLY_EDGE_FOPS * edge_rows + POLY_STRADDLE_FOPS * straddle_rows,
         # the (chunk, query) pairs whose envelope holds a row: the cast's work items
         extra={"env_rows": env_rows, "edge_rows": edge_rows, "straddle_rows": straddle_rows,
                "live_pairs": live_pairs},
         shape=f"rows={n} q={q} E={ecap} env_rows={env_rows} edge_rows={edge_rows}"
-              + (" time" if has_time else ""),
+              + (" time" if has_time else "") + (f" {kind}" if kind else ""),
     )
 
 
@@ -2808,6 +2947,383 @@ def poly_cases(store, plans, launched_shapes):
             if key in launched_shapes and key not in seen:
                 seen.add(key)
                 out.append(case)
+    return out
+
+
+# -- count, stats and the attribute editions of the dual planes --------------
+
+# stream (a'): bench_xz2's jittered boxes (another seed) AND kind = X on
+# config #3's table; stream (l'): jittered stars AND actor1 = X on config
+# #4's table
+KIND_STREAM = 8
+POLY_ATTR_STREAM = 8
+# bench_attr_bbox's stats query, and the goldstein bounds of the range counts
+STATS_SPEC = "Count();MinMax(goldstein);TopK(actor1)"
+GOLD_RANGE = (-2.5, 4.0)
+COUNT_REPS = 3
+
+
+def kind_stream(reps: int = KIND_STREAM):
+    """Stream (a'): [(cql, box, kind)], box i of bench_xz2's jitter
+    (default_rng(72)) AND ``kind = X``, X cycling line, polygon, rect."""
+    kinds = ("line", "polygon", "rect")
+    return [(f"kind = '{kinds[i % 3]}' AND {xz_bbox_cql(b)}", b, kinds[i % 3])
+            for i, b in enumerate(xz2_boxes(reps, seed=72))]
+
+
+def kind_oracle(ways, box, kinds) -> np.ndarray:
+    """Rows of ``box`` (``oracle_rows``) whose way is of one of ``kinds``."""
+    rows = oracle_rows(ways, [box])
+    return rows[np.isin(KIND_NAMES[ways["kind"][rows].astype(np.int64) + 1], kinds)]
+
+
+def poly_attr_stream(reps: int = POLY_ATTR_STREAM):
+    """Stream (l'): [(cql, rings, actor)], bench_poly's star jittered +-6
+    deg (default_rng(97)) AND ``actor1 = X``, X cycling USA, CHN, RUS."""
+    jit = np.random.default_rng(97)
+    out = []
+    for i in range(reps):
+        dx, dy = jit.uniform(-6, 6, 2)
+        ring = star(2.0 + dx, 10.0 + dy, 14.0)
+        actor = ATTR_ACTORS[i % 3]
+        out.append((f"actor1 = '{actor}' AND intersects(geom, POLYGON ({ring_wkt(ring)}))",
+                    [ring], actor))
+    return out
+
+
+def gold_range_cql(geometry: str) -> str:
+    return f"goldstein > {GOLD_RANGE[0]} AND goldstein <= {GOLD_RANGE[1]} AND {geometry}"
+
+
+def count_items(data1, streams1, ways, poly_lone, poly_rows, data4):
+    """The counts of the count phase: name -> (table, [(cql, oracle rows)]).
+    Config #1's 20 jittered ``bbox AND DURING`` (``exact_count`` z3);
+    bench_xz2's count on config #3's table (the q = 1 dual planes) and the
+    same box AND ``kind >= 'polygon'`` (their range edition); bench_poly's
+    star (the q = 1 ray cast); on config #4's table ``actor1 = 'USA' AND
+    bbox`` and a goldstein range AND bbox (``exact_count`` z2 member,
+    range) and the star AND the goldstein range (the ray cast's range
+    edition)."""
+    x, y, t = data1
+    x4, y4, gold = data4["x"], data4["y"], data4["gold"]
+    in_gold = (gold > GOLD_RANGE[0]) & (gold <= GOLD_RANGE[1])
+    lone_cql, lone_rings = poly_lone
+    star_rows = pip(lone_rings, x4, y4)
+    boxes, cqls = streams1["config1"]
+    return {
+        "config1": ("gdelt", [(c, brute_force(x, y, t, b)) for b, c in zip(boxes, cqls)]),
+        "xz2": ("ways", [(xz_bbox_cql(XZ2_BOX), oracle_rows(ways, [XZ2_BOX])),
+                         (f"kind >= 'polygon' AND {xz_bbox_cql(XZ2_BOX)}",
+                          kind_oracle(ways, XZ2_BOX, ("polygon", "rect")))]),
+        "poly": (POLY_TABLE, [(lone_cql, poly_rows)]),
+        "config4": (ATTR_TABLE, [
+            (f"actor1 = 'USA' AND {bbox_cql(ATTR_BOX)}",
+             attr_oracle(data4, (ATTR_BOX, ("USA",), None, False))),
+            (gold_range_cql(bbox_cql(ATTR_BOX)), attr_oracle(data4, (ATTR_BOX, None, GOLD_RANGE,
+                                                                      False))),
+            (gold_range_cql(lone_cql[lone_cql.index("intersects"):]),
+             star_rows[in_gold[star_rows]]),
+        ]),
+    }
+
+
+def count_path(store, items):
+    """The count push-down through ``store.count`` under
+    ``GEOMESA_COUNT_DEVICE=1``: every count of ``items`` (``count_items``)
+    equal to its oracle's rows, its plan answered by ``count_scan`` (not
+    the host), and timed: ms per count, sync (COUNT_REPS rounds of the
+    name's counts after a checked one)."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    out = {}
+    os.environ["GEOMESA_COUNT_DEVICE"] = "1"
+    try:
+        for name, (table, qs) in items.items():
+            for i, (cql, rows) in enumerate(qs):
+                got = store.count(table, cql)
+                if got != len(rows):
+                    raise AssertionError(f"count {name} {i}: {got} against the oracle's "
+                                         f"{len(rows)} ({cql[:80]})")
+                plan = store._plan_cached(table, Query.cql(cql))
+                if store.executor.count_scan(store._tables[table][plan.index.name],
+                                             plan) is None:
+                    raise AssertionError(f"count {name} {i}: the device count declined")
+            t0 = time.perf_counter()
+            for _ in range(COUNT_REPS):
+                for cql, _rows in qs:
+                    store.count(table, cql)
+            out[name] = {
+                "counts": len(qs),
+                "count_ms_sync": (time.perf_counter() - t0) * 1e3 / (COUNT_REPS * len(qs)),
+                "rows_counted": [int(len(r)) for _c, r in qs],
+            }
+    finally:
+        os.environ.pop("GEOMESA_COUNT_DEVICE", None)
+    log(f"count path: {json.dumps(out)}")
+    return out
+
+
+def stats_path(store, data4):
+    """bench_attr_bbox's stats push-down, ``STATS_SPEC`` on ``ATTR_BOX``,
+    under ``GEOMESA_STATS_DEVICE=1`` (warm, then timed: ms per query, sync)
+    with bench_attr_bbox's parity (the count, goldstein's min and max, and
+    the top 5 actors against ``np.unique``); then under ``auto``, the path
+    it takes recorded (``auto_stats_path``) and its parity checked too."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    m = in_box(data4["x"], data4["y"], ATTR_BOX)
+    uniq, cnt = np.unique(data4["actors"][m].astype(str), return_counts=True)
+    gold = data4["gold"][m]
+
+    def check(res, what):
+        seq = res.aggregate["stats"].stats
+        ok = (seq[0].count == int(m.sum()) and float(seq[1].min) == float(gold.min())
+              and float(seq[1].max) == float(gold.max())
+              and dict(seq[2].topk(5)) == dict(zip(uniq.tolist(), cnt.astype(int).tolist())))
+        if not ok:
+            raise AssertionError(f"{what}: stats parity failed: {res.aggregate['stats'].to_json()[:300]}")
+
+    q = Query.cql(bbox_cql(ATTR_BOX), hints={"stats": STATS_SPEC})
+    out = {}
+    os.environ["GEOMESA_STATS_DEVICE"] = "1"
+    try:
+        res = store.query(ATTR_TABLE, q)
+        check(res, "stats (GEOMESA_STATS_DEVICE=1)")
+        if res.plan.scan_path != "device-stats":
+            raise AssertionError(f"stats took {res.plan.scan_path}")
+        t0 = time.perf_counter()
+        for _ in range(COUNT_REPS):
+            store.query(ATTR_TABLE, q)
+        out["device_stats_ms"] = (time.perf_counter() - t0) * 1e3 / COUNT_REPS
+        out["device_stats_path"] = res.plan.scan_path
+    finally:
+        os.environ.pop("GEOMESA_STATS_DEVICE", None)
+    res = store.query(ATTR_TABLE, q)
+    check(res, "stats (auto)")
+    out["auto_stats_path"] = res.plan.scan_path
+    out["rows_in_box"] = int(m.sum())
+    log(f"stats path: {json.dumps(out)}")
+    return out
+
+
+def dual_attr_path(store, ways, data4):
+    """Streams (a') and (l') through ``query_many`` (warm, then timed), every
+    query on ``device-batch-dual/bitmap`` (the dual planes' attribute
+    editions) and equal to its oracle: (a') ``kind_oracle``, (l') the f64
+    even-odd ``pip`` AND the actor."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    out = {}
+    streams = {
+        "a_prime": ("ways", [(c, kind_oracle(ways, b, (k,))) for c, b, k in kind_stream()]),
+        "l_prime": (ATTR_TABLE, [(c, pip(rings, data4["x"], data4["y"])) for c, rings, _a
+                                 in poly_attr_stream()]),
+    }
+    actor_of = [a for _c, _r, a in poly_attr_stream()]
+    for name, (table, items) in streams.items():
+        queries = [Query.cql(c, properties=[]) for c, _rows in items]
+        store.query_many(table, queries)  # warm: span window learning
+        t0 = time.perf_counter()
+        results = store.query_many(table, queries)
+        pipe_s = (time.perf_counter() - t0) / len(queries)
+        for i, (r, (_c, rows)) in enumerate(zip(results, items)):
+            if name == "l_prime":
+                rows = rows[data4["actors"][rows] == actor_of[i]]
+            expect_fids(r, rows, f"stream ({name}) query {i}",
+                        prefix="w" if table == "ways" else "f")
+            if r.plan.scan_path != "device-batch-dual/bitmap":
+                raise AssertionError(f"stream ({name}) query {i} took {r.plan.scan_path}")
+        out[name] = {
+            "queries": len(queries),
+            "query_ms_pipelined": pipe_s * 1e3,
+            "hits_per_query": sum(len(r) for r in results) / len(results),
+        }
+    log(f"dual attribute path: {json.dumps(out)}")
+    return out
+
+
+def count_case(name, seg, box, win, path, plane=None):
+    """One ``exact_count`` shape (q = 1); ``plane`` = (codes, qcodes,
+    edition) adds the attribute test. Bound: bytes, the key columns and
+    valid once (25 B a row with the window, 17 B without) and the 4 B code
+    of every row of a 32-row word where the box test holds a row; the
+    operations of ``exact_case`` for those words (the compare chain and
+    the attribute test), with no ballot or store."""
+    from geomesa_tpu_torch.ops import kernels
+
+    n = seg.n_padded
+    xk, yk, tk, valid = seg._exact_cols(win is not None)
+    codes, qcodes, kind = plane if plane is not None else (None, None, None)
+    key = 8 * (3 if win is not None else 2)
+    box_bits = kernels.exact_bitmap_plain(xk, yk, tk, valid, box[None],
+                                          None if win is None else win[None])[0]
+    hit_words = int((box_bits.view(n // 32, 4) != 0).any(-1).sum())
+    chain = 2 * (6 if win is not None else 4)
+    attr_bytes = attr_ops = 0
+    if plane is not None:
+        attr_bytes = 4 * 32 * hit_words + qcodes.numel() * qcodes.element_size()
+        attr_ops = ATTR_TEST_OPS[kind](qcodes.shape[1])
+    return dict(
+        name=name, path=path, tag=f"q=1{_attr_tag(kind, qcodes)}",
+        symbol="exact_bitmap_kernel",
+        replaces="geomesa_tpu/parallel/executor.py:638",
+        source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
+        kernel=lambda: (kernels.exact_count(xk, yk, tk, valid, box, win, codes, qcodes, kind),),
+        plain=lambda: (kernels.exact_count_plain(xk, yk, tk, valid, box, win, codes, qcodes,
+                                                 kind),),
+        no_ab=True,
+        bytes=n * (key + 1) + 4 + attr_bytes,
+        ops=32 * hit_words * (chain + attr_ops + 1),
+        extra={"hit_words": hit_words},
+        shape=f"rows={n} hit_words={hit_words}" + (" time" if win is not None else "")
+              + (f" {kind}" if kind else ""),
+    )
+
+
+def hist_case(seg, box, win, attr, path):
+    """One ``exact_stat_hist`` shape: q = 1, ``attr``'s codes and bins
+    (``u_pad``, as ``stat_hist_start`` sizes them). Bound: bytes, the key
+    columns and valid once, the 4 B code of every row of a 32-row word
+    where the box test holds a row, the bins written once; operations, the
+    compare chain and a bin add per row of those words. ``bincount_ms``
+    times ``torch.bincount`` of the same hits' codes, already masked (the
+    histogram alone; no single PyTorch call computes the function)."""
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.filters import exact_st_mask
+    from geomesa_tpu_torch.parallel.executor import _pow2_at_least
+
+    n = seg.n_padded
+    xk, yk, tk, valid = seg._exact_cols(win is not None)
+    codes, unified = seg._attr_codes[attr]
+    u_pad = _pow2_at_least(len(unified), 8)
+    key = 8 * (3 if win is not None else 2)
+    m = exact_st_mask(xk, yk, valid, box, tk, win)
+    hit_words = int(m.view(-1, 32).any(1).sum())
+    live = codes[m & (codes >= 0)].to(torch.int64)
+    chain = 2 * (6 if win is not None else 4)
+    name = "exact_stat_hist_" + ("z3" if win is not None else "z2")
+    return dict(
+        name=name, path=path, tag=f"q=1 U={u_pad}", symbol="exact_bitmap_kernel",
+        replaces="geomesa_tpu/parallel/executor.py:658",
+        source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
+        kernel=lambda: (kernels.exact_stat_hist(xk, yk, tk, valid, box, win, codes, u_pad),),
+        plain=lambda: (kernels.exact_stat_hist_plain(xk, yk, tk, valid, box, win, codes,
+                                                     u_pad),),
+        no_ab=True,
+        bytes=n * (key + 1) + 4 * 32 * hit_words + 4 * (1 + u_pad),
+        ops=32 * hit_words * (chain + 2),
+        aside={"bincount_ms": lambda: torch.bincount(live, minlength=u_pad)},
+        extra={"hit_words": hit_words, "attribute": attr, "values": int(len(unified))},
+        shape=f"rows={n} U={u_pad} ({attr}, {len(unified)} values) hit_words={hit_words}",
+    )
+
+
+def push_down_cases(store, items, launched, timed):
+    """The kernels of the count, stats and dual-attribute paths at every
+    shape those paths launched (``launched`` = path -> its
+    ``LAUNCH_SHAPES``) that no earlier case timed (``timed``: (name, tag)
+    keys): ``exact_count`` at each count's descriptor, ``exact_stat_hist``
+    for each attribute of STATS_SPEC, the q = 1 dual planes and ray cast of
+    the counts, the batches of (a') and (l') with their attribute vectors
+    and, where one of their queries refetched alone (its span outgrew the
+    window), the first query at q = 1."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.parallel.executor import _pow2_at_least
+
+    ex = store.executor
+    dev = ex.device
+
+    def plan_of(table, cql):
+        p = store._plan_cached(table, Query.cql(cql))
+        return store._tables[table][p.index.name], p
+
+    def up(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+
+    cases = []
+    for name, (table_name, qs) in items.items():
+        for cql, _rows in qs:
+            table, plan = plan_of(table_name, cql)
+            seg = ex.device_index(table).segments[0]
+            if table.index.name in ("xz2", "xz3"):
+                d, has_time, _g, _n, ainfo = ex._xz_batch_desc(table, plan)
+                plane = None
+                if ainfo is not None:
+                    plane = seg._attr_plane_args(ainfo[0], ainfo[2], ainfo[1])
+                cases.append(("count", dual_case(
+                    f"xz_dual_bitmap_{table.index.name}" + (f"_{ainfo[1]}" if ainfo else ""),
+                    seg, up(d[None]), has_time, "count", plane)))
+                continue
+            desc = ex._exact_descriptor(table, plan)
+            if desc is not None:
+                box, win = desc
+                cases.append(("count", count_case(f"exact_count_{table.index.name}", seg,
+                                                  up(box), None if win is None else up(win),
+                                                  "count")))
+                continue
+            got = ex._attr_batch_desc(table, plan)
+            if got is not None:
+                attr, kind, (box, win, payload) = got
+                cases.append(("count", count_case(
+                    f"exact_count_{table.index.name}_{kind}", seg, up(box),
+                    None if win is None else up(win), "count",
+                    seg._attr_plane_args(attr, payload, kind))))
+                continue
+            edges, box, win, has_time, _g, _n, ainfo = ex._poly_batch_desc(table, plan)
+            ecap = _pow2_at_least(len(edges), 8)
+            padded = np.concatenate([edges, np.zeros((ecap - len(edges), 4), np.float32)])
+            plane = None
+            if ainfo is not None:
+                plane = (seg._attr_codes[ainfo[0]][0],
+                         up(seg._attr_batch_vectors(ainfo[0], ainfo[1], [ainfo[2]])), ainfo[1])
+            cases.append(("count", poly_case(store, table, [(padded, box, win)], has_time,
+                                             "count", plane)))
+    # the stats query: a histogram an attribute of its spec
+    table, plan = plan_of(ATTR_TABLE, bbox_cql(ATTR_BOX))
+    seg = ex.device_index(table).segments[0]
+    box, win = ex._exact_descriptor(table, plan)
+    for attr in ("goldstein", "actor1"):
+        cases.append(("stats", hist_case(seg, up(box), None if win is None else up(win), attr,
+                                         "stats")))
+    # (a') and (l'): the batch and its first query alone, with the batch's vectors
+    for table_name, cqls in (("ways", [c for c, _b, _k in kind_stream()]),
+                             (ATTR_TABLE, [c for c, _r, _a in poly_attr_stream()])):
+        pairs = [plan_of(table_name, c) for c in cqls]
+        table = pairs[0][0]
+        seg = ex.device_index(table).segments[0]
+        if table.index.name in ("xz2", "xz3"):
+            got = [ex._xz_batch_desc(t, p) for t, p in pairs]
+            attr, kind = got[0][4][0], got[0][4][1]
+            descs = up(np.stack([g[0] for g in got]))
+            qv = up(seg._attr_batch_vectors(attr, kind, [g[4][2] for g in got]))
+            codes = seg._attr_codes[attr][0]
+            for q in (len(got), 1):
+                cases.append(("dual_attr", dual_case(
+                    f"xz_dual_bitmap_{table.index.name}_{kind}", seg, descs[:q], got[0][1],
+                    "dual_attr", (codes, qv[:q].contiguous(), kind))))
+        else:
+            got = [ex._poly_batch_desc(t, p) for t, p in pairs]
+            attr, kind = got[0][6][0], got[0][6][1]
+            descs = [g[:3] for g in got]
+            payloads = [g[6][2] for g in got]
+            qpad = (len(descs) + 3) // 4 * 4
+            batch = descs + [descs[-1]] * (qpad - len(descs))
+            payloads += [payloads[-1]] * (qpad - len(payloads))
+            qv = up(seg._attr_batch_vectors(attr, kind, payloads))
+            codes = seg._attr_codes[attr][0]
+            ecap = _pow2_at_least(max(len(d[0]) for d in descs), 8)
+            first = descs[0]
+            lone = [(np.concatenate([first[0], np.zeros((ecap - len(first[0]), 4), np.float32)]),)
+                    + tuple(first[1:])]
+            for group, q in ((batch, qpad), (lone, 1)):
+                cases.append(("dual_attr", poly_case(store, table, group, got[0][3], "dual_attr",
+                                                     (codes, qv[:q].contiguous(), kind))))
+    out, seen = [], set(timed)
+    for path, case in cases:
+        key = (case["name"], case["tag"])
+        if key in launched[path] and key not in seen:
+            seen.add(key)
+            out.append(case)
     return out
 
 

@@ -1,6 +1,8 @@
-// exact_bitmap<HAS_TIME, REJECT, ATTR>: q exact bbox(+window) predicates,
-// each with an optional attribute-code test, -> packed bitmaps and (cnt,
-// lo, hi) headers in ONE sweep of the key columns.
+// exact_bitmap<HAS_TIME, REJECT, ATTR, MODE>: q exact bbox(+window)
+// predicates, each with an optional attribute-code test, -> packed bitmaps
+// and (cnt, lo, hi) headers in ONE sweep of the key columns; or, for one
+// predicate, its hit count (exact_count) or its hit count and the per-code
+// histogram of its hits (exact_stat_hist).
 //
 // Replaces the batched exact predicate of the reference's
 // geomesa_tpu/parallel/executor.py _exact_bitmap_batch_fn (an XLA lax.scan
@@ -84,13 +86,50 @@
 //     the interval; a lookup entry per row that passes the box test).
 // Its device times against the first design's, in turns on the same inputs
 // (chip_smoke.py --ab), are in PERF.md. Row counts are a multiple of 32.
+//
+// The output modes (MODE) share the row loads and the test of one query
+// (q = 1, so no chunk reject):
+//   kBits        the bitmaps and headers above;
+//   kCount       replaces the reference's _exact_count_fn (jnp.sum of the
+//                exact(+attr) mask, "exact_count"): every edition of ATTR,
+//                no bits stored, no header; each lane counts its rows, the
+//                warp sums them (__reduce_add_sync), the block in shared
+//                memory, and one atomicAdd a block goes into a zeroed
+//                int32 that the caller reads after all its launches;
+//   kHistShared, kHistGlobal
+//                replace the reference's _exact_stat_hist_fn
+//                ("exact_stat_hist"): ATTR = kNone, and for each hit row
+//                its code (codes: the stats target's ranks, -1 for null)
+//                counts in bin code of an int32[1 + u_pad] output after the
+//                total in word 0; a null row counts in the total only. The
+//                reference sorts the codes and searchsorts the bin bounds;
+//                counts do not depend on order, so a histogram gives the
+//                same integers. Up to kHistSmemCodes bins (32 KiB) each
+//                block keeps a private histogram in shared memory, adds a
+//                row step's equal codes of a warp as one shared atomic
+//                (__match_any_sync: a low-cardinality column sends most of
+//                a warp's rows to a few bins) and flushes its nonzero bins
+//                with one global atomicAdd each; from there up to 65,536
+//                bins (256 KiB, more than an SM holds) every hit row adds
+//                into global memory directly.
+// Both read each row's code only in a chunk where the box test holds some
+// row (12 B a row more for nothing); bound: the key columns and valid once
+// (25 B a row with the window, 17 B without) plus the 4 B code of the rows
+// of such chunks.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "attr_plane.cuh"
 #include "launch_grid.cuh"
 
 namespace {
+
+using attr_plane::kMember;
+using attr_plane::kNone;
+using attr_plane::kNotMember;
+using attr_plane::kRange;
+using attr_plane::kVocabMask;
 
 constexpr int kR = 8;  // 32-row words per warp and chunk (rows per lane)
 static_assert(kR % 4 == 0, "a chunk's words are stored as 16-byte vectors");
@@ -100,8 +139,12 @@ constexpr unsigned kFull = 0xffffffffu;
 // The chunk reject runs from this many queries up: at q = 1 its envelope
 // (six warp reductions a chunk) saved nothing (z3 1% slower, z2 equal).
 constexpr int kRejectMinQ = 2;
-// the attribute editions (the ATTR template parameter)
-constexpr int kNone = 0, kMember = 1, kRange = 2, kNotMember = 3, kVocabMask = 4;
+// the output modes (the MODE template parameter)
+constexpr int kBits = 0, kCount = 1, kHistShared = 2, kHistGlobal = 3;
+// the shared-memory histogram's bins (32 KiB, in the 48 KiB a block gets
+// without opting in)
+constexpr int kHistSmemCodes = 8192;
+constexpr int kHistMaxCodes = 1 << 16;
 
 __device__ __forceinline__ unsigned int packbits_order(unsigned int ballot) {
   // lane j -> bit 31-j, then reverse the byte order: byte 0 of the stored
@@ -127,17 +170,20 @@ __device__ __forceinline__ long long warp_max(long long v) {
   return join64(mh, __reduce_max_sync(kFull, hi == mh ? (unsigned)v : 0u));
 }
 
-template <bool HAS_TIME, bool REJECT, int ATTR>
+template <bool HAS_TIME, bool REJECT, int ATTR, int MODE>
 __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
     const long long* __restrict__ xk, const long long* __restrict__ yk,
     const long long* __restrict__ tk, const unsigned char* __restrict__ valid,
     const long long* __restrict__ boxes, const long long* __restrict__ wins, int q,
     const int* __restrict__ codes, const void* __restrict__ qcodes, int kq,
     unsigned int* __restrict__ bits, int* __restrict__ hdr, long long n) {
+  constexpr bool kHist = MODE == kHistShared || MODE == kHistGlobal;
   extern __shared__ __align__(16) long long smem[];
   long long* sdesc = smem;              // [q, 6]
-  int* acc = (int*)(smem + kDesc * q);  // [warps, q, 3]: cnt, n - first, last + 1
+  // kBits: [warps, q, 3] = cnt, n - first, last + 1; kHistShared: [kq] bins
+  int* acc = (int*)(smem + kDesc * q);
   __shared__ int s_last;
+  __shared__ int s_count;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -148,10 +194,16 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
     d[4] = HAS_TIME ? wins[2 * i] : 0;
     d[5] = HAS_TIME ? wins[2 * i + 1] : 0;
   }
-  for (int i = threadIdx.x; i < 3 * nwarps * q; i += blockDim.x) acc[i] = 0;
+  if constexpr (MODE == kBits) {
+    for (int i = threadIdx.x; i < 3 * nwarps * q; i += blockDim.x) acc[i] = 0;
+  } else if constexpr (MODE == kHistShared) {
+    for (int i = threadIdx.x; i < kq; i += blockDim.x) acc[i] = 0;
+  }
+  if (threadIdx.x == 0) s_count = 0;
   __syncthreads();
   int* wacc = acc + 3 * warp * q;
   const int rows = (int)n;
+  int lane_count = 0;  // kCount and kHist: the lane's hit rows
 
   const long long nwords = n >> 5;
   const long long nchunks = (nwords + kR - 1) / kR;
@@ -180,6 +232,15 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
       t[j] = HAS_TIME ? tk[row] : 0;
       v[j] = in && valid[row] != 0;
     }
+    auto load_codes = [&]() {
+      if (have_codes) return;
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
+        const long long row = (word0 + (word0 + j < nwords ? j : 0)) * 32 + lane;
+        cd[j] = codes[row];
+      }
+      have_codes = true;
+    };
     long long x0 = x[0], x1 = x[0], y0 = y[0], y1 = y[0], t0 = t[0], t1 = t[0];
     if (REJECT) {
 #pragma unroll
@@ -204,7 +265,8 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
     }
     const bool store_lane = lane < kR && word0 + lane < nwords;
     // query i against the chunk's rows: kR ballots, the words stored by
-    // lanes 0..kR-1, the warp's header slot when a row hits
+    // lanes 0..kR-1, the warp's header slot when a row hits (kBits); the
+    // lane's count (kCount); the count and the histogram (kHist*)
     auto scan = [&](int i) {
       // (xmin, xmax), (ymin, ymax), (t_lo, t_hi)
       const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
@@ -219,42 +281,30 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
         any_row |= m[j];
       }
       if (ATTR != kNone && __any_sync(kFull, any_row)) {
-        if (!have_codes) {
+        load_codes();
+        attr_plane::and_test<ATTR, kR>(m, cd, qcodes, i, kq);
+      }
+      if constexpr (MODE == kCount) {
 #pragma unroll
-          for (int j = 0; j < kR; ++j) {
-            const long long row = (word0 + (word0 + j < nwords ? j : 0)) * 32 + lane;
-            cd[j] = codes[row];
-          }
-          have_codes = true;
-        }
-        // m[j] &= the attribute test of query i on the chunk's codes
-        if (ATTR == kMember || ATTR == kNotMember) {
-          const int* qc = static_cast<const int*>(qcodes) + (long long)i * kq;
-          bool hit[kR];
+        for (int j = 0; j < kR; ++j) lane_count += (int)m[j];
+        return;
+      }
+      if constexpr (kHist) {
+        if (!__any_sync(kFull, any_row)) return;
+        load_codes();
 #pragma unroll
-          for (int j = 0; j < kR; ++j) hit[j] = false;
-          for (int k = 0; k < kq; ++k) {
-            const int code = __ldg(qc + k);
-#pragma unroll
-            for (int j = 0; j < kR; ++j) hit[j] |= cd[j] == code;
-          }
-#pragma unroll
-          for (int j = 0; j < kR; ++j) {
-            m[j] = m[j] & (ATTR == kMember ? hit[j] : (cd[j] >= 0) & !hit[j]);
-          }
-        } else if (ATTR == kRange) {
-          const int* qc = static_cast<const int*>(qcodes) + 2LL * i;
-          const int lo = __ldg(qc), hi = __ldg(qc + 1);
-#pragma unroll
-          for (int j = 0; j < kR; ++j) m[j] = m[j] & (cd[j] >= lo) & (cd[j] <= hi);
-        } else if (ATTR == kVocabMask) {
-          const unsigned char* lut =
-              static_cast<const unsigned char*>(qcodes) + (long long)i * kq;
-#pragma unroll
-          for (int j = 0; j < kR; ++j) {
-            if (m[j]) m[j] = cd[j] >= 0 && __ldg(lut + min(cd[j], kq - 1)) != 0;
+        for (int j = 0; j < kR; ++j) {
+          lane_count += (int)m[j];
+          // codes past the bins (none, from the executor) count nowhere
+          const int key = m[j] && cd[j] >= 0 && cd[j] < kq ? cd[j] : -1;
+          if constexpr (MODE == kHistShared) {
+            const unsigned peers = __match_any_sync(kFull, key);
+            if (key >= 0 && lane == __ffs(peers) - 1) atomicAdd(acc + key, __popc(peers));
+          } else {
+            if (key >= 0) atomicAdd(hdr + 1 + key, 1);
           }
         }
+        return;
       }
       unsigned hb[kR];
 #pragma unroll
@@ -319,6 +369,21 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
       }
     }
   }
+  if constexpr (MODE != kBits) {
+    // the count: warp, then block, then one atomic a block; the shared
+    // histogram's nonzero bins, one atomic each
+    const int wsum = __reduce_add_sync(kFull, lane_count);
+    if (lane == 0 && wsum) atomicAdd(&s_count, wsum);
+    __syncthreads();
+    if (threadIdx.x == 0 && s_count) atomicAdd(hdr, s_count);
+    if constexpr (MODE == kHistShared) {
+      for (int b = threadIdx.x; b < kq; b += blockDim.x) {
+        const int cnt = acc[b];
+        if (cnt) atomicAdd(hdr + 1 + b, cnt);
+      }
+    }
+    return;
+  }
   __syncthreads();
   for (int i = threadIdx.x; i < q; i += blockDim.x) {
     int cnt = 0, lo = 0, hi = 0;
@@ -353,14 +418,24 @@ __global__ void __launch_bounds__(kThreads) exact_bitmap_kernel(
   }
 }
 
-template <bool HAS_TIME, bool REJECT, int ATTR>
+// One launch of an instantiation. kBits: hdr is the int32[3 q + 1] header
+// and ticket; the other modes: hdr is the int32 output (1 word for kCount,
+// 1 + kq for the histograms). The launcher zeroes it.
+template <bool HAS_TIME, bool REJECT, int ATTR, int MODE>
 int launch(const void* xk, const void* yk, const void* tk, const void* valid,
            const void* boxes, const void* wins, int q, const void* codes,
            const void* qcodes, int kq, void* bits, void* hdr, long long n, cudaStream_t s) {
-  auto kern = exact_bitmap_kernel<HAS_TIME, REJECT, ATTR>;
-  const size_t smem = sizeof(long long) * kDesc * (size_t)q +
-                      sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
-  cudaError_t err = cudaMemsetAsync(hdr, 0, sizeof(int) * (3 * (size_t)q + 1), s);
+  auto kern = exact_bitmap_kernel<HAS_TIME, REJECT, ATTR, MODE>;
+  size_t smem = sizeof(long long) * kDesc * (size_t)q;
+  size_t out_words = 1;
+  if (MODE == kBits) {
+    smem += sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
+    out_words = 3 * (size_t)q + 1;
+  } else if (MODE != kCount) {
+    if (MODE == kHistShared) smem += sizeof(int) * (size_t)kq;
+    out_words = 1 + (size_t)kq;
+  }
+  cudaError_t err = cudaMemsetAsync(hdr, 0, sizeof(int) * out_words, s);
   if (err != cudaSuccess) return (int)err;
   // the grid fills the device once (at least one block: it decodes the
   // header even when there are no rows)
@@ -378,27 +453,27 @@ int launch(const void* xk, const void* yk, const void* tk, const void* valid,
   return (int)cudaGetLastError();
 }
 
-template <bool HAS_TIME, bool REJECT>
+template <bool HAS_TIME, bool REJECT, int MODE>
 int launch_attr(int attr, const void* xk, const void* yk, const void* tk, const void* valid,
                 const void* boxes, const void* wins, int q, const void* codes,
                 const void* qcodes, int kq, void* bits, void* hdr, long long n,
                 cudaStream_t s) {
   switch (attr) {
     case kNone:
-      return launch<HAS_TIME, REJECT, kNone>(xk, yk, tk, valid, boxes, wins, q, codes, qcodes,
-                                             kq, bits, hdr, n, s);
+      return launch<HAS_TIME, REJECT, kNone, MODE>(xk, yk, tk, valid, boxes, wins, q, codes,
+                                                   qcodes, kq, bits, hdr, n, s);
     case kMember:
-      return launch<HAS_TIME, REJECT, kMember>(xk, yk, tk, valid, boxes, wins, q, codes,
-                                               qcodes, kq, bits, hdr, n, s);
+      return launch<HAS_TIME, REJECT, kMember, MODE>(xk, yk, tk, valid, boxes, wins, q, codes,
+                                                     qcodes, kq, bits, hdr, n, s);
     case kRange:
-      return launch<HAS_TIME, REJECT, kRange>(xk, yk, tk, valid, boxes, wins, q, codes, qcodes,
-                                              kq, bits, hdr, n, s);
+      return launch<HAS_TIME, REJECT, kRange, MODE>(xk, yk, tk, valid, boxes, wins, q, codes,
+                                                    qcodes, kq, bits, hdr, n, s);
     case kNotMember:
-      return launch<HAS_TIME, REJECT, kNotMember>(xk, yk, tk, valid, boxes, wins, q, codes,
-                                                  qcodes, kq, bits, hdr, n, s);
+      return launch<HAS_TIME, REJECT, kNotMember, MODE>(xk, yk, tk, valid, boxes, wins, q,
+                                                        codes, qcodes, kq, bits, hdr, n, s);
     case kVocabMask:
-      return launch<HAS_TIME, REJECT, kVocabMask>(xk, yk, tk, valid, boxes, wins, q, codes,
-                                                  qcodes, kq, bits, hdr, n, s);
+      return launch<HAS_TIME, REJECT, kVocabMask, MODE>(xk, yk, tk, valid, boxes, wins, q,
+                                                        codes, qcodes, kq, bits, hdr, n, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -424,13 +499,57 @@ extern "C" int exact_bitmap(int has_time, const void* xk, const void* yk,
   cudaStream_t s = (cudaStream_t)stream;
   const bool reject = q >= kRejectMinQ;
   if (has_time) {
-    return reject ? launch_attr<true, true>(attr, xk, yk, tk, valid, boxes, wins, q, codes,
-                                            qcodes, kq, bits, hdr, n, s)
-                  : launch_attr<true, false>(attr, xk, yk, tk, valid, boxes, wins, q, codes,
-                                             qcodes, kq, bits, hdr, n, s);
+    return reject ? launch_attr<true, true, kBits>(attr, xk, yk, tk, valid, boxes, wins, q,
+                                                   codes, qcodes, kq, bits, hdr, n, s)
+                  : launch_attr<true, false, kBits>(attr, xk, yk, tk, valid, boxes, wins, q,
+                                                    codes, qcodes, kq, bits, hdr, n, s);
   }
-  return reject ? launch_attr<false, true>(attr, xk, yk, nullptr, valid, boxes, nullptr, q,
-                                           codes, qcodes, kq, bits, hdr, n, s)
-                : launch_attr<false, false>(attr, xk, yk, nullptr, valid, boxes, nullptr, q,
-                                            codes, qcodes, kq, bits, hdr, n, s);
+  return reject ? launch_attr<false, true, kBits>(attr, xk, yk, nullptr, valid, boxes, nullptr,
+                                                  q, codes, qcodes, kq, bits, hdr, n, s)
+                : launch_attr<false, false, kBits>(attr, xk, yk, nullptr, valid, boxes, nullptr,
+                                                   q, codes, qcodes, kq, bits, hdr, n, s);
+}
+
+// The hit count of ONE exact predicate (the arguments of exact_bitmap at
+// q = 1, box int64[4] and win int64[2]) into out int32[1], which the
+// launcher zeroes. Launches on `stream` and returns a CUDA error code.
+extern "C" int exact_count(int has_time, const void* xk, const void* yk, const void* tk,
+                           const void* valid, const void* box, const void* win, int attr,
+                           const void* codes, const void* qcodes, int kq, void* out,
+                           long long n, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  if (has_time) {
+    return launch_attr<true, false, kCount>(attr, xk, yk, tk, valid, box, win, 1, codes,
+                                            qcodes, kq, nullptr, out, n, s);
+  }
+  return launch_attr<false, false, kCount>(attr, xk, yk, nullptr, valid, box, nullptr, 1, codes,
+                                           qcodes, kq, nullptr, out, n, s);
+}
+
+// The hit count of ONE exact predicate and the per-code histogram of its
+// hits: codes int32[n] (ranks below u_pad, -1 for null and pad rows),
+// 1 <= u_pad <= 65536; out int32[1 + u_pad] = (total hits, then the hits of
+// each code), zeroed by the launcher. Launches on `stream` and returns a
+// CUDA error code.
+extern "C" int exact_stat_hist(int has_time, const void* xk, const void* yk, const void* tk,
+                               const void* valid, const void* box, const void* win,
+                               const void* codes, int u_pad, void* out, long long n,
+                               void* stream) {
+  if (u_pad < 1 || u_pad > kHistMaxCodes) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool shared = u_pad <= kHistSmemCodes;
+  if (has_time) {
+    return shared ? launch<true, false, kNone, kHistShared>(xk, yk, tk, valid, box, win, 1,
+                                                            codes, nullptr, u_pad, nullptr, out,
+                                                            n, s)
+                  : launch<true, false, kNone, kHistGlobal>(xk, yk, tk, valid, box, win, 1,
+                                                            codes, nullptr, u_pad, nullptr, out,
+                                                            n, s);
+  }
+  return shared ? launch<false, false, kNone, kHistShared>(xk, yk, nullptr, valid, box, nullptr,
+                                                           1, codes, nullptr, u_pad, nullptr,
+                                                           out, n, s)
+                : launch<false, false, kNone, kHistGlobal>(xk, yk, nullptr, valid, box, nullptr,
+                                                           1, codes, nullptr, u_pad, nullptr,
+                                                           out, n, s);
 }

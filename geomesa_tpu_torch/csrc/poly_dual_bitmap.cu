@@ -23,7 +23,15 @@
 // (x1 == x2 and y1 == y2: the batch's pad edges) add nothing and are
 // skipped. hit = env & (odd crossings | band), decided = hit & ~band.
 // Where env is false both planes are 0, so the edge loop runs only for a
-// (chunk, query) pair where some row's env holds: the same bits.
+// (chunk, query) pair where some row's env holds: the same bits. With ATTR
+// (attr_plane.cuh: member, range, notmember, vocabmask over the rows' int32
+// codes and one vector a query) the attribute test ANDs into env in the
+// sweep, so into hit before decided derives from it, as the reference's
+// _poly_mask_body(attr=...) combines it (hit & ~band): the band ring
+// carries only rows that pass it, and a pair whose rows all fail it is not
+// live. The sweep runs it only for a pair whose envelope test holds some
+// row (an AND can only narrow the hits), and reads the chunk's codes the
+// first time a query needs them (4 B a row of such chunks).
 // Outputs: hit and decided bits u8[q, n/8], MSB-first like jnp.packbits
 // (byte j = rows 8j..8j+7, row 8j in bit 7); hdr int32[q, 3] = (count,
 // first row, last row) of the HIT plane, no hit giving (0, 0, n - 1).
@@ -89,6 +97,7 @@
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "attr_plane.cuh"
 #include "launch_grid.cuh"
 
 namespace {
@@ -146,12 +155,13 @@ __device__ __forceinline__ void store_words(unsigned* __restrict__ hit_bits,
 // pair its envelope ballots (hit words) and kLive (first decided word). The
 // block then stores the step's kWarps * kR consecutive words of each query
 // and plane, a 128-byte line, with consecutive threads on consecutive words.
-template <bool HAS_TIME>
+template <bool HAS_TIME, int ATTR>
 __global__ void __launch_bounds__(kThreads) poly_dual_bitmap_sweep_kernel(
     const long long* __restrict__ xk, const long long* __restrict__ yk,
     const long long* __restrict__ tk, const unsigned char* __restrict__ valid, int q,
     const long long* __restrict__ boxes, const long long* __restrict__ wins,
-    unsigned int* __restrict__ hit_bits, unsigned int* __restrict__ dec_bits, long long n) {
+    unsigned int* __restrict__ hit_bits, unsigned int* __restrict__ dec_bits, long long n,
+    const int* __restrict__ codes, const void* __restrict__ qcodes, int kq) {
   constexpr int kStep = kWarps * kR;  // words a block step covers: a lane each
   static_assert(kStep == 32, "a block step stores one word a lane and line");
   __shared__ __align__(16) long long sdesc[kDesc * kMaxQ];
@@ -228,6 +238,10 @@ __global__ void __launch_bounds__(kThreads) poly_dual_bitmap_sweep_kernel(
         live[g / 32] = __ballot_sync(kFull, lv);
       }
       __syncwarp();  // the zero words are staged before a live pair's
+      // the chunk's codes, read the first time a query's envelope test holds
+      // a row of the chunk (warp-uniform)
+      int cd[kR];
+      bool have_codes = false;
       // the surviving queries, in turn (warp-uniform)
 #pragma unroll
       for (int g = 0; g < kMaxQ / 32; ++g) {
@@ -236,13 +250,29 @@ __global__ void __launch_bounds__(kThreads) poly_dual_bitmap_sweep_kernel(
           const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
           const longlong2 bx = d[0], by = d[1];
           const longlong2 tw = HAS_TIME ? d[2] : make_longlong2(0, 0);
+          bool e[kR];
+          bool any_row = false;
+#pragma unroll
+          for (int j = 0; j < kR; ++j) {
+            e[j] = v[j] & (x[j] >= bx.x) & (x[j] <= bx.y) & (y[j] >= by.x) & (y[j] <= by.y);
+            if (HAS_TIME) e[j] = e[j] & (t[j] >= tw.x) & (t[j] <= tw.y);
+            any_row |= e[j];
+          }
+          if (ATTR != attr_plane::kNone && __any_sync(kFull, any_row)) {
+            if (!have_codes) {
+#pragma unroll
+              for (int j = 0; j < kR; ++j) {
+                cd[j] = codes[(word0 + (word0 + j < nwords ? j : 0)) * 32 + lane];
+              }
+              have_codes = true;
+            }
+            attr_plane::and_test<ATTR, kR>(e, cd, qcodes, i, kq);
+          }
           unsigned env[kR];
           unsigned any = 0;
 #pragma unroll
           for (int j = 0; j < kR; ++j) {
-            bool e = v[j] & (x[j] >= bx.x) & (x[j] <= bx.y) & (y[j] >= by.x) & (y[j] <= by.y);
-            if (HAS_TIME) e = e & (t[j] >= tw.x) & (t[j] <= tw.y);
-            env[j] = __ballot_sync(kFull, e);
+            env[j] = __ballot_sync(kFull, e[j]);
             any |= env[j];
           }
           if (any && lane < kR) {
@@ -484,22 +514,22 @@ cudaError_t grid_of(Kernel kern, size_t smem, long long need, long long* blocks)
   return cudaSuccess;
 }
 
-template <bool HAS_TIME>
+template <bool HAS_TIME, int ATTR>
 int launch(const void* xk, const void* yk, const void* tk, const void* valid, const void* xf,
            const void* yf, const void* edges, int q, int ecap, const void* boxes,
            const void* wins, void* hit_bits, void* dec_bits, void* hdr, long long n,
-           cudaStream_t s) {
+           const void* codes, const void* qcodes, int kq, cudaStream_t s) {
   cudaError_t err = cudaMemsetAsync(hdr, 0, sizeof(int) * (3 * (size_t)q + 1), s);
   if (err != cudaSuccess) return (int)err;
   const long long nchunks = ((n >> 5) + kR - 1) / kR;
-  auto sweep = poly_dual_bitmap_sweep_kernel<HAS_TIME>;
+  auto sweep = poly_dual_bitmap_sweep_kernel<HAS_TIME, ATTR>;
   long long blocks = 0;
   err = grid_of(sweep, 0, (nchunks + kWarps - 1) / kWarps, &blocks);
   if (err != cudaSuccess) return (int)err;
   sweep<<<(unsigned)blocks, kThreads, 0, s>>>(
       (const long long*)xk, (const long long*)yk, (const long long*)tk,
       (const unsigned char*)valid, q, (const long long*)boxes, (const long long*)wins,
-      (unsigned int*)hit_bits, (unsigned int*)dec_bits, n);
+      (unsigned int*)hit_bits, (unsigned int*)dec_bits, n, (const int*)codes, qcodes, kq);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const bool stream = (long long)q * ecap > kTileEdges;
@@ -514,6 +544,37 @@ int launch(const void* xk, const void* yk, const void* tk, const void* valid, co
   return (int)cudaGetLastError();
 }
 
+template <bool HAS_TIME>
+int launch_attr(int attr, const void* xk, const void* yk, const void* tk, const void* valid,
+                const void* xf, const void* yf, const void* edges, int q, int ecap,
+                const void* boxes, const void* wins, void* hit_bits, void* dec_bits, void* hdr,
+                long long n, const void* codes, const void* qcodes, int kq, cudaStream_t s) {
+  switch (attr) {
+    case attr_plane::kNone:
+      return launch<HAS_TIME, attr_plane::kNone>(xk, yk, tk, valid, xf, yf, edges, q, ecap,
+                                                 boxes, wins, hit_bits, dec_bits, hdr, n, codes,
+                                                 qcodes, kq, s);
+    case attr_plane::kMember:
+      return launch<HAS_TIME, attr_plane::kMember>(xk, yk, tk, valid, xf, yf, edges, q, ecap,
+                                                   boxes, wins, hit_bits, dec_bits, hdr, n,
+                                                   codes, qcodes, kq, s);
+    case attr_plane::kRange:
+      return launch<HAS_TIME, attr_plane::kRange>(xk, yk, tk, valid, xf, yf, edges, q, ecap,
+                                                  boxes, wins, hit_bits, dec_bits, hdr, n, codes,
+                                                  qcodes, kq, s);
+    case attr_plane::kNotMember:
+      return launch<HAS_TIME, attr_plane::kNotMember>(xk, yk, tk, valid, xf, yf, edges, q, ecap,
+                                                      boxes, wins, hit_bits, dec_bits, hdr, n,
+                                                      codes, qcodes, kq, s);
+    case attr_plane::kVocabMask:
+      return launch<HAS_TIME, attr_plane::kVocabMask>(xk, yk, tk, valid, xf, yf, edges, q, ecap,
+                                                      boxes, wins, hit_bits, dec_bits, hdr, n,
+                                                      codes, qcodes, kq, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // C interface for ctypes. Device pointers: xk, yk, tk int64[n] sort keys (tk
@@ -522,19 +583,24 @@ int launch(const void* xk, const void* yk, const void* tk, const void* valid, co
 // (xmin, xmax, ymin, ymax) keys, wins int64[q, 2]; outputs hit_bits,
 // dec_bits u8[q, n/8] (16-byte aligned) and hdr int32[3 q + 1], whose first
 // 3 q words become the [q, 3] header (the last is the launch's block
-// ticket); the launcher initialises it. 1 <= q <= 64; n is a multiple of 32
-// below 2^31. Launches on `stream` and returns a CUDA error code.
+// ticket); the launcher initialises it; attr 0 (none: codes and qcodes
+// ignored), 1 member or 3 notmember (qcodes int32[q, kq], kq <= 32), 2
+// range (int32[q, 2]) or 4 vocabmask (u8[q, kq], kq <= 65536), with codes
+// int32[n] (the attribute arguments come last, so a design without them
+// takes the same call). 1 <= q <= 64; n is a multiple of 32 below 2^31.
+// Launches on `stream` and returns a CUDA error code.
 extern "C" int poly_dual_bitmap(int has_time, const void* xk, const void* yk, const void* tk,
                                 const void* valid, const void* xf, const void* yf,
                                 const void* edges, int q, int ecap, const void* boxes,
                                 const void* wins, void* hit_bits, void* dec_bits, void* hdr,
-                                long long n, void* stream) {
+                                long long n, void* stream, int attr, const void* codes,
+                                const void* qcodes, int kq) {
   if (q < 1 || q > kMaxQ || ecap < 1) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (has_time) {
-    return launch<true>(xk, yk, tk, valid, xf, yf, edges, q, ecap, boxes, wins, hit_bits,
-                        dec_bits, hdr, n, s);
+    return launch_attr<true>(attr, xk, yk, tk, valid, xf, yf, edges, q, ecap, boxes, wins,
+                             hit_bits, dec_bits, hdr, n, codes, qcodes, kq, s);
   }
-  return launch<false>(xk, yk, nullptr, valid, xf, yf, edges, q, ecap, boxes, nullptr, hit_bits,
-                       dec_bits, hdr, n, s);
+  return launch_attr<false>(attr, xk, yk, nullptr, valid, xf, yf, edges, q, ecap, boxes, nullptr,
+                            hit_bits, dec_bits, hdr, n, codes, qcodes, kq, s);
 }

@@ -1,6 +1,7 @@
-// xz_dual_bitmap<HAS_TIME>: q exact extent predicates -> the packed HIT and
-// DECIDED bitmaps and the hit plane's (cnt, lo, hi) headers in ONE sweep of
-// the envelope key columns.
+// xz_dual_bitmap<HAS_TIME, ATTR>: q exact extent predicates, each with an
+// optional attribute-code test, -> the packed HIT and DECIDED bitmaps and
+// the hit plane's (cnt, lo, hi) headers in ONE sweep of the envelope key
+// columns.
 //
 // Replaces the batched extent predicate of the reference's
 // geomesa_tpu/parallel/executor.py _xz_bitmap_batch_fn (an XLA lax.scan
@@ -20,7 +21,14 @@
 // of 0.0). `valid` is the segment's temporal-valid column when HAS_TIME.
 // placeholder and isrect depend on the row alone and are formed once per
 // row, with the placeholder key of the first descriptor (the executor gives
-// every descriptor the same one).
+// every descriptor the same one). With ATTR (attr_plane.cuh: member, range,
+// notmember, vocabmask over the rows' int32 codes and one vector a query)
+// the attribute test ANDs into hit BEFORE decided derives from it, as the
+// reference's _xz_exact_mask_body(attr=...) combines it: decided rows are
+// final for the spatial AND attribute predicate, and the ring carries only
+// rows that pass the attribute test. It runs only where the chunk's hit
+// test holds some row of the query (an AND can only narrow the hits); the
+// chunk's codes (128 B a word) are read the first time a query needs them.
 // Outputs: hit and decided bits u8[q, n/8], MSB-first like jnp.packbits
 // (byte j = rows 8j..8j+7, row 8j in bit 7); hdr int32[q, 3] = (count,
 // first row, last row) of the HIT plane, accumulated with integer atomics
@@ -61,11 +69,14 @@
 // xz2 q = 1 0.0947 ms (was 0.1065), q = 4 0.1020 (was 0.1318), q = 24
 // 0.2581 (was 0.5082); xz3 q = 1 0.1156 (was 0.1204), q = 24 0.3016 (was
 // 0.5777); 1.2x, 1.2x, 2.0x, 1.1x and 1.7x the bound chip_smoke.py counts
-// from the run's hits. 80 registers (90 with time), no spills.
+// from the run's hits. 80 registers (90 with time), no spills. The
+// attribute editions add the 4 B code of each row of a chunk where some
+// query's hit test holds a row.
 
 #include <climits>
 #include <cuda_runtime.h>
 
+#include "attr_plane.cuh"
 #include "launch_grid.cuh"
 
 namespace {
@@ -82,7 +93,7 @@ constexpr int kR = 4;  // 32-row words per warp and chunk (rows per lane)
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
-template <bool HAS_TIME>
+template <bool HAS_TIME, int ATTR>
 __global__ void __launch_bounds__(kThreads) xz_dual_bitmap_kernel(
     const long long* __restrict__ bxmin, const long long* __restrict__ bymin,
     const long long* __restrict__ bxmax, const long long* __restrict__ bymax,
@@ -90,7 +101,8 @@ __global__ void __launch_bounds__(kThreads) xz_dual_bitmap_kernel(
     const unsigned char* __restrict__ valid, const long long* __restrict__ tk,
     const long long* __restrict__ descs, int q,
     unsigned int* __restrict__ hit_bits, unsigned int* __restrict__ dec_bits,
-    int* __restrict__ hdr, long long n) {
+    int* __restrict__ hdr, long long n, const int* __restrict__ codes,
+    const void* __restrict__ qcodes, int kq) {
   extern __shared__ long long smem[];
   long long* sdesc = smem;              // [q, 8]
   int* acc = (int*)(smem + kDesc * q);  // [warps, q, 3]
@@ -129,16 +141,35 @@ __global__ void __launch_bounds__(kThreads) xz_dual_bitmap_kernel(
       rect_row[j] = in && isrect[row] != 0;
       real[j] = !((x0[j] == zero) & (y0[j] == zero) & (x1[j] == zero) & (y1[j] == zero));
     }
+    // the chunk's codes, read the first time a query's hit test holds a row
+    // of the chunk (warp-uniform)
+    int cd[kR];
+    bool have_codes = false;
     for (int i = 0; i < q; ++i) {
       // (xmin, ymin), (xmax, ymax), (zero, rect), (t_lo, t_hi)
       const longlong2* d = reinterpret_cast<const longlong2*>(sdesc + kDesc * i);
       const longlong2 lo = d[0], hi = d[1], rect = d[2], win = d[3];
       bool hit[kR];
       unsigned hb[kR], db[kR];
+      bool any_row = false;
 #pragma unroll
       for (int j = 0; j < kR; ++j) {
         hit[j] = v[j] & (lo.x <= x1[j]) & (x0[j] <= hi.x) & (lo.y <= y1[j]) & (y0[j] <= hi.y);
         if (HAS_TIME) hit[j] = hit[j] & (t[j] >= win.x) & (t[j] <= win.y);
+        any_row |= hit[j];
+      }
+      if (ATTR != attr_plane::kNone && __any_sync(kFull, any_row)) {
+        if (!have_codes) {
+#pragma unroll
+          for (int j = 0; j < kR; ++j) {
+            cd[j] = word0 + j < nwords ? codes[(word0 + j) * 32 + lane] : -1;
+          }
+          have_codes = true;
+        }
+        attr_plane::and_test<ATTR, kR>(hit, cd, qcodes, i, kq);
+      }
+#pragma unroll
+      for (int j = 0; j < kR; ++j) {
         hb[j] = __ballot_sync(kFull, hit[j]);
         db[j] = 0;
       }
@@ -200,11 +231,12 @@ __global__ void __launch_bounds__(kThreads) xz_dual_bitmap_kernel(
   }
 }
 
-template <bool HAS_TIME>
+template <bool HAS_TIME, int ATTR>
 int launch(const void* bxmin, const void* bymin, const void* bxmax, const void* bymax,
            const void* isrect, const void* valid, const void* tk, const void* descs, int q,
-           void* hit_bits, void* dec_bits, void* hdr, long long n, cudaStream_t s) {
-  auto kern = xz_dual_bitmap_kernel<HAS_TIME>;
+           void* hit_bits, void* dec_bits, void* hdr, long long n, const void* codes,
+           const void* qcodes, int kq, cudaStream_t s) {
+  auto kern = xz_dual_bitmap_kernel<HAS_TIME, ATTR>;
   const size_t smem = sizeof(long long) * kDesc * (size_t)q +
                       sizeof(int) * 3 * (size_t)(kThreads / 32) * (size_t)q;
   // the grid fills the device once
@@ -219,8 +251,39 @@ int launch(const void* bxmin, const void* bymin, const void* bxmax, const void* 
       (const long long*)bxmin, (const long long*)bymin, (const long long*)bxmax,
       (const long long*)bymax, (const unsigned char*)isrect, (const unsigned char*)valid,
       (const long long*)tk, (const long long*)descs, q, (unsigned int*)hit_bits,
-      (unsigned int*)dec_bits, (int*)hdr, n);
+      (unsigned int*)dec_bits, (int*)hdr, n, (const int*)codes, qcodes, kq);
   return (int)cudaGetLastError();
+}
+
+template <bool HAS_TIME>
+int launch_attr(int attr, const void* bxmin, const void* bymin, const void* bxmax,
+                const void* bymax, const void* isrect, const void* valid, const void* tk,
+                const void* descs, int q, void* hit_bits, void* dec_bits, void* hdr, long long n,
+                const void* codes, const void* qcodes, int kq, cudaStream_t s) {
+  switch (attr) {
+    case attr_plane::kNone:
+      return launch<HAS_TIME, attr_plane::kNone>(bxmin, bymin, bxmax, bymax, isrect, valid, tk,
+                                                 descs, q, hit_bits, dec_bits, hdr, n, codes,
+                                                 qcodes, kq, s);
+    case attr_plane::kMember:
+      return launch<HAS_TIME, attr_plane::kMember>(bxmin, bymin, bxmax, bymax, isrect, valid,
+                                                   tk, descs, q, hit_bits, dec_bits, hdr, n,
+                                                   codes, qcodes, kq, s);
+    case attr_plane::kRange:
+      return launch<HAS_TIME, attr_plane::kRange>(bxmin, bymin, bxmax, bymax, isrect, valid, tk,
+                                                  descs, q, hit_bits, dec_bits, hdr, n, codes,
+                                                  qcodes, kq, s);
+    case attr_plane::kNotMember:
+      return launch<HAS_TIME, attr_plane::kNotMember>(bxmin, bymin, bxmax, bymax, isrect, valid,
+                                                      tk, descs, q, hit_bits, dec_bits, hdr, n,
+                                                      codes, qcodes, kq, s);
+    case attr_plane::kVocabMask:
+      return launch<HAS_TIME, attr_plane::kVocabMask>(bxmin, bymin, bxmax, bymax, isrect, valid,
+                                                      tk, descs, q, hit_bits, dec_bits, hdr, n,
+                                                      codes, qcodes, kq, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -228,21 +291,26 @@ int launch(const void* bxmin, const void* bymin, const void* bxmax, const void* 
 // C interface for ctypes. Device pointers: bxmin, bymin, bxmax, bymax
 // int64[n] envelope sort keys; isrect, valid bool[n]; tk int64[n] (ignored
 // when has_time is 0); descs int64[q, 8]; outputs hit_bits, dec_bits
-// u8[q, n/8] and hdr int32[q, 3] (pre-set to (0, n, -1)). n is a multiple
-// of 32 below 2^31. Launches on `stream` and returns cudaGetLastError().
+// u8[q, n/8] and hdr int32[q, 3] (pre-set to (0, n, -1)); attr 0 (none:
+// codes and qcodes ignored), 1 member or 3 notmember (qcodes int32[q, kq],
+// kq <= 32), 2 range (int32[q, 2]) or 4 vocabmask (u8[q, kq], kq <= 65536),
+// with codes int32[n] (the attribute arguments come last, so a design
+// without them takes the same call). n is a multiple of 32 below 2^31.
+// Launches on `stream` and returns cudaGetLastError().
 extern "C" int xz_dual_bitmap(int has_time, const void* bxmin,
                               const void* bymin, const void* bxmax,
                               const void* bymax, const void* isrect,
                               const void* valid, const void* tk,
                               const void* descs, int q, void* hit_bits,
                               void* dec_bits, void* hdr, long long n,
-                              void* stream) {
+                              void* stream, int attr, const void* codes,
+                              const void* qcodes, int kq) {
   if (n == 0 || q == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
   if (has_time) {
-    return launch<true>(bxmin, bymin, bxmax, bymax, isrect, valid, tk, descs, q, hit_bits,
-                        dec_bits, hdr, n, s);
+    return launch_attr<true>(attr, bxmin, bymin, bxmax, bymax, isrect, valid, tk, descs, q,
+                             hit_bits, dec_bits, hdr, n, codes, qcodes, kq, s);
   }
-  return launch<false>(bxmin, bymin, bxmax, bymax, isrect, valid, nullptr, descs, q, hit_bits,
-                       dec_bits, hdr, n, s);
+  return launch_attr<false>(attr, bxmin, bymin, bxmax, bymax, isrect, valid, nullptr, descs, q,
+                            hit_bits, dec_bits, hdr, n, codes, qcodes, kq, s);
 }

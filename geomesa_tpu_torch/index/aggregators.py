@@ -1,26 +1,38 @@
-"""Aggregation hints: the host reducer of the density push-down.
+"""Aggregation hints: the host reducers of the density and stats hints.
 
-Port of ``geomesa_tpu/index/aggregators.py`` limited to density: the host
-reducer (DensityScan.scala:30-59 with GridSnap semantics) that answers a
-density query whenever the device push-down declines, and that certifies
-the device's band rows (``TorchScanExecutor._certify_density_band``).
+Port of ``geomesa_tpu/index/aggregators.py`` limited to density and stats:
+the host reducers (DensityScan.scala:30-59 with GridSnap semantics;
+StatsScan) that answer an aggregating query whenever the device push-down
+declines, and that certify the device's density band rows
+(``TorchScanExecutor._certify_density_band``).
 
-Hint shape (conf/QueryHints.scala analog):
+Hint shapes (conf/QueryHints.scala analogs):
   hints["density"] = {"envelope": (xmin, ymin, xmax, ymax),
                       "width": int, "height": int, "weight": attr | None}
+  hints["stats"]   = "MinMax(a);Count()"  (a stat spec, ``stats/parser.py``)
 
-The ``stats``, ``bin`` and ``arrow`` reducers are not in this slice of the
-port (ROADMAP Queue 1 item 9 and the aggregation items after it):
-``run_aggregation`` raises for them.
+The ``bin`` and ``arrow`` reducers are not in this slice of the port
+(ROADMAP Queue 1 item 6's tail; ``arrow`` needs ``geomesa_tpu/arrow/``, item
+19): ``run_aggregation`` raises for them.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Any, Dict, Optional
 
 import numpy as np
 
 from geomesa_tpu_torch.schema.featuretype import FeatureType
+from geomesa_tpu_torch.stats.parser import parse_stat
+from geomesa_tpu_torch.stats.sketches import (
+    EnvelopeStat,
+    GroupByStat,
+    MinMax,
+    Stat,
+    Z3FrequencyStat,
+    Z3HistogramStat,
+)
 
 AGGREGATION_HINTS = ("density", "stats", "bin", "arrow")
 
@@ -66,15 +78,86 @@ def run_density(ft: FeatureType, spec: Dict[str, Any], columns) -> np.ndarray:
     )
 
 
+def run_stats(ft: FeatureType, spec: str, columns) -> Stat:
+    """The stat ``spec`` observed over the filtered columns (StatsScan's
+    reduce): a MinMax of the default geometry becomes its 2D envelope
+    (``EnvelopeStat``), the z3 sketches take the geometry's coordinates and
+    the date, GroupBy groups by its attribute's decoded values."""
+    stat = parse_stat(spec)
+    stats = stat.stats if hasattr(stat, "stats") else [stat]
+    geom = ft.default_geometry
+    n = len(next(iter(columns.values()), []))
+    for i, s in enumerate(stats):
+        if isinstance(s, (Z3HistogramStat, Z3FrequencyStat)):
+            s.observe_xyt(columns[s.geom + "__x"], columns[s.geom + "__y"], columns[s.dtg])
+            continue
+        if isinstance(s, GroupByStat):
+            _observe_groupby(s, columns)
+            continue
+        attr = getattr(s, "attribute", None)
+        if attr is None:  # CountStat
+            s.count += n
+            continue
+        if geom is not None and attr == geom.name and isinstance(s, MinMax):
+            env = EnvelopeStat(attr)
+            env.observe_xy(
+                np.asarray(columns[attr + "__x"], dtype=np.float64),
+                np.asarray(columns[attr + "__y"], dtype=np.float64),
+            )
+            stats[i] = env
+            if stats is not getattr(stat, "stats", None):
+                stat = env
+            continue
+        s.observe(columns[attr], columns.get(attr + "__null"))
+    return stat
+
+
+def _observe_groupby(s: GroupByStat, columns) -> None:
+    """GroupBy over the filtered columns: keys from the grouping attribute,
+    values from the sub-stat's own attribute (a Count() sub-stat needs the
+    group sizes only). Dictionary columns decode to their values, and null
+    keys form no group."""
+
+    def col_values(name):
+        col = np.asarray(columns[name])
+        vocab = columns.get(name + "__vocab")
+        if vocab is not None:
+            v = np.asarray(vocab, dtype=object)
+            out = np.empty(len(col), dtype=object)
+            ok = col >= 0
+            out[ok] = v[col[ok].astype(np.int64)]
+            return out
+        nulls = columns.get(name + "__null")
+        if nulls is not None:
+            # decoded columns carry nulls as fill values ("" / 0)
+            out = np.asarray(col, dtype=object).copy()
+            out[np.asarray(nulls, dtype=bool)] = None
+            return out
+        return col
+
+    keys = col_values(s.attribute)
+    sub_attr = json.loads(s.example).get("attribute")
+    if sub_attr is None:
+        values = keys  # Count(): only group sizes matter
+    elif sub_attr in columns:
+        values = col_values(sub_attr)
+    else:
+        raise KeyError(f"GroupBy sub-stat attribute {sub_attr!r} not gathered")
+    nulls = columns.get((sub_attr or s.attribute) + "__null")
+    s.observe_grouped(keys, values, nulls)
+
+
 def run_aggregation(ft: FeatureType, hints: Dict[str, Any], columns) -> Dict[str, Any]:
     """Dispatch the requested aggregations over the filtered columns."""
-    missing = [k for k in ("stats", "bin", "arrow") if k in hints]
+    missing = [k for k in ("bin", "arrow") if k in hints]
     if missing:
         raise NotImplementedError(
-            f"aggregation hints {missing} are not ported yet "
-            "(ROADMAP Queue 1 item 9: count and stats; bin and arrow follow it)"
+            f"aggregation hints {missing} are not ported yet (ROADMAP Queue 1 item 6's "
+            "tail; arrow needs geomesa_tpu/arrow/, item 19)"
         )
     out: Dict[str, Any] = {}
     if "density" in hints:
         out["density"] = run_density(ft, hints["density"], columns)
+    if "stats" in hints:
+        out["stats"] = run_stats(ft, hints["stats"], columns)
     return out

@@ -10,12 +10,16 @@ answers that):
   * ``exact_bitmap`` (``csrc/exact_bitmap.cu``) replaces the batched exact
     predicate of ``geomesa_tpu/parallel/executor.py``
     ``_exact_bitmap_batch_fn``, with the attribute plane of ``_attr_combine``
-    (member, range, notmember, vocabmask) fused in;
+    (member, range, notmember, vocabmask) fused in; its count edition
+    ``exact_count`` replaces ``_exact_count_fn`` and its histogram edition
+    ``exact_stat_hist`` ``_exact_stat_hist_fn`` (the count and stats
+    push-downs);
   * ``xz_mask`` (``csrc/xz_mask.cu``) replaces the Pallas
     ``_xz2_mask_kernel`` / ``_xz3_mask_kernel``;
   * ``xz_dual_bitmap`` (``csrc/xz_dual_bitmap.cu``) replaces the batched
     extent predicate of ``geomesa_tpu/parallel/executor.py``
-    ``_xz_bitmap_batch_fn`` (the (hit, decided) planes);
+    ``_xz_bitmap_batch_fn`` (the (hit, decided) planes), with the same
+    attribute editions;
   * ``density_grid`` (``csrc/density_grid.cu``) replaces the Pallas
     ``_density_kernel`` and fuses the density band, masks and band indices
     of ``geomesa_tpu/ops/aggregations.py`` ``make_sharded_density_dual``
@@ -25,14 +29,16 @@ answers that):
     every row and its top-k);
   * ``poly_dual_bitmap`` (``csrc/poly_dual_bitmap.cu``) replaces the banded
     polygon ray cast of ``geomesa_tpu/parallel/executor.py``
-    ``_poly_bitmap_batch_fn`` (the (hit, decided) planes).
+    ``_poly_bitmap_batch_fn`` (the (hit, decided) planes), with the same
+    attribute editions.
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
 CPU, and for CUDA tensors launches the kernel on the current stream of the
 tensors' device, under ``torch.cuda.device`` (the launchers size their
 grids from that device's own SM count, ``csrc/launch_grid.cuh``), counting
 the launch in ``LAUNCHES`` by instantiation and in ``LAUNCH_SHAPES`` by
-instantiation and shape, or raises. Kernels build at first use with ``nvcc`` for ``sm_90a``
+instantiation and shape, or raises. The attribute editions count under the
+kernel's name and ``_<edition>``. Kernels build at first use with ``nvcc`` for ``sm_90a``
 into a plain-C shared library per source, loaded with ``ctypes``; the
 build directory is ``geomesa_tpu_torch/_build``, and ``ptxas_report``
 returns what ``-Xptxas -v`` said of each kernel (registers, spills).
@@ -102,11 +108,23 @@ LAUNCHES: Dict[str, int] = {
     "knn_topk": 0,
     "poly_dual_bitmap_z3": 0,
     "poly_dual_bitmap_z2": 0,
+    # the count and stats push-downs and the attribute editions of the dual
+    # planes that chip_smoke.py's paths drive; any other instantiation
+    # counts under its own name from its first launch
+    "exact_count_z3": 0,
+    "exact_count_z2_member": 0,
+    "exact_count_z2_range": 0,
+    "exact_stat_hist_z2": 0,
+    "xz_dual_bitmap_xz2_member": 0,
+    "xz_dual_bitmap_xz2_range": 0,
+    "poly_dual_bitmap_z2_member": 0,
+    "poly_dual_bitmap_z2_range": 0,
 }
 # launches per (instantiation, shape): "q=<descriptors>" for the bitmap
-# kernels (+ " K=<codes>" for member and notmember, " U=<lookup size>" for
-# vocabmask, " E=<edges a query>" for the polygons), "K=<boxes> W=<windows>"
-# for the masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k
+# kernels and the count (+ " K=<codes>" for member and notmember, " U=<lookup
+# size>" for vocabmask, " E=<edges a query>" for the polygons), "U=<bins>"
+# for the histogram, "K=<boxes> W=<windows>" for the masks, "<W>x<H>" for
+# the grid, "k=<rows>" for the top-k
 LAUNCH_SHAPES: Counter = Counter()
 # kernel launches of the last call of a wrapper that runs several passes
 # (knn_topk), as its launcher reports them
@@ -138,7 +156,7 @@ def reset_launches() -> None:
 
 
 def _count(name: str, shape: str) -> None:
-    LAUNCHES[name] += 1
+    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
     LAUNCH_SHAPES[(name, shape)] += 1
 
 
@@ -208,19 +226,28 @@ _ARGTYPES = {
     "candidate_mask": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
     "exact_bitmap": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _I, _P, _P, _LL, _P],
     "xz_mask": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _LL, _P],
-    "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P],
+    "exact_count": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P, _LL, _P],
+    "exact_stat_hist": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _LL, _P],
+    "xz_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _LL, _P,
+                       _I, _P, _P, _I],
     "density_grid": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _I, _P, _F, _F, _I, _I,
                      _P, _P, _P, _I, _LL, _P],
     "knn_topk": [_P, _P, _P, _F, _F, _LL, _LL, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong)],
-    "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P],
+    "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
+                         _I, _P, _P, _I],
 }
+
+
+# the C entry points of each source beyond the one named after it
+_ENTRIES = {"exact_bitmap": ("exact_count", "exact_stat_hist")}
 
 
 def _load(name: str, path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    fn = getattr(lib, name)
-    fn.restype = ctypes.c_int
-    fn.argtypes = _ARGTYPES[name]
+    for entry in (name, *_ENTRIES.get(name, ())):
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[entry]
     if name == "knn_topk":
         lib.knn_topk_scratch.restype = ctypes.c_longlong
         lib.knn_topk_scratch.argtypes = [_LL, _LL]
@@ -352,18 +379,19 @@ def exact_bitmap_plain(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=N
     return torch.stack(bits), torch.stack(hdr).to(torch.int32)
 
 
-def _attr_launch_args(codes, qcodes, attr_kind, n: int, q: int, dev):
+def _attr_launch_args(codes, qcodes, attr_kind, n: int, q: int, dev, what: str):
     """(edition number, K or U_pad, shape tag suffix) of an attribute plane
-    launch, after checking its tensors; (0, 0, "") without one."""
+    launch of the kernel ``what``, after checking its tensors; (0, 0, "")
+    without one."""
     if attr_kind is None:
         if codes is not None or qcodes is not None:
-            raise ValueError("exact_bitmap: codes and qcodes need an attr_kind")
+            raise ValueError(f"{what}: codes and qcodes need an attr_kind")
         return 0, 0, ""
     if attr_kind not in ATTR_KINDS:
-        raise ValueError(f"exact_bitmap: unknown attr_kind {attr_kind!r}")
+        raise ValueError(f"{what}: unknown attr_kind {attr_kind!r}")
     _check(codes, "codes", torch.int32, dev, (n,))
     if qcodes is None or qcodes.dim() != 2 or qcodes.shape[0] != q:
-        raise ValueError(f"exact_bitmap: qcodes must be [{q}, ...] for {attr_kind}")
+        raise ValueError(f"{what}: qcodes must be [{q}, ...] for {attr_kind}")
     width = qcodes.shape[1]
     if attr_kind == "range":
         _check(qcodes, "qcodes", torch.int32, dev, (q, 2))
@@ -371,14 +399,20 @@ def _attr_launch_args(codes, qcodes, attr_kind, n: int, q: int, dev):
     elif attr_kind == "vocabmask":
         _check(qcodes, "qcodes", torch.uint8, dev)
         if not 0 < width <= ATTR_MAX_U:
-            raise ValueError(f"exact_bitmap: lookup size {width} not in [1, {ATTR_MAX_U}]")
+            raise ValueError(f"{what}: lookup size {width} not in [1, {ATTR_MAX_U}]")
         tag = f" U={width}"
     else:
         _check(qcodes, "qcodes", torch.int32, dev)
         if not 0 < width <= ATTR_MAX_K:
-            raise ValueError(f"exact_bitmap: {width} codes not in [1, {ATTR_MAX_K}]")
+            raise ValueError(f"{what}: {width} codes not in [1, {ATTR_MAX_K}]")
         tag = f" K={width}"
     return ATTR_KINDS.index(attr_kind) + 1, width, tag
+
+
+def _attr_name(name: str, edition: int, attr_kind) -> str:
+    """The launch-count name of an instantiation: ``name``, and
+    ``_<edition>`` for an attribute edition."""
+    return name + (f"_{attr_kind}" if edition else "")
 
 
 def exact_bitmap(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
@@ -412,7 +446,7 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
     _check(boxes, "boxes", torch.int64, dev, (q, 4))
     if has_time:
         _check(wins, "wins", torch.int64, dev, (q, 2))
-    edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, q, dev)
+    edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, q, dev, "exact_bitmap")
     fn = _lib("exact_bitmap").exact_bitmap
     with torch.cuda.device(dev):
         bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
@@ -427,9 +461,107 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
             width, bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
         )
     _raise_on(err, "exact_bitmap")
-    name = "exact_bitmap_" + ("z3" if has_time else "z2")
-    _count(name + (f"_{attr_kind}" if edition else ""), f"q={q}{tag}")
+    _count(_attr_name("exact_bitmap_" + ("z3" if has_time else "z2"), edition, attr_kind),
+           f"q={q}{tag}")
     return bits, hdr[:3 * q].view(q, 3)
+
+
+def exact_count_plain(xk, yk, tk, valid, box, win=None, codes=None, qcodes=None,
+                      attr_kind=None):
+    """Plain edition of :func:`exact_count`: the mask of
+    :func:`exact_bitmap_plain`, summed."""
+    m = exact_st_mask(xk, yk, valid, box, tk, win)
+    if attr_kind is not None:
+        m = attr_combine(m, codes, qcodes[0], attr_kind)
+    return m.sum(dtype=torch.int32).reshape(1)
+
+
+def _one_query(xk, yk, tk, valid, box, win, what: str):
+    """Checks of a one-query launch (the count and histogram editions) ->
+    (device, rows)."""
+    dev, n = xk.device, xk.shape[0]
+    if n % 32 or n >= 2**31:
+        raise ValueError(f"{what}: rows ({n}) must be a multiple of 32 below 2^31")
+    for name, t in [("xk", xk), ("yk", yk)] + ([("tk", tk)] if win is not None else []):
+        _check(t, name, torch.int64, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    _check(box, "box", torch.int64, dev, (4,))
+    if win is not None:
+        _check(win, "win", torch.int64, dev, (2,))
+    return dev, n
+
+
+def exact_count(xk, yk, tk, valid, box, win=None, codes=None, qcodes=None, attr_kind=None):
+    """The hit count of ONE exact predicate -> int32[1] on the rows' device
+    (the reference's ``_exact_count_fn``): the mask of :func:`exact_bitmap`
+    for ``box`` int64[4] and ``win`` int64[2] (or None), with its attribute
+    editions (``qcodes`` one row, [1, ...]), summed on the device; no
+    bitmap is written. Read it after every segment's launch: one D2H copy
+    each, no launch of its own."""
+    has_time = win is not None
+    if xk.device.type == "cpu":
+        return exact_count_plain(xk, yk, tk if has_time else None, valid, box, win, codes,
+                                 qcodes, attr_kind)
+    if xk.device.type != "cuda":
+        raise ValueError(f"exact_count: unsupported device {xk.device}")
+    dev, n = _one_query(xk, yk, tk, valid, box, win, "exact_count")
+    edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, 1, dev, "exact_count")
+    fn = _lib("exact_bitmap").exact_count
+    with torch.cuda.device(dev):
+        out = torch.empty(1, dtype=torch.int32, device=dev)  # the launcher zeroes it
+        err = fn(
+            int(has_time), xk.data_ptr(), yk.data_ptr(), tk.data_ptr() if has_time else None,
+            valid.data_ptr(), box.data_ptr(), win.data_ptr() if has_time else None, edition,
+            codes.data_ptr() if edition else None, qcodes.data_ptr() if edition else None,
+            width, out.data_ptr(), n, _stream(dev),
+        )
+    _raise_on(err, "exact_count")
+    _count(_attr_name("exact_count_" + ("z3" if has_time else "z2"), edition, attr_kind),
+           f"q=1{tag}")
+    return out
+
+
+# bins of the histogram edition (the reference's vocabmask cap, 65,536 codes)
+STAT_HIST_MAX_U = 1 << 16
+
+
+def exact_stat_hist_plain(xk, yk, tk, valid, box, win, codes, u_pad: int):
+    """Plain edition of :func:`exact_stat_hist`: the mask, its sum, and
+    ``torch.bincount`` of the codes of its non-null rows."""
+    m = exact_st_mask(xk, yk, valid, box, tk, win)
+    live = m & (codes >= 0) & (codes < u_pad)
+    hist = torch.bincount(codes[live].to(torch.int64), minlength=u_pad)
+    return torch.cat([m.sum(dtype=torch.int64).reshape(1), hist]).to(torch.int32)
+
+
+def exact_stat_hist(xk, yk, tk, valid, box, win, codes, u_pad: int):
+    """ONE exact predicate's hit count and the per-code histogram of its
+    hits -> int32[1 + u_pad] on the rows' device (the reference's
+    ``_exact_stat_hist_fn``): word 0 is the hit count, nulls included;
+    word 1 + c the hits whose code is c. ``codes`` int32[n] are ranks below
+    ``u_pad`` (1 <= u_pad <= 65,536), -1 for null and pad rows; a row with
+    a code outside [0, u_pad) counts in word 0 only."""
+    has_time = win is not None
+    if not 1 <= u_pad <= STAT_HIST_MAX_U:
+        raise ValueError(f"exact_stat_hist: u_pad ({u_pad}) not in [1, {STAT_HIST_MAX_U}]")
+    if xk.device.type == "cpu":
+        return exact_stat_hist_plain(xk, yk, tk if has_time else None, valid, box, win, codes,
+                                     u_pad)
+    if xk.device.type != "cuda":
+        raise ValueError(f"exact_stat_hist: unsupported device {xk.device}")
+    dev, n = _one_query(xk, yk, tk, valid, box, win, "exact_stat_hist")
+    _check(codes, "codes", torch.int32, dev, (n,))
+    fn = _lib("exact_bitmap").exact_stat_hist
+    with torch.cuda.device(dev):
+        out = torch.empty(1 + u_pad, dtype=torch.int32, device=dev)  # zeroed by the launcher
+        err = fn(
+            int(has_time), xk.data_ptr(), yk.data_ptr(), tk.data_ptr() if has_time else None,
+            valid.data_ptr(), box.data_ptr(), win.data_ptr() if has_time else None,
+            codes.data_ptr(), u_pad, out.data_ptr(), n, _stream(dev),
+        )
+    _raise_on(err, "exact_stat_hist")
+    _count("exact_stat_hist_" + ("z3" if has_time else "z2"), f"q=1 U={u_pad}")
+    return out
 
 
 def frame_bitmaps(bits: torch.Tensor, hdr: torch.Tensor, span_cap: int):
@@ -524,13 +656,25 @@ def xz_mask(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
 # -- K4: extent dual-plane bitmap ----------------------------------------------
 
 
-def xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
+def _attr_planes(hit, dec, codes, qcode, attr_kind):
+    """The attribute test ANDed into a dual plane's hit before its decided
+    plane derives from it (decided is a subset of hit)."""
+    if attr_kind is None:
+        return hit, dec
+    hit = attr_combine(hit, codes, qcode, attr_kind)
+    return hit, dec & hit
+
+
+def xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None,
+                         codes=None, qcodes=None, attr_kind=None):
     """Plain edition of :func:`xz_dual_bitmap`, one query at a time."""
     n8 = bxmin.shape[0] // 8
     hits, decs, hdr = [], [], []
     for i in range(descs.shape[0]):
         hit, dec = xz_exact_planes(bxmin, bymin, bxmax, bymax, isrect, valid,
                                    descs[i], descs[0, 4], tk)
+        hit, dec = _attr_planes(hit, dec, codes, None if qcodes is None else qcodes[i],
+                                attr_kind)
         hits.append(pack_mask_rows(hit))
         decs.append(pack_mask_rows(dec))
         hdr.append(torch.stack(_span_bounds(hit)))
@@ -540,7 +684,8 @@ def xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=No
     return torch.stack(hits), torch.stack(decs), torch.stack(hdr).to(torch.int32)
 
 
-def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
+def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None,
+                   codes=None, qcodes=None, attr_kind=None):
     """q exact extent predicates -> (hit bits u8[q, n/8], decided bits
     u8[q, n/8], hdr int32[q, 3]), both planes MSB-first.
 
@@ -549,11 +694,15 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
     the int64[n] ms column, is given); ``descs`` int64[q, 8] (see
     :func:`geomesa_tpu_torch.ops.filters.xz_exact_planes`). Every
     descriptor carries the same placeholder key: both editions take the
-    first one's. ``hdr`` rows are the HIT plane's (count, first, last),
+    first one's. With ``attr_kind`` (one of ``ATTR_KINDS``; ``codes``
+    int32[n], ``qcodes`` a row per query as for :func:`exact_bitmap`) each
+    query's attribute test ANDs into its hit plane before the decided plane
+    derives from it. ``hdr`` rows are the HIT plane's (count, first, last),
     no hit giving (0, 0, n - 1)."""
     has_time = tk is not None
     if bxmin.device.type == "cpu":
-        return xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk)
+        return xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk,
+                                    codes, qcodes, attr_kind)
     if bxmin.device.type != "cuda":
         raise ValueError(f"xz_dual_bitmap: unsupported device {bxmin.device}")
     dev, n = bxmin.device, bxmin.shape[0]
@@ -568,6 +717,8 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
     _check(isrect, "isrect", torch.bool, dev, (n,))
     _check(valid, "valid", torch.bool, dev, (n,))
     _check(descs, "descs", torch.int64, dev, (q, XZ_DESC))
+    edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, q, dev,
+                                            "xz_dual_bitmap")
     fn = _lib("xz_dual_bitmap").xz_dual_bitmap
     with torch.cuda.device(dev):
         hit_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
@@ -581,9 +732,12 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None):
             bymax.data_ptr(), isrect.data_ptr(), valid.data_ptr(),
             tk.data_ptr() if has_time else None, descs.data_ptr(), q,
             hit_bits.data_ptr(), dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
+            edition, codes.data_ptr() if edition else None,
+            qcodes.data_ptr() if edition else None, width,
         )
     _raise_on(err, "xz_dual_bitmap")
-    _count("xz_dual_bitmap_xz3" if has_time else "xz_dual_bitmap_xz2", f"q={q}")
+    _count(_attr_name("xz_dual_bitmap_" + ("xz3" if has_time else "xz2"), edition, attr_kind),
+           f"q={q}{tag}")
     empty = hdr[:, 0] == 0
     hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
     hdr[:, 2] = torch.where(empty, n - 1, hdr[:, 2])
@@ -731,7 +885,8 @@ def knn_topk(xf, yf, valid, qx: float, qy: float, k: int) -> torch.Tensor:
 # -- K7: banded polygon dual-plane bitmap ---------------------------------------
 
 
-def poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
+def poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None,
+                           codes=None, qcodes=None, attr_kind=None):
     """Plain edition of :func:`poly_dual_bitmap`, one query at a time
     (:func:`geomesa_tpu_torch.ops.filters.poly_planes`)."""
     n8 = xk.shape[0] // 8
@@ -739,6 +894,8 @@ def poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=No
     for i in range(boxes.shape[0]):
         hit, dec = poly_planes(xk, yk, valid, boxes[i], xf, yf, edges[i], tk,
                                None if wins is None else wins[i])
+        hit, dec = _attr_planes(hit, dec, codes, None if qcodes is None else qcodes[i],
+                                attr_kind)
         hits.append(pack_mask_rows(hit))
         decs.append(pack_mask_rows(dec))
         hdr.append(torch.stack(_span_bounds(hit)))
@@ -748,7 +905,8 @@ def poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=No
     return torch.stack(hits), torch.stack(decs), torch.stack(hdr).to(torch.int32)
 
 
-def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
+def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None,
+                     codes=None, qcodes=None, attr_kind=None):
     """q banded point-in-polygon queries -> (hit bits u8[q, n/8], decided
     bits u8[q, n/8], hdr int32[q, 3]), both planes MSB-first.
 
@@ -758,12 +916,15 @@ def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
     query's edge list padded to E with degenerate (zero) edges; ``boxes``
     int64[q, 4] keys of each polygon's envelope (xmin, xmax, ymin, ymax);
     ``wins`` int64[q, 2] inclusive (lo, hi) ms. The planes are those of
-    :func:`geomesa_tpu_torch.ops.filters.poly_planes`; ``hdr`` rows are the
-    HIT plane's (count, first, last), no hit giving (0, 0, n - 1)."""
+    :func:`geomesa_tpu_torch.ops.filters.poly_planes`; with ``attr_kind``
+    (``codes``, ``qcodes`` as for :func:`xz_dual_bitmap`) each query's
+    attribute test ANDs into its hit plane before the decided plane derives
+    from it. ``hdr`` rows are the HIT plane's (count, first, last), no hit
+    giving (0, 0, n - 1)."""
     has_time = wins is not None
     if xk.device.type == "cpu":
         return poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins,
-                                      tk if has_time else None)
+                                      tk if has_time else None, codes, qcodes, attr_kind)
     if xk.device.type != "cuda":
         raise ValueError(f"poly_dual_bitmap: unsupported device {xk.device}")
     dev, n = xk.device, xk.shape[0]
@@ -784,6 +945,8 @@ def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
     if edges.dim() != 3 or edges.shape[0] != q or edges.shape[2] != 4 or edges.shape[1] < 1:
         raise ValueError(f"poly_dual_bitmap: edges must be [{q}, E, 4], not {tuple(edges.shape)}")
     ecap = edges.shape[1]
+    edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, q, dev,
+                                            "poly_dual_bitmap")
     fn = _lib("poly_dual_bitmap").poly_dual_bitmap
     with torch.cuda.device(dev):
         hit_bits = torch.empty((q, n // 8), dtype=torch.uint8, device=dev)
@@ -795,8 +958,11 @@ def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None):
             int(has_time), xk.data_ptr(), yk.data_ptr(), tk.data_ptr() if has_time else None,
             valid.data_ptr(), xf.data_ptr(), yf.data_ptr(), edges.data_ptr(), q, ecap,
             boxes.data_ptr(), wins.data_ptr() if has_time else None, hit_bits.data_ptr(),
-            dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
+            dec_bits.data_ptr(), hdr.data_ptr(), n, _stream(dev), edition,
+            codes.data_ptr() if edition else None, qcodes.data_ptr() if edition else None,
+            width,
         )
     _raise_on(err, "poly_dual_bitmap")
-    _count("poly_dual_bitmap_" + ("z3" if has_time else "z2"), f"q={q} E={ecap}")
+    _count(_attr_name("poly_dual_bitmap_" + ("z3" if has_time else "z2"), edition, attr_kind),
+           f"q={q} E={ecap}{tag}")
     return hit_bits, dec_bits, hdr[:3 * q].view(q, 3)

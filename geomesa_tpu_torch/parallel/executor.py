@@ -24,7 +24,11 @@ stream takes there:
     alone answers); only the ring, hit minus decided, takes the host's
     per-geometry test (``_xz_bitmap_batch_fn`` / ``_XZBatchScan``). A lone
     query runs the kernel with q = 1 and returns both planes run-length
-    encoded (the reference's ``_xz_runs_fn`` role).
+    encoded (the reference's ``_xz_runs_fn`` role). A plan that adds
+    predicates on one attribute batches with the kernel's attribute
+    editions (per attribute and edition, as the point plane's), ANDed into
+    the hit plane; alone, it takes the candidate route, as in the
+    reference.
   * the CANDIDATE route (plans with a residual the exact descriptors
     decline, e.g. an OR of boxes): the ``candidate_mask`` (points) or
     ``xz_mask`` (extents) kernel gives a conservative mask, run-length
@@ -45,8 +49,19 @@ stream takes there:
     whose HIT plane holds the envelope's rows that are inside or too near an
     edge for f32 to tell, and whose DECIDED plane holds those it certifies;
     the ring takes the host's exact test (the reference's
-    ``_poly_bitmap_batch_fn`` / ``_XZBatchScan``). A polygon alone takes the
+    ``_poly_bitmap_batch_fn`` / ``_XZBatchScan``); with predicates on one
+    attribute, the kernel's attribute editions. A polygon alone takes the
     candidate route, as in the reference.
+
+  * the COUNT push-down (``count_scan``): a point plan of one box(+window)
+    (+ one attribute's predicates) launches ``exact_count`` per segment
+    and reads every segment's int32 in one copy; an extent plan, or a
+    polygon on a point table, counts the decided rows of the q = 1 dual
+    planes plus the ring rows the host's test passes.
+
+  * the STATS push-down (``stats_scan``): a point plan of one box(+window)
+    launches ``exact_stat_hist`` per segment and attribute of the stat
+    spec, and the host rebuilds the sketches from the per-value counts.
 
   * the device kNN (``knn_candidates``): one ``knn_topk`` launch per segment
     ranks every row by its f32 haversine distance to a point.
@@ -72,7 +87,8 @@ bitmap decode (``bitdecode.cpp``), numpy's unpack when it is unavailable.
 
 The host steps of a scan carry ``torch.profiler`` ranges (``geomesa.fetch``,
 ``geomesa.decode``, ``geomesa.block_rows``, ``geomesa.ring``, ``geomesa.seek``
-around each block's host-seek scan; the store adds
+around each block's host-seek scan, ``geomesa.dispatch`` around the launches
+of a count or stats push-down; the store adds
 ``geomesa.plan``, ``geomesa.dispatch``, ``geomesa.post_filter`` and
 ``geomesa.assemble``; a density query opens ``geomesa.density`` around its
 launches and grid fetch and ``geomesa.band`` around the host certification),
@@ -83,6 +99,7 @@ query stream splits its host time by step.
 
 from __future__ import annotations
 
+import json
 import os
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -111,9 +128,12 @@ from geomesa_tpu_torch.ops.zkernels import (
 from geomesa_tpu_torch.parallel.mesh import (
     Device,
     default_device,
+    device_auto_declines,
     pad_to_multiple,
     upload,
 )
+from geomesa_tpu_torch.stats.parser import parse_stat
+from geomesa_tpu_torch.stats.sketches import CountStat, SeqStat
 from geomesa_tpu_torch.store.blocks import FeatureBlock, IndexTable, expand_intervals
 
 # initial hit-run capacity: 4096 runs * 8B = 32 KiB per segment transfer
@@ -769,12 +789,46 @@ class DeviceSegment:
             ))
         return out
 
-    def dispatch_exact_xz(self, desc_dev, has_time: bool) -> "_PendingXZHits":
+    def count_exact_start(self, box_dev, win_dev, attr: Optional[str] = None, payload=None,
+                          kind: str = "member") -> torch.Tensor:
+        """Dispatch a filtered count (the reference's ``count_exact_start``):
+        ``exact_count`` of one box(+window) query, with the attribute plane
+        of ``attr`` (its codes loaded; ``payload`` and ``kind`` as for
+        ``dispatch_exact_attr``), summed on the device. Returns the
+        in-flight int32[1]; the caller dispatches every segment before it
+        reads them all in one copy."""
+        has_time = self.tk is not None and win_dev is not None
+        xk, yk, tk, valid = self._exact_cols(has_time)
+        codes = qcodes = None
+        if attr is not None:
+            codes, qcodes, kind = self._attr_plane_args(attr, payload, kind)
+        return kernels.exact_count(xk, yk, tk, valid, box_dev, win_dev if has_time else None,
+                                   codes, qcodes, kind if attr is not None else None)
+
+    def stat_hist_start(self, box_dev, win_dev, attr: str) -> Tuple[torch.Tensor, np.ndarray]:
+        """Dispatch a filtered per-code hit histogram of ``attr`` (its codes
+        loaded; the reference's ``stat_hist_start``): (in-flight int32[1 +
+        u_pad], the sorted unified value space), word 0 the hit count
+        (nulls included), word 1 + c the hits of value ``unified[c]``;
+        ``u_pad`` is ``len(unified)`` padded to a power of two of at least 8,
+        per segment."""
+        has_time = self.tk is not None and win_dev is not None
+        xk, yk, tk, valid = self._exact_cols(has_time)
+        codes, unified = self._attr_codes[attr]
+        u_pad = _pow2_at_least(len(unified), 8)
+        return kernels.exact_stat_hist(xk, yk, tk, valid, box_dev,
+                                       win_dev if has_time else None, codes, u_pad), unified
+
+    def dispatch_exact_xz(self, desc_dev, has_time: bool, plane=None) -> "_PendingXZHits":
         """Exact extent scan of one query: ``xz_dual_bitmap`` with q = 1,
         both planes run-length encoded on the device (the reference's
-        ``_xz_runs_fn`` role). ``desc_dev`` = int64[8] on the device."""
+        ``_xz_runs_fn`` role). ``desc_dev`` = int64[8] on the device;
+        ``plane`` = (codes, qcodes [1, ...], kind) adds the attribute test
+        (the reference's ``count_xz_start`` and lone attribute scans)."""
         cols = self._xz_cols(has_time)
-        hit_bits, dec_bits, _hdr = kernels.xz_dual_bitmap(*cols[:6], desc_dev[None], tk=cols[6])
+        codes, qcodes, kind = plane if plane is not None else (None, None, None)
+        hit_bits, dec_bits, _hdr = kernels.xz_dual_bitmap(
+            *cols[:6], desc_dev[None], cols[6], codes, qcodes, kind)
         hit = unpack_mask_rows(hit_bits[0])
         dec = unpack_mask_rows(dec_bits[0])
 
@@ -787,25 +841,44 @@ class DeviceSegment:
             packed=lambda: torch.cat([hit_bits[0], dec_bits[0]]),
         )
 
-    def dispatch_exact_xz_batch(self, descs: np.ndarray, has_time: bool
-                                ) -> List["_PendingXZBitmapHits"]:
+    def count_xz_start(self, desc_dev, has_time: bool, attr: Optional[str] = None,
+                       payload=None, kind: str = "member") -> "_PendingXZHits":
+        """Dispatch ONE extent scan's dual planes for a count (the
+        reference's ``count_xz_start``): the q = 1 dual route, with the
+        attribute plane of ``attr``; the executor counts the decided rows
+        and the ring rows the host certifies."""
+        plane = None if attr is None else self._attr_plane_args(attr, payload, kind)
+        return self.dispatch_exact_xz(desc_dev, has_time, plane)
+
+    def dispatch_exact_xz_batch(self, descs: np.ndarray, has_time: bool,
+                                attr: Optional[str] = None, attr_kind: str = "member",
+                                payloads=None) -> List["_PendingXZBitmapHits"]:
         """Q extent exact scans in ONE ``xz_dual_bitmap`` launch: per query
         the (hit, decided) span windows keyed on the hit span, sliced on
         the device and fetched once for all q; a query whose span outgrows
-        the window refetches alone as dual runs. ``descs`` = int64[q, 8]."""
+        the window refetches alone as dual runs. ``descs`` = int64[q, 8];
+        with ``attr``, ``payloads`` one a query and the attribute test of
+        the edition ``attr_kind`` ANDed into each hit plane (the
+        reference's ``dispatch_exact_xz_batch(..., attr=)``)."""
         descs_dev = upload(descs, self.device)
         cols = self._xz_cols(has_time)
-        hit_bits, dec_bits, hdr = kernels.xz_dual_bitmap(*cols[:6], descs_dev, tk=cols[6])
+        codes = qcodes = None
+        if attr is not None:
+            codes = self._attr_codes[attr][0]
+            qcodes = upload(self._attr_batch_vectors(attr, attr_kind, payloads), self.device)
+        hit_bits, dec_bits, hdr = kernels.xz_dual_bitmap(
+            *cols[:6], descs_dev, cols[6], codes, qcodes, attr_kind if attr is not None else None)
         span_cap = self.span_cap()
         header, window = kernels.frame_dual_bitmaps(hit_bits, dec_bits, hdr, span_cap)
         batch = _BitmapBatch(header, window, span_cap, seg=self)
-        return [
-            _PendingXZBitmapHits(
+        out = []
+        for i in range(len(descs)):
+            plane = None if attr is None else (codes, qcodes[i:i + 1], attr_kind)
+            out.append(_PendingXZBitmapHits(
                 self, batch, i,
-                single=lambda d=descs_dev[i]: self.dispatch_exact_xz(d, has_time),
-            )
-            for i in range(len(descs))
-        ]
+                single=lambda d=descs_dev[i], p=plane: self.dispatch_exact_xz(d, has_time, p),
+            ))
+        return out
 
     def load_poly(self, table: IndexTable) -> bool:
         """The columns of the banded polygon ray cast (point indices only):
@@ -824,17 +897,19 @@ class DeviceSegment:
         xk, yk, tk, valid = self._exact_cols(has_time)
         return xk, yk, valid, self.xf, self.yf, tk
 
-    def dispatch_poly(self, edges_dev, box_dev, win_dev) -> "_PendingXZHits":
+    def dispatch_poly(self, edges_dev, box_dev, win_dev, plane=None) -> "_PendingXZHits":
         """One banded polygon scan: ``poly_dual_bitmap`` with q = 1, both
         planes run-length encoded on the device (the reference's
         ``_poly_runs_fn`` role; ``_poly_packed_fn`` for the dense degrade).
         ``edges_dev`` f32[E, 4], ``box_dev`` int64[4], ``win_dev`` int64[2]
-        or None."""
+        or None; ``plane`` = (codes, qcodes [1, ...], kind) adds the
+        attribute test."""
         has_time = win_dev is not None
         xk, yk, valid, xf, yf, tk = self._poly_cols(has_time)
+        codes, qcodes, kind = plane if plane is not None else (None, None, None)
         hit_bits, dec_bits, _hdr = kernels.poly_dual_bitmap(
             xk, yk, valid, xf, yf, edges_dev[None], box_dev[None],
-            win_dev[None] if has_time else None, tk)
+            win_dev[None] if has_time else None, tk, codes, qcodes, kind)
         hit = unpack_mask_rows(hit_bits[0])
         dec = unpack_mask_rows(dec_bits[0])
 
@@ -847,16 +922,27 @@ class DeviceSegment:
             packed=lambda: torch.cat([hit_bits[0], dec_bits[0]]),
         )
 
-    def dispatch_poly_batch(self, descs: Sequence[tuple], has_time: bool
+    def count_poly_start(self, edges_dev, box_dev, win_dev, attr: Optional[str] = None,
+                         payload=None, kind: str = "member") -> "_PendingXZHits":
+        """Dispatch ONE banded polygon scan's dual planes for a count (the
+        reference's ``count_poly_start``): ``dispatch_poly``, with the
+        attribute plane of ``attr``."""
+        plane = None if attr is None else self._attr_plane_args(attr, payload, kind)
+        return self.dispatch_poly(edges_dev, box_dev, win_dev, plane)
+
+    def dispatch_poly_batch(self, descs: Sequence[tuple], has_time: bool,
+                            attr: Optional[str] = None, attr_kind: str = "member"
                             ) -> List["_PendingXZBitmapHits"]:
         """Q banded polygon scans in ONE ``poly_dual_bitmap`` launch (the
         reference's ``dispatch_poly_batch`` on the bitmap protocol):
-        ``descs`` = [(edges f32[E, 4], box int64[4], win int64[2] | None)].
-        Edge lists pad to the batch's shared pow2 bucket (at least 8) with
-        degenerate zero edges and the batch to a multiple of 4 queries with
-        copies of the last; per query the (hit, decided) span windows keyed
-        on the hit span are sliced on the device and fetched once for all;
-        a query whose span outgrows the window refetches alone
+        ``descs`` = [(edges f32[E, 4], box int64[4], win int64[2] | None)],
+        with ``attr`` [(edges, box, win, payload)]: the attribute test of
+        the edition ``attr_kind`` ANDs into each hit plane. Edge lists pad
+        to the batch's shared pow2 bucket (at least 8) with degenerate zero
+        edges and the batch to a multiple of 4 queries with copies of the
+        last; per query the (hit, decided) span windows keyed on the hit
+        span are sliced on the device and fetched once for all; a query
+        whose span outgrows the window refetches alone
         (``dispatch_poly``)."""
         q = len(descs)
         qpad = (q + 3) // 4 * 4
@@ -869,17 +955,25 @@ class DeviceSegment:
         boxes_dev = upload(np.stack([d[1] for d in padded]), self.device)
         wins_dev = upload(np.stack([d[2] for d in padded]), self.device) if has_time else None
         xk, yk, valid, xf, yf, tk = self._poly_cols(has_time)
+        codes = qcodes = None
+        if attr is not None:
+            codes = self._attr_codes[attr][0]
+            qcodes = upload(self._attr_batch_vectors(attr, attr_kind, [d[3] for d in padded]),
+                            self.device)
         hit_bits, dec_bits, hdr = kernels.poly_dual_bitmap(
-            xk, yk, valid, xf, yf, edges_dev, boxes_dev, wins_dev, tk)
+            xk, yk, valid, xf, yf, edges_dev, boxes_dev, wins_dev, tk, codes, qcodes,
+            attr_kind if attr is not None else None)
         span_cap = self.span_cap()
         header, window = kernels.frame_dual_bitmaps(hit_bits, dec_bits, hdr, span_cap)
         batch = _BitmapBatch(header, window, span_cap, seg=self)
         out = []
         for i in range(q):
             win_i = wins_dev[i] if has_time else None
+            plane = None if attr is None else (codes, qcodes[i:i + 1], attr_kind)
             out.append(_PendingXZBitmapHits(
                 self, batch, i,
-                single=lambda e=edges_dev[i], b=boxes_dev[i], w=win_i: self.dispatch_poly(e, b, w),
+                single=lambda e=edges_dev[i], b=boxes_dev[i], w=win_i, p=plane:
+                    self.dispatch_poly(e, b, w, p),
             ))
         return out
 
@@ -1195,6 +1289,21 @@ def _yield_xz_rows(seg: DeviceSegment, dec_rows: np.ndarray, ring: np.ndarray, r
         yield from seg.to_block_rows(np.sort(dec_rows))
 
 
+def _count_dual_resolve(pendings, ring_test) -> int:
+    """The count of every dual-plane dispatch (extent envelopes and banded
+    polygons; the reference's ``_count_dual_resolve``): the decided rows,
+    decoded and counted, plus the ring rows (hit, not decided) that pass the
+    host's ``ring_test``. ``pendings`` = [(segment, dual pending)]."""
+    total = 0
+    for seg, ph in pendings:
+        hit_rows, dec_rows = ph.rows()
+        total += len(dec_rows)
+        ring = _ring_split(hit_rows, dec_rows)
+        for _block, local in _yield_xz_rows(seg, dec_rows[:0], ring, ring_test):
+            total += len(local)
+    return total
+
+
 class _XZBatchScan:
     """Extent (and banded polygon) scans resolved against the plan's own
     spatial node: decided rows are final; the ring (hit minus decided)
@@ -1488,8 +1597,10 @@ class TorchScanExecutor:
                 pending.append((seg, seg.dispatch_exact(box_dev, win_dev)))
             return _PendingScan(pending, exact=True)
         xz = self._xz_batch_desc(table, plan)
-        if xz is not None:
-            return self._dispatch_xz_single(table, dev, *xz)
+        if xz is not None and xz[4] is None:
+            # a lone extent query AND attribute predicates takes the
+            # candidate route, as the reference's lone extent queries do
+            return self._dispatch_xz_single(table, dev, *xz[:4])
         boxes_dev, windows_dev = self._query_descriptor(table, plan)
         return _PendingScan(
             [(seg, seg.dispatch_hits(boxes_dev, windows_dev)) for seg in dev.segments]
@@ -1505,6 +1616,24 @@ class TorchScanExecutor:
             seg.load_exact_xz(table)
             pending.append((seg, seg.dispatch_exact_xz(desc_dev, has_time)))
         return _XZBatchScan(pending, _extent_ring_test(node, geom))
+
+    @staticmethod
+    def _attr_ready(table: IndexTable, dev: DeviceIndex, attr: Optional[str], kind: Optional[str],
+                    xz: bool = False) -> bool:
+        """Whether every segment can take the attribute plane of ``attr``
+        in the edition ``kind`` (no attribute: no plane): its codes load
+        (not an object column) and, for vocabmask, its value space fits the
+        lookup. Loads the exact columns the plane rides on (``xz``: the
+        extents')."""
+        for seg in dev.segments:
+            if xz:
+                seg.load_exact_xz(table)
+            else:
+                seg.load_exact(table)
+        if attr is None:
+            return True
+        return all(seg.load_attr_codes(attr) for seg in dev.segments) and (
+            kind != "vocabmask" or all(seg.attr_vocab_ok(attr) for seg in dev.segments))
 
     def degrade(self, table: Optional[IndexTable], exc: BaseException) -> None:
         """Evict the failed table's device mirror (None evicts every mirror)
@@ -1526,13 +1655,14 @@ class TorchScanExecutor:
         attribute (per attribute and edition: ``_drain_attr_batches``),
         extent plans with a dual descriptor into ONE ``xz_dual_bitmap``
         launch and point plans of one non-rectangular polygon (+ window)
-        into ONE ``poly_dual_bitmap`` launch (chunks of BATCH_MAX); the
+        into ONE ``poly_dual_bitmap`` launch (chunks of BATCH_MAX), the dual
+        groups also per attribute and edition of their attribute plane; the
         others dispatch as dispatch_candidates would."""
         out: Dict[int, object] = {}
         batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         attr_batchable: Dict[tuple, Tuple[IndexTable, bool, str, str, list]] = {}
-        xz_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
-        poly_batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
+        xz_batchable: Dict[tuple, Tuple[IndexTable, bool, Optional[str], Optional[str], list]] = {}
+        poly_batchable: Dict[tuple, Tuple[IndexTable, bool, Optional[str], Optional[str], list]] = {}
         for table, plan in items:
             if id(plan) in out:
                 continue
@@ -1554,18 +1684,22 @@ class TorchScanExecutor:
             if desc is None:
                 poly = self._poly_batch_desc(table, plan) if eligible else None
                 if poly is not None:
-                    edges, box_np, win_np, has_time, geom, node = poly
+                    edges, box_np, win_np, has_time, geom, node, ainfo = poly
+                    attr, akind = ainfo[:2] if ainfo else (None, None)
+                    # the payload rides in the descriptor: dispatch_poly_batch reads it
+                    d = (edges, box_np, win_np) + ((ainfo[2],) if ainfo else ())
                     group = poly_batchable.setdefault(
-                        (id(table), has_time), (table, has_time, []))
-                    group[2].append((id(plan), plan, (edges, box_np, win_np), geom, node))
+                        (id(table), has_time, attr, akind), (table, has_time, attr, akind, []))
+                    group[4].append((id(plan), plan, d, geom, node))
                     out[id(plan)] = None  # placeholder, filled below
                     continue
                 xz = self._xz_batch_desc(table, plan) if eligible else None
                 if xz is not None:
-                    qdesc, has_time, geom, node = xz
+                    qdesc, has_time, geom, node, ainfo = xz
+                    attr, akind = ainfo[:2] if ainfo else (None, None)
                     group = xz_batchable.setdefault(
-                        (id(table), has_time), (table, has_time, []))
-                    group[2].append((id(plan), qdesc, geom, node))
+                        (id(table), has_time, attr, akind), (table, has_time, attr, akind, []))
+                    group[4].append((id(plan), plan, qdesc, ainfo, geom, node))
                     out[id(plan)] = None  # placeholder, filled below
                     continue
                 out[id(plan)] = self._dispatch_nonseek(table, plan, desc=None)
@@ -1607,11 +1741,7 @@ class TorchScanExecutor:
         the group takes the candidate route and the host post-filter."""
         for table, has_time, attr, akind, lst in groups.values():
             dev = self.device_index(table)
-            for seg in dev.segments:
-                seg.load_exact(table)
-            ok = all(seg.load_attr_codes(attr) for seg in dev.segments) and (
-                akind != "vocabmask" or all(seg.attr_vocab_ok(attr) for seg in dev.segments))
-            if not ok:
+            if not self._attr_ready(table, dev, attr, akind):
                 for pid, plan, _d in lst:
                     out[pid] = self._dispatch_nonseek(table, plan, desc=None)
                 continue
@@ -1639,22 +1769,30 @@ class TorchScanExecutor:
 
     def _drain_xz_batches(self, out: Dict[int, object], groups) -> None:
         """The extent groups of dispatch_many (the reference's
-        ``_drain_dual_batches``): chunked ``xz_dual_bitmap`` batches per
-        segment resolving through _XZBatchScan; a lone query takes the
-        q = 1 dual scan."""
-        for table, has_time, lst in groups.values():
+        ``_drain_dual_batches``), per (table, has_time, attribute, edition):
+        chunked ``xz_dual_bitmap`` batches per segment resolving through
+        _XZBatchScan; a lone query takes the q = 1 dual scan, or with
+        attribute predicates the candidate route and the host post-filter,
+        as the reference's lone extent queries. When some segment cannot
+        take the group's attribute plane, the group takes the candidate
+        route too."""
+        for table, has_time, attr, akind, lst in groups.values():
             dev = self.device_index(table)
-            for seg in dev.segments:
-                seg.load_exact_xz(table)
+            if not self._attr_ready(table, dev, attr, akind, xz=True):
+                for pid, plan, *_rest in lst:
+                    out[pid] = self._dispatch_nonseek(table, plan, desc=None)
+                continue
             for i in range(0, len(lst), self.BATCH_MAX):
                 chunk = lst[i : i + self.BATCH_MAX]
                 if len(chunk) == 1:
-                    pid, qdesc, geom, node = chunk[0]
-                    out[pid] = self._dispatch_xz_single(table, dev, qdesc, has_time, geom, node)
+                    out[chunk[0][0]] = self._dispatch_nonseek(table, chunk[0][1], desc=None)
                     continue
-                descs = np.stack([item[1] for item in chunk])
-                per_seg = [seg.dispatch_exact_xz_batch(descs, has_time) for seg in dev.segments]
-                for qi, (pid, _qdesc, geom, node) in enumerate(chunk):
+                descs = np.stack([item[2] for item in chunk])
+                payloads = [item[3][2] for item in chunk] if attr is not None else None
+                per_seg = [seg.dispatch_exact_xz_batch(descs, has_time, attr, akind or "member",
+                                                       payloads)
+                           for seg in dev.segments]
+                for qi, (pid, _plan, _qdesc, _ainfo, geom, node) in enumerate(chunk):
                     out[pid] = _XZBatchScan(
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
                         _extent_ring_test(node, geom),
@@ -1667,11 +1805,13 @@ class TorchScanExecutor:
         _XZBatchScan (the ring: hit rows the f32 ray cast left undecided,
         tested on the host). A group of one, or a chunk of one, takes the
         reference's route for a query alone: the candidate mask and the
-        host post-filter."""
-        for table, has_time, lst in groups.values():
+        host post-filter; so does a group whose attribute plane some segment
+        cannot take."""
+        for table, has_time, attr, akind, lst in groups.values():
             dev = self.device_index(table)
             ok = len(lst) > 1 and bool(dev.segments) and all(
-                seg.load_poly(table) for seg in dev.segments)
+                seg.load_poly(table) for seg in dev.segments) and self._attr_ready(
+                    table, dev, attr, akind)
             if not ok:
                 for pid, plan, _d, _geom, _node in lst:
                     out[pid] = self._dispatch_nonseek(table, plan, desc=None)
@@ -1683,7 +1823,8 @@ class TorchScanExecutor:
                     out[pid] = self._dispatch_nonseek(table, plan, desc=None)
                     continue
                 descs = [d for _pid, _plan, d, _geom, _node in chunk]
-                per_seg = [seg.dispatch_poly_batch(descs, has_time) for seg in dev.segments]
+                per_seg = [seg.dispatch_poly_batch(descs, has_time, attr, akind or "member")
+                           for seg in dev.segments]
                 for qi, (pid, _plan, _d, geom, node) in enumerate(chunk):
                     out[pid] = _XZBatchScan(
                         [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)],
@@ -2095,7 +2236,7 @@ class TorchScanExecutor:
         return match_attr, finalize
 
     @staticmethod
-    def _xz_pred_shape(table: IndexTable, plan: QueryPlan):
+    def _xz_pred_shape(table: IndexTable, plan: QueryPlan, extra_match=None):
         """(geom, node, qenv, rect, t_lo, t_hi) when the FULL filter of an
         xz2/xz3 plan is exactly one spatial predicate on the default
         geometry plus, for xz3, AND-combined temporal bounds on the default
@@ -2103,8 +2244,12 @@ class TorchScanExecutor:
 
         Only a SINGLE spatial node qualifies: an AND of two boxes is not one
         test against their intersection for extent features (a geometry can
-        straddle both boxes yet miss the intersection)."""
-        if table.index.name not in ("xz2", "xz3") or plan.secondary is not None:
+        straddle both boxes yet miss the intersection). ``extra_match`` may
+        claim more node shapes (the attribute plane's predicates); the plan
+        may then carry a secondary, the residual the device decides."""
+        if table.index.name not in ("xz2", "xz3"):
+            return None
+        if extra_match is None and plan.secondary is not None:
             return None
         f = plan.full_filter
         if f is None:
@@ -2119,7 +2264,7 @@ class TorchScanExecutor:
             if isinstance(node, (A.BBox, A.Intersects)) and node.prop == geom:
                 spatial.append(node)
                 return True
-            return False
+            return extra_match(node) if extra_match is not None else False
 
         ok, t_lo, t_hi = TorchScanExecutor._and_walk_temporal(ft, f, match)
         if not ok or len(spatial) != 1:
@@ -2152,30 +2297,41 @@ class TorchScanExecutor:
         return desc, has_time
 
     def _xz_batch_desc(self, table: IndexTable, plan: QueryPlan):
-        """(desc int64[8], has_time, geom, node) when this extent plan's
-        full filter reduces to one spatial predicate (+ xz3 time bounds):
-        the dual route's descriptor; None otherwise."""
+        """(desc int64[8], has_time, geom, node, attr_info) when this extent
+        plan's full filter reduces to one spatial predicate (+ xz3 time
+        bounds), optionally AND predicates on ONE attribute that the code
+        space decides (the reference's ``_xz_batch_desc``): the dual
+        route's descriptor; None otherwise. ``attr_info`` is None or
+        (attribute, edition, payload) as ``_attr_pred_collector`` gives it:
+        the attribute test ANDs into the hit plane, so decided rows are
+        final and the ring needs only the host's geometry test."""
         shape = self._xz_pred_shape(table, plan)
+        attr_info = None
         if shape is None:
-            return None
+            match_attr, finalize = self._attr_pred_collector(table.ft)
+            shape = self._xz_pred_shape(table, plan, extra_match=match_attr)
+            attr_info = finalize()
+            if shape is None or attr_info is None:
+                return None
         geom, node, qenv, rect, t_lo, t_hi = shape
         desc, has_time = self._xz_desc(qenv, rect, t_lo, t_hi)
-        return desc, has_time, geom, node
+        return desc, has_time, geom, node, attr_info
 
     def _poly_batch_desc(self, table: IndexTable, plan: QueryPlan):
         """(edges f32[E, 4], box int64[4], win int64[2] | None, has_time,
-        geom, node) when this point z-index plan's FULL filter is one
-        non-rectangular INTERSECTS(polygon) on the default geometry (+ z3
-        temporal bounds): the banded ray cast's descriptor (the reference's
-        ``_poly_batch_desc``); None otherwise. A rectangle stays on the box
-        path; a MultiPolygon qualifies only when its members' envelopes are
-        disjoint (crossing parity holds for disjoint members only); the
-        edges are every ring's, shells and holes; box and window are the
-        polygon's envelope and the window as ``_shape_keys`` encodes them.
-        A polygon AND attribute predicates is not claimed (the candidate
-        route and the host post-filter answer it; the reference's attribute
-        edition is not ported)."""
-        if table.index.name not in ("z2", "z3") or plan.secondary is not None:
+        geom, node, attr_info) when this point z-index plan's FULL filter is
+        one non-rectangular INTERSECTS(polygon) on the default geometry (+
+        z3 temporal bounds), optionally AND predicates on ONE attribute that
+        the code space decides: the banded ray cast's descriptor (the
+        reference's ``_poly_batch_desc``); None otherwise. A rectangle stays
+        on the box path; a MultiPolygon qualifies only when its members'
+        envelopes are disjoint (crossing parity holds for disjoint members
+        only); the edges are every ring's, shells and holes; box and window
+        are the polygon's envelope and the window as ``_shape_keys`` encodes
+        them. ``attr_info`` is None or (attribute, edition, payload) as
+        ``_attr_pred_collector`` gives it: the attribute test ANDs into the
+        hit plane, so the band ring carries only rows that pass it."""
+        if table.index.name not in ("z2", "z3"):
             return None
         ft = table.ft
         if ft.default_geometry is None or not ft.is_points:
@@ -2195,9 +2351,13 @@ class TorchScanExecutor:
                 return True
             return False
 
-        ok, t_lo, t_hi = self._and_walk_temporal(ft, f, match)
+        match_attr, finalize = self._attr_pred_collector(ft)
+        ok, t_lo, t_hi = self._and_walk_temporal(ft, f, lambda n: match(n) or match_attr(n))
+        attr_info = finalize()
         if not ok or len(spatial) != 1:
             return None
+        if attr_info is None and plan.secondary is not None:
+            return None  # a residual that is not one attribute's predicates
         has_time = t_lo is not None or t_hi is not None
         if has_time and table.index.name != "z3":
             return None
@@ -2227,7 +2387,7 @@ class TorchScanExecutor:
         edges = np.concatenate(segs).astype(np.float32)
         e = g.envelope
         box, win = self._shape_keys((e.xmin, e.ymin, e.xmax, e.ymax, t_lo, t_hi))
-        return edges, box, win, has_time, geom, node
+        return edges, box, win, has_time, geom, node, attr_info
 
     def _query_descriptor(self, table: IndexTable, plan: QueryPlan):
         """(boxes, windows | None) device tensors of the candidate mask."""
@@ -2301,6 +2461,203 @@ class TorchScanExecutor:
         from geomesa_tpu_torch.filter.evaluate import evaluate
 
         return evaluate(plan.post_filter, ft, columns)
+
+    # -- count and stats push-downs ---------------------------------------------
+
+    def count_scan(self, table: IndexTable, plan: QueryPlan) -> Optional[int]:
+        """The exact filtered count with no row extraction (the reference's
+        ``count_scan``, the EXACT_COUNT edition of the exact scans), or None
+        when the host must count (``len`` of the query). A z2/z3 plan whose
+        FULL filter is one box(+window), optionally AND predicates on one
+        attribute the code space decides, launches ``exact_count`` per
+        segment and reads every segment's int32 in one copy; an extent plan
+        counts on the dual route (``_count_xz_scan``), a non-rectangular
+        polygon on a point table on the banded ray cast
+        (``_count_poly_scan``). ``GEOMESA_COUNT_DEVICE``: auto (a CUDA
+        device with a round trip of at most 10 ms) | 1 | 0
+        (``mesh.device_auto_declines``)."""
+        if device_auto_declines("GEOMESA_COUNT_DEVICE", device=self.device):
+            return None
+        if table.index.name in ("xz2", "xz3"):
+            return self._count_xz_scan(table, plan)
+        if table.index.name not in ("z2", "z3") or not self._scan_eligible(table, plan):
+            return None
+        attr = akind = payload = None
+        desc = self._exact_descriptor(table, plan)
+        if desc is not None:
+            box_np, win_np = desc
+        else:
+            got = self._attr_batch_desc(table, plan)
+            if got is None:
+                # a non-rectangular INTERSECTS on a point table: the ray
+                # cast's dual planes count as the extent tables do
+                return self._count_poly_scan(table, plan)
+            attr, akind, (box_np, win_np, payload) = got
+        dev = self.device_index(table)
+        if not dev.segments or not self._attr_ready(table, dev, attr, akind):
+            return None
+        # upload once, dispatch every segment, then one copy of all counts
+        with record_function("geomesa.dispatch"):
+            box_dev = upload(box_np, self.device)
+            win_dev = None if win_np is None else upload(win_np, self.device)
+            pending = [seg.count_exact_start(box_dev, win_dev, attr, payload, akind or "member")
+                       for seg in dev.segments]
+        return int(_np_local(torch.cat(pending)).astype(np.int64).sum())
+
+    def _count_xz_scan(self, table: IndexTable, plan: QueryPlan) -> Optional[int]:
+        """The extent edition of ``count_scan`` (the reference's
+        ``_count_xz_scan``): per segment the q = 1 dual planes, with the
+        attribute plane of the plan's attribute predicates; the count is
+        the decided rows plus the ring rows the host's geometry test
+        passes. None -> the host counts."""
+        if not self._scan_eligible(table, plan):
+            return None
+        got = self._xz_batch_desc(table, plan)
+        if got is None:
+            return None
+        qdesc, has_time, geom, node, attr_info = got
+        attr, akind, payload = attr_info or (None, "member", None)
+        dev = self.device_index(table)
+        if not dev.segments or not self._attr_ready(table, dev, attr, akind, xz=True):
+            return None
+        with record_function("geomesa.dispatch"):
+            desc_dev = upload(qdesc, self.device)
+            pendings = [(seg, seg.count_xz_start(desc_dev, has_time, attr, payload, akind))
+                        for seg in dev.segments]
+        return _count_dual_resolve(pendings, _extent_ring_test(node, geom))
+
+    def _count_poly_scan(self, table: IndexTable, plan: QueryPlan) -> Optional[int]:
+        """The banded polygon edition of ``count_scan`` (the reference's
+        ``_count_poly_scan``: point z2/z3 tables, one non-rectangular
+        INTERSECTS (+ window) (+ one attribute's predicates)): the decided
+        ray-cast hits plus the band rows the host's point test passes."""
+        got = self._poly_batch_desc(table, plan)
+        if got is None:
+            return None
+        edges, box_np, win_np, has_time, geom, node, attr_info = got
+        dev = self.device_index(table)
+        attr, akind, payload = attr_info or (None, "member", None)
+        if not dev.segments or not all(seg.load_poly(table) for seg in dev.segments):
+            return None
+        if not self._attr_ready(table, dev, attr, akind):
+            return None
+        padded = np.zeros((_pow2_at_least(len(edges), 8), 4), np.float32)
+        padded[:len(edges)] = edges
+        with record_function("geomesa.dispatch"):
+            edges_dev = upload(padded, self.device)
+            box_dev = upload(box_np, self.device)
+            win_dev = None if win_np is None else upload(win_np, self.device)
+            pendings = [(seg, seg.count_poly_start(edges_dev, box_dev, win_dev, attr, payload,
+                                                   akind))
+                        for seg in dev.segments]
+        return _count_dual_resolve(pendings, _point_ring_test(node, geom))
+
+    # value-distribution sketches that per-code counts rebuild exactly (the
+    # observe_counts contract); GroupBy of any sub-stat but Count(), the z3
+    # sketches, DescriptiveStats and geometry stats take the host reducer
+    _STAT_HIST_KINDS = ("minmax", "enumeration", "topk", "histogram", "frequency")
+
+    def stats_scan(self, table: IndexTable, plan: QueryPlan, spec: str):
+        """The stats push-down (the reference's ``stats_scan``, the
+        StatsScan / KryoLazyStatsIterator compute-at-data analog), or None
+        when the host reducer must answer (rows extracted, ``run_stats``).
+        When the plan's FULL filter is one box(+window) on a z2/z3 table and
+        every stat of ``spec`` is Count() or a value-distribution sketch
+        (or GroupBy(a, Count())) of an attribute the code space decides,
+        each segment launches ``exact_stat_hist`` per attribute (a Count()
+        alone: ``exact_count``) and the host rebuilds the sketches from the
+        per-value counts (``observe_counts``): the state extraction and
+        ``observe`` would give, MinMax's hyperloglog registers included.
+        ``GEOMESA_STATS_DEVICE``: auto | 1 | 0, as ``count_scan``'s gate."""
+        if device_auto_declines("GEOMESA_STATS_DEVICE", device=self.device):
+            return None
+        if table.index.name not in ("z2", "z3") or not self._scan_eligible(table, plan):
+            return None
+        desc = self._exact_descriptor(table, plan)
+        if desc is None:
+            return None  # attribute predicates or non-rectangular filters: the host
+        try:
+            stat = parse_stat(spec)
+        except Exception:
+            return None
+        stats = stat.stats if isinstance(stat, SeqStat) else [stat]
+        geom = table.ft.default_geometry.name if table.ft.default_geometry else None
+        attrs = []
+        for st in stats:
+            if isinstance(st, CountStat):
+                continue
+            target = getattr(st, "attribute", None)
+            if target is None or target == geom:
+                return None
+            if st.kind == "groupby":
+                # GroupBy(a, Count()) is the per-code histogram itself: one
+                # CountStat a present value; other sub-stats need joint counts
+                if json.loads(st.example).get("kind") != "count":
+                    return None
+            elif st.kind not in self._STAT_HIST_KINDS:
+                return None
+            attrs.append(target)
+        attrs = list(dict.fromkeys(attrs))
+        dev = self.device_index(table)
+        if not dev.segments:
+            return None
+        for a in attrs or [None]:
+            # the histogram rides the vocabmask size gate: past it the
+            # per-query bins stop being small
+            if not self._attr_ready(table, dev, a, "vocabmask"):
+                return None
+        box_np, win_np = desc
+        with record_function("geomesa.dispatch"):
+            box_dev = upload(box_np, self.device)
+            win_dev = None if win_np is None else upload(win_np, self.device)
+            if attrs:
+                pending = [(a, seg.stat_hist_start(box_dev, win_dev, a))
+                           for a in attrs for seg in dev.segments]
+                bufs = [buf for _a, (buf, _u) in pending]
+            else:
+                bufs = [seg.count_exact_start(box_dev, win_dev) for seg in dev.segments]
+        # one copy of every segment's buffers
+        flat = _np_local(torch.cat(bufs)).astype(np.int64)
+        merged: Dict[str, tuple] = {}
+        total = 0
+        if attrs:
+            at = 0
+            parts: Dict[str, list] = {a: [] for a in attrs}
+            for (a, (buf, unified)), b in zip(pending, bufs):
+                out = flat[at:at + b.shape[0]]
+                at += b.shape[0]
+                if a == attrs[0]:  # every attribute's word 0 is the hit count
+                    total += int(out[0])
+                h = out[1:1 + len(unified)]
+                present = h > 0
+                if present.any():
+                    parts[a].append((np.asarray(unified)[present], h[present]))
+            for a in attrs:
+                if parts[a]:
+                    allv = np.concatenate([v for v, _c in parts[a]])
+                    allc = np.concatenate([c for _v, c in parts[a]])
+                    # segments merge by value: their codes are segment-local
+                    uniq, inv = np.unique(allv, return_inverse=True)
+                    summed = np.zeros(len(uniq), dtype=np.int64)
+                    np.add.at(summed, inv, allc)
+                    merged[a] = (uniq, summed)
+                else:
+                    merged[a] = (np.empty(0), np.empty(0, dtype=np.int64))
+        else:
+            total = int(flat.sum())
+        for st in stats:
+            if isinstance(st, CountStat):
+                st.count = int(total)
+                continue
+            vals, cnts = merged[st.attribute]
+            if st.kind == "groupby":
+                for v, c in zip(vals, cnts):
+                    sub = st._new()
+                    sub.count = int(c)
+                    st.groups[v.item() if isinstance(v, np.generic) else v] = sub
+            elif len(vals):
+                st.observe_counts(vals, cnts)
+        return stat
 
     # -- device kNN ------------------------------------------------------------
 

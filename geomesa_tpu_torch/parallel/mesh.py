@@ -7,6 +7,7 @@ shards rows over a JAX mesh; this slice of the port runs on one CUDA device
 
 from __future__ import annotations
 
+import os
 import time
 from typing import Dict, Optional, Union
 
@@ -72,3 +73,21 @@ def link_latency_ms(device: Optional[Device] = None) -> float:
         # and contention on the host only ever inflates a sample
         got = _LINK_LATENCY_MS[key] = float(min(samples))
     return got
+
+
+def device_auto_declines(env_var: str, link_cap_ms: float = 10.0,
+                         device: Optional[Device] = None) -> bool:
+    """The cost gate of the scalar and aggregate push-downs (the count and
+    the stats): True when the path should answer on the host. ``env_var``
+    "0" declines and "1" passes; "auto" (or unset) declines on a CPU
+    ``device``, where device compute is host compute, and on a CUDA device
+    whose round trip (``link_latency_ms``) is above ``link_cap_ms``."""
+    env = os.environ.get(env_var, "auto")
+    if env == "0":
+        return True
+    if env == "1":
+        return False
+    dev = default_device(device)
+    if dev.type == "cpu":
+        return True
+    return link_latency_ms(dev) > link_cap_ms

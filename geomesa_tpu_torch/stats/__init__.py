@@ -1,5 +1,6 @@
-"""Write-time sketches that feed the cost-based strategy choice.
+"""Sketches, the stat spec parser and the write-time stats service.
 
-Port of ``geomesa_tpu/stats`` limited to the count and the lon/lat/dtg
-histograms the z2/z3/id planner reads.
+Port of ``geomesa_tpu/stats``: the sketches and their JSON state
+(``sketches.py``), ``parse_stat`` (``parser.py``) and the write-time
+sketches of the strategy choice (``service.py``).
 """

@@ -1,8 +1,8 @@
 """TorchDataStore: a lean datastore facade over the scan executor.
 
 Port of ``geomesa_tpu/store/datastore.py`` (``TpuDataStore``) limited to
-schema creation, writers and bulk column ingest, ``query`` and the
-pipelined ``query_many``. The executor seam and the host-scan fallback are
+schema creation, writers and bulk column ingest, ``query``, the pipelined
+``query_many`` and ``count``. The executor seam and the host-scan fallback are
 the reference's: an executor returns a device scan or None, and None scans
 the host blocks over the plan's ranges. Execution per query: PLAN
 (cached) -> ROUTE (union arms) -> SCAN (the executor's host seek or device
@@ -17,14 +17,20 @@ ymin, xmax, ymax), "width": W, "height": H}}``) is pushed down to the
 executor's ``density_scan`` (the reference's KryoLazyDensityIterator
 analog: the grid comes back, the rows do not); when the executor declines,
 the host reducer ``run_aggregation`` answers over the scanned rows. The
-result's grid is ``QueryResult.aggregate["density"]``.
+result's grid is ``QueryResult.aggregate["density"]``. The stats hint
+(``hints={"stats": "Count();MinMax(a);TopK(b)"}``) is pushed down to the
+executor's ``stats_scan`` the same way (the per-value counts come back, the
+rows do not; ``plan.scan_path`` = ``device-stats``), its sketch in
+``QueryResult.aggregate["stats"]``. ``count`` asks the executor's
+``count_scan`` for the exact count of a filter (one int32 a segment), else
+counts the query's rows.
 
 Admission, deadlines, tenants, workload capture, audit, plan telemetry,
-visibility labels, age-off, deletes, the stats / bin / arrow aggregations,
-the aggregate cache, pyramids, joins, sampling, transforms and streaming
-are not in this slice of the port. A device scan that fails raises (after
-``executor.degrade`` evicts the mirror) instead of being answered from the
-host.
+visibility labels, age-off, deletes, the bin / arrow aggregations, the
+aggregate cache, pyramids, joins, sampling, transforms and streaming are
+not in this slice of the port. A device scan, count or stats push-down that
+fails raises (after ``executor.degrade`` evicts the mirror) instead of being
+answered from the host.
 """
 
 from __future__ import annotations
@@ -263,13 +269,57 @@ class TorchDataStore:
         query = self._as_query(query)
         return self._execute(name, ft, query, self._plan_cached(name, query))
 
+    def count(self, name: str, query: Union[str, Query, None] = None, exact: bool = True) -> int:
+        """The feature count (the reference's ``count``): without a query the
+        rows written; with one, ``exact=False`` answers from the write-time
+        sketches (the EXACT_COUNT hint / GeoMesaStats.getCount split) where
+        they can estimate, and an exact count asks the executor's device
+        count (``_count_device``), else counts the query's rows. The port
+        has no deletes, age-off or visibility labels yet, and no aggregate
+        pyramid: the reference tries its pyramid before the device count."""
+        tables = self._tables[name]
+        if query is None:
+            return int(next(iter(tables.values())).num_rows)
+        q = self._as_query(query)
+        if not exact:
+            est = self.stats.get_count(self.get_schema(name), q.filter)
+            if est is not None:
+                return int(est)
+        else:
+            got = self._count_device(name, q)
+            if got is not None:
+                return got
+        return len(self.query(name, q))
+
+    def _count_device(self, name: str, q: Query) -> Optional[int]:
+        """The executor's ``count_scan`` of the query's plan, when its
+        semantics are ``len`` of the query's rows (no limit, no hints, no
+        union: the host dedupes overlapping arms); None -> the caller
+        counts the rows. A failed device count raises after the mirror is
+        evicted."""
+        count_scan = getattr(self.executor, "count_scan", None)
+        if count_scan is None or q.max_features is not None or q.hints:
+            return None
+        plan = self._plan_cached(name, q)
+        if plan.union:
+            return None
+        table = self._tables[name].get(plan.index.name)
+        if table is None:
+            return None
+        try:
+            return count_scan(table, plan)
+        except Exception as e:
+            self.executor.degrade(table, e)
+            raise
+
     def query_many(self, name: str, queries: Sequence[Union[str, Query]]) -> List[QueryResult]:
         """Execute many queries with PIPELINED device dispatch: phase 1 plans
         every query and starts its device work (exact-shape plans on one
         table fuse into one batched launch); phase 2 resolves and
         post-filters in order. Results are positionally identical to
-        ``[query(name, q) for q in queries]``. Density queries are left out
-        of the dispatch: their push-down launches its own kernel."""
+        ``[query(name, q) for q in queries]``. Density and stats queries are
+        left out of the dispatch: their push-downs launch their own kernels
+        (and one that declines scans alone)."""
         ft = self.get_schema(name)
         qs = [self._as_query(q) for q in queries]
         with record_function("geomesa.plan"):
@@ -279,7 +329,7 @@ class TorchDataStore:
         if dispatch_many is not None:
             items = []
             for q, plan in zip(qs, plans):
-                if "density" in q.hints:
+                if "density" in q.hints or "stats" in q.hints:
                     continue
                 for arm in plan.union if plan.union is not None else [plan]:
                     if arm.is_empty or id(arm) in pending:
@@ -296,8 +346,8 @@ class TorchDataStore:
         return [self._execute(name, ft, q, p, pending) for q, p in zip(qs, plans)]
 
     def _execute(self, name, ft, query: Query, plan: QueryPlan, pending=None) -> QueryResult:
-        """route -> scan -> merge; a density query of one plan first tries
-        the device push-down."""
+        """route -> scan -> merge; a density or stats query of one plan first
+        tries the device push-down."""
         aggregating = has_aggregation(query.hints)
         if aggregating and (query.hints.get("sampling") or not _untransformed(query)):
             raise NotImplementedError(
@@ -317,6 +367,19 @@ class TorchDataStore:
             if grid is not None:
                 plan.scan_path = "device-density"
                 return QueryResult(ft, _empty_columns(ft), plan, {"density": grid})
+        if plan.union is None and set(query.hints) & set(AGGREGATION_HINTS) == {"stats"}:
+            stats_scan = getattr(self.executor, "stats_scan", None)
+            stat = None
+            if stats_scan is not None:
+                table = self._tables[name][plan.index.name]
+                try:
+                    stat = stats_scan(table, plan, query.hints["stats"])
+                except Exception as e:
+                    self.executor.degrade(table, e)
+                    raise
+            if stat is not None:
+                plan.scan_path = "device-stats"
+                return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat})
         parts: List[tuple] = []
         for arm in self._route(plan):
             parts.extend(self._scan_parts(name, ft, arm, pending))

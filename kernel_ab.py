@@ -5,7 +5,9 @@ table at full size (``chip_smoke.config5`` / ``config_poly``), then runs
 ``chip_smoke.kernel_checks`` on ``knn_topk`` at k = 17, 26 and 1125 and on
 ``poly_dual_bitmap`` at z2 q=24 E=16 and z3 q=8 E=32: each launch held
 bitwise against its plain edition, its device time split by kernel
-(``pass_ms``) beside its bound, and, for each DIR holding another design
+(``pass_ms``) beside its bound, read in two profiler windows and the
+larger kept (``ms_windows``; an entry whose windows differ by more than
+5%, or fall below the bound, is flagged), and, for each DIR holding another design
 of a kernel's source (``DIR/knn_topk.cu``, ``DIR/poly_dual_bitmap.cu``,
 same C interface), timed in turns with the committed design. With a DIR
 holding another ``knn_topk.cu`` it also times config #5's searches end to
@@ -103,11 +105,13 @@ def main() -> int:
             json.dump({"kernels": entries, "searches": searches}, f, indent=1)
     for e in entries:
         print(e["name"], e["shape_tag"], f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f}",
+              f"windows {e['ms_windows']}" + (" FLAGGED" if e["flagged"] else ""),
               json.dumps({k: round(v, 4) for k, v in e["pass_ms"].items()}),
               json.dumps(e.get("ab_ms", {})),
               {k: e[k] for k in ("live_pairs", "straddle_rows", "edge_rows") if k in e})
     for src, times in searches.items():
         print("searches", src, json.dumps(times))
+    print(f"{sum(e['flagged'] for e in entries)} of {len(entries)} entries flagged")
     print(cs.card_line())
     return 0
 

@@ -430,16 +430,16 @@ def test_null_values_equal_the_reference_and_the_oracle(monkeypatch, mode):
 
 @pytest.mark.parametrize("mode", ["auto", "0"])
 def test_extent_attribute_queries_keep_the_candidate_route(monkeypatch, mode):
-    """An extent query with an attribute predicate: the reference's fids;
-    on the device the port's candidate route (``xz_mask`` + the host
-    post-filter), where the reference has an attribute edition of its
-    dual plane (ROADMAP Queue 3)."""
+    """An extent query with an attribute predicate: the reference's fids
+    and, on the device, its route: the dual plane with the attribute
+    edition of ``xz_dual_bitmap`` (the name is the test's from before the
+    port had that edition)."""
     from geomesa_tpu.geom import base as ref_geom
 
     monkeypatch.setenv("GEOMESA_SEEK", mode)
     ways = cs.synthesize_ways(3_000, seed=5, bounds=(-15.0, -15.0, 45.0, 35.0), clusters=4)
     kinds = np.array(["road", "river", "rail"], dtype=object)[np.arange(3_000) % 3]
-    spec = "kind:String," + cs.WAYS_SPEC  # indexed, the attribute table would take it
+    spec = cs.WAYS_SPEC  # kind not indexed: the attribute table would take it
     ref, port = _stores()
     for store, parse, classes in ((ref, ref_parse_spec, (ref_geom.LineString, ref_geom.Polygon)),
                                   (port, parse_spec, None)):
@@ -452,8 +452,9 @@ def test_extent_attribute_queries_keep_the_candidate_route(monkeypatch, mode):
                          ref.query_many("wk", [RefQuery.cql(c) for c in cqls])):
         assert _fids(p) == _fids(r) and len(r), cql
         assert p.plan.index.name == r.plan.index.name
+        assert p.plan.scan_path == r.plan.scan_path, cql
         if mode == "0":
-            assert p.plan.scan_path == "device-mask/runs", cql
+            assert p.plan.scan_path == "device-batch-dual/bitmap", cql
 
 
 @pytest.mark.parametrize("mode", ["0", "1"])

@@ -18,7 +18,7 @@ import torch
 from geomesa_tpu_torch.ops import aggregations as agg
 from geomesa_tpu_torch.ops import filters as F
 from geomesa_tpu_torch.ops import kernels
-from geomesa_tpu_torch.ops.zkernels import f64_keys
+from geomesa_tpu_torch.ops.zkernels import f64_keys, unpack_mask_rows
 from geomesa_tpu_torch.parallel.executor import TorchScanExecutor, _decode_bitmap_rows
 
 
@@ -881,3 +881,220 @@ def test_poly_dual_bitmap_ragged_tables_on_the_card(cuda, n):
     edges, boxes, verts = _poly_queries(24, 16, n)
     x, y, t, valid = _poly_rows(n, n, verts)
     _poly_check(cuda, x, y, t, valid, edges, boxes, True)
+
+
+# -- the count and histogram editions of exact_bitmap ----------------------------
+
+
+def _one_query_args(cuda, n, has_time, seed, order="z"):
+    x, y, t, valid = _exact_table(n, order, seed)
+    boxes, wins = _exact_queries(4, seed)
+    xk, yk = (torch.from_numpy(f64_keys(c)).to(cuda) for c in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    # query 3: a box holding many rows, with a window
+    box = torch.from_numpy(boxes[3]).to(cuda)
+    win = torch.from_numpy(wins[3]).to(cuda) if has_time else None
+    return xk, yk, tk, torch.from_numpy(valid).to(cuda), box, win
+
+
+# a 20M-row table's shape: its grid strides over more chunks than it holds warps
+_COUNT_ROWS = [32 * (4 * 100 + 1), 2 * 1024 * 1024 + 96, 20_000_768]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", (None,) + F.ATTR_KINDS)
+@pytest.mark.parametrize("n", _COUNT_ROWS)
+def test_exact_count_editions_on_the_card(cuda, n, kind, has_time):
+    """The count edition of exact_bitmap, every attribute edition (K = 1
+    and 32 codes, an IS NULL interval, a lookup of 8 and 65536 entries),
+    equal to its plain edition and to the popcount of exact_bitmap's bits;
+    one launch a call, counted under its edition's name."""
+    xk, yk, tk, valid, box, win = _one_query_args(cuda, n, has_time, n + 1)
+    rng = np.random.default_rng(n)
+    codes = None
+    vectors = [None]
+    if kind is not None:
+        c = rng.integers(0, 300, n).astype(np.int32)
+        c[rng.random(n) < 0.1] = -1
+        codes = torch.from_numpy(c).to(cuda)
+        widths = {"range": [2], "vocabmask": [8, kernels.ATTR_MAX_U]}.get(kind, [1, 32])
+        vectors = [torch.from_numpy(_attr_vectors(kind, 1, w, rng)).to(cuda) for w in widths]
+        if kind == "range":
+            vectors.append(torch.tensor([[-1, -1]], dtype=torch.int32, device=cuda))
+    name = "exact_count_" + ("z3" if has_time else "z2") + (f"_{kind}" if kind else "")
+    for qc in vectors:
+        kernels.reset_launches()
+        got = kernels.exact_count(xk, yk, tk, valid, box, win, codes, qc, kind)
+        want = kernels.exact_count_plain(xk, yk, tk, valid, box, win, codes, qc, kind)
+        assert got.dtype == torch.int32 and got.shape == (1,)
+        assert torch.equal(got, want), (kind, qc)
+        bits = kernels.exact_bitmap_plain(xk, yk, tk, valid, box[None],
+                                          None if win is None else win[None], codes, qc, kind)[0]
+        assert int(want) == int(unpack_mask_rows(bits[0]).sum())
+        assert sum(kernels.LAUNCHES.values()) == 1 and kernels.LAUNCHES[name] == 1
+    if kind is None:
+        assert int(want) > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("u_pad", [8, 256, 8192, 16384, 1 << 16])
+@pytest.mark.parametrize("n", [32 * (4 * 100 + 1), 2 * 1024 * 1024 + 96])
+def test_exact_stat_hist_on_the_card(cuda, n, u_pad, has_time):
+    """The histogram edition on its shared-memory path (u_pad up to 8192)
+    and its global path (past it, to 65,536): the total then the per-code
+    hits, equal to its plain edition; null codes count in the total only;
+    codes fill fewer bins than u_pad."""
+    xk, yk, tk, valid, box, win = _one_query_args(cuda, n, has_time, n + 2)
+    rng = np.random.default_rng(u_pad)
+    vocab = max(1, u_pad - u_pad // 8 - 3)
+    c = rng.integers(0, vocab, n).astype(np.int32)
+    c[rng.random(n) < 0.07] = -1
+    codes = torch.from_numpy(c).to(cuda)
+    kernels.reset_launches()
+    got = kernels.exact_stat_hist(xk, yk, tk, valid, box, win, codes, u_pad)
+    want = kernels.exact_stat_hist_plain(xk, yk, tk, valid, box, win, codes, u_pad)
+    assert got.shape == (1 + u_pad,) and torch.equal(got, want)
+    assert int(want[0]) > int(want[1:].sum()) > 0  # nulls in the total only
+    name = "exact_stat_hist_" + ("z3" if has_time else "z2")
+    assert kernels.LAUNCH_SHAPES == {(name, f"q=1 U={u_pad}"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("table", ["all_null", "one_code", "full_u"])
+@pytest.mark.parametrize("u_pad", [8, 1 << 16])
+def test_exact_stat_hist_edge_tables_on_the_card(cuda, table, u_pad):
+    """Every row null (the histogram all zero, the total the hits), every
+    row one code (one bin holds the total: a warp's rows all hit one shared
+    bin), and codes over all of u_pad bins, on both paths; an empty box
+    gives all zeros."""
+    n = 2 * 1024 * 1024 + 96
+    xk, yk, tk, valid, box, win = _one_query_args(cuda, n, True, 9)
+    rng = np.random.default_rng(4)
+    c = {"all_null": np.full(n, -1), "one_code": np.full(n, u_pad - 1),
+         "full_u": rng.integers(0, u_pad, n)}[table].astype(np.int32)
+    codes = torch.from_numpy(c).to(cuda)
+    for b in (box, torch.from_numpy(_exact_queries(2, 1)[0][1]).to(cuda)):
+        got = kernels.exact_stat_hist(xk, yk, tk, valid, b, win, codes, u_pad)
+        want = kernels.exact_stat_hist_plain(xk, yk, tk, valid, b, win, codes, u_pad)
+        assert torch.equal(got, want), table
+    total = int(kernels.exact_stat_hist_plain(xk, yk, tk, valid, box, win, codes, u_pad)[0])
+    assert total > 0
+    if table == "one_code":
+        assert int(want[0]) == 0  # the empty box
+        got = kernels.exact_stat_hist(xk, yk, tk, valid, box, win, codes, u_pad)
+        assert int(got[u_pad]) == total == int(got[0])
+
+
+# -- the attribute editions of the dual planes -----------------------------------
+
+
+def _dual_attr_vectors(kind: str, q: int, rng, pads: int):
+    """q attribute vectors of one edition; the last ``pads`` match nothing
+    (member: -2 codes; range: an empty interval; for notmember and vocabmask
+    their query's box holds no row instead)."""
+    width = {"range": 2, "vocabmask": 512}.get(kind, 4)
+    out = _attr_vectors(kind, q, width, rng)
+    if pads and kind == "member":
+        out[q - pads:] = -2
+    elif pads and kind == "range":
+        out[q - pads:] = (5, 2)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", F.ATTR_KINDS)
+@pytest.mark.parametrize("q", [1, 24, 64])
+def test_xz_dual_bitmap_attr_editions_on_the_card(cuda, q, kind, has_time):
+    """Each attribute edition of xz_dual_bitmap bit for bit against its
+    plain edition, pad queries that match nothing (an inverted box, or a
+    vector no code meets) among them, on a row count that ends inside a
+    warp's chunk; the decided plane is the attribute-passing part of the
+    plain decided plane."""
+    from geomesa_tpu_torch.geom.base import Envelope
+
+    n = 1024 * 1024 + 96
+    cols, isrect, valid = _xz_rows(n, q + 17)
+    t = _rows(n, q + 18)["t"]
+    t0 = 1_767_225_600_000
+    shapes = [((-5.0, -5.0, 5.0, 5.0), True, t0, t0 + 86_400_000),
+              ((-1.0, -1.0, 1.0, 1.0), False, t0, None),
+              ((-20.0, -20.0, 20.0, 20.0), True, t0, t0 + 3 * 86_400_000),
+              ((3.0, -8.0, 9.0, 2.0), True, None, None)]
+    shapes = (shapes * (q // len(shapes) + 1))[:q]
+    pads = q // 8
+    if pads and kind in ("notmember", "vocabmask"):
+        shapes[q - pads:] = [((150.0, 80.0, 151.0, 81.0), True, None, None)] * pads  # no row
+    descs = torch.from_numpy(np.stack([
+        TorchScanExecutor._xz_desc(Envelope(*b), rect, *((lo, hi) if has_time else (None, None)))[0]
+        for b, rect, lo, hi in shapes])).to(cuda)
+    keys = [torch.from_numpy(f64_keys(c)).to(cuda) for c in cols]
+    isrect = torch.from_numpy(isrect).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    rng = np.random.default_rng(q)
+    c = rng.integers(0, 300, n).astype(np.int32)
+    c[rng.random(n) < 0.1] = -1
+    codes = torch.from_numpy(c).to(cuda)
+    qcodes = torch.from_numpy(_dual_attr_vectors(kind, q, rng, pads)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.xz_dual_bitmap(*keys, isrect, valid, descs, tk, codes, qcodes, kind)
+    want = kernels.xz_dual_bitmap_plain(*keys, isrect, valid, descs, tk, codes, qcodes, kind)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    plain = kernels.xz_dual_bitmap_plain(*keys, isrect, valid, descs, tk)
+    assert torch.equal(want[0] & plain[0], want[0]) and torch.equal(want[1] & plain[1], want[1])
+    assert int(want[2][:, 0].sum()) > 0 and bool((want[0] != want[1]).any())
+    if pads:
+        assert not want[0][q - pads:].any()  # the pads match nothing
+    width = qcodes.shape[1]
+    tag = "" if kind == "range" else (f" U={width}" if kind == "vocabmask" else f" K={width}")
+    name = "xz_dual_bitmap_" + ("xz3" if has_time else "xz2") + "_" + kind
+    assert kernels.LAUNCH_SHAPES == {(name, f"q={q}{tag}"): 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", F.ATTR_KINDS)
+@pytest.mark.parametrize("q", [1, 24, 64])
+def test_poly_dual_bitmap_attr_editions_on_the_card(cuda, q, kind, has_time):
+    """Each attribute edition of poly_dual_bitmap bit for bit against its
+    plain edition (the sweep's test on the chunk's codes), pad queries that
+    match nothing among them, vertices among the rows (the band), edges in
+    shared memory."""
+    n = 32 * (4 * 1000 + 3)
+    edges, boxes, verts = _poly_queries(q, 16, q + 31)
+    pads = q // 8
+    if pads and kind in ("notmember", "vocabmask"):
+        boxes[q - pads:] = [(150.0, 80.0, 151.0, 81.0)] * pads  # no row
+    x, y, t, valid = _poly_rows(n, q + 32, verts)
+    rng = np.random.default_rng(q + 1)
+    c = rng.integers(0, 300, n).astype(np.int32)
+    c[rng.random(n) < 0.1] = -1
+    t0 = 1_767_225_600_000
+    descs = [TorchScanExecutor._shape_keys(tuple(b) + (t0 + i * 3_600_000, t0 + 6 * 86_400_000))
+             for i, b in enumerate(boxes)]
+    xk, yk = (torch.from_numpy(f64_keys(a)).to(cuda) for a in (x, y))
+    xf, yf = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    v = torch.from_numpy(valid).to(cuda)
+    box = torch.from_numpy(np.stack([d[0] for d in descs])).to(cuda)
+    win = torch.from_numpy(np.stack([d[1] for d in descs])).to(cuda) if has_time else None
+    ed = torch.from_numpy(edges).to(cuda)
+    codes = torch.from_numpy(c).to(cuda)
+    qcodes = torch.from_numpy(_dual_attr_vectors(kind, q, rng, pads)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.poly_dual_bitmap(xk, yk, v, xf, yf, ed, box, win, tk, codes, qcodes, kind)
+    want = kernels.poly_dual_bitmap_plain(xk, yk, v, xf, yf, ed, box, win, tk, codes, qcodes,
+                                          kind)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(want[2][:, 0].sum()) > 0
+    if pads:
+        assert not want[0][q - pads:].any()
+    width = qcodes.shape[1]
+    tag = "" if kind == "range" else (f" U={width}" if kind == "vocabmask" else f" K={width}")
+    name = "poly_dual_bitmap_" + ("z3" if has_time else "z2") + "_" + kind
+    assert kernels.LAUNCH_SHAPES == {(name, f"q={q} E={edges.shape[1]}{tag}"): 1}

@@ -1,9 +1,9 @@
 """The port stands alone: no JAX, nothing of the JAX package, no hidden CPU.
 
 ``import geomesa_tpu_torch`` and config #1, density (z3, z2), config #3
-(xz2, xz3), config #4 (the attribute planes), config #5 (a kNN search and a
-TubeSelect), a polygon stream and host-seek queries through it, with the
-native range walks
+(xz2, xz3), config #4 (the attribute planes), counts and a stats query,
+config #5 (a kNN search and a TubeSelect), a polygon stream and host-seek
+queries through it, with the native range walks
 and decode, must load neither ``jax`` nor any ``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
@@ -95,6 +95,22 @@ res = store.query_many("attr", [c for c, _ in attr_streams["j"]])
 for (c, spec), r in zip(attr_streams["j"], res):
     assert set(r.fids) == {f"f{j}" for j in cs.attr_oracle(data, spec)}, c
     assert r.plan.scan_path == "device-exact/bitmap", (c, r.plan.scan_path)
+# the count and stats push-downs (exact_count, the dual count, exact_stat_hist)
+os.environ["GEOMESA_COUNT_DEVICE"] = "1"
+os.environ["GEOMESA_STATS_DEVICE"] = "1"
+c, spec = attr_streams["j"][0]
+assert store.count("attr", c) == len(cs.attr_oracle(data, spec)), c
+c, spec = streams["xz2_bbox"][0]
+assert store.count("ways", c) == len(cs.oracle_rows(ways, *spec)), c
+r = store.query("attr", Query.cql(cs.bbox_cql(cs.ATTR_BOX),
+                                  hints={"stats": "Count();MinMax(goldstein);TopK(actor1)"}))
+assert r.plan.scan_path == "device-stats", r.plan.scan_path
+m = cs.in_box(data["x"], data["y"], cs.ATTR_BOX)
+seq = r.aggregate["stats"].stats
+assert seq[0].count == int(m.sum())
+assert (seq[1].min, seq[1].max) == (data["gold"][m].min(), data["gold"][m].max())
+u, k = np.unique(data["actors"][m], return_counts=True)
+assert dict(seq[2].topk(5)) == dict(zip(u.tolist(), k.tolist()))
 os.environ["GEOMESA_SEEK"] = "auto"
 lone, spec = attr_streams["lone"][0]
 r = store.query("attr", lone)
@@ -148,9 +164,9 @@ assert not bad, bad
 
 def test_port_runs_config1_without_jax_or_the_reference():
     """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3), config #4
-    (device and host-seek routes), config #5 (kNN, TubeSelect), the polygon
-    plane and host-seek queries, and the native libraries they run, load no
-    JAX."""
+    (device and host-seek routes), counts and a stats query, config #5 (kNN,
+    TubeSelect), the polygon plane and host-seek queries, and the native
+    libraries they run, load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

@@ -187,7 +187,8 @@ def test_poly_desc_matches_reference(stores, poly, during):
     assert (got is None) == (want is None) == (poly in ("overlap", "rect"))
     if got is None:
         return
-    edges, box, win, has_time, _geom, _node = got
+    edges, box, win, has_time, _geom, _node, attr_info = got
+    assert attr_info is None and want[6] is None
     assert edges.dtype == np.float32 and np.array_equal(edges, want[0])
     assert np.array_equal(box, limbs_to_keys(want[1][0::2], want[1][1::2]))
     assert has_time == want[3] == during
@@ -513,17 +514,15 @@ def test_lone_polygon_takes_the_candidate_route(stores):
 
 
 def test_polygon_with_attribute_predicate(stores):
-    """A polygon AND an attribute predicate: the port takes the candidate
-    route and the host post-filter (the attribute edition of the polygon
-    plane is not ported); the reference answers on its dual plane. The
-    answers are equal."""
+    """A polygon AND an attribute predicate: the port answers on the dual
+    plane with the attribute edition of ``poly_dual_bitmap``, as the
+    reference does. The answers are equal."""
     ref, port, _cols = stores
     cqls = [f"intersects(geom, {g}) AND actor = 'a'" for g in (STAR, HOLED)]
     got = port.query_many("t", [Query.cql(c, properties=[]) for c in cqls])
     want = ref.query_many("t", [RefQuery.cql(c, properties=[]) for c in cqls])
     for p, r in zip(got, want):
-        assert p.plan.scan_path == "device-mask/runs"
-        assert r.plan.scan_path == "device-batch-dual/bitmap"
+        assert p.plan.scan_path == r.plan.scan_path == "device-batch-dual/bitmap"
         assert set(p.fids.tolist()) == set(r.fids.tolist()) and len(p)
 
 
@@ -610,3 +609,83 @@ def test_polygon_stream_over_several_segments():
     cqls = [f"intersects(geom, {g})" for g in (STAR, HOLED, MULTI, TRIANGLE)]
     got = _parity(ref, port, cqls, path="device-batch-dual/bitmap", name="two")
     assert all(len(r) for r in got)
+
+
+# -- the attribute editions of the polygon plane -----------------------------------
+
+
+def _poly_qcode(kind: str, rng):
+    if kind == "range":
+        return np.asarray([3, 40], dtype=np.int32)
+    if kind == "vocabmask":
+        return (rng.random(64) < 0.4).astype(np.uint8)
+    return np.asarray([7, -1, 30, -2], dtype=np.int32)
+
+
+@pytest.mark.parametrize("kind", ["member", "range", "notmember", "vocabmask"])
+@pytest.mark.parametrize("index", ["z2", "z3"])
+def test_poly_planes_attr_editions_match_reference(stores, carried, index, kind):
+    """``poly_dual_bitmap_plain`` with each attribute edition against the
+    reference's ``_poly_mask_body(..., attr=)``: the combine ANDed into hit
+    before decided derives from it, both planes bit for bit."""
+    ref, _port, _cols = stores
+    seg, _arrays, pseg = carried[index]
+    during = index == "z3"
+    (d,) = _descs(ref, index, [STAR], during)
+    edges = _padded_edges([d], 16)
+    rng = np.random.default_rng(5)
+    codes = rng.integers(0, 50, pseg.n_padded).astype(np.int32)
+    codes[rng.random(pseg.n_padded) < 0.1] = -1
+    codes[pseg.n:] = -1
+    qc = _poly_qcode(kind, rng)
+    body = ref_ex._poly_mask_body(during, "local", _mesh(), kind)
+    if during:
+        args = (seg.xk_hi, seg.xk_lo, seg.yk_hi, seg.yk_lo, seg.tk_hi, seg.tk_lo, seg.tvalid,
+                seg.xf, seg.yf, jnp.asarray(codes), jnp.asarray(edges[0]), jnp.asarray(d[1]),
+                jnp.asarray(d[2]), jnp.asarray(qc))
+    else:
+        args = (seg.xk_hi, seg.xk_lo, seg.yk_hi, seg.yk_lo, seg.valid, seg.xf, seg.yf,
+                jnp.asarray(codes), jnp.asarray(edges[0]), jnp.asarray(d[1]),
+                jnp.asarray(np.zeros(4, np.uint32)), jnp.asarray(qc))
+    want_hit, want_dec = (np.asarray(a) for a in jax.jit(body)(*args))
+    box, win = _port_args([d], during)
+    hb, db, hdr = kernels.poly_dual_bitmap(
+        pseg.xk, pseg.yk, pseg.tvalid if during else pseg.valid, pseg.xf, pseg.yf,
+        torch.from_numpy(edges), box, win, pseg.tk if during else None,
+        torch.from_numpy(codes), torch.from_numpy(qc[None]), kind)
+    assert np.array_equal(unpack_mask_rows(hb[0]).numpy(), want_hit)
+    assert np.array_equal(unpack_mask_rows(db[0]).numpy(), want_dec)
+    rows = np.flatnonzero(want_hit)
+    assert len(rows) and hdr.tolist() == [[len(rows), rows[0], rows[-1]]]
+
+
+# two queries an edition, so each edition batches as the reference's does
+_ACTOR_PREDS = ["actor = 'a'", "actor IN ('b', 'c')", "actor >= 'b'", "actor < 'b'",
+                "actor <> 'a'", "actor <> 'b' AND actor <> 'c'", "actor LIKE '%b%'",
+                "actor ILIKE 'C'"]
+
+
+@pytest.mark.parametrize("mode", ["auto", "0", "1"])
+def test_polygon_attr_streams_and_counts_match_reference(stores, monkeypatch, mode):
+    """Jittered stars AND an attribute predicate (every edition, two
+    queries each; the range pair with a window) through ``query_many``: the
+    reference's fids and routes (under 0 the dual plane); each through
+    ``query`` (alone: the candidate route, as the reference's) and its
+    count under ``GEOMESA_COUNT_DEVICE=1`` (the q = 1 ray cast with the
+    attribute plane), equal to the reference's."""
+    ref, port, _cols = stores
+    monkeypatch.setenv("GEOMESA_SEEK", mode)
+    cqls = [f"{pred} AND intersects(geom, {wkt(s)})"
+            for pred, s in zip(_ACTOR_PREDS, stars(len(_ACTOR_PREDS), seed=12))]
+    for i in (2, 3):  # the range pair with a window: a z3 batch of two
+        cqls[i] += f" AND {_during(2, 9)}"
+    got = _parity(ref, port, cqls)
+    if mode == "0":
+        assert {p.plan.scan_path for p in got} == {"device-batch-dual/bitmap"}
+    assert all(len(p) for p in got)
+    monkeypatch.setenv("GEOMESA_COUNT_DEVICE", "1")
+    for cql, p in zip(cqls, got):
+        lone, r = port.query("t", cql), ref.query("t", RefQuery.cql(cql))
+        assert lone.plan.scan_path == r.plan.scan_path, cql
+        assert set(lone.fids.tolist()) == set(p.fids.tolist()) == set(r.fids.tolist()), cql
+        assert port.count("t", cql) == ref.count("t", cql) == len(p), cql

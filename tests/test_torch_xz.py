@@ -421,3 +421,123 @@ def test_segment_from_reference_xz(xz_stores, index, pattern):
     assert any(len(h) for h, _ in want) and any(len(d) for _, d in want)
     if pattern == "runs":
         assert seg._rcap > 1  # the segment learned a larger run capacity
+
+
+# -- the attribute editions of the dual plane ----------------------------------------
+
+
+def _xz_qcodes(kind: str, q: int, rng):
+    """One attribute vector a shape: member / notmember codes (K = 4, the
+    absent -2 and null -1 among them), range intervals (IS NULL, wide,
+    empty), vocabmask lookups of 64 entries."""
+    if kind == "range":
+        out = np.stack([rng.integers(0, 20, q), rng.integers(20, 60, q)], 1).astype(np.int32)
+        out[:3] = [(-1, -1), (0, 10**6), (9, 3)][:q]
+        return out
+    if kind == "vocabmask":
+        return (rng.random((q, 64)) < 0.4).astype(np.uint8)
+    out = rng.integers(-2, 50, (q, 4)).astype(np.int32)
+    out[0] = (-1, -2, 7, 7)
+    return out
+
+
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", ["member", "range", "notmember", "vocabmask"])
+def test_xz_dual_bitmap_plain_attr_matches_reference(kind, has_time):
+    """``xz_dual_bitmap_plain`` with each attribute edition against the
+    reference's ``_xz_bitmap_batch_fn(..., attr=)`` (``_xz_exact_mask_body``
+    with the combine ANDed into hit before decided): headers and both
+    planes' span windows bit for bit."""
+    cols, isrect, valid, tvalid, t = _xz_rows()
+    rng = np.random.default_rng(17)
+    codes = rng.integers(0, 50, _N).astype(np.int32)
+    codes[rng.random(_N) < 0.1] = -1
+    codes[2000:2024] = -1  # the invalid rows
+    qcodes = _xz_qcodes(kind, len(_XZ_SHAPES), rng)
+    span_cap = _N // 2
+    limbs = []
+    for c in cols:
+        hi, lo = ref_z.split_u64_to_limbs(ref_z.f64_sort_keys(c))
+        limbs += [jnp.asarray(hi), jnp.asarray(lo)]
+    th = tl = limbs[0]
+    if has_time:
+        thi, tlo = ref_z.split_u64_to_limbs(ref_z.i64_sort_keys(t))
+        th, tl = jnp.asarray(thi), jnp.asarray(tlo)
+    descs = [ref_ex._xz_query_limbs(ref_geom.Envelope(*s[:4]), s[4],
+                                    *(s[5:] if has_time else (None, None))) for s in _XZ_SHAPES]
+    fn = ref_ex._xz_bitmap_batch_fn(has_time, span_cap, len(_XZ_SHAPES), "local",
+                                    _one_device_mesh(), kind)
+    want_hdr, want_bits = (np.asarray(a) for a in fn(
+        *limbs, jnp.asarray(isrect), jnp.asarray(tvalid if has_time else valid), th, tl,
+        jnp.asarray(codes), jnp.asarray(np.stack([d[0] for d in descs])),
+        jnp.asarray(np.stack([d[1] for d in descs])), jnp.asarray(qcodes)))
+    keys = [torch.from_numpy(Z.f64_keys(c)) for c in cols]
+    hit, dec, hdr = kernels.xz_dual_bitmap(
+        *keys, torch.from_numpy(isrect), torch.from_numpy(tvalid if has_time else valid),
+        _port_descs(_XZ_SHAPES, has_time), torch.from_numpy(t) if has_time else None,
+        torch.from_numpy(codes), torch.from_numpy(qcodes), kind)
+    header, window = kernels.frame_dual_bitmaps(hit, dec, hdr, span_cap)
+    assert np.array_equal(header.numpy(), want_hdr)
+    assert np.array_equal(window.numpy(), want_bits)
+    assert (want_hdr[:, 0] > 0).any()
+
+
+# (a') of chip_smoke at a small size: bbox AND predicates on the way's kind,
+# two queries an edition so each edition batches as the reference's does
+_KIND_PREDS = [
+    ("kind = 'line'", ("line",)),
+    ("kind IN ('rect', 'polygon')", ("rect", "polygon")),
+    ("kind >= 'polygon'", ("polygon", "rect")),
+    ("kind < 'polygon'", ("line",)),
+    ("kind <> 'line'", ("polygon", "rect")),
+    ("kind <> 'rect' AND kind <> 'polygon'", ("line",)),
+    ("kind LIKE '%o%'", ("polygon",)),
+    ("kind ILIKE 'RECT'", ("rect",)),
+]
+
+
+def _kind_items(during: bool):
+    boxes = cs.xz2_boxes(len(_KIND_PREDS), seed=91)
+    wins = cs.three_week_windows(len(_KIND_PREDS), seed=92)
+    out = []
+    for (pred, kinds), b, w in zip(_KIND_PREDS, boxes, wins):
+        cql = f"{pred} AND {cs.xz_bbox_cql(b)}" + (f" AND {cs.during_cql(w)}" if during else "")
+        out.append((cql, ([b], None, w if during else None), kinds))
+    return out
+
+
+def _kind_oracle(ways, spec, kinds):
+    w, _null_dates = ways
+    rows = _oracle(ways, spec)
+    return rows[np.isin(cs.KIND_NAMES[w["kind"][rows].astype(int) + 1], kinds)]
+
+
+@pytest.mark.parametrize("during", [False, True])
+@pytest.mark.parametrize("mode", ["auto", "0", "1"])
+def test_xz_attr_streams_and_counts_match_reference(xz_stores, ways, monkeypatch, mode, during):
+    """Extent queries AND an attribute predicate (every edition, two
+    queries each) through ``query_many``: the reference's fids, index and
+    route (under 0 the dual plane, ``device-batch-dual/bitmap``) and the
+    oracle's rows; each alone through ``query`` (the reference's route for
+    a lone extent query with an attribute predicate, the candidate mask);
+    and their counts under ``GEOMESA_COUNT_DEVICE=1`` (the q = 1 dual
+    planes with the attribute plane), equal to the reference's."""
+    monkeypatch.setenv("GEOMESA_SEEK", mode)
+    ref, port = xz_stores
+    items = _kind_items(during)
+    cqls = [c for c, _s, _k in items]
+    got = port.query_many("ways", [Query.cql(c, properties=[]) for c in cqls])
+    want = ref.query_many("ways", [RefQuery.cql(c, properties=[]) for c in cqls])
+    for (cql, spec, kinds), p, r in zip(items, got, want):
+        assert (p.plan.index.name, p.plan.scan_path) == (r.plan.index.name, r.plan.scan_path), cql
+        assert set(p.fids.tolist()) == set(r.fids.tolist()) == _fids(
+            _kind_oracle(ways, spec, kinds)), cql
+        if mode == "0":
+            assert p.plan.scan_path == "device-batch-dual/bitmap", cql
+    assert sum(len(p) for p in got)
+    monkeypatch.setenv("GEOMESA_COUNT_DEVICE", "1")
+    for cql, spec, kinds in items[:4]:
+        p = port.query("ways", cql)
+        assert set(p.fids.tolist()) == _fids(_kind_oracle(ways, spec, kinds)), cql
+        assert p.plan.scan_path == ref.query("ways", RefQuery.cql(cql)).plan.scan_path, cql
+        assert port.count("ways", cql) == ref.count("ways", cql) == len(p), cql
