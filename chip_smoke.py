@@ -60,7 +60,16 @@ against its plain PyTorch edition:
     (a') 8 jittered boxes AND ``kind = X`` on config #3's table (whose
     schema adds the way's kind to bench_xz2's) and (l') 8 jittered stars
     AND ``actor1 = X`` on config #4's table, on the dual planes' member
-    editions.
+    editions;
+  * concurrent serving (the reference's scripts/bench_gate.py
+    ``run_concurrent_stream`` and ``_receipt_probe``): 8 barrier-started
+    client threads of 4 ``store.query`` calls each on four streams, config
+    #1's jittered ``bbox AND DURING``, config #3's (a) boxes, the polygon
+    plane's (l) stars and config #4's (j), once with the cross-query
+    coalescer on (the defaults) and once with ``geomesa.batch.enabled=false``:
+    the coalescer's stacked mask batches (``exact_mask_batch``,
+    ``dual_mask_batch`` "xz" and "poly" on the ``exact_bitmap``,
+    ``xz_dual_bitmap`` and ``poly_dual_bitmap`` kernels).
 
 Every stream above runs under ``GEOMESA_SEEK=0`` (the device routes, as
 bench.py pins for the reference's device figures). Beside them, the host
@@ -141,6 +150,17 @@ Phases (any failure raises and the script exits non-zero):
      path of its own, then their kernel phase at every shape they
      launched that no earlier phase timed (``torch.bincount`` of the
      histogram's pre-masked codes timed beside ``exact_stat_hist``);
+  4b. the concurrent phase, a path of its own: per stream a warm pass in
+     each mode (hit counts checked), a timed pass in each (every answer's
+     fid rows equal to the stream's oracle; wall, features/s as n x queries
+     / wall, p50 / p99 by the threads' clocks, the routes, the group sizes,
+     the coalescer's counters and each query's receipt), then the receipt
+     probe: one admission slot held, a 100 ms window and
+     ``geomesa.batch.max.queries`` = 8, one wave of 8 queries forming one
+     group on the stacked route, whose members' receipts must sum exactly
+     to the wave's device.d2h.bytes and device.h2d.bytes; then its kernel
+     phase: each mask batch at each shape the phase launched, against its
+     plain edition and timed, as in phase 3;
   5. every kernel must have launched during its path's run, at every
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
@@ -187,6 +207,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 from concurrent.futures import ThreadPoolExecutor
@@ -1145,9 +1166,11 @@ ATTR_TEST_OPS = {"member": lambda k: k, "notmember": lambda k: k + 1,
                  "range": lambda k: 2, "vocabmask": lambda k: 2}
 
 
-def exact_case(name, seg, boxes, wins, path, plane=None):
+def exact_case(name, seg, boxes, wins, path, plane=None, mask=False):
     """One ``exact_bitmap`` shape: q = the descriptors given; ``plane`` =
-    (codes, qcodes, edition) adds the attribute test.
+    (codes, qcodes, edition) adds the attribute test; ``mask`` times the
+    coalescer's ``exact_mask_batch`` (the same kernel, its bits alone)
+    against its own plain edition instead.
 
     Bound: a floor for any exact implementation on this run's data. Bytes:
     the key columns and valid read once, the bits written once; with the
@@ -1182,19 +1205,29 @@ def exact_case(name, seg, boxes, wins, path, plane=None):
     extra["envelope_skip_share"] = skip
     tag = f"q={q}" + ("" if kind in (None, "range") else
                       f" U={qcodes.shape[1]}" if kind == "vocabmask" else f" K={qcodes.shape[1]}")
+    if mask:
+        kernel = lambda: (kernels.exact_mask_batch(  # noqa: E731
+            xk, yk, tk, valid, boxes, wins, codes, qcodes, kind),)
+        plain = lambda: (kernels.exact_mask_batch_plain(  # noqa: E731
+            xk, yk, tk, valid, boxes, wins, codes, qcodes, kind),)
+    else:
+        kernel = lambda: kernels.exact_bitmap(  # noqa: E731
+            xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
+        plain = lambda: kernels.exact_bitmap_plain(  # noqa: E731
+            xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
     return dict(
         name=name,
         path=path,
         tag=tag,
         symbol="exact_bitmap_kernel",
-        replaces="geomesa_tpu/parallel/executor.py:840",
+        replaces="geomesa_tpu/parallel/executor.py:" + ("495" if mask else "840"),
         source="geomesa_tpu_torch/csrc/exact_bitmap.cu",
-        kernel=lambda: kernels.exact_bitmap(xk, yk, tk, valid, boxes, wins, codes, qcodes, kind),
-        plain=lambda: kernels.exact_bitmap_plain(xk, yk, tk, valid, boxes, wins, codes, qcodes,
-                                                 kind),
+        kernel=kernel,
+        plain=plain,
         ab_kernel=lambda: exact_bitmap_caller_header(xk, yk, tk, valid, boxes, wins),
-        # an earlier design has no attribute editions to time in turns
-        no_ab=plane is not None,
+        # an earlier design has no attribute editions (nor mask batches) to
+        # time in turns
+        no_ab=plane is not None or mask,
         bytes=n * (key + 1) + q * n // 8 + q * (2 * key + 12) + attr_bytes,
         ops=q * n * 2 + 32 * hit_words * (chain + attr_ops),
         extra=extra,
@@ -1278,9 +1311,11 @@ def _attr_tag(kind, qcodes) -> str:
     return f" U={qcodes.shape[1]}" if kind == "vocabmask" else f" K={qcodes.shape[1]}"
 
 
-def dual_case(name, seg, descs, has_time, path, plane=None):
+def dual_case(name, seg, descs, has_time, path, plane=None, mask=False):
     """One ``xz_dual_bitmap`` shape: q = the descriptors given; ``plane`` =
-    (codes, qcodes, edition) adds the attribute test. Operations by
+    (codes, qcodes, edition) adds the attribute test; ``mask`` times the
+    coalescer's ``dual_mask_batch("xz")`` (the same kernel, its planes
+    alone) against its own plain edition instead. Operations by
     ``point_cases``'s rule, counted as this run's data needs them: per row
     and query the overlap test, 4 int64 compares (6 with the window), two
     instructions each, plus the hit plane's ballot and store and the
@@ -1307,17 +1342,26 @@ def dual_case(name, seg, descs, has_time, path, plane=None):
         attr_bytes = 4 * 32 * code_words + qcodes.numel() * qcodes.element_size()
         attr_ops = 32 * int(hit_words.sum()) * ATTR_TEST_OPS[kind](qcodes.shape[1])
         extra = {"code_words": code_words}
+    if mask:
+        kernel = lambda: kernels.dual_mask_batch(  # noqa: E731
+            "xz", *cols[:6], descs, cols[6], codes, qcodes, kind)
+        plain = lambda: kernels.dual_mask_batch_plain(  # noqa: E731
+            "xz", *cols[:6], descs, cols[6], codes, qcodes, kind)
+    else:
+        kernel = lambda: kernels.xz_dual_bitmap(  # noqa: E731
+            *cols[:6], descs, cols[6], codes, qcodes, kind)
+        plain = lambda: kernels.xz_dual_bitmap_plain(  # noqa: E731
+            *cols[:6], descs, cols[6], codes, qcodes, kind)
     return dict(
         name=name,
         path=path,
         tag=f"q={q}{_attr_tag(kind, qcodes)}",
         symbol="xz_dual_bitmap_kernel",
-        replaces="geomesa_tpu/parallel/executor.py:1748",
+        replaces="geomesa_tpu/parallel/executor.py:" + ("569" if mask else "1748"),
         source="geomesa_tpu_torch/csrc/xz_dual_bitmap.cu",
-        kernel=lambda: kernels.xz_dual_bitmap(*cols[:6], descs, cols[6], codes, qcodes, kind),
-        plain=lambda: kernels.xz_dual_bitmap_plain(*cols[:6], descs, cols[6], codes, qcodes,
-                                                   kind),
-        no_ab=plane is not None,
+        kernel=kernel,
+        plain=plain,
+        no_ab=plane is not None or mask,
         bytes=n * ((5 if has_time else 4) * 8 + 2) + 2 * q * n // 8 + q * (64 + 12) + attr_bytes,
         ops=q * n * (2 * (6 if has_time else 4) + 3) + rect_hits * (2 * 4 + 1) + n * 2 * 4
             + attr_ops,
@@ -1837,6 +1881,19 @@ def main() -> int:
                         {(e["name"], e["shape_tag"]) for e in entries}),
         int32_per_s, fp32_per_s, ab)
     push_s = time.perf_counter() - t_push
+    # the concurrent phase: many callers through store.query, coalesced and
+    # solo, then its kernel phase at the shapes the coalescer launched
+    t_conc = time.perf_counter()
+    conc_items = concurrent_items(data1, streams1, streams3, oracle3, streams_p, oracle_p,
+                                  streams4, oracle4)
+    kernels.reset_launches()
+    metrics_conc = concurrent_path(store, conc_items)
+    launched["concurrent"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    conc_plans = {"config1": plans1["config1"], "attr_j": plans4["j"],
+                  "xz2_bbox": plans3["xz2_bbox"], "poly_l": plans_p["l"]}
+    entries += kernel_checks(mask_cases(store, conc_plans, launched["concurrent"][1]),
+                             int32_per_s, fp32_per_s, ab)
+    concurrent_s = time.perf_counter() - t_conc
     nulls = null_dates_check(store)
     attr_nulls = attr_nulls_check(store)
     log(f"main-path launches: { {p: s for p, (_n, s) in launched.items()} }")
@@ -1917,6 +1974,8 @@ def main() -> int:
         "stats": metrics_stats,
         "dual_attr": metrics_dual,
         "push_down_phases_s": push_s,
+        "concurrent": metrics_conc,
+        "concurrent_phase_s": concurrent_s,
         "flagged_kernel_entries": [f"{e['name']} {e['shape_tag']}" for e in entries
                                    if e["flagged"]],
         "script_s": time.perf_counter() - t_start,
@@ -2845,11 +2904,13 @@ def knn_cases(store, launched_shapes):
     return out
 
 
-def poly_case(store, table, descs, has_time, path, plane=None):
+def poly_case(store, table, descs, has_time, path, plane=None, mask=False):
     """One ``poly_dual_bitmap`` shape: the descriptors of ``descs`` (the
     executor's ``_poly_batch_desc``) as ``dispatch_poly_batch`` pads them;
     ``plane`` = (codes, qcodes, edition) adds the attribute test, which the
-    bound counts as ``dual_case`` does, on the envelope words.
+    bound counts as ``dual_case`` does, on the envelope words; ``mask``
+    times the coalescer's ``dual_mask_batch("poly")`` (the same kernels,
+    their planes alone) against its own plain edition instead.
 
     Bound, counted from this run's data: bytes, the key columns and valid
     read once, the f32 coordinates of every row that some query's envelope
@@ -2901,16 +2962,22 @@ def poly_case(store, table, descs, has_time, path, plane=None):
         attr_bytes = 4 * 32 * int(word_any.sum()) + qcodes.numel() * qcodes.element_size()
         attr_ops = ATTR_TEST_OPS[kind](qcodes.shape[1])
     tag = f"q={q} E={ecap}{_attr_tag(kind, qcodes)}"
+    args = (xk, yk, valid, xf, yf, edges, boxes, wins, tk, codes, qcodes, kind)
+    if mask:
+        kernel = lambda: kernels.dual_mask_batch("poly", *args)  # noqa: E731
+        plain = lambda: kernels.dual_mask_batch_plain("poly", *args)  # noqa: E731
+    else:
+        kernel = lambda: kernels.poly_dual_bitmap(*args)  # noqa: E731
+        plain = lambda: kernels.poly_dual_bitmap_plain(*args)  # noqa: E731
     return dict(
-        name="poly_dual_bitmap_" + ("z3" if has_time else "z2") + (f"_{kind}" if kind else ""),
+        name=("poly_mask_batch_" if mask else "poly_dual_bitmap_") + ("z3" if has_time else "z2")
+        + (f"_{kind}" if kind else ""),
         path=path, tag=tag, symbol="poly_dual_bitmap_",
-        replaces="geomesa_tpu/parallel/executor.py:2110",
+        replaces="geomesa_tpu/parallel/executor.py:" + ("569" if mask else "2110"),
         source="geomesa_tpu_torch/csrc/poly_dual_bitmap.cu",
-        kernel=lambda: kernels.poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins, tk,
-                                                codes, qcodes, kind),
-        plain=lambda: kernels.poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins,
-                                                     tk, codes, qcodes, kind),
-        no_ab=plane is not None,
+        kernel=kernel,
+        plain=plain,
+        no_ab=plane is not None or mask,
         bytes=n * (key + 1) + 8 * int(env_any.sum()) + 2 * q * n // 8 + edges.numel() * 4
               + attr_bytes,
         ops=2 * q * n + 32 * env_words * (chain + 2 + attr_ops) + POLY_EDGE_IOPS * edge_rows,
@@ -3328,6 +3395,260 @@ def push_down_cases(store, items, launched, timed):
 
 
 # -- the host layer: native libraries and the host-seek route ---------------
+
+
+# -- the concurrent phase: many callers, one query each ----------------------
+
+# K barrier-started client threads of M store.query calls each (the
+# reference's scripts/bench_gate.py run_concurrent_stream shape)
+CONC_THREADS = 8
+CONC_ROUNDS = 4
+# stream -> (table, the route of a query that rode a stacked sweep)
+CONC_STREAMS = {
+    "config1": ("gdelt", "device-exact/mask"),
+    "xz2_bbox": ("ways", "device-batch-dual/mask"),
+    "poly_l": (POLY_TABLE, "device-batch-dual/mask"),
+    "attr_j": (ATTR_TABLE, "device-exact/mask"),
+}
+# the mask-batch launch names of the concurrent phase -> (stream, edition)
+CONC_KERNELS = {
+    "exact_mask_batch_z3": ("config1", None),
+    "exact_mask_batch_z2_member": ("attr_j", "member"),
+    "exact_mask_batch_z2_range": ("attr_j", "range"),
+    "xz_mask_batch_xz2": ("xz2_bbox", None),
+    "poly_mask_batch_z2": ("poly_l", None),
+}
+
+
+def concurrent_items(data1, streams1, streams3, oracle3, streams_p, oracle_p, streams4,
+                     oracle4):
+    """The four streams of the concurrent phase: name -> [(cql, sorted
+    oracle rows)]: config #1's jittered ``bbox AND DURING`` (exact z3),
+    config #3's (a) boxes (xz2 dual), the polygon plane's (l) stars (poly
+    dual) and config #4's (j) (the member and range attribute planes)."""
+    x, y, t = data1
+    boxes, cqls = streams1["config1"]
+    return {
+        "config1": [(c, np.sort(brute_force(x, y, t, b))) for b, c in zip(boxes, cqls)],
+        "xz2_bbox": [(c, np.sort(r)) for (c, _s), r in zip(streams3["xz2_bbox"],
+                                                            oracle3["xz2_bbox"])],
+        "poly_l": [(c, np.sort(r)) for (c, _r), r in zip(streams_p["l"], oracle_p["l"])],
+        "attr_j": [(c, np.sort(r)) for (c, _s), r in zip(streams4["j"], oracle4["j"])],
+    }
+
+
+def hold_slot(ctl):
+    """Hold one admission slot of ``ctl`` from a context of its own; returns
+    its release."""
+    import contextvars
+
+    ctx = contextvars.Context()
+    admit = ctl.admit()
+    ctx.run(admit.__enter__)
+    return lambda: ctx.run(admit.__exit__, None, None, None)
+
+
+def client_pass(store, table, items, rounds: int = CONC_ROUNDS):
+    """CONC_THREADS client threads, barrier-started, each ``rounds``
+    ``store.query`` calls of ``items`` (thread k, round r: item (k * rounds +
+    r) mod len). Returns ([(item, result, ms by the thread's clock)], wall
+    seconds from the first start to the last answer)."""
+    barrier = threading.Barrier(CONC_THREADS)
+    out = [None] * (CONC_THREADS * rounds)
+    spans = [None] * CONC_THREADS
+    errors = []
+
+    def client(k):
+        try:
+            barrier.wait(120)
+            first = time.perf_counter()
+            for r in range(rounds):
+                i = (k * rounds + r) % len(items)
+                t0 = time.perf_counter()
+                res = store.query(table, items[i][0])
+                out[k * rounds + r] = (i, res, (time.perf_counter() - t0) * 1e3)
+            spans[k] = (first, time.perf_counter())
+        except BaseException as e:  # noqa: BLE001 - raised below, in the caller
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(CONC_THREADS)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    torch.cuda.synchronize()
+    return out, max(e for _s, e in spans) - min(s for s, _e in spans)
+
+
+def check_pass(out, items, what: str, full: bool) -> None:
+    """Every answer of a pass against its oracle: its fid rows (``full``)
+    or, cheaper, its hit count."""
+    for j, (i, res, _ms) in enumerate(out):
+        want = items[i][1]
+        ok = (np.array_equal(fid_rows(np.asarray(res.fids)), want) if full
+              else len(res) == len(want))
+        if not ok:
+            raise AssertionError(f"{what} query {j} (item {i}): {len(res)} hits against "
+                                 f"{len(want)} from the oracle")
+
+
+def coalesce_counters():
+    from geomesa_tpu_torch.utils import devstats
+
+    counters = devstats.devstats_metrics().snapshot()[0]
+    return {k[len("batch.coalesce."):]: v for k, v in counters.items()
+            if k.startswith("batch.coalesce.")}
+
+
+def pass_metrics(out, wall_s: float, n_rows: int, c0, c1):
+    """A pass's figures: wall, features/s (n x queries / wall), per-query
+    p50 / p99 by the threads' clocks, the routes, the group sizes the
+    queries rode, the coalescer's counters and every query's receipt
+    ([d2h bytes, h2d bytes, kernel builds])."""
+    ms = np.sort([m for _i, _r, m in out])
+    routes, sizes = {}, {}
+    for _i, res, _m in out:
+        routes[res.scan_path] = routes.get(res.scan_path, 0) + 1
+        sizes[res.coalesced] = sizes.get(res.coalesced, 0) + 1
+    receipts = [[r.receipt["d2h_bytes"], r.receipt["h2d_bytes"], r.receipt["recompiles"]]
+                for _i, r, _m in out]
+    return {
+        "queries": len(out),
+        "wall_s": wall_s,
+        "features_per_s": n_rows * len(out) / wall_s,
+        "p50_ms": float(ms[len(ms) // 2]),
+        "p99_ms": float(ms[min(len(ms) - 1, int(0.99 * len(ms)))]),
+        "mean_ms": float(ms.mean()),
+        "routes": routes,
+        "group_sizes": {str(k): v for k, v in sorted(sizes.items())},
+        "coalesce": {k: c1.get(k, 0) - c0.get(k, 0) for k in sorted(set(c0) | set(c1))
+                     if c1.get(k, 0) != c0.get(k, 0)},
+        "d2h_bytes_per_query": float(np.mean([r[0] for r in receipts])),
+        "h2d_bytes_per_query": float(np.mean([r[1] for r in receipts])),
+        "receipts": receipts,
+    }
+
+
+def receipt_probe(store, table, items, mask_route: str):
+    """One wave of CONC_THREADS queries, one admission slot held (every
+    arrival sees another query in flight) and ``geomesa.batch.max.queries``
+    the wave's size (the group closes on its last join; a 100 ms window
+    bounds it): one group of them all, every query on ``mask_route``, every
+    answer its oracle's, and the members' receipts summing exactly to the
+    wave's device.d2h.bytes and device.h2d.bytes."""
+    from geomesa_tpu_torch.utils import devstats
+    from geomesa_tpu_torch.utils.config import properties
+
+    reg = devstats.devstats_metrics()
+    with properties(geomesa_batch_window_ms="100", geomesa_batch_max_queries=str(CONC_THREADS)):
+        release = hold_slot(store.admission)
+        try:
+            c0 = coalesce_counters()
+            d0, h0 = reg.counter("device.d2h.bytes"), reg.counter("device.h2d.bytes")
+            out, _wall = client_pass(store, table, items, rounds=1)
+            d2h = reg.counter("device.d2h.bytes") - d0
+            h2d = reg.counter("device.h2d.bytes") - h0
+            c1 = coalesce_counters()
+        finally:
+            release()
+    check_pass(out, items, f"{table} receipt probe", full=True)
+    got = (c1.get("groups", 0) - c0.get("groups", 0), c1.get("members", 0) - c0.get("members", 0))
+    routes = sorted({r.scan_path for _i, r, _m in out})
+    sums = (sum(r.receipt["d2h_bytes"] for _i, r, _m in out),
+            sum(r.receipt["h2d_bytes"] for _i, r, _m in out))
+    if got != (1, CONC_THREADS) or routes != [mask_route] or sums != (d2h, h2d):
+        raise AssertionError(f"{table} receipt probe: (groups, members) {got}, routes {routes}, "
+                             f"receipts sum to {sums} against the wave's {(d2h, h2d)}")
+    return {"d2h_bytes": d2h, "h2d_bytes": h2d, "routes": routes,
+            "receipts": [[r.receipt["d2h_bytes"], r.receipt["h2d_bytes"]] for _i, r, _m in out]}
+
+
+def concurrent_path(store, items):
+    """The concurrent phase through ``store.query`` (the port's analog of
+    the reference's bench_gate ``run_concurrent_stream`` and
+    ``_receipt_probe``): per stream a warm pass with coalescing on (the
+    defaults) and one with ``geomesa.batch.enabled=false`` (hit counts
+    checked), a timed pass of each (every answer checked against the
+    oracle's rows), then the receipt probe."""
+    from geomesa_tpu_torch.utils.config import properties
+
+    out = {}
+    for name, (table, mask_route) in CONC_STREAMS.items():
+        n_rows = next(iter(store._tables[table].values())).num_rows
+        modes = {"coalesced": "true", "solo": "false"}
+        for mode, enabled in modes.items():
+            with properties(geomesa_batch_enabled=enabled):
+                warm, _w = client_pass(store, table, items[name])
+            check_pass(warm, items[name], f"{name} warm {mode}", full=False)
+        stream = {"rows": n_rows}
+        for mode, enabled in modes.items():
+            with properties(geomesa_batch_enabled=enabled):
+                c0 = coalesce_counters()
+                got, wall = client_pass(store, table, items[name])
+                c1 = coalesce_counters()
+            check_pass(got, items[name], f"{name} {mode}", full=True)
+            stream[mode] = pass_metrics(got, wall, n_rows, c0, c1)
+            m = stream[mode]
+            log(f"concurrent {name} {mode}: {m['queries']} queries in {wall:.3f} s, "
+                f"{m['features_per_s']:.4g} features/s, p50 {m['p50_ms']:.2f} p99 "
+                f"{m['p99_ms']:.2f} ms, d2h {m['d2h_bytes_per_query']:.0f} B/query, routes "
+                f"{m['routes']}, groups {m['group_sizes']}, counters {m['coalesce']}")
+        if stream["solo"]["coalesce"]:
+            raise AssertionError(f"{name}: the escape hatch coalesced {stream['solo']['coalesce']}")
+        stream["receipt_probe"] = receipt_probe(store, table, items[name], mask_route)
+        out[name] = stream
+    return out
+
+
+def mask_cases(store, plans, launched_shapes):
+    """The coalescer's mask batches at each (kernel, shape) the concurrent
+    phase launched, on the descriptors of the first q queries of the
+    kernel's stream (and edition): ``exact_mask_batch``,
+    ``dual_mask_batch`` "xz" and "poly" against their plain editions."""
+    ex = store.executor
+    dev = ex.device
+    out = []
+    for (name, tag), count in sorted(launched_shapes.items()):
+        if name not in CONC_KERNELS or not count:
+            continue
+        stream, edition = CONC_KERNELS[name]
+        q = int(tag.split()[0][2:])
+        if stream == "config1":
+            table = store._tables["gdelt"]["z3"]
+            descs = [ex._exact_descriptor(table, p) for p in plans["config1"][:q]]
+            case = exact_case(name, ex.device_index(table).segments[0],
+                              torch.as_tensor(np.stack([d[0] for d in descs]), device=dev),
+                              torch.as_tensor(np.stack([d[1] for d in descs]), device=dev),
+                              "concurrent", mask=True)
+        elif stream == "attr_j":
+            table = store._tables[ATTR_TABLE]["z2"]
+            seg = ex.device_index(table).segments[0]
+            got = [ex._attr_batch_desc(table, p) for p in plans["attr_j"]]
+            got = [g for g in got if g[1] == edition][:q]
+            attr = got[0][0]
+            vectors = torch.as_tensor(seg._attr_batch_vectors(attr, edition, [g[2][2] for g in got]),
+                                      device=dev)
+            case = exact_case(name, seg,
+                              torch.as_tensor(np.stack([g[2][0] for g in got]), device=dev),
+                              None, "concurrent", (seg._attr_codes[attr][0], vectors, edition),
+                              mask=True)
+        elif stream == "xz2_bbox":
+            table = store._tables["ways"]["xz2"]
+            descs = torch.as_tensor(np.stack([ex._xz_batch_desc(table, p)[0]
+                                              for p in plans["xz2_bbox"][:q]]), device=dev)
+            case = dual_case(name, ex.device_index(table).segments[0], descs, False,
+                             "concurrent", mask=True)
+        else:
+            table = store._tables[POLY_TABLE]["z2"]
+            case = poly_case(store, table, [ex._poly_batch_desc(table, p)[:3]
+                                            for p in plans["poly_l"][:q]], False, "concurrent",
+                             mask=True)
+        if (case["name"], case["tag"]) != (name, tag):
+            raise AssertionError(f"mask case {case['name']} {case['tag']} for launched {name} {tag}")
+        out.append(case)
+    return out
 
 
 def native_build():

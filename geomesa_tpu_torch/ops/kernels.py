@@ -30,7 +30,12 @@ answers that):
   * ``poly_dual_bitmap`` (``csrc/poly_dual_bitmap.cu``) replaces the banded
     polygon ray cast of ``geomesa_tpu/parallel/executor.py``
     ``_poly_bitmap_batch_fn`` (the (hit, decided) planes), with the same
-    attribute editions.
+    attribute editions;
+  * the coalescer's stacked full-table mask batches run on those kernels:
+    ``exact_mask_batch`` (``exact_bitmap``'s bits) replaces
+    ``_exact_mask_batch_fn``, and ``dual_mask_batch`` (``xz_dual_bitmap``'s
+    or ``poly_dual_bitmap``'s planes) ``_dual_mask_batch_fn``, each
+    counted under names of its own.
 
 Each wrapper takes the kernel's plain PyTorch edition for tensors on the
 CPU, and for CUDA tensors launches the kernel on the current stream of the
@@ -38,10 +43,14 @@ tensors' device, under ``torch.cuda.device`` (the launchers size their
 grids from that device's own SM count, ``csrc/launch_grid.cuh``), counting
 the launch in ``LAUNCHES`` by instantiation and in ``LAUNCH_SHAPES`` by
 instantiation and shape, or raises. The attribute editions count under the
-kernel's name and ``_<edition>``. Kernels build at first use with ``nvcc`` for ``sm_90a``
-into a plain-C shared library per source, loaded with ``ctypes``; the
-build directory is ``geomesa_tpu_torch/_build``, and ``ptxas_report``
-returns what ``-Xptxas -v`` said of each kernel (registers, spills).
+kernel's name and ``_<edition>``. The counts move under a lock, so
+wrappers may launch from many threads (each on its thread's current
+stream). Kernels build at first use with ``nvcc`` for ``sm_90a`` into a
+plain-C shared library per source, loaded with ``ctypes``, once however
+many threads ask (a lock per source, a temporary file per process and
+thread); the build directory is ``geomesa_tpu_torch/_build``, every build
+and launch counts in ``utils/devstats.py``, and ``ptxas_report`` returns
+what ``-Xptxas -v`` said of each kernel (registers, spills).
 """
 
 from __future__ import annotations
@@ -52,6 +61,8 @@ import glob
 import hashlib
 import os
 import subprocess
+import threading
+import time
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Optional, Tuple
@@ -72,6 +83,7 @@ from geomesa_tpu_torch.ops.filters import (
     z3_query_mask,
 )
 from geomesa_tpu_torch.ops.zkernels import pack_mask_rows
+from geomesa_tpu_torch.utils import devstats
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -119,16 +131,42 @@ LAUNCHES: Dict[str, int] = {
     "xz_dual_bitmap_xz2_range": 0,
     "poly_dual_bitmap_z2_member": 0,
     "poly_dual_bitmap_z2_range": 0,
+    # the coalescer's mask batches that chip_smoke.py's concurrent phase drives
+    "exact_mask_batch_z3": 0,
+    "exact_mask_batch_z2_member": 0,
+    "exact_mask_batch_z2_range": 0,
+    "xz_mask_batch_xz2": 0,
+    "poly_mask_batch_z2": 0,
 }
 # launches per (instantiation, shape): "q=<descriptors>" for the bitmap
-# kernels and the count (+ " K=<codes>" for member and notmember, " U=<lookup
-# size>" for vocabmask, " E=<edges a query>" for the polygons), "U=<bins>"
-# for the histogram, "K=<boxes> W=<windows>" for the masks, "<W>x<H>" for
-# the grid, "k=<rows>" for the top-k
+# kernels, the mask batches and the count (+ " K=<codes>" for member and
+# notmember, " U=<lookup size>" for vocabmask, " E=<edges a query>" for the
+# polygons), "U=<bins>" for the histogram, "K=<boxes> W=<windows>" for the
+# masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k
 LAUNCH_SHAPES: Counter = Counter()
-# kernel launches of the last call of a wrapper that runs several passes
-# (knn_topk), as its launcher reports them
-LAST_PASSES: Dict[str, int] = {}
+# both counts move under one lock: wrappers launch from many threads
+_COUNT_LOCK = threading.Lock()
+
+
+class _ThreadDict(threading.local):
+    """A dict of which each thread sees its own."""
+
+    def __init__(self):
+        self.d: Dict[str, int] = {}
+
+    def __getitem__(self, key: str) -> int:
+        return self.d[key]
+
+    def __setitem__(self, key: str, value: int) -> None:
+        self.d[key] = value
+
+    def get(self, key: str, default=None):
+        return self.d.get(key, default)
+
+
+# kernel launches of the calling thread's last call of a wrapper that runs
+# several passes (knn_topk), as its launcher reports them
+LAST_PASSES = _ThreadDict()
 
 # the exact kernels keep q descriptors and per-warp partials in shared memory
 EXACT_MAX_Q = 256
@@ -147,17 +185,24 @@ XZ_DESC = 8
 POLY_MAX_Q = 64
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# one build lock per source (the first launches of a kernel from several
+# threads build it once), made under _LOCKS_LOCK
+_BUILD_LOCKS: Dict[str, threading.Lock] = {}
+_LOCKS_LOCK = threading.Lock()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-    LAUNCH_SHAPES.clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+        LAUNCH_SHAPES.clear()
 
 
 def _count(name: str, shape: str) -> None:
-    LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
-    LAUNCH_SHAPES[(name, shape)] += 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] = LAUNCHES.get(name, 0) + 1
+        LAUNCH_SHAPES[(name, shape)] += 1
+    devstats.count_launch()
 
 
 def _nvcc() -> str:
@@ -181,7 +226,10 @@ def _compile(name: str, src: Optional[str] = None) -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+    # unique to the process and the thread: concurrent builds of one source
+    # never write one file, and os.replace publishes a whole library
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    t0 = time.perf_counter()
     cmd = [
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", *flags, "-I", CSRC, "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC", "-o", tmp,
@@ -190,9 +238,11 @@ def _compile(name: str, src: Optional[str] = None) -> str:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
-    with open(out + ".ptxas", "w") as f:
+    with open(f"{tmp}.ptxas", "w") as f:
         f.write(proc.stderr)
+    os.replace(f"{tmp}.ptxas", out + ".ptxas")
     os.replace(tmp, out)
+    devstats.count_build(name, time.perf_counter() - t0)
     return out
 
 
@@ -210,14 +260,12 @@ def ptxas_report() -> Dict[str, str]:
 
 
 def build_all() -> Dict[str, str]:
-    """Build every kernel source in parallel (one nvcc each); returns the
-    library paths by kernel name and loads them."""
-    names = [n for n in SOURCES if n not in _LIBS]
-    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
-        paths = dict(zip(names, pool.map(_compile, names)))
-    for name, path in paths.items():
-        _load(name, path)
-    return paths
+    """Build and load every kernel source in parallel (one nvcc each);
+    returns the library paths by kernel name."""
+    names = list(SOURCES)
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        libs = list(pool.map(_lib, names))
+    return {name: lib._name for name, lib in zip(names, libs)}
 
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -256,9 +304,17 @@ def _load(name: str, path: str) -> ctypes.CDLL:
 
 
 def _lib(name: str) -> ctypes.CDLL:
+    """``name``'s library, built and loaded at its first use, once however
+    many threads ask at once."""
     lib = _LIBS.get(name)
-    if lib is None:
-        lib = _load(name, _compile(name))
+    if lib is not None:
+        return lib
+    with _LOCKS_LOCK:
+        lock = _BUILD_LOCKS.setdefault(name, threading.Lock())
+    with lock:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = _load(name, _compile(name))
     return lib
 
 
@@ -428,12 +484,20 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
     notmember), int32[q, 2] (range) or uint8[q, U_pad] (vocabmask). ``hdr``
     rows are (count, first hit, last hit) of the combined mask, with the
     empty rule of the reference: no hit gives (0, 0, n - 1)."""
-    has_time = wins is not None
     if xk.device.type == "cpu":
-        return exact_bitmap_plain(xk, yk, tk if has_time else None, valid, boxes, wins,
+        return exact_bitmap_plain(xk, yk, tk if wins is not None else None, valid, boxes, wins,
                                   codes, qcodes, attr_kind)
+    return _launch_exact_bitmap("exact_bitmap", xk, yk, tk, valid, boxes, wins, codes, qcodes,
+                                attr_kind)
+
+
+def _launch_exact_bitmap(name: str, xk, yk, tk, valid, boxes, wins, codes, qcodes, attr_kind):
+    """The ``exact_bitmap`` launch of :func:`exact_bitmap` and
+    :func:`exact_mask_batch`, counted under ``name`` + ``_z3`` / ``_z2``
+    (+ ``_<edition>``)."""
+    has_time = wins is not None
     if xk.device.type != "cuda":
-        raise ValueError(f"exact_bitmap: unsupported device {xk.device}")
+        raise ValueError(f"{name}: unsupported device {xk.device}")
     dev, n = xk.device, xk.shape[0]
     q = boxes.shape[0]
     if n % 32 or n >= 2**31:
@@ -461,9 +525,32 @@ def exact_bitmap(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
             width, bits.data_ptr(), hdr.data_ptr(), n, _stream(dev),
         )
     _raise_on(err, "exact_bitmap")
-    _count(_attr_name("exact_bitmap_" + ("z3" if has_time else "z2"), edition, attr_kind),
+    _count(_attr_name(f"{name}_" + ("z3" if has_time else "z2"), edition, attr_kind),
            f"q={q}{tag}")
     return bits, hdr[:3 * q].view(q, 3)
+
+
+def exact_mask_batch_plain(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
+                           attr_kind=None):
+    """Plain edition of :func:`exact_mask_batch`: the stacked
+    ``exact_st_mask`` (and ``attr_combine``) packed, one query at a time
+    (:func:`exact_bitmap_plain`'s bits)."""
+    return exact_bitmap_plain(xk, yk, tk, valid, boxes, wins, codes, qcodes, attr_kind)[0]
+
+
+def exact_mask_batch(xk, yk, tk, valid, boxes, wins=None, codes=None, qcodes=None,
+                     attr_kind=None) -> torch.Tensor:
+    """q stacked exact predicates -> ONE full-table packed plane u8[q, n/8]
+    MSB-first, no header and no span framing (the reference's
+    ``_exact_mask_batch_fn``, the coalescer's sweep). Arguments as for
+    :func:`exact_bitmap`, whose kernel computes the plane: its ``bits``
+    output is this plane. Counted under ``exact_mask_batch_z3`` /
+    ``_z2`` (+ ``_<edition>``); q is the real query count."""
+    if xk.device.type == "cpu":
+        return exact_mask_batch_plain(xk, yk, tk if wins is not None else None, valid, boxes,
+                                      wins, codes, qcodes, attr_kind)
+    return _launch_exact_bitmap("exact_mask_batch", xk, yk, tk, valid, boxes, wins, codes,
+                                qcodes, attr_kind)[0]
 
 
 def exact_count_plain(xk, yk, tk, valid, box, win=None, codes=None, qcodes=None,
@@ -699,12 +786,21 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None,
     query's attribute test ANDs into its hit plane before the decided plane
     derives from it. ``hdr`` rows are the HIT plane's (count, first, last),
     no hit giving (0, 0, n - 1)."""
-    has_time = tk is not None
     if bxmin.device.type == "cpu":
         return xz_dual_bitmap_plain(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk,
                                     codes, qcodes, attr_kind)
+    return _launch_xz_dual_bitmap("xz_dual_bitmap", bxmin, bymin, bxmax, bymax, isrect, valid,
+                                  descs, tk, codes, qcodes, attr_kind)
+
+
+def _launch_xz_dual_bitmap(name: str, bxmin, bymin, bxmax, bymax, isrect, valid, descs,
+                           tk=None, codes=None, qcodes=None, attr_kind=None):
+    """The ``xz_dual_bitmap`` launch of :func:`xz_dual_bitmap` and
+    :func:`dual_mask_batch`, counted under ``name`` + ``_xz3`` / ``_xz2``
+    (+ ``_<edition>``)."""
+    has_time = tk is not None
     if bxmin.device.type != "cuda":
-        raise ValueError(f"xz_dual_bitmap: unsupported device {bxmin.device}")
+        raise ValueError(f"{name}: unsupported device {bxmin.device}")
     dev, n = bxmin.device, bxmin.shape[0]
     q = descs.shape[0]
     if n % 32 or n >= 2**31:
@@ -736,7 +832,7 @@ def xz_dual_bitmap(bxmin, bymin, bxmax, bymax, isrect, valid, descs, tk=None,
             qcodes.data_ptr() if edition else None, width,
         )
     _raise_on(err, "xz_dual_bitmap")
-    _count(_attr_name("xz_dual_bitmap_" + ("xz3" if has_time else "xz2"), edition, attr_kind),
+    _count(_attr_name(f"{name}_" + ("xz3" if has_time else "xz2"), edition, attr_kind),
            f"q={q}{tag}")
     empty = hdr[:, 0] == 0
     hdr[:, 1] = torch.where(empty, 0, hdr[:, 1])
@@ -921,12 +1017,21 @@ def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None,
     attribute test ANDs into its hit plane before the decided plane derives
     from it. ``hdr`` rows are the HIT plane's (count, first, last), no hit
     giving (0, 0, n - 1)."""
-    has_time = wins is not None
     if xk.device.type == "cpu":
         return poly_dual_bitmap_plain(xk, yk, valid, xf, yf, edges, boxes, wins,
-                                      tk if has_time else None, codes, qcodes, attr_kind)
+                                      tk if wins is not None else None, codes, qcodes, attr_kind)
+    return _launch_poly_dual_bitmap("poly_dual_bitmap", xk, yk, valid, xf, yf, edges, boxes,
+                                    wins, tk, codes, qcodes, attr_kind)
+
+
+def _launch_poly_dual_bitmap(name: str, xk, yk, valid, xf, yf, edges, boxes, wins=None,
+                             tk=None, codes=None, qcodes=None, attr_kind=None):
+    """The ``poly_dual_bitmap`` launch of :func:`poly_dual_bitmap` and
+    :func:`dual_mask_batch`, counted under ``name`` + ``_z3`` / ``_z2``
+    (+ ``_<edition>``)."""
+    has_time = wins is not None
     if xk.device.type != "cuda":
-        raise ValueError(f"poly_dual_bitmap: unsupported device {xk.device}")
+        raise ValueError(f"{name}: unsupported device {xk.device}")
     dev, n = xk.device, xk.shape[0]
     q = boxes.shape[0]
     if n % 32 or n >= 2**31:
@@ -963,6 +1068,42 @@ def poly_dual_bitmap(xk, yk, valid, xf, yf, edges, boxes, wins=None, tk=None,
             width,
         )
     _raise_on(err, "poly_dual_bitmap")
-    _count(_attr_name("poly_dual_bitmap_" + ("z3" if has_time else "z2"), edition, attr_kind),
+    _count(_attr_name(f"{name}_" + ("z3" if has_time else "z2"), edition, attr_kind),
            f"q={q} E={ecap}{tag}")
     return hit_bits, dec_bits, hdr[:3 * q].view(q, 3)
+
+
+# -- the coalescer's dual-plane mask batches -----------------------------------
+
+# the mask-batch kind -> its launch-count name prefix
+DUAL_MASK_NAMES = {"xz": "xz_mask_batch", "poly": "poly_mask_batch"}
+
+
+def dual_mask_batch_plain(kind: str, *args, **kwargs):
+    """Plain edition of :func:`dual_mask_batch`: the stacked
+    ``xz_exact_planes`` (``kind`` "xz") or ``poly_planes`` ("poly"), the
+    attribute test ANDed into each hit plane, packed one query at a time
+    (:func:`xz_dual_bitmap_plain`'s or :func:`poly_dual_bitmap_plain`'s
+    planes)."""
+    if kind not in DUAL_MASK_NAMES:
+        raise ValueError(f"dual_mask_batch: unknown kind {kind!r}")
+    plain = xz_dual_bitmap_plain if kind == "xz" else poly_dual_bitmap_plain
+    return plain(*args, **kwargs)[:2]
+
+
+def dual_mask_batch(kind: str, *args, **kwargs):
+    """q stacked extent-envelope (``kind`` "xz") or banded-polygon ("poly")
+    predicates -> ONE pair of full-table packed planes (hit u8[q, n/8],
+    decided u8[q, n/8]), MSB-first, no header and no span framing (the
+    reference's ``_dual_mask_batch_fn``, the coalescer's dual sweep).
+    Arguments after ``kind`` as for :func:`xz_dual_bitmap` or
+    :func:`poly_dual_bitmap`, whose kernel computes the planes. Counted
+    under ``xz_mask_batch_xz3`` / ``_xz2`` or ``poly_mask_batch_z3`` /
+    ``_z2`` (+ ``_<edition>``); q is the real query count (the polygon
+    kernel takes any q up to ``POLY_MAX_Q``)."""
+    if kind not in DUAL_MASK_NAMES:
+        raise ValueError(f"dual_mask_batch: unknown kind {kind!r}")
+    if args[0].device.type == "cpu":
+        return dual_mask_batch_plain(kind, *args, **kwargs)
+    launch = _launch_xz_dual_bitmap if kind == "xz" else _launch_poly_dual_bitmap
+    return launch(DUAL_MASK_NAMES[kind], *args, **kwargs)[:2]

@@ -66,6 +66,15 @@ stream takes there:
   * the device kNN (``knn_candidates``): one ``knn_topk`` launch per segment
     ranks every row by its f32 haversine distance to a point.
 
+  * the COALESCED route (``dispatch_coalesced``, the seam of the
+    cross-query coalescer, ``parallel/batch.py``): concurrent queries'
+    exact point plans (with one attribute's predicates too), extent plans
+    and polygons stack into ONE full-table mask sweep per segment and group
+    (``exact_mask_batch`` / ``dual_mask_batch`` on the exact, extent and
+    polygon kernels): one n/8-byte plane a query (two for the dual
+    planes), no span framing, decoded on the host (``_decode_full_bitmap_
+    rows``); the rest take ``dispatch_many``'s routes.
+
   * the HOST SEEK (``_seek_scan``, the reference's cost-based chooser): a
     plan whose ranges cover at most ``SEEK_FRAC`` (0.4) of the
     table's rows is answered on the host by a searchsorted seek of the
@@ -78,7 +87,12 @@ stream takes there:
     over its candidates. The reference's device-assisted seek
     (``GEOMESA_DEVSEEK``, off by default) is not in this slice.
 
-The exact path and batched dispatch are always on. A lone extent query
+Dispatch and fetch check the ambient query budget (``utils/deadline.py``:
+``device.dispatch`` a plan and a segment, ``device.fetch`` a copy); every
+copy over the link goes through ``mesh.upload`` / ``_np_local`` and counts
+in ``utils/devstats.py``. A segment's lazy column loads take a lock, so
+concurrent first queries upload once. The exact path and batched dispatch
+are always on. A lone extent query
 takes the dual route (the reference sends it to the candidate route).
 Unlike the reference, segment rows pad to the kernels' granule
 (``GRANULE``) rather than to a power-of-two bucket, because PyTorch compiles
@@ -91,7 +105,8 @@ around each block's host-seek scan, ``geomesa.dispatch`` around the launches
 of a count or stats push-down; the store adds
 ``geomesa.plan``, ``geomesa.dispatch``, ``geomesa.post_filter`` and
 ``geomesa.assemble``; a density query opens ``geomesa.density`` around its
-launches and grid fetch and ``geomesa.band`` around the host certification),
+launches, ``geomesa.fetch`` around its grid copy and ``geomesa.band``
+around the host certification),
 and the kNN opens ``geomesa.dispatch`` around its launches and
 ``geomesa.certify`` around its f64 certificate, so a profiler trace of a
 query stream splits its host time by step.
@@ -101,6 +116,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 import weakref
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -129,12 +145,14 @@ from geomesa_tpu_torch.parallel.mesh import (
     Device,
     default_device,
     device_auto_declines,
+    fetch,
     pad_to_multiple,
     upload,
 )
 from geomesa_tpu_torch.stats.parser import parse_stat
 from geomesa_tpu_torch.stats.sketches import CountStat, SeqStat
 from geomesa_tpu_torch.store.blocks import FeatureBlock, IndexTable, expand_intervals
+from geomesa_tpu_torch.utils import audit, deadline, devstats
 
 # initial hit-run capacity: 4096 runs * 8B = 32 KiB per segment transfer
 HIT_CAPACITY0 = 4096
@@ -245,9 +263,11 @@ def _runs_from_mask(m: torch.Tensor, rcap: int) -> torch.Tensor:
 
 
 def _np_local(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> host numpy (the device.fetch boundary)."""
-    with record_function("geomesa.fetch"):
-        return t.cpu().numpy()
+    """Device tensor -> host numpy: the executor's one device -> host copy
+    (``mesh.fetch``, which counts the bytes), after the budget check of the
+    device.fetch boundary."""
+    deadline.check("device.fetch")
+    return fetch(t)
 
 
 def _decode_bitmap_rows(bits: np.ndarray, start: int, max_out: int) -> np.ndarray:
@@ -325,6 +345,8 @@ class DeviceSegment:
         # bitmap-batch span window (rows): starts at the full segment and
         # narrows to the widest observed query span
         self._span_cap = 0  # 0 = unlearned -> full segment
+        # the lazy column loads: concurrent first loads upload once
+        self._load_lock = threading.RLock()
 
     @classmethod
     def from_blocks(cls, table: IndexTable, blocks: Sequence[FeatureBlock],
@@ -370,6 +392,7 @@ class DeviceSegment:
         if kind in ("z3", "xz3"):
             cols["ti"] = pack(ts, np.int32, 0)
             cols["bins"] = pack(bins, np.int32, -1)
+        devstats.record_pad(n, len(cols["valid"]), kind)
         return cls(kind, device, n, cols, blocks)
 
     def _pack_keys(self, keys: np.ndarray) -> torch.Tensor:
@@ -381,6 +404,11 @@ class DeviceSegment:
         """Pack int64 sort-key columns for the EXACT device predicate."""
         if self._exact_loaded:
             return
+        with self._load_lock:
+            if not self._exact_loaded:
+                self._load_exact(table)
+
+    def _load_exact(self, table: IndexTable) -> None:
         ft = table.ft
         geom = ft.default_geometry.name
         xs = np.concatenate([b.full_col(geom + "__x") for b in self.blocks])
@@ -416,6 +444,11 @@ class DeviceSegment:
         the EXACT extent predicate."""
         if self._exact_xz_loaded:
             return
+        with self._load_lock:
+            if not self._exact_xz_loaded:
+                self._load_exact_xz(table)
+
+    def _load_exact_xz(self, table: IndexTable) -> None:
         ft = table.ft
         geom = ft.default_geometry.name
         # pad with the min key; pads are also valid = False
@@ -447,9 +480,13 @@ class DeviceSegment:
         """Pack the raw f32 coordinates (+ the in-bin ms offsets of day/week
         z3 bins) for the density push-down. False when unsupported: month
         and year bins are not uniform and overflow int32 ms offsets."""
-        if self._raw_loaded:
-            return self.kind == "z2" or self.t_ms is not None
-        self._raw_loaded = True
+        if not self._raw_loaded:
+            with self._load_lock:
+                if not self._raw_loaded:
+                    self._load_raw(table)
+        return self.kind == "z2" or self.t_ms is not None
+
+    def _load_raw(self, table: IndexTable) -> None:
         ft = table.ft
         geom = ft.default_geometry.name
 
@@ -459,9 +496,7 @@ class DeviceSegment:
 
         self.xf = pack([b.full_col(geom + "__x") for b in self.blocks], np.float32, 0.0)
         self.yf = pack([b.full_col(geom + "__y") for b in self.blocks], np.float32, 0.0)
-        if self.kind == "z3":
-            if ft.z3_interval not in (TimePeriod.DAY, TimePeriod.WEEK):
-                return False
+        if self.kind == "z3" and ft.z3_interval in (TimePeriod.DAY, TimePeriod.WEEK):
             traw = []
             for b in self.blocks:
                 t_ms = b.full_col(ft.default_date.name).astype(np.int64)
@@ -471,7 +506,8 @@ class DeviceSegment:
                 traw.append(t_ms - starts)
             self.t_ms = pack(traw, np.int32, -1)
             self._load_tvalid(ft)
-        return True
+        # last: a reader past the flag sees every column
+        self._raw_loaded = True
 
     def load_attr_codes(self, attr: str) -> bool:
         """Upload the unified rank-code column of one attribute (the
@@ -486,9 +522,13 @@ class DeviceSegment:
         strings) take ``np.unique`` of their live values, whose ranks are
         the codes. Null rows and float NaN carry -1, as do pad rows. False
         when some block holds the attribute as objects (host only)."""
-        if attr in self._attr_codes:
-            return self._attr_codes[attr] is not None
+        if attr not in self._attr_codes:
+            with self._load_lock:
+                if attr not in self._attr_codes:
+                    self._load_attr_codes(attr)
+        return self._attr_codes[attr] is not None
 
+    def _load_attr_codes(self, attr: str) -> None:
         def raw_vocab(b):
             # vocabs are not row-aligned: bypass full_col's record gather
             v = b.columns.get(attr + "__vocab")
@@ -516,7 +556,7 @@ class DeviceSegment:
                     raise KeyError(attr)  # object column: host only
         except KeyError:
             self._attr_codes[attr] = None
-            return False
+            return
         unified = (
             np.unique(np.concatenate(vocab_pool)) if vocab_pool else np.empty(0, dtype=object)
         )
@@ -535,7 +575,6 @@ class DeviceSegment:
         packed = pad_to_multiple(
             np.concatenate(parts) if parts else np.empty(0, np.int32), GRANULE, np.int32(-1))
         self._attr_codes[attr] = (upload(packed, self.device), unified)
-        return True
 
     def attr_qcode(self, attr: str, value) -> int:
         """Segment-local code of ``value``: -2 when absent or not comparable
@@ -977,6 +1016,63 @@ class DeviceSegment:
             ))
         return out
 
+    def dispatch_exact_mask_batch(self, descs: Sequence[tuple], has_time: bool,
+                                  attr: Optional[str] = None, attr_kind: str = "member"
+                                  ) -> List["_PendingMaskHits"]:
+        """Q exact predicates in ONE ``exact_mask_batch`` launch: one
+        full-table packed plane u8[q, n/8] back, no span framing and no
+        capacity to outgrow (the coalescer's sweep, the reference's
+        ``dispatch_exact_mask_batch``). ``descs`` as for
+        ``dispatch_exact_batch``, with ``attr`` the attribute plane's
+        payloads; the batch launches its real q (no pow2 padding)."""
+        boxes_dev = upload(np.stack([d[0] for d in descs]), self.device)
+        wins_dev = upload(np.stack([d[1] for d in descs]), self.device) if has_time else None
+        xk, yk, tk, valid = self._exact_cols(has_time)
+        codes = qcodes = None
+        if attr is not None:
+            codes = self._attr_codes[attr][0]
+            qcodes = upload(self._attr_batch_vectors(attr, attr_kind, [d[2] for d in descs]),
+                            self.device)
+        bits = kernels.exact_mask_batch(xk, yk, tk, valid, boxes_dev, wins_dev, codes, qcodes,
+                                        attr_kind if attr is not None else None)
+        batch = _MaskBatch(bits, self.n)
+        return [_PendingMaskHits(batch, i) for i in range(len(descs))]
+
+    def dispatch_dual_mask_batch(self, kind: str, descs: Sequence[tuple], has_time: bool,
+                                 attr: Optional[str] = None, attr_kind: str = "member"
+                                 ) -> List["_PendingDualMaskHits"]:
+        """The dual-plane edition of ``dispatch_exact_mask_batch`` for the
+        extent (``kind`` "xz": ``descs`` = [(desc int64[8] [, payload])]) and
+        banded polygon ("poly": [(edges f32[E, 4], box int64[4], win
+        int64[2] | None [, payload])], edge lists padded to the batch's pow2
+        of at least 8) folds: ONE ``dual_mask_batch`` launch, two full-table
+        packed planes a query, resolved through ``_XZBatchScan`` (decided
+        rows final, the ring tested on the host)."""
+        payloads = [d[-1] for d in descs] if attr is not None else None
+        codes = qcodes = None
+        if attr is not None:
+            codes = self._attr_codes[attr][0]
+            qcodes = upload(self._attr_batch_vectors(attr, attr_kind, payloads), self.device)
+        akind = attr_kind if attr is not None else None
+        if kind == "xz":
+            descs_dev = upload(np.stack([d[0] for d in descs]), self.device)
+            cols = self._xz_cols(has_time)
+            hit, dec = kernels.dual_mask_batch("xz", *cols[:6], descs_dev, cols[6], codes,
+                                               qcodes, akind)
+        else:
+            ecap = _pow2_at_least(max(len(d[0]) for d in descs), 8)
+            edges = np.zeros((len(descs), ecap, 4), dtype=np.float32)
+            for i, d in enumerate(descs):
+                edges[i, :len(d[0])] = d[0]
+            edges_dev = upload(edges, self.device)
+            boxes_dev = upload(np.stack([d[1] for d in descs]), self.device)
+            wins_dev = upload(np.stack([d[2] for d in descs]), self.device) if has_time else None
+            xk, yk, valid, xf, yf, tk = self._poly_cols(has_time)
+            hit, dec = kernels.dual_mask_batch("poly", xk, yk, valid, xf, yf, edges_dev,
+                                               boxes_dev, wins_dev, tk, codes, qcodes, akind)
+        batch = _DualMaskBatch(hit, dec, self.n)
+        return [_PendingDualMaskHits(batch, i) for i in range(len(descs))]
+
     def to_block_rows(self, rows: np.ndarray) -> List[Tuple[FeatureBlock, np.ndarray]]:
         """Segment-local candidate rows -> [(block, local rows)]."""
         if not len(rows):
@@ -1231,6 +1327,104 @@ class _PendingXZBitmapHits:
             _decode_bitmap_rows(both[:h], start, cnt),
             _decode_bitmap_rows(both[h:], start, cnt),  # decided <= hit
         )
+
+
+# set bits of each byte value
+_POPCOUNT8 = np.unpackbits(np.arange(256, dtype=np.uint8)[:, None], axis=1).sum(
+    axis=1, dtype=np.uint8)
+
+
+def _decode_full_bitmap_rows(packed: np.ndarray, n: int) -> np.ndarray:
+    """Full-table packed plane -> the row indices below ``n``: a popcount
+    table sizes the native decode (``_decode_bitmap_rows``). Pad rows are
+    never valid, so the bound check is belt and braces."""
+    cnt = int(_POPCOUNT8[packed].sum(dtype=np.int64))
+    rows = _decode_bitmap_rows(packed, 0, cnt)
+    if len(rows) and rows[-1] >= n:
+        rows = rows[rows < n]
+    return rows
+
+
+class _MaskBatch:
+    """One coalesced mask batch: u8[q, n/8] full-table planes on the device,
+    fetched once. ``prefetch``-able: the coalescer copies the shared buffer
+    inside its own cost collector, so the bytes split across the members."""
+
+    __slots__ = ("buf", "n_rows", "_np")
+
+    def __init__(self, buf, n_rows: int):
+        self.buf = buf
+        self.n_rows = n_rows  # the segment's real rows
+        self._np = None
+
+    def _fetch(self) -> np.ndarray:
+        if self._np is None:
+            self._np = _np_local(self.buf)
+            self.buf = None
+        return self._np
+
+
+class _PendingMaskHits:
+    """One query's row of a mask batch: its full-table plane decoded (no
+    span window, no refetch: the plane covers every row)."""
+
+    __slots__ = ("batch", "i", "_rows")
+
+    def __init__(self, batch: _MaskBatch, i: int):
+        self.batch = batch
+        self.i = i
+        self._rows: Optional[np.ndarray] = None
+
+    def prefetch(self) -> None:
+        self.batch._fetch()
+
+    def rows(self) -> np.ndarray:
+        if self._rows is None:
+            self._rows = _decode_full_bitmap_rows(self.batch._fetch()[self.i], self.batch.n_rows)
+        return self._rows
+
+
+class _DualMaskBatch:
+    """One coalesced dual-plane batch: (hit, decided) u8[q, n/8] on the
+    device, fetched once, ``prefetch``-able as ``_MaskBatch``."""
+
+    __slots__ = ("hit", "dec", "n_rows", "_np")
+
+    def __init__(self, hit, dec, n_rows: int):
+        self.hit = hit
+        self.dec = dec
+        self.n_rows = n_rows
+        self._np = None
+
+    def _fetch(self):
+        if self._np is None:
+            self._np = (_np_local(self.hit), _np_local(self.dec))
+            self.hit = self.dec = None
+        return self._np
+
+
+class _PendingDualMaskHits:
+    """One extent or polygon query's planes of a dual mask batch: rows() ->
+    (hit_rows, decided_rows), both sorted, decided a subset of hit (the
+    ``_XZBatchScan`` contract)."""
+
+    __slots__ = ("batch", "i", "_rows")
+
+    def __init__(self, batch: _DualMaskBatch, i: int):
+        self.batch = batch
+        self.i = i
+        self._rows = None
+
+    def prefetch(self) -> None:
+        self.batch._fetch()
+
+    def rows(self):
+        if self._rows is None:
+            h, d = self.batch._fetch()
+            n = self.batch.n_rows
+            self._rows = (_decode_full_bitmap_rows(h[self.i], n),
+                          _decode_full_bitmap_rows(d[self.i], n))
+        return self._rows
 
 
 def _ring_split(hit_rows: np.ndarray, dec_rows: np.ndarray) -> np.ndarray:
@@ -1538,17 +1732,20 @@ class TorchScanExecutor:
         # id() keys can be recycled after GC, so each entry holds a weakref
         # to its table: identity is re-checked on hit
         self._cache: Dict[int, Tuple[weakref.ref, DeviceIndex]] = {}
+        self._cache_lock = threading.RLock()
 
     def device_index(self, table: IndexTable) -> DeviceIndex:
-        for k in [k for k, (ref, _) in self._cache.items() if ref() is None]:
-            del self._cache[k]
-        entry = self._cache.get(id(table))
-        if entry is not None and entry[0]() is table:
-            entry[1].refresh(table)
-            return entry[1]
-        dev = DeviceIndex(self.device, table)
-        self._cache[id(table)] = (weakref.ref(table), dev)
-        return dev
+        # one lock: concurrent queries of one table share one mirror
+        with self._cache_lock:
+            for k in [k for k, (ref, _) in self._cache.items() if ref() is None]:
+                del self._cache[k]
+            entry = self._cache.get(id(table))
+            if entry is not None and entry[0]() is table:
+                entry[1].refresh(table)
+                return entry[1]
+            dev = DeviceIndex(self.device, table)
+            self._cache[id(table)] = (weakref.ref(table), dev)
+            return dev
 
     def supports(self, table: IndexTable, plan: QueryPlan) -> bool:
         return (
@@ -1593,6 +1790,7 @@ class TorchScanExecutor:
             win_dev = None if win_np is None else upload(win_np, self.device)
             pending = []
             for seg in dev.segments:
+                deadline.check("device.dispatch")
                 seg.load_exact(table)
                 pending.append((seg, seg.dispatch_exact(box_dev, win_dev)))
             return _PendingScan(pending, exact=True)
@@ -1602,9 +1800,11 @@ class TorchScanExecutor:
             # candidate route, as the reference's lone extent queries do
             return self._dispatch_xz_single(table, dev, *xz[:4])
         boxes_dev, windows_dev = self._query_descriptor(table, plan)
-        return _PendingScan(
-            [(seg, seg.dispatch_hits(boxes_dev, windows_dev)) for seg in dev.segments]
-        )
+        pending = []
+        for seg in dev.segments:
+            deadline.check("device.dispatch")
+            pending.append((seg, seg.dispatch_hits(boxes_dev, windows_dev)))
+        return _PendingScan(pending)
 
     def _dispatch_xz_single(self, table: IndexTable, dev: DeviceIndex, qdesc: np.ndarray,
                             has_time: bool, geom: str, node) -> _XZBatchScan:
@@ -1640,10 +1840,11 @@ class TorchScanExecutor:
         so the next query rebuilds it from the host table. The datastore
         re-raises ``exc`` after this: the port answers no query from the
         host in place of a failed device scan."""
-        if table is None:
-            self._cache.clear()
-        else:
-            self._cache.pop(id(table), None)
+        with self._cache_lock:
+            if table is None:
+                self._cache.clear()
+            else:
+                self._cache.pop(id(table), None)
 
     def dispatch_many(self, items: Sequence[Tuple[IndexTable, QueryPlan]]):
         """Dispatch a query stream; returns {id(plan): scan | None}.
@@ -1659,6 +1860,14 @@ class TorchScanExecutor:
         groups also per attribute and edition of their attribute plane; the
         others dispatch as dispatch_candidates would."""
         out: Dict[int, object] = {}
+        self._dispatch_many_batches(items, out)
+        return out
+
+    def _dispatch_many_batches(self, items: Sequence[Tuple[IndexTable, QueryPlan]],
+                               out: Dict[int, object], seek_declined=frozenset()) -> None:
+        """``dispatch_many``'s body, into ``out``. ``seek_declined`` holds
+        the ids of plans whose seek probe already ran and declined
+        (``dispatch_coalesced``): they skip the probe here."""
         batchable: Dict[tuple, Tuple[IndexTable, bool, list]] = {}
         attr_batchable: Dict[tuple, Tuple[IndexTable, bool, str, str, list]] = {}
         xz_batchable: Dict[tuple, Tuple[IndexTable, bool, Optional[str], Optional[str], list]] = {}
@@ -1666,7 +1875,8 @@ class TorchScanExecutor:
         for table, plan in items:
             if id(plan) in out:
                 continue
-            seek = self._seek_scan(table, plan)
+            deadline.check("device.dispatch")
+            seek = None if id(plan) in seek_declined else self._seek_scan(table, plan)
             if seek is not None:
                 out[id(plan)] = seek
                 continue
@@ -1730,6 +1940,140 @@ class TorchScanExecutor:
         self._drain_attr_batches(out, attr_batchable)
         self._drain_xz_batches(out, xz_batchable)
         self._drain_poly_batches(out, poly_batchable)
+
+    def dispatch_coalesced(self, items: Sequence[Tuple[IndexTable, QueryPlan]]):
+        """Dispatch a COALESCED query group (the reference's
+        ``dispatch_coalesced``, the seam of ``parallel/batch.py``); returns
+        {id(plan): scan | None}.
+
+        Plans whose full filter the device evaluates stack into ONE
+        full-table mask sweep per segment and group: box(+window) point
+        plans and those with one attribute's predicates
+        (``dispatch_exact_mask_batch``, per attribute and edition), extent
+        plans and non-rectangular polygons on point tables
+        (``dispatch_dual_mask_batch``, resolved through ``_XZBatchScan``).
+        No span framing and no run capacity: one n/8-byte plane a query.
+
+        A plan that cannot ride a stacked sweep declines with a reason
+        (``audit.decision("coalesce", <reason>)``) and takes the path a
+        ``query_many`` batch would (``_dispatch_many_batches``):
+
+        * ``seek_cheaper``       the cost chooser picked the host seek
+        * ``kernel_ineligible``  no mask edition takes the plan's shape
+        * ``lone_member``        nothing shares its group
+        * ``mirror_unloadable``  a segment lacks the columns the edition
+                                 needs (an object attribute, a value space
+                                 past the vocabmask lookup)
+
+        ``batch.coalesce.plans.stacked`` and ``.rest`` count the split.
+        Unlike the reference there is no breaker envelope: a failure
+        raises to the caller."""
+        out: Dict[int, object] = {}
+        # (id(table), has_time, extra) -> (table, has_time, extra, [(pid, plan, desc)]);
+        # extra = None | (attr, edition)
+        mask_groups: Dict[tuple, tuple] = {}
+        # (kind, id(table), has_time, extra) -> (kind, table, has_time, extra,
+        # [(pid, plan, desc, ring_test)])
+        dual_groups: Dict[tuple, tuple] = {}
+        rest: List[Tuple[IndexTable, QueryPlan]] = []
+        seen: set = set()
+        seek_probed: set = set()
+        for table, plan in items:
+            if id(plan) in seen:
+                continue
+            seen.add(id(plan))
+            deadline.check("device.dispatch")
+            seek = self._seek_scan(table, plan)
+            seek_probed.add(id(plan))
+            if seek is not None:
+                audit.decision("coalesce", "seek_cheaper", index=table.index.name)
+                out[id(plan)] = seek
+                continue
+            if self._scan_eligible(table, plan):
+                desc = self._exact_descriptor(table, plan)
+                extra = None
+                if desc is None:
+                    adesc = self._attr_batch_desc(table, plan)
+                    if adesc is not None:
+                        extra, desc = adesc[:2], adesc[2]
+                if desc is not None:
+                    has_time = desc[1] is not None
+                    group = mask_groups.setdefault((id(table), has_time, extra),
+                                                   (table, has_time, extra, []))
+                    group[3].append((id(plan), plan, desc))
+                    continue
+                poly = self._poly_batch_desc(table, plan)
+                if poly is not None:
+                    edges, box_np, win_np, has_time, geom, node, ainfo = poly
+                    extra = None if ainfo is None else ainfo[:2]
+                    desc = (edges, box_np, win_np) + (() if ainfo is None else (ainfo[2],))
+                    group = dual_groups.setdefault(("poly", id(table), has_time, extra),
+                                                   ("poly", table, has_time, extra, []))
+                    group[4].append((id(plan), plan, desc, _point_ring_test(node, geom)))
+                    continue
+                xz = self._xz_batch_desc(table, plan)
+                if xz is not None:
+                    qdesc, has_time, geom, node, ainfo = xz
+                    extra = None if ainfo is None else ainfo[:2]
+                    desc = (qdesc,) + (() if ainfo is None else (ainfo[2],))
+                    group = dual_groups.setdefault(("xz", id(table), has_time, extra),
+                                                   ("xz", table, has_time, extra, []))
+                    group[4].append((id(plan), plan, desc, _extent_ring_test(node, geom)))
+                    continue
+            audit.decision("coalesce", "kernel_ineligible", index=table.index.name)
+            rest.append((table, plan))
+        stacked = 0
+
+        def decline(table, lst, reason: str) -> None:
+            audit.decision("coalesce", reason, n=len(lst))
+            rest.extend((table, item[1]) for item in lst)
+
+        for table, has_time, extra, lst in mask_groups.values():
+            attr, akind = extra if extra is not None else (None, "member")
+            dev = self.device_index(table)
+            if len(lst) < 2:
+                decline(table, lst, "lone_member")
+                continue
+            if not dev.segments or not self._attr_ready(table, dev, attr, akind):
+                decline(table, lst, "mirror_unloadable")
+                continue
+            for i in range(0, len(lst), self.BATCH_MAX):
+                chunk = lst[i : i + self.BATCH_MAX]
+                deadline.check("device.dispatch")
+                descs = [d for _pid, _p, d in chunk]
+                per_seg = [seg.dispatch_exact_mask_batch(descs, has_time, attr, akind)
+                           for seg in dev.segments]
+                for qi, (pid, _plan, _d) in enumerate(chunk):
+                    out[pid] = _PendingScan(
+                        [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)], exact=True)
+                stacked += len(chunk)
+        for kind, table, has_time, extra, lst in dual_groups.values():
+            attr, akind = extra if extra is not None else (None, "member")
+            dev = self.device_index(table)
+            if len(lst) < 2:
+                decline(table, lst, "lone_member")
+                continue
+            loaded = bool(dev.segments) and (
+                all(seg.load_poly(table) for seg in dev.segments) if kind == "poly" else True)
+            if not loaded or not self._attr_ready(table, dev, attr, akind, xz=kind == "xz"):
+                decline(table, lst, "mirror_unloadable")
+                continue
+            for i in range(0, len(lst), self.BATCH_MAX):
+                chunk = lst[i : i + self.BATCH_MAX]
+                deadline.check("device.dispatch")
+                descs = [item[2] for item in chunk]
+                per_seg = [seg.dispatch_dual_mask_batch(kind, descs, has_time, attr, akind)
+                           for seg in dev.segments]
+                for qi, (pid, _plan, _d, ring_test) in enumerate(chunk):
+                    out[pid] = _XZBatchScan(
+                        [(seg, phs[qi]) for seg, phs in zip(dev.segments, per_seg)], ring_test)
+                stacked += len(chunk)
+        reg = devstats.devstats_metrics()
+        if stacked:
+            reg.inc("batch.coalesce.plans.stacked", stacked)
+        if rest:
+            reg.inc("batch.coalesce.plans.rest", len(rest))
+            self._dispatch_many_batches(rest, out, seek_declined=seek_probed)
         return out
 
     def _drain_attr_batches(self, out: Dict[int, object], groups) -> None:
@@ -2823,19 +3167,19 @@ class TorchScanExecutor:
                 )
                 # one D2H copy per segment: count, band indices, grid
                 outs.append((seg, torch.cat([cnt, idx, grid.reshape(-1)])))
-            total = np.zeros((height, width), dtype=np.float64)
-            band: List[Tuple[DeviceSegment, np.ndarray]] = []
-            for seg, buf in outs:
-                buf = buf.cpu().numpy()
-                cnt = int(buf[0])
-                if cnt > band_cap:
-                    return None  # the band buffer truncated: the host answers
-                grid = buf[1 + band_cap:].reshape(height, width)
-                if int(grid.max()) >= 2**24:
-                    return None  # the reference's f32 grid is exact below 2^24 only
-                total += grid
-                if cnt:
-                    band.append((seg, np.sort(buf[1:1 + cnt].astype(np.int64))))
+        total = np.zeros((height, width), dtype=np.float64)
+        band: List[Tuple[DeviceSegment, np.ndarray]] = []
+        for seg, buf in outs:
+            buf = _np_local(buf)
+            cnt = int(buf[0])
+            if cnt > band_cap:
+                return None  # the band buffer truncated: the host answers
+            grid = buf[1 + band_cap:].reshape(height, width)
+            if int(grid.max()) >= 2**24:
+                return None  # the reference's f32 grid is exact below 2^24 only
+            total += grid
+            if cnt:
+                band.append((seg, np.sort(buf[1:1 + cnt].astype(np.int64))))
         if band:
             with record_function("geomesa.band"):
                 total += self._certify_density_band(table, plan, spec, band, width, height)

@@ -1,8 +1,11 @@
-"""Device choice, row padding and host -> device upload.
+"""Device choice, row padding and the counted link boundary.
 
 Port of ``geomesa_tpu/parallel/mesh.py`` for one device. The reference
 shards rows over a JAX mesh; this slice of the port runs on one CUDA device
-(or on the CPU when a caller asks for it, as the tests do).
+(or on the CPU when a caller asks for it, as the tests do). ``upload`` is
+the one host -> device copy and ``fetch`` the one device -> host copy of
+the port: each counts its bytes in ``utils/devstats.py``
+(``device.h2d.bytes`` / ``device.d2h.bytes`` and the query's receipt).
 """
 
 from __future__ import annotations
@@ -13,6 +16,9 @@ from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
+from torch.profiler import record_function
+
+from geomesa_tpu_torch.utils import devstats
 
 Device = Union[str, torch.device]
 
@@ -44,8 +50,21 @@ def pad_to_multiple(arr: np.ndarray, multiple: int, fill) -> np.ndarray:
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> contiguous tensor on ``device``."""
-    return torch.as_tensor(np.ascontiguousarray(arr), device=device)
+    """Host array -> contiguous tensor on ``device``, its bytes counted as
+    host -> device (on the CPU too: the bytes that crossed the boundary
+    helper)."""
+    arr = np.ascontiguousarray(arr)
+    devstats.count_h2d(arr.nbytes)
+    return torch.as_tensor(arr, device=device)
+
+
+def fetch(t: torch.Tensor) -> np.ndarray:
+    """Device tensor -> host numpy array (the device.fetch boundary), its
+    bytes counted as device -> host."""
+    with record_function("geomesa.fetch"):
+        out = t.cpu().numpy()
+    devstats.count_d2h(out.nbytes)
+    return out
 
 
 def link_latency_ms(device: Optional[Device] = None) -> float:
@@ -63,11 +82,11 @@ def link_latency_ms(device: Optional[Device] = None) -> float:
     got = _LINK_LATENCY_MS.get(key)
     if got is None:
         x = torch.zeros(8, dtype=torch.float32, device=dev)
-        (x + 1).cpu()  # the first trip pays the allocations
+        fetch(x + 1)  # the first trip pays the allocations
         samples = []
         for _ in range(5):
             t0 = time.perf_counter()
-            (x + 1).cpu()
+            fetch(x + 1)
             samples.append((time.perf_counter() - t0) * 1e3)
         # the least, not the median: the cost choice wants the link's floor,
         # and contention on the host only ever inflates a sample

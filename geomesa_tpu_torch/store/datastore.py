@@ -25,16 +25,30 @@ rows do not; ``plan.scan_path`` = ``device-stats``), its sketch in
 ``count_scan`` for the exact count of a filter (one int32 a segment), else
 counts the query's rows.
 
-Admission, deadlines, tenants, workload capture, audit, plan telemetry,
-visibility labels, age-off, deletes, the bin / arrow aggregations, the
-aggregate cache, pyramids, joins, sampling, transforms and streaming are
-not in this slice of the port. A device scan, count or stats push-down that
-fails raises (after ``executor.degrade`` evicts the mirror) instead of being
-answered from the host.
+Serving (the reference's ``query``): each query runs under its budget
+(``query_timeout_s``, ``geomesa.query.timeout``; ``utils/deadline.py``)
+from admission on, holds a slot of ``self.admission``
+(``utils/admission.py``: ``max_inflight`` / ``max_queue``, the
+``geomesa.query.max.inflight`` / ``.queue.depth`` knobs; overflow sheds
+with ``ShedLoad``) and, strictly after admission, may ride the
+cross-query coalescer (``parallel/batch.py``) when another query is in
+flight: queries of one feature type in flight together share one stacked
+mask sweep per segment. ``query_many`` admits its batch as one unit. Every
+result carries ``receipt``, the bytes its query moved each way and the
+kernel builds it triggered (``utils/devstats.py``), and ``scan_path``, its
+route.
+
+Tenants, brownout, circuit breakers, workload capture, audit, plan
+telemetry, visibility labels, age-off, deletes, the bin / arrow
+aggregations, the aggregate cache, pyramids, joins, sampling, transforms
+and streaming are not in this slice of the port. A device scan, count or
+stats push-down that fails raises (after ``executor.degrade`` evicts the
+mirror) instead of being answered from the host.
 """
 
 from __future__ import annotations
 
+import threading
 import uuid
 from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -65,6 +79,10 @@ from geomesa_tpu_torch.store.blocks import (
     intern_string_columns,
     take_rows,
 )
+from geomesa_tpu_torch.utils import admission as admission_mod
+from geomesa_tpu_torch.utils import deadline as deadline_mod
+from geomesa_tpu_torch.utils import devstats, trace
+from geomesa_tpu_torch.utils.audit import QueryTimeout, ShedLoad
 
 DEFAULT_FLUSH_SIZE = 100_000
 
@@ -135,14 +153,21 @@ class LazyColumns(Mapping):
 class QueryResult:
     """Columnar query result; ``columns`` is a plain dict or a
     ``LazyColumns``; ``aggregate`` holds the density grid when the query's
-    hints asked for one."""
+    hints asked for one. ``scan_path`` is the route that answered (the
+    arms' routes joined by "+" for a union), ``receipt`` the query's device
+    costs (``recompiles``, ``h2d_bytes``, ``d2h_bytes``, ``pad_ratio``;
+    None until the store fills it) and ``coalesced`` the size of the group
+    it rode (0: solo)."""
 
     def __init__(self, ft: FeatureType, columns: Columns, plan: Optional[QueryPlan] = None,
-                 aggregate: Optional[Dict[str, Any]] = None):
+                 aggregate: Optional[Dict[str, Any]] = None, scan_path: str = ""):
         self.ft = ft
         self.columns = columns
         self.plan = plan
         self.aggregate = aggregate or {}
+        self.scan_path = scan_path
+        self.receipt: Optional[Dict[str, Any]] = None
+        self.coalesced = 0
 
     def __len__(self):
         n = getattr(self.columns, "num_rows", None)
@@ -193,18 +218,40 @@ class TorchDataStore:
 
     With no ``executor``, scans run on a ``TorchScanExecutor`` for
     ``device`` (the first CUDA device unless the caller names one; raises
-    when there is none)."""
+    when there is none). ``query_timeout_s`` (None: the
+    ``geomesa.query.timeout`` knob, unbounded by default), ``max_inflight``
+    and ``max_queue`` (None: ``geomesa.query.max.inflight`` 64 and
+    ``.queue.depth`` 256) set the serving bounds."""
+
+    # cross-query coalescing at the admission point (parallel/batch.py)
+    COALESCE_QUERIES = True
 
     def __init__(self, executor=None, flush_size: int = DEFAULT_FLUSH_SIZE,
-                 device: Optional[Device] = None):
+                 device: Optional[Device] = None, query_timeout_s: Optional[float] = None,
+                 max_inflight: Optional[int] = None, max_queue: Optional[int] = None):
+        from geomesa_tpu_torch.utils.config import (
+            QUERY_MAX_INFLIGHT,
+            QUERY_QUEUE_DEPTH,
+            QUERY_TIMEOUT,
+        )
+
         self.executor = executor if executor is not None else TorchScanExecutor(device)
         self.flush_size = flush_size
+        self.query_timeout_s = (QUERY_TIMEOUT.to_duration_s() if query_timeout_s is None
+                                else query_timeout_s)
+        if max_inflight is None:
+            max_inflight = QUERY_MAX_INFLIGHT.to_int() or 64
+        if max_queue is None:
+            mq = QUERY_QUEUE_DEPTH.to_int()
+            max_queue = 256 if mq is None else mq
+        self.admission = admission_mod.AdmissionController(max_inflight, max_queue)
         # write-time sketches feeding the cost-based strategy choice
         self.stats = SketchStats()
         self._schemas: Dict[str, FeatureType] = {}
         self._indices: Dict[str, List[IndexKeySpace]] = {}
         self._tables: Dict[str, Dict[str, IndexTable]] = {}
         self._plan_cache: Dict[Any, QueryPlan] = {}
+        self._plan_lock = threading.Lock()
 
     # -- schema ---------------------------------------------------------------
 
@@ -256,18 +303,86 @@ class TorchDataStore:
 
         versions = tuple(t.version for t in self._tables[name].values())
         key = (name, to_cql(query.filter), versions)
-        plan = self._plan_cache.pop(key, None)
+        with self._plan_lock:
+            plan = self._plan_cache.pop(key, None)
         if plan is None:
             plan = self.planner(name).plan(query)
-            if len(self._plan_cache) >= 256:
+        with self._plan_lock:
+            if key not in self._plan_cache and len(self._plan_cache) >= 256:
                 self._plan_cache.pop(next(iter(self._plan_cache)))
-        self._plan_cache[key] = plan
+            # a concurrent first plan of the key wins: one plan object a key
+            plan = self._plan_cache.setdefault(key, plan)
         return plan
 
     def query(self, name: str, query: Union[str, Query] = "INCLUDE") -> QueryResult:
+        """One query under its budget and an admission slot (the
+        reference's ``query``): it sheds with ``ShedLoad`` when the gate and
+        its queue are full and raises ``QueryTimeout`` when its budget dies,
+        never a truncated result. Admitted, it rides the coalescer when
+        another query is in flight (``_coalesced``), else runs alone; the
+        result carries its receipt either way."""
         ft = self.get_schema(name)
         query = self._as_query(query)
-        return self._execute(name, ft, query, self._plan_cached(name, query))
+        with trace.span("query", type=name) as root:
+            try:
+                with deadline_mod.budget(self.query_timeout_s):
+                    with self.admission.admit(priority=admission_mod.classify(query.hints)):
+                        out = self._coalesced(name, ft, query)
+                        if out is not None:
+                            result, receipt = out.result, out.receipt
+                            result.coalesced = out.group_n
+                        else:
+                            with devstats.collecting() as own:
+                                result = self._execute(name, ft, query,
+                                                       self._plan_cached(name, query))
+                            receipt = devstats.receipt_of(own)
+                        result.receipt = receipt
+                        if root.recording:
+                            root.set_attr("hits", len(result))
+                            root.set_attr("scan_path", result.scan_path)
+                            root.set_attr("device", receipt)
+                            root.set_attr("coalesced", result.coalesced)
+                        return result
+            except (QueryTimeout, ShedLoad) as e:
+                if root.recording:
+                    root.set_attr("outcome", "timeout" if isinstance(e, QueryTimeout) else "shed")
+                raise
+
+    def _coalescer_obj(self):
+        """The store's coalescer, made at first use (one instance however
+        many threads ask: ``dict.setdefault`` is atomic)."""
+        co = getattr(self, "_coalescer", None)
+        if co is None:
+            from geomesa_tpu_torch.parallel.batch import QueryCoalescer
+
+            co = self.__dict__.setdefault("_coalescer", QueryCoalescer(self))
+        return co
+
+    def _coalesced(self, name: str, ft, query: Query):
+        """Hand one ADMITTED query to the coalescer when it can help: a
+        ``batch.MemberOutcome``, or None for the solo path. Gates, cheapest
+        first: the class opt-out, an executor without
+        ``dispatch_coalesced``, concurrency (another query in flight or a
+        group gathering: a query alone on the store never pays the window)
+        and the geomesa.batch.* knobs."""
+        if not self.COALESCE_QUERIES:
+            return None
+        if getattr(self.executor, "dispatch_coalesced", None) is None:
+            return None
+        co = self._coalescer_obj()
+        if self.admission.inflight < 2 and not co.gathering(name):
+            return None
+        from geomesa_tpu_torch.parallel.batch import batch_knobs
+
+        if not batch_knobs()[0]:
+            return None
+        return co.submit(name, ft, query)
+
+    @staticmethod
+    def _pushes_down(query: Query) -> bool:
+        """A density or stats query: its push-down launches its own kernels
+        (or it scans alone), so batched dispatch leaves it out."""
+        return "density" in query.hints or "stats" in query.hints
 
     def count(self, name: str, query: Union[str, Query, None] = None, exact: bool = True) -> int:
         """The feature count (the reference's ``count``): without a query the
@@ -308,6 +423,8 @@ class TorchDataStore:
             return None
         try:
             return count_scan(table, plan)
+        except QueryTimeout:
+            raise  # a budget is no verdict on the device
         except Exception as e:
             self.executor.degrade(table, e)
             raise
@@ -322,28 +439,46 @@ class TorchDataStore:
         (and one that declines scans alone)."""
         ft = self.get_schema(name)
         qs = [self._as_query(q) for q in queries]
-        with record_function("geomesa.plan"):
-            plans = [self._plan_cached(name, q) for q in qs]
-        pending: Dict[int, object] = {}
-        dispatch_many = getattr(self.executor, "dispatch_many", None)
-        if dispatch_many is not None:
-            items = []
-            for q, plan in zip(qs, plans):
-                if "density" in q.hints or "stats" in q.hints:
-                    continue
-                for arm in plan.union if plan.union is not None else [plan]:
-                    if arm.is_empty or id(arm) in pending:
-                        continue
-                    pending[id(arm)] = None
-                    items.append((self._tables[name][arm.index.name], arm))
-            if items:
-                try:
-                    with record_function("geomesa.dispatch"):
-                        pending.update(dispatch_many(items))
-                except Exception as e:
-                    self.executor.degrade(None, e)
-                    raise
-        return [self._execute(name, ft, q, p, pending) for q, p in zip(qs, plans)]
+        # one admission slot for the batch (its queries share one pipeline
+        # and must not wait on their own batchmates), classed as its most
+        # important query; the queue wait is bounded by one budget
+        batch_pri = min((admission_mod.classify(q.hints) for q in qs),
+                        key=admission_mod.PRIORITIES.index, default=None)
+        with self.admission.admit(self.query_timeout_s, batch_pri):
+            # the shared phase (planning and the batched dispatch) runs
+            # under one budget, each query's resolve under its own
+            with deadline_mod.budget(self.query_timeout_s):
+                with record_function("geomesa.plan"):
+                    plans = [self._plan_cached(name, q) for q in qs]
+                pending: Dict[int, object] = {}
+                dispatch_many = getattr(self.executor, "dispatch_many", None)
+                if dispatch_many is not None:
+                    items = []
+                    for q, plan in zip(qs, plans):
+                        if self._pushes_down(q):
+                            continue
+                        for arm in plan.union if plan.union is not None else [plan]:
+                            if arm.is_empty or id(arm) in pending:
+                                continue
+                            pending[id(arm)] = None
+                            items.append((self._tables[name][arm.index.name], arm))
+                    if items:
+                        try:
+                            with record_function("geomesa.dispatch"):
+                                pending.update(dispatch_many(items))
+                        except QueryTimeout:
+                            raise
+                        except Exception as e:
+                            self.executor.degrade(None, e)
+                            raise
+            results = []
+            for q, p in zip(qs, plans):
+                with deadline_mod.budget(self.query_timeout_s):
+                    with devstats.collecting() as own:
+                        result = self._execute(name, ft, q, p, pending)
+                result.receipt = devstats.receipt_of(own)
+                results.append(result)
+            return results
 
     def _execute(self, name, ft, query: Query, plan: QueryPlan, pending=None) -> QueryResult:
         """route -> scan -> merge; a density or stats query of one plan first
@@ -356,7 +491,7 @@ class TorchDataStore:
         if plan.is_empty:
             empty = _empty_columns(ft)
             agg = run_aggregation(ft, query.hints, empty) if aggregating else None
-            return QueryResult(ft, empty, plan, agg)
+            return QueryResult(ft, empty, plan, agg, scan_path="empty")
         if plan.union is None and set(query.hints) & set(AGGREGATION_HINTS) == {"density"}:
             density_scan = getattr(self.executor, "density_scan", None)
             grid = None
@@ -366,7 +501,8 @@ class TorchDataStore:
                 )
             if grid is not None:
                 plan.scan_path = "device-density"
-                return QueryResult(ft, _empty_columns(ft), plan, {"density": grid})
+                return QueryResult(ft, _empty_columns(ft), plan, {"density": grid},
+                                   scan_path=plan.scan_path)
         if plan.union is None and set(query.hints) & set(AGGREGATION_HINTS) == {"stats"}:
             stats_scan = getattr(self.executor, "stats_scan", None)
             stat = None
@@ -374,20 +510,28 @@ class TorchDataStore:
                 table = self._tables[name][plan.index.name]
                 try:
                     stat = stats_scan(table, plan, query.hints["stats"])
+                except QueryTimeout:
+                    raise
                 except Exception as e:
                     self.executor.degrade(table, e)
                     raise
             if stat is not None:
                 plan.scan_path = "device-stats"
-                return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat})
+                return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat},
+                                   scan_path=plan.scan_path)
         parts: List[tuple] = []
+        labels: List[str] = []
         for arm in self._route(plan):
-            parts.extend(self._scan_parts(name, ft, arm, pending))
+            parts.extend(self._scan_parts(name, ft, arm, pending, labels))
         with record_function("geomesa.assemble"):
             columns = _columns_from_parts(ft, query, parts)
             if plan.union is not None:
                 columns = _dedupe_by_fid(_materialize(columns))
-            return _finish(ft, query, plan, columns)
+            result = _finish(ft, query, plan, columns)
+        # this query's own routes: a cached plan object is shared by the
+        # concurrent queries of one filter, whose routes may differ
+        result.scan_path = "+".join(sorted(set(labels)))
+        return result
 
     def _route(self, plan: QueryPlan) -> List[QueryPlan]:
         """Decompose a plan into independently scannable units: the
@@ -396,19 +540,25 @@ class TorchDataStore:
             return [arm for arm in plan.union if not arm.is_empty]
         return [plan]
 
-    def _scan_parts(self, name, ft, plan: QueryPlan, pending=None) -> List[tuple]:
-        """Scan one plan into (block, final rows) parts."""
+    def _scan_parts(self, name, ft, plan: QueryPlan, pending=None,
+                    labels: Optional[List[str]] = None) -> List[tuple]:
+        """Scan one plan into (block, final rows) parts; its route goes to
+        ``plan.scan_path`` and ``labels``."""
         table = self._tables[name][plan.index.name]
         if pending is not None and id(plan) in pending:
-            scan = pending[id(plan)]  # pre-dispatched (query_many pipeline)
+            scan = pending[id(plan)]  # pre-dispatched (query_many, the coalescer)
         else:
             scan = self.executor.scan_candidates(table, plan)
-        plan.scan_path = _scan_label(scan)
+        plan.scan_path = label = _scan_label(scan)
+        if labels is not None:
+            labels.append(label)
         if scan is None:
             rows = table.scan(plan.ranges) if plan.ranges else table.scan_all()
             return self._consume(ft, plan, rows, False)
         try:
             return self._consume(ft, plan, scan, scan.exact)
+        except QueryTimeout:
+            raise
         except Exception as e:
             self.executor.degrade(table, e)
             raise
@@ -477,7 +627,8 @@ def _untransformed(query: Query) -> bool:
 def _scan_label(scan) -> str:
     """Execution-path label of a scan (the reference's ``_scan_label``;
     None = the executor declined and the host table scan ran). Device
-    scans carry a ``/bitmap`` or ``/runs`` suffix for the wire format."""
+    scans carry a suffix for the wire format: ``/mask`` (the coalescer's
+    full-table planes), ``/bitmap`` (span-framed bitmaps) or ``/runs``."""
     if scan is None:
         return "host-table"
     name = type(scan).__name__
@@ -491,7 +642,8 @@ def _scan_label(scan) -> str:
     if not scan.pending:
         return base
     pname = type(scan.pending[0][1]).__name__
-    return f"{base}/{'bitmap' if 'Bitmap' in pname else 'runs'}"
+    fmt = "mask" if "Mask" in pname else "bitmap" if "Bitmap" in pname else "runs"
+    return f"{base}/{fmt}"
 
 
 def _column_base(k: str) -> str:

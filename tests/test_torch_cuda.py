@@ -11,6 +11,9 @@ the density kernel's f32 band arithmetic is the plain edition's operation
 for operation), and the density band's indices as a set.
 """
 
+import glob
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -1098,3 +1101,211 @@ def test_poly_dual_bitmap_attr_editions_on_the_card(cuda, q, kind, has_time):
     tag = "" if kind == "range" else (f" U={width}" if kind == "vocabmask" else f" K={width}")
     name = "poly_dual_bitmap_" + ("z3" if has_time else "z2") + "_" + kind
     assert kernels.LAUNCH_SHAPES == {(name, f"q={q} E={edges.shape[1]}{tag}"): 1}
+
+
+# -- the coalescer's mask batches, and the wrappers under threads -----------------
+
+MASK_EDITIONS = [None, *F.ATTR_KINDS]
+
+
+def _mask_tag(kind, qcodes) -> str:
+    if kind in (None, "range"):
+        return ""
+    return f" U={qcodes.shape[1]}" if kind == "vocabmask" else f" K={qcodes.shape[1]}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", MASK_EDITIONS)
+@pytest.mark.parametrize("q", [1, 4, 24, 64])
+def test_exact_mask_batch_matches_plain_on_the_card(cuda, q, kind, has_time):
+    """exact_mask_batch bit for bit against its plain edition (and equal to
+    exact_bitmap's bits, the same kernel): every attribute edition, an
+    empty query, an all-hit query and a repeated (pad) query among them, a
+    row count that ends inside a warp's chunk; counted under its own name."""
+    n = 32 * (4 * 1000 + 3)
+    x, y, t, valid = _exact_table(n, "z", n + q)
+    boxes, wins = _exact_queries(q, q + 5)
+    if q > 4:
+        boxes[-1], wins[-1] = boxes[0], wins[0]  # a pad query repeats another
+    rng = np.random.default_rng(q + 6)
+    xk, yk = (torch.from_numpy(f64_keys(c)).to(cuda) for c in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    valid = torch.from_numpy(valid).to(cuda)
+    boxes = torch.from_numpy(boxes).to(cuda)
+    wins = torch.from_numpy(wins).to(cuda) if has_time else None
+    codes = qcodes = None
+    if kind is not None:
+        c = rng.integers(0, 300, n).astype(np.int32)
+        c[rng.random(n) < 0.1] = -1
+        codes = torch.from_numpy(c).to(cuda)
+        qcodes = torch.from_numpy(_dual_attr_vectors(kind, q, rng, 0)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.exact_mask_batch(xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
+    want = kernels.exact_mask_batch_plain(xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
+    assert got.shape == want.shape == (q, n // 8) and torch.equal(got, want)
+    assert q < 4 or want.any()
+    name = "exact_mask_batch_" + ("z3" if has_time else "z2") + (f"_{kind}" if kind else "")
+    assert kernels.LAUNCH_SHAPES == {(name, f"q={q}{_mask_tag(kind, qcodes)}"): 1}
+    bits, _hdr = kernels.exact_bitmap(xk, yk, tk, valid, boxes, wins, codes, qcodes, kind)
+    assert torch.equal(bits, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", MASK_EDITIONS)
+@pytest.mark.parametrize("q", [1, 4, 24, 64])
+def test_xz_mask_batch_matches_plain_on_the_card(cuda, q, kind, has_time):
+    """dual_mask_batch("xz") bit for bit against its plain edition: both
+    planes, every attribute edition, queries that match nothing (pads)."""
+    from geomesa_tpu_torch.geom.base import Envelope
+
+    n = 1024 * 1024 + 96
+    cols, isrect, valid = _xz_rows(n, q + 41)
+    t = _rows(n, q + 42)["t"]
+    t0 = 1_767_225_600_000
+    shapes = [((-5.0, -5.0, 5.0, 5.0), True, t0, t0 + 86_400_000),
+              ((-1.0, -1.0, 1.0, 1.0), False, t0, None),
+              ((-20.0, -20.0, 20.0, 20.0), True, t0, t0 + 3 * 86_400_000),
+              ((150.0, 80.0, 151.0, 81.0), True, None, None)]  # no row
+    shapes = (shapes * (q // len(shapes) + 1))[:q]
+    descs = torch.from_numpy(np.stack([
+        TorchScanExecutor._xz_desc(Envelope(*b), rect, *((lo, hi) if has_time else (None, None)))[0]
+        for b, rect, lo, hi in shapes])).to(cuda)
+    keys = [torch.from_numpy(f64_keys(c)).to(cuda) for c in cols]
+    isrect = torch.from_numpy(isrect).to(cuda)
+    valid = torch.from_numpy(valid).to(cuda)
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    rng = np.random.default_rng(q + 43)
+    codes = qcodes = None
+    if kind is not None:
+        c = rng.integers(0, 300, n).astype(np.int32)
+        c[rng.random(n) < 0.1] = -1
+        codes = torch.from_numpy(c).to(cuda)
+        qcodes = torch.from_numpy(_dual_attr_vectors(kind, q, rng, q // 8)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.dual_mask_batch("xz", *keys, isrect, valid, descs, tk, codes, qcodes, kind)
+    want = kernels.dual_mask_batch_plain("xz", *keys, isrect, valid, descs, tk, codes, qcodes,
+                                         kind)
+    for g, w in zip(got, want):
+        assert g.shape == (q, n // 8) and torch.equal(g, w)
+    assert q < 4 or want[0].any()
+    name = "xz_mask_batch_" + ("xz3" if has_time else "xz2") + (f"_{kind}" if kind else "")
+    assert kernels.LAUNCH_SHAPES == {(name, f"q={q}{_mask_tag(kind, qcodes)}"): 1}
+    hit, dec, _hdr = kernels.xz_dual_bitmap(*keys, isrect, valid, descs, tk, codes, qcodes, kind)
+    assert torch.equal(hit, got[0]) and torch.equal(dec, got[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [True, False])
+@pytest.mark.parametrize("kind", MASK_EDITIONS)
+@pytest.mark.parametrize("q", [1, 4, 24, 64])
+def test_poly_mask_batch_matches_plain_on_the_card(cuda, q, kind, has_time):
+    """dual_mask_batch("poly") bit for bit against its plain edition at the
+    real q (no padding to a multiple of 4), every attribute edition, vertices
+    among the rows (the band), queries whose box holds no row."""
+    n = 32 * (4 * 1000 + 3)
+    edges, boxes, verts = _poly_queries(q, 16, q + 51)
+    if q > 4:
+        boxes[-1] = (150.0, 80.0, 151.0, 81.0)  # no row
+    x, y, t, valid = _poly_rows(n, q + 52, verts)
+    t0 = 1_767_225_600_000
+    descs = [TorchScanExecutor._shape_keys(tuple(b) + (t0 + i * 3_600_000, t0 + 6 * 86_400_000))
+             for i, b in enumerate(boxes)]
+    xk, yk = (torch.from_numpy(f64_keys(a)).to(cuda) for a in (x, y))
+    xf, yf = (torch.from_numpy(a.astype(np.float32)).to(cuda) for a in (x, y))
+    tk = torch.from_numpy(t).to(cuda) if has_time else None
+    v = torch.from_numpy(valid).to(cuda)
+    box = torch.from_numpy(np.stack([d[0] for d in descs])).to(cuda)
+    win = torch.from_numpy(np.stack([d[1] for d in descs])).to(cuda) if has_time else None
+    ed = torch.from_numpy(edges).to(cuda)
+    rng = np.random.default_rng(q + 53)
+    codes = qcodes = None
+    if kind is not None:
+        c = rng.integers(0, 300, n).astype(np.int32)
+        c[rng.random(n) < 0.1] = -1
+        codes = torch.from_numpy(c).to(cuda)
+        qcodes = torch.from_numpy(_dual_attr_vectors(kind, q, rng, 0)).to(cuda)
+    kernels.reset_launches()
+    got = kernels.dual_mask_batch("poly", xk, yk, v, xf, yf, ed, box, win, tk, codes, qcodes,
+                                  kind)
+    want = kernels.dual_mask_batch_plain("poly", xk, yk, v, xf, yf, ed, box, win, tk, codes,
+                                         qcodes, kind)
+    for g, w in zip(got, want):
+        assert g.shape == (q, n // 8) and torch.equal(g, w)
+    assert q < 4 or want[0].any()
+    name = "poly_mask_batch_" + ("z3" if has_time else "z2") + (f"_{kind}" if kind else "")
+    tag = f"q={q} E={edges.shape[1]}{_mask_tag(kind, qcodes)}"
+    assert kernels.LAUNCH_SHAPES == {(name, tag): 1}
+
+
+def _small_exact(cuda, q=4):
+    n = 32 * 1000
+    x, y, t, valid = _exact_table(n, "z", 77)
+    boxes, wins = _exact_queries(q, 78)
+    return [torch.from_numpy(a).to(cuda)
+            for a in (f64_keys(x), f64_keys(y), t, valid, boxes, wins)]
+
+
+@pytest.mark.cuda
+def test_first_build_from_eight_threads_on_the_card(cuda, tmp_path, monkeypatch):
+    """Eight threads launch a kernel never built, into an empty build
+    directory: nvcc runs once, every thread gets the plain edition's bits."""
+    import threading
+
+    from geomesa_tpu_torch.utils import devstats
+
+    monkeypatch.setattr(kernels, "BUILD_DIR", str(tmp_path))
+    monkeypatch.setattr(kernels, "_LIBS", {})
+    monkeypatch.setattr(kernels, "_BUILD_LOCKS", {})
+    xk, yk, tk, valid, boxes, wins = _small_exact(cuda)
+    want = kernels.exact_mask_batch_plain(xk, yk, tk, valid, boxes, wins)
+    reg = devstats.devstats_metrics()
+    b0 = reg.counter("kernel.build.exact_bitmap")
+    barrier = threading.Barrier(8)
+    got, errors = [None] * 8, []
+
+    def launch(i):
+        try:
+            barrier.wait(30)
+            got[i] = kernels.exact_mask_batch(xk, yk, tk, valid, boxes, wins)
+            torch.cuda.current_stream().synchronize()
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=launch, args=(i,)) for i in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(600)
+    assert not errors, errors
+    assert reg.counter("kernel.build.exact_bitmap") - b0 == 1
+    assert sorted(os.path.basename(p) for p in glob.glob(str(tmp_path / "*"))
+                  if p.endswith(".so")) == [os.path.basename(kernels._LIBS["exact_bitmap"]._name)]
+    for g in got:
+        assert torch.equal(g, want)
+
+
+@pytest.mark.cuda
+def test_launch_counts_exact_under_threads_on_the_card(cuda):
+    """8 threads x 100 launches: LAUNCHES and LAUNCH_SHAPES count 800."""
+    import threading
+
+    xk, yk, tk, valid, boxes, wins = _small_exact(cuda, q=2)
+    kernels.exact_mask_batch(xk, yk, tk, valid, boxes, wins)  # built
+    kernels.reset_launches()
+    barrier = threading.Barrier(8)
+
+    def launch():
+        barrier.wait(30)
+        for _ in range(100):
+            kernels.exact_mask_batch(xk, yk, tk, valid, boxes, wins)
+
+    threads = [threading.Thread(target=launch) for _ in range(8)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["exact_mask_batch_z3"] == 800
+    assert kernels.LAUNCH_SHAPES == {("exact_mask_batch_z3", "q=2"): 800}

@@ -2,9 +2,10 @@
 
 ``import geomesa_tpu_torch`` and config #1, density (z3, z2), config #3
 (xz2, xz3), config #4 (the attribute planes), counts and a stats query,
-config #5 (a kNN search and a TubeSelect), a polygon stream and host-seek
-queries through it, with the native range walks
-and decode, must load neither ``jax`` nor any ``geomesa_tpu`` module.
+config #5 (a kNN search and a TubeSelect), a polygon stream, host-seek
+queries and a coalesced wave of concurrent queries through it, with the
+native range walks and decode, must load neither ``jax`` nor any
+``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -151,6 +152,31 @@ for i, r in enumerate(res):
     m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
     assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
     assert r.plan.scan_path == "host-seek", r.plan.scan_path
+# a coalesced wave: four concurrent queries, one admission slot held, the
+# group closing on its last join; the mask sweep, no JAX
+import contextvars
+import threading
+from geomesa_tpu_torch.utils.config import properties
+os.environ["GEOMESA_SEEK"] = "0"
+ctx = contextvars.Context()
+held = store.admission.admit()
+ctx.run(held.__enter__)
+wave = [None] * 4
+barrier = threading.Barrier(4)
+def member(i):
+    barrier.wait(30)
+    wave[i] = store.query("gdelt", cqls[i])
+with properties(geomesa_batch_window_ms="5000", geomesa_batch_max_queries="4"):
+    threads = [threading.Thread(target=member, args=(i,)) for i in range(4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(120)
+ctx.run(held.__exit__, None, None, None)
+for i, r in enumerate(wave):
+    m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
+    assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
+    assert r.scan_path == "device-exact/mask" and r.coalesced == 4, r.scan_path
 from geomesa_tpu_torch import native
 st = native.status()
 assert all(v["loaded"] for v in st.values()), st
@@ -165,8 +191,8 @@ assert not bad, bad
 def test_port_runs_config1_without_jax_or_the_reference():
     """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3), config #4
     (device and host-seek routes), counts and a stats query, config #5 (kNN,
-    TubeSelect), the polygon plane and host-seek queries, and the native
-    libraries they run, load no JAX."""
+    TubeSelect), the polygon plane, host-seek queries, a coalesced wave, and
+    the native libraries they run, load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

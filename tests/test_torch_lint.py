@@ -1,0 +1,140 @@
+"""The port's lint, by AST scan of ``geomesa_tpu_torch/``.
+
+* only ``ops/kernels.py`` reaches a kernel library (``_lib(`` or
+  ``kernels._LIBS``), and only it and the native host loader import
+  ``ctypes``;
+* every wrapper in ``ops/kernels.py`` that launches (checks a launch's
+  error with ``_raise_on``) also counts the launch (``_count``);
+* ``.cpu()`` and ``.numpy()`` appear only in the counted device -> host
+  helper (``parallel/mesh.py`` ``fetch``), and ``torch.as_tensor`` /
+  ``torch.from_numpy`` only in the counted host -> device helper
+  (``upload``): every copy over the link is in the device receipts;
+* no module imports ``jax`` or anything of ``geomesa_tpu``.
+"""
+
+import ast
+import os
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(ROOT, "geomesa_tpu_torch")
+
+
+def _modules():
+    out = {}
+    for d, dirs, files in os.walk(PORT):
+        dirs[:] = [x for x in dirs if x not in ("_build", "__pycache__")]
+        for f in files:
+            if f.endswith(".py"):
+                path = os.path.join(d, f)
+                with open(path) as fh:
+                    out[os.path.relpath(path, PORT)] = ast.parse(fh.read(), path)
+    return out
+
+
+MODULES = _modules()
+KERNELS = os.path.join("ops", "kernels.py")
+MESH = os.path.join("parallel", "mesh.py")
+
+
+def _functions(tree):
+    """(qualified name, node) of every function, methods as Class.name."""
+    out = []
+
+    def walk(node, prefix):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                out.append((prefix + child.name, child))
+                walk(child, prefix + child.name + ".")
+            elif isinstance(child, ast.ClassDef):
+                walk(child, prefix + child.name + ".")
+
+    walk(tree, "")
+    return out
+
+
+def _called(node, name: str) -> bool:
+    """Whether ``node`` calls ``name`` (a bare name or an attribute)."""
+    for n in ast.walk(node):
+        if isinstance(n, ast.Call):
+            f = n.func
+            if (isinstance(f, ast.Name) and f.id == name) or (
+                    isinstance(f, ast.Attribute) and f.attr == name):
+                return True
+    return False
+
+
+def _method_sites(name: str):
+    """(module, enclosing function) of every call of ``.name(...)``."""
+    sites = []
+    for mod, tree in MODULES.items():
+        for fname, fn in _functions(tree):
+            inner = {id(n) for _f, g in _functions(fn) for n in ast.walk(g)}
+            for n in ast.walk(fn):
+                if id(n) in inner:
+                    continue  # counted in the nested function itself
+                if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) \
+                        and n.func.attr == name:
+                    sites.append((mod, fname))
+    return sites
+
+
+def test_the_scan_sees_the_package():
+    assert KERNELS in MODULES and MESH in MODULES and len(MODULES) > 40
+
+
+def test_only_ops_kernels_reaches_a_kernel_library():
+    offenders = []
+    for mod, tree in MODULES.items():
+        if mod == KERNELS:
+            continue
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Call) and ((isinstance(n.func, ast.Name) and n.func.id == "_lib")
+                                            or (isinstance(n.func, ast.Attribute)
+                                                and n.func.attr == "_lib")):
+                offenders.append(f"{mod}:{n.lineno} _lib(")
+            if isinstance(n, ast.Attribute) and n.attr == "_LIBS":
+                offenders.append(f"{mod}:{n.lineno} _LIBS")
+    assert not offenders, offenders
+    ctypes_users = sorted(
+        mod for mod, tree in MODULES.items()
+        for n in ast.walk(tree)
+        if (isinstance(n, ast.Import) and any(a.name == "ctypes" for a in n.names))
+        or (isinstance(n, ast.ImportFrom) and n.module == "ctypes"))
+    assert ctypes_users == [os.path.join("native", "__init__.py"), KERNELS]
+
+
+def test_every_launching_wrapper_counts_its_launch():
+    launchers = [(name, fn) for name, fn in _functions(MODULES[KERNELS])
+                 if _called(fn, "_raise_on")]
+    assert len(launchers) >= 9
+    uncounted = [name for name, fn in launchers if not _called(fn, "_count")]
+    assert not uncounted, uncounted
+    # and nothing but a launcher counts: a count means a launch
+    counting = {name for name, fn in _functions(MODULES[KERNELS]) if _called(fn, "_count")}
+    assert counting == {name for name, _fn in launchers}
+
+
+@pytest.mark.parametrize("method", ["cpu", "numpy"])
+def test_device_to_host_copies_pass_the_counted_helper(method):
+    assert _method_sites(method) == [(MESH, "fetch")]
+
+
+@pytest.mark.parametrize("fn", ["as_tensor", "from_numpy"])
+def test_host_to_device_copies_pass_the_counted_helper(fn):
+    assert _method_sites(fn) == ([(MESH, "upload")] if fn == "as_tensor" else [])
+
+
+def test_no_module_imports_jax_or_the_reference():
+    offenders = []
+    for mod, tree in MODULES.items():
+        for n in ast.walk(tree):
+            names = []
+            if isinstance(n, ast.Import):
+                names = [a.name for a in n.names]
+            elif isinstance(n, ast.ImportFrom) and n.level == 0:
+                names = [n.module or ""]
+            offenders += [f"{mod}:{n.lineno} {x}" for x in names
+                          if x.split(".")[0] in ("jax", "jaxlib", "geomesa_tpu")]
+    assert not offenders, offenders
