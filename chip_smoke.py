@@ -69,7 +69,19 @@ against its plain PyTorch edition:
     coalescer on (the defaults) and once with ``geomesa.batch.enabled=false``:
     the coalescer's stacked mask batches (``exact_mask_batch``,
     ``dual_mask_batch`` "xz" and "poly" on the ``exact_bitmap``,
-    ``xz_dual_bitmap`` and ``poly_dual_bitmap`` kernels).
+    ``xz_dual_bitmap`` and ``poly_dual_bitmap`` kernels);
+  * the aggregate pyramid cache (the reference's GeoBlocks cache,
+    ``ops/pyramid.py``): cold builds of config #1's z2 table and the
+    polygon table at 12 and 8 cell bits, config #1's 8 bbox-only counts and
+    stream (l)'s 24 star counts with the cache on and off in turns,
+    ``store.aggregate`` of config #4's box over goldstein, stream (f) again
+    from the density memo, and a transform, sampled and ``bin`` query: the
+    ``pyramid_counts`` kernel.
+
+The aggregate cache (``geomesa.agg.enabled``) is off for every phase but
+the pyramid phase: with it on, the density streams' repeated queries would
+answer from the memo and the count path's star from the pyramid, not from
+the kernels those phases measure.
 
 Every stream above runs under ``GEOMESA_SEEK=0`` (the device routes, as
 bench.py pins for the reference's device figures). Beside them, the host
@@ -161,6 +173,17 @@ Phases (any failure raises and the script exits non-zero):
      to the wave's device.d2h.bytes and device.h2d.bytes; then its kernel
      phase: each mask batch at each shape the phase launched, against its
      plain edition and timed, as in phase 3;
+  4c. the pyramid phase, a path of its own (``pyramid_path``): the cold
+     builds (build ms from the ``agg.build`` timer, ``agg.cache.builds``
+     and ``pyramid_counts`` launches, more than 0), the counts in turns
+     (on, off, on, off; each equal to its oracle, with its route and its
+     interior and boundary rows), ``aggregate`` against numpy (count, min
+     and max exact, the f64 sum to rtol 1e-12), stream (f)'s memo hits
+     (each grid equal to the oracle) and the projection checks; then its
+     kernel phase: ``pyramid_counts`` at each (bits, segment) it launched
+     against ``pyramid_counts_plain`` (``torch.bincount`` of the flat cell
+     ids timed as its library call), and the device counts of the turns
+     with the cache off where no earlier phase timed their shape;
   5. every kernel must have launched during its path's run, at every
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
@@ -1590,6 +1613,9 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
         t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = (c["ops"] / int32_per_s + c.get("fops", 0) / fp32_per_s) * 1e3
         bound = max(t_bytes, t_ops)
+        # the PyTorch calls timed beside the kernel; ``library`` names the one
+        # that computes the same function (the entry's library_ms)
+        aside = {k: event_ms(fn, reps=50) for k, fn in c.get("aside", {}).items()}
         read = [w for w in windows if w is not None]
         flags = []
         if len(read) < len(windows):
@@ -1619,7 +1645,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None,
+            "library_ms": aside[c["library"]] if "library" in c else None,
             "call_ms": call_ms,
             "ms_source": ms_source,
             "ms_windows": windows,
@@ -1632,7 +1658,7 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
             "shape": c["shape"],
             "path": c["path"],
             **c.get("extra", {}),
-            **{k: event_ms(fn, reps=50) for k, fn in c.get("aside", {}).items()},
+            **aside,
         })
         srcs = (ab or {}).get(c["source"].rsplit("/", 1)[1][:-3])
         if srcs and not c.get("no_ab"):
@@ -1792,6 +1818,13 @@ def main() -> int:
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.store.datastore import TorchDataStore
+    from geomesa_tpu_torch.utils.config import set_property
+
+    # the aggregate cache off everywhere but the pyramid phase: with it on,
+    # the density streams' repeated queries would answer from the memo and
+    # the count path's star from the pyramid, not from the kernels those
+    # phases measure
+    set_property("geomesa.agg.enabled", "false")
 
     t_start = time.perf_counter()
     card = card_line()
@@ -1894,6 +1927,18 @@ def main() -> int:
     entries += kernel_checks(mask_cases(store, conc_plans, launched["concurrent"][1]),
                              int32_per_s, fp32_per_s, ab)
     concurrent_s = time.perf_counter() - t_conc
+    # the aggregate pyramid phase, then its kernel phase at the shapes it
+    # launched
+    t_pyr = time.perf_counter()
+    pyr_items = pyramid_items(data1, streams1, streams_p, oracle_p)
+    kernels.reset_launches()
+    metrics_pyr = pyramid_path(store, pyr_items, data1, data4, streams6, oracle6)
+    launched["pyramid"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    pyramid_s = time.perf_counter() - t_pyr
+    entries += kernel_checks(
+        pyramid_cases(store, pyr_items, launched["pyramid"][1],
+                      {(e["name"], e["shape_tag"]) for e in entries}),
+        int32_per_s, fp32_per_s, ab)
     nulls = null_dates_check(store)
     attr_nulls = attr_nulls_check(store)
     log(f"main-path launches: { {p: s for p, (_n, s) in launched.items()} }")
@@ -1976,6 +2021,8 @@ def main() -> int:
         "push_down_phases_s": push_s,
         "concurrent": metrics_conc,
         "concurrent_phase_s": concurrent_s,
+        "pyramid": metrics_pyr,
+        "pyramid_phase_s": pyramid_s,
         "flagged_kernel_entries": [f"{e['name']} {e['shape_tag']}" for e in entries
                                    if e["flagged"]],
         "script_s": time.perf_counter() - t_start,
@@ -2876,7 +2923,7 @@ def knn_cases(store, launched_shapes):
     the rows written; operations, KNN_ROW_FOPS at the FP32 rate and
     KNN_ROW_IOPS at the INT32 rate a row. ``topk_ms`` times ``torch.topk``
     of the kernel's own distances (the selection alone; no single PyTorch
-    call computes distance and selection)."""
+    call computes distance and selection), the entry's ``library_ms``."""
     from geomesa_tpu_torch.ops import kernels
 
     seg = store.executor.device_index(store._tables[KNN_TABLE]["z3"]).segments[0]
@@ -2896,6 +2943,7 @@ def knn_cases(store, launched_shapes):
             ops=KNN_ROW_IOPS * n,
             fops=KNN_ROW_FOPS * n,
             aside={"topk_ms": lambda kk=kk: torch.topk(d, kk, largest=False)},
+            library="topk_ms",
             # the passes of a call, as the loaded build's launcher reports them
             launches=lambda kk=kk: (kernels.knn_topk(seg.xf, seg.yf, seg.valid, *KNN_QUERY, kk),
                                     kernels.LAST_PASSES["knn_topk"])[1],
@@ -3254,7 +3302,8 @@ def hist_case(seg, box, win, attr, path):
     where the box test holds a row, the bins written once; operations, the
     compare chain and a bin add per row of those words. ``bincount_ms``
     times ``torch.bincount`` of the same hits' codes, already masked (the
-    histogram alone; no single PyTorch call computes the function)."""
+    histogram alone; no single PyTorch call computes the function), the
+    entry's ``library_ms``."""
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.filters import exact_st_mask
     from geomesa_tpu_torch.parallel.executor import _pow2_at_least
@@ -3280,9 +3329,72 @@ def hist_case(seg, box, win, attr, path):
         bytes=n * (key + 1) + 4 * 32 * hit_words + 4 * (1 + u_pad),
         ops=32 * hit_words * (chain + 2),
         aside={"bincount_ms": lambda: torch.bincount(live, minlength=u_pad)},
+        library="bincount_ms",
         extra={"hit_words": hit_words, "attribute": attr, "values": int(len(unified))},
         shape=f"rows={n} U={u_pad} ({attr}, {len(unified)} values) hit_words={hit_words}",
     )
+
+
+def _plan_of(store, table_name, cql):
+    """(index table, plan) of one query."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    p = store._plan_cached(table_name, Query.cql(cql))
+    return store._tables[table_name][p.index.name], p
+
+
+def _up(store, a):
+    return torch.as_tensor(np.ascontiguousarray(a), device=store.executor.device)
+
+
+def count_cases(store, items, path):
+    """[(path, case)]: the kernel each count of ``items`` (name -> (table,
+    [(cql, rows)])) launches on the device count, at its descriptor:
+    ``exact_count`` (with its attribute edition), the q = 1 dual planes of
+    an extent table or the q = 1 ray cast of a polygon."""
+    from geomesa_tpu_torch.parallel.executor import _pow2_at_least
+
+    ex = store.executor
+    cases = []
+    for name, (table_name, qs) in items.items():
+        for cql, _rows in qs:
+            table, plan = _plan_of(store, table_name, cql)
+            seg = ex.device_index(table).segments[0]
+            if table.index.name in ("xz2", "xz3"):
+                d, has_time, _g, _n, ainfo = ex._xz_batch_desc(table, plan)
+                plane = None
+                if ainfo is not None:
+                    plane = seg._attr_plane_args(ainfo[0], ainfo[2], ainfo[1])
+                cases.append((path, dual_case(
+                    f"xz_dual_bitmap_{table.index.name}" + (f"_{ainfo[1]}" if ainfo else ""),
+                    seg, _up(store, d[None]), has_time, path, plane)))
+                continue
+            desc = ex._exact_descriptor(table, plan)
+            if desc is not None:
+                box, win = desc
+                cases.append((path, count_case(f"exact_count_{table.index.name}", seg,
+                                               _up(store, box),
+                                               None if win is None else _up(store, win), path)))
+                continue
+            got = ex._attr_batch_desc(table, plan)
+            if got is not None:
+                attr, kind, (box, win, payload) = got
+                cases.append((path, count_case(
+                    f"exact_count_{table.index.name}_{kind}", seg, _up(store, box),
+                    None if win is None else _up(store, win), path,
+                    seg._attr_plane_args(attr, payload, kind))))
+                continue
+            edges, box, win, has_time, _g, _n, ainfo = ex._poly_batch_desc(table, plan)
+            ecap = _pow2_at_least(len(edges), 8)
+            padded = np.concatenate([edges, np.zeros((ecap - len(edges), 4), np.float32)])
+            plane = None
+            if ainfo is not None:
+                plane = (seg._attr_codes[ainfo[0]][0],
+                         _up(store, seg._attr_batch_vectors(ainfo[0], ainfo[1], [ainfo[2]])),
+                         ainfo[1])
+            cases.append((path, poly_case(store, table, [(padded, box, win)], has_time, path,
+                                          plane)))
+    return cases
 
 
 def push_down_cases(store, items, launched, timed):
@@ -3294,59 +3406,16 @@ def push_down_cases(store, items, launched, timed):
     the counts, the batches of (a') and (l') with their attribute vectors
     and, where one of their queries refetched alone (its span outgrew the
     window), the first query at q = 1."""
-    from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.parallel.executor import _pow2_at_least
 
     ex = store.executor
-    dev = ex.device
-
-    def plan_of(table, cql):
-        p = store._plan_cached(table, Query.cql(cql))
-        return store._tables[table][p.index.name], p
 
     def up(a):
-        return torch.as_tensor(np.ascontiguousarray(a), device=dev)
+        return _up(store, a)
 
-    cases = []
-    for name, (table_name, qs) in items.items():
-        for cql, _rows in qs:
-            table, plan = plan_of(table_name, cql)
-            seg = ex.device_index(table).segments[0]
-            if table.index.name in ("xz2", "xz3"):
-                d, has_time, _g, _n, ainfo = ex._xz_batch_desc(table, plan)
-                plane = None
-                if ainfo is not None:
-                    plane = seg._attr_plane_args(ainfo[0], ainfo[2], ainfo[1])
-                cases.append(("count", dual_case(
-                    f"xz_dual_bitmap_{table.index.name}" + (f"_{ainfo[1]}" if ainfo else ""),
-                    seg, up(d[None]), has_time, "count", plane)))
-                continue
-            desc = ex._exact_descriptor(table, plan)
-            if desc is not None:
-                box, win = desc
-                cases.append(("count", count_case(f"exact_count_{table.index.name}", seg,
-                                                  up(box), None if win is None else up(win),
-                                                  "count")))
-                continue
-            got = ex._attr_batch_desc(table, plan)
-            if got is not None:
-                attr, kind, (box, win, payload) = got
-                cases.append(("count", count_case(
-                    f"exact_count_{table.index.name}_{kind}", seg, up(box),
-                    None if win is None else up(win), "count",
-                    seg._attr_plane_args(attr, payload, kind))))
-                continue
-            edges, box, win, has_time, _g, _n, ainfo = ex._poly_batch_desc(table, plan)
-            ecap = _pow2_at_least(len(edges), 8)
-            padded = np.concatenate([edges, np.zeros((ecap - len(edges), 4), np.float32)])
-            plane = None
-            if ainfo is not None:
-                plane = (seg._attr_codes[ainfo[0]][0],
-                         up(seg._attr_batch_vectors(ainfo[0], ainfo[1], [ainfo[2]])), ainfo[1])
-            cases.append(("count", poly_case(store, table, [(padded, box, win)], has_time,
-                                             "count", plane)))
+    cases = count_cases(store, items, "count")
     # the stats query: a histogram an attribute of its spec
-    table, plan = plan_of(ATTR_TABLE, bbox_cql(ATTR_BOX))
+    table, plan = _plan_of(store, ATTR_TABLE, bbox_cql(ATTR_BOX))
     seg = ex.device_index(table).segments[0]
     box, win = ex._exact_descriptor(table, plan)
     for attr in ("goldstein", "actor1"):
@@ -3355,7 +3424,7 @@ def push_down_cases(store, items, launched, timed):
     # (a') and (l'): the batch and its first query alone, with the batch's vectors
     for table_name, cqls in (("ways", [c for c, _b, _k in kind_stream()]),
                              (ATTR_TABLE, [c for c, _r, _a in poly_attr_stream()])):
-        pairs = [plan_of(table_name, c) for c in cqls]
+        pairs = [_plan_of(store, table_name, c) for c in cqls]
         table = pairs[0][0]
         seg = ex.device_index(table).segments[0]
         if table.index.name in ("xz2", "xz3"):
@@ -3648,6 +3717,278 @@ def mask_cases(store, plans, launched_shapes):
         if (case["name"], case["tag"]) != (name, tag):
             raise AssertionError(f"mask case {case['name']} {case['tag']} for launched {name} {tag}")
         out.append(case)
+    return out
+
+
+# -- the aggregate pyramid's phase --------------------------------------------
+
+# the cell bits of the cold builds: the finest grid the knob allows, then the
+# default (the warm counts run at the default)
+PYR_BITS = (12, 8)
+PYR_TURNS = ("on", "off", "on", "off")
+# the projection phase's box: away from config #1's clusters (a few thousand
+# rows at 20M), so the transform's per-row expression stays cheap
+PROJ_BOX = (-40.0, -20.0, -35.0, -15.0)
+PROJ_SAMPLING = 0.1
+
+
+def pyramid_items(data1, streams1, streams_p, oracle_p):
+    """The counts of the pyramid phase: name -> (table, [(cql, oracle
+    rows)]): config #1's 8 bbox-only queries (z2) and the polygon table's
+    stream (l), 24 stars."""
+    x, y, _t = data1
+    boxes, cqls = streams1["bbox"]
+    return {
+        "config1_bbox": ("gdelt", [(c, np.flatnonzero(in_box(x, y, b)))
+                                   for b, c in zip(boxes, cqls)]),
+        "poly_l": (POLY_TABLE, [(c, rows) for (c, _r), rows in zip(streams_p["l"],
+                                                                    oracle_p["l"])]),
+    }
+
+
+def pyramid_route(store, table, cql):
+    """(route, interior rows, boundary rows) of one count: ``pyramid`` when
+    the type's pyramid answers it (its interior cells' rows and the rows of
+    its boundary ring, which the count scans), else the device count's."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    q = Query.cql(cql)
+    plan = store._plan_cached(table, q)
+    got = store._pyramid_classify(table, store.get_schema(table), q, plan)
+    if got is None:
+        if store.executor.count_scan(store._tables[table][plan.index.name], plan) is None:
+            raise AssertionError(f"pyramid phase: neither the pyramid nor the device counts {cql}")
+        return "device-count", 0, 0
+    pyr, interior, cells, _mask = got
+    return "pyramid", int(interior), int(pyr.counts[0][cells[:, 1], cells[:, 0]].sum())
+
+
+def build_totals(reg):
+    """(builds, the agg.build timer's (count, seconds)) of the registry."""
+    _c, _g, _t, totals = reg.snapshot()
+    return reg.counter("agg.cache.builds"), totals.get("agg.build", (0, 0.0))
+
+
+def bin_oracle(fids, x, y, t) -> np.ndarray:
+    """BIN records of rows (track = the fid's 4-byte little-endian signed
+    blake2b, date in seconds, f32 lat and lon), ordered by their fields."""
+    import hashlib
+
+    out = np.zeros(len(fids), dtype=[("track", "<i4"), ("dtg", "<i4"), ("lat", "<f4"),
+                                     ("lon", "<f4")])
+    out["track"] = [int.from_bytes(hashlib.blake2b(str(f).encode(), digest_size=4).digest(),
+                                   "little", signed=True) for f in fids]
+    out["dtg"] = (t // 1000).astype(np.int32)
+    out["lat"] = y.astype(np.float32)
+    out["lon"] = x.astype(np.float32)
+    return np.sort(out, order=["dtg", "track", "lat", "lon"])
+
+
+def pyramid_path(store, items, data1, data4, streams6, oracle6):
+    """The aggregate pyramid cache through the entry points, with
+    ``geomesa.agg.enabled=true`` (the rest of the script runs with it off)
+    and ``GEOMESA_COUNT_DEVICE=1``: (1) the cold builds, a first count of
+    each ``items`` table at each of PYR_BITS (the build's ms from the
+    ``agg.build`` timer, its ``agg.cache.builds`` and its
+    ``pyramid_counts`` launches, which must be more than 0); (2) every
+    count of ``items`` with the cache on and off in turns, each equal to its
+    oracle, with its route and its interior and boundary rows; (3)
+    ``store.aggregate`` of config #4's box over goldstein against numpy
+    (count, min and max exact, the f64 sum to rtol 1e-12), from the pyramid
+    and, with the cache off, from the exact fallback; (4) config #6's stream
+    (f) twice: the second pass on ``agg-cache-density``, every grid equal to
+    the oracle; (5) on config #1's PROJ_BOX a transform, a sampled query
+    (without and with ``sample_by``) and a ``bin`` query against numpy."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.utils import devstats
+    from geomesa_tpu_torch.utils.config import properties
+
+    reg = devstats.devstats_metrics()
+    out = {"cold": {}, "warm": {}}
+    os.environ["GEOMESA_COUNT_DEVICE"] = "1"
+    try:
+        with properties(geomesa_agg_enabled="true", geomesa_agg_cache_bytes="4GB"):
+            for bits in PYR_BITS:
+                with properties(geomesa_agg_cell_bits=str(bits)):
+                    for name, (table, qs) in items.items():
+                        cql, rows = qs[0]
+                        b0, (n0, s0) = build_totals(reg)
+                        l0 = kernels.LAUNCHES["pyramid_counts"]
+                        t0 = time.perf_counter()
+                        got = store.count(table, cql)
+                        first_ms = (time.perf_counter() - t0) * 1e3
+                        b1, (n1, s1) = build_totals(reg)
+                        launches = kernels.LAUNCHES["pyramid_counts"] - l0
+                        if got != len(rows):
+                            raise AssertionError(f"pyramid cold count {name}: {got} against "
+                                                 f"{len(rows)}")
+                        if b1 - b0 != 1 or n1 - n0 != 1 or launches < 1:
+                            raise AssertionError(f"pyramid cold build {name} bits={bits}: "
+                                                 f"{b1 - b0} builds, {launches} launches")
+                        out["cold"][f"{name}_bits{bits}"] = {
+                            "build_ms": (s1 - s0) * 1e3, "first_count_ms": first_ms,
+                            "builds": b1 - b0, "pyramid_counts_launches": launches,
+                            "rows": int(store._tables[table]["z2"].num_rows),
+                        }
+            for name, (table, qs) in items.items():
+                info = [pyramid_route(store, table, cql) for cql, _rows in qs]
+                times = {"on": [], "off": []}
+                for turn in PYR_TURNS:
+                    with properties(geomesa_agg_enabled="true" if turn == "on" else "false"):
+                        t0 = time.perf_counter()
+                        for i, (cql, rows) in enumerate(qs):
+                            got = store.count(table, cql)
+                            if got != len(rows):
+                                raise AssertionError(f"pyramid count {name} {i} ({turn}): {got} "
+                                                     f"against the oracle's {len(rows)}")
+                        times[turn].append((time.perf_counter() - t0) * 1e3 / len(qs))
+                routes = {}
+                for r, _i, _b in info:
+                    routes[r] = routes.get(r, 0) + 1
+                out["warm"][name] = {
+                    "counts": len(qs), "count_ms_on": times["on"], "count_ms_off": times["off"],
+                    "routes_on": routes, "route_off": "device-count",
+                    "interior_rows": [i for _r, i, _b in info],
+                    "boundary_rows": [b for _r, _i, b in info],
+                    "rows_counted": [int(len(rows)) for _c, rows in qs],
+                }
+            box = bbox_cql(ATTR_BOX)
+            gold = data4["gold"][in_box(data4["x"], data4["y"], ATTR_BOX)]
+            agg = {"route": pyramid_route(store, ATTR_TABLE, box)[0]}
+            if agg["route"] != "pyramid":
+                raise AssertionError(f"aggregate of {box}: took {agg['route']}")
+            for label, enabled in (("pyramid_cold", "true"), ("pyramid", "true"),
+                                   ("fallback", "false")):
+                with properties(geomesa_agg_enabled=enabled):
+                    t0 = time.perf_counter()
+                    got = store.aggregate(ATTR_TABLE, box, columns=["goldstein"])
+                    agg[f"{label}_ms"] = (time.perf_counter() - t0) * 1e3
+                col = got["columns"]["goldstein"]
+                if (got["count"], col["count"], col["min"], col["max"]) != (
+                        len(gold), len(gold), float(gold.min()), float(gold.max())) or \
+                        abs(col["sum"] - gold.sum()) > 1e-12 * abs(gold.sum()):
+                    raise AssertionError(f"aggregate ({label}): {got} against numpy "
+                                         f"({len(gold)}, {gold.sum()}, {gold.min()}, {gold.max()})")
+            agg.update(count=len(gold), sum=float(gold.sum()))
+            out["aggregate"] = agg
+            name = "f_dens_256x128"
+            tname, items_f, _route = streams6[name]
+            queries = density_queries(items_f)
+            memo = {}
+            for route in ("device-density", "agg-cache-density"):
+                t0 = time.perf_counter()
+                for i, q in enumerate(queries):
+                    expect_grid(store.query(tname, q), oracle6[name][i], route,
+                                f"pyramid phase {name} query {i}")
+                memo[route] = (time.perf_counter() - t0) * 1e3 / len(queries)
+            out["density_memo"] = {"queries": len(queries), "compute_ms": memo["device-density"],
+                                   "memo_hit_ms": memo["agg-cache-density"]}
+            out["projection"] = projection_checks(store, data1)
+    finally:
+        os.environ.pop("GEOMESA_COUNT_DEVICE", None)
+    torch.cuda.synchronize()
+    log(f"pyramid path: {json.dumps(out)}")
+    return out
+
+
+def projection_checks(store, data1):
+    """A transform, sampled queries and a bin query on config #1's
+    PROJ_BOX, each against numpy."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    x, y, t = data1
+    rows = np.flatnonzero(in_box(x, y, PROJ_BOX))
+    cql = bbox_cql(PROJ_BOX)
+    out = {"rows": int(len(rows))}
+    t0 = time.perf_counter()
+    res = store.query("gdelt", Query.cql(cql, properties=["geom", "secs=millisToSecs($dtg)"]))
+    out["transform_ms"] = (time.perf_counter() - t0) * 1e3
+    expect_fids(res, rows, "transform query")
+    # the transform's fids are objects; fid_rows reads fixed-width strings
+    got_rows = fid_rows(np.asarray(res.fids).astype(str))
+    order = np.argsort(np.asarray([int(f[1:]) for f in res.fids]), kind="stable")
+    got = np.asarray(res.columns["secs"], dtype=np.int64)[order]
+    if not np.array_equal(got_rows, rows) or not np.array_equal(got, t[rows] // 1000):
+        raise AssertionError("transform query: secs differ from numpy")
+    plain = store.query("gdelt", cql).fids
+    nth = int(round(1 / PROJ_SAMPLING))
+    t0 = time.perf_counter()
+    res = store.query("gdelt", Query.cql(cql, hints={"sampling": PROJ_SAMPLING}))
+    out["sampled_ms"] = (time.perf_counter() - t0) * 1e3
+    if list(res.fids) != list(plain[::nth]):
+        raise AssertionError("sampled query: not every n-th row of the plain result")
+    res = store.query("gdelt", Query.cql(cql, hints={"sampling": PROJ_SAMPLING,
+                                                     "sample_by": "dtg"}))
+    _u, counts = np.unique(t[rows], return_counts=True)
+    if len(res) != int(((counts + nth - 1) // nth).sum()):
+        raise AssertionError(f"sample_by query: {len(res)} rows")
+    t0 = time.perf_counter()
+    res = store.query("gdelt", Query.cql(cql, hints={"bin": {"track": "id", "sort": True}}))
+    out["bin_ms"] = (time.perf_counter() - t0) * 1e3
+    got = res.aggregate["bin"]
+    if np.any(np.diff(got["dtg"]) < 0):
+        raise AssertionError("bin query: records not in date order")
+    fids = np.char.add("f", rows.astype(str))
+    want = bin_oracle(fids, x[rows], y[rows], t[rows])
+    if np.sort(got, order=["dtg", "track", "lat", "lon"]).tobytes() != want.tobytes():
+        raise AssertionError("bin query: records differ from numpy")
+    out["sampled_rows"] = int(len(plain[::nth]))
+    return out
+
+
+def pyramid_case(table, seg, bits, path):
+    """One ``pyramid_counts`` shape: a z2 segment's grid coordinates and
+    ``agg_mask`` at ``bits``. Bound: bytes, xi, yi and the mask read once
+    (9 B a row) and the int32 grid written once (4 * 4^bits B).
+    ``bincount_ms`` times ``torch.bincount(flat[mask], minlength=4^bits)``
+    of the rows' flat cell ids, which computes the same grid (the entry's
+    ``library_ms``)."""
+    from geomesa_tpu_torch.ops import aggregations, kernels
+
+    n = seg.n_padded
+    xi, yi, mask = seg.xi, seg.yi, seg.agg_mask(table)
+    shift = 31 - bits
+    flat = ((yi >> shift).to(torch.int64) << bits) | (xi >> shift).to(torch.int64)
+    cells = 1 << (2 * bits)
+    occupied = int((aggregations.pyramid_counts_plain(xi, yi, mask, bits) > 0).sum())
+    return dict(
+        name="pyramid_counts", path=path, tag=f"bits={bits} n={n}", symbol="pyramid_counts_",
+        replaces="geomesa_tpu/ops/aggregations.py:388",
+        source="geomesa_tpu_torch/csrc/pyramid_counts.cu",
+        kernel=lambda: (kernels.pyramid_counts(xi, yi, mask, bits),),
+        plain=lambda: (aggregations.pyramid_counts_plain(xi, yi, mask, bits),),
+        bytes=9 * n + 4 * cells,
+        ops=0,
+        aside={"bincount_ms": lambda: torch.bincount(flat[mask], minlength=cells)},
+        library="bincount_ms",
+        extra={"occupied_cells": occupied, "table": table.ft.name},
+        shape=f"rows={n} bits={bits} cells={cells} occupied={occupied} ({table.ft.name})",
+    )
+
+
+def pyramid_cases(store, items, launched, timed):
+    """The pyramid phase's kernels at every shape it launched: the
+    ``pyramid_counts`` build on each z2 segment at each cell bits, and the
+    device counts of its turns with the cache off where no earlier phase
+    timed their shape."""
+    segs = {}
+    for tname in ("gdelt", POLY_TABLE, ATTR_TABLE):
+        table = store._tables[tname]["z2"]
+        for seg in store.executor.device_index(table).segments:
+            segs.setdefault(seg.n_padded, (table, seg))
+    cases = []
+    for name, tag in sorted(k for k in launched if k[0] == "pyramid_counts"):
+        bits, n = (int(kv.split("=")[1]) for kv in tag.split())
+        table, seg = segs[n]
+        cases.append(("pyramid", pyramid_case(table, seg, bits, "pyramid")))
+    cases += count_cases(store, items, "pyramid")
+    out, seen = [], set(timed)
+    for path, case in cases:
+        key = (case["name"], case["tag"])
+        if key in launched and key not in seen:
+            seen.add(key)
+            out.append(case)
     return out
 
 

@@ -1,23 +1,26 @@
-"""Aggregation hints: the host reducers of the density and stats hints.
+"""Aggregation hints: the host reducers of the density, stats and bin hints.
 
-Port of ``geomesa_tpu/index/aggregators.py`` limited to density and stats:
-the host reducers (DensityScan.scala:30-59 with GridSnap semantics;
-StatsScan) that answer an aggregating query whenever the device push-down
-declines, and that certify the device's density band rows
-(``TorchScanExecutor._certify_density_band``).
+Port of ``geomesa_tpu/index/aggregators.py`` without ``arrow``: the host
+reducers (DensityScan.scala:30-59 with GridSnap semantics; StatsScan;
+BinaryOutputEncoder's BIN records) that answer an aggregating query
+whenever the device push-down declines, and that certify the device's
+density band rows (``TorchScanExecutor._certify_density_band``).
 
 Hint shapes (conf/QueryHints.scala analogs):
   hints["density"] = {"envelope": (xmin, ymin, xmax, ymax),
                       "width": int, "height": int, "weight": attr | None}
   hints["stats"]   = "MinMax(a);Count()"  (a stat spec, ``stats/parser.py``)
+  hints["bin"]     = {"track": attr | "id", "geom": attr | None,
+                      "dtg": attr | None, "label": attr | None,
+                      "sort": bool}
 
-The ``bin`` and ``arrow`` reducers are not in this slice of the port
-(ROADMAP Queue 1 item 6's tail; ``arrow`` needs ``geomesa_tpu/arrow/``, item
-19): ``run_aggregation`` raises for them.
+The ``arrow`` reducer needs ``geomesa_tpu/arrow/``, which is not ported
+(ROADMAP Queue 1 item 19): ``run_aggregation`` raises for it.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 from typing import Any, Dict, Optional
 
@@ -147,17 +150,71 @@ def _observe_groupby(s: GroupByStat, columns) -> None:
     s.observe_grouped(keys, values, nulls)
 
 
+# 16-byte BIN record: trackId hash (i32) | dtg seconds (i32) | lat f32 | lon f32;
+# the 24-byte record adds the label (8 bytes). BinaryOutputEncoder.scala:28-360.
+BIN_DTYPE = np.dtype(
+    [("track", "<i4"), ("dtg", "<i4"), ("lat", "<f4"), ("lon", "<f4")]
+)
+BIN_DTYPE_LABEL = np.dtype(
+    [("track", "<i4"), ("dtg", "<i4"), ("lat", "<f4"), ("lon", "<f4"), ("label", "<i8")]
+)
+
+
+def _track_ids(values: np.ndarray) -> np.ndarray:
+    """Stable 32-bit ids of track values: numbers cast, anything else the
+    little-endian signed 4-byte blake2b of its string (the reference's
+    hashCode analog)."""
+    if values.dtype.kind in "iuf":
+        return values.astype(np.int32)
+    out = np.empty(len(values), dtype=np.int32)
+    cache: Dict[Any, int] = {}
+    for i, v in enumerate(values):
+        h = cache.get(v)
+        if h is None:
+            h = int.from_bytes(hashlib.blake2b(str(v).encode(), digest_size=4).digest(),
+                               "little", signed=True)
+            cache[v] = h
+        out[i] = h
+    return out
+
+
+def run_bin(ft: FeatureType, spec: Dict[str, Any], columns) -> np.ndarray:
+    """The BIN records of the filtered rows (``BIN_DTYPE``, or
+    ``BIN_DTYPE_LABEL`` with a label): track id, date in seconds, lat, lon;
+    ``sort`` orders them by date (stable)."""
+    geom = spec.get("geom") or ft.default_geometry.name
+    dtg = spec.get("dtg") or (ft.default_date.name if ft.default_date else None)
+    track = spec["track"]
+    n = len(next(iter(columns.values()), []))
+    dtype = BIN_DTYPE_LABEL if spec.get("label") else BIN_DTYPE
+    out = np.zeros(n, dtype=dtype)
+    track_col = columns.get(track)
+    if track_col is None and track == "id":
+        track_col = columns["__fid__"]
+    out["track"] = _track_ids(np.asarray(track_col))
+    if dtg is not None:
+        out["dtg"] = (np.asarray(columns[dtg], dtype=np.int64) // 1000).astype(np.int32)
+    out["lat"] = np.asarray(columns[geom + "__y"], dtype=np.float32)
+    out["lon"] = np.asarray(columns[geom + "__x"], dtype=np.float32)
+    if spec.get("label"):
+        out["label"] = _track_ids(np.asarray(columns[spec["label"]])).astype(np.int64)
+    if spec.get("sort") and dtg is not None:
+        out = out[np.argsort(out["dtg"], kind="stable")]
+    return out
+
+
 def run_aggregation(ft: FeatureType, hints: Dict[str, Any], columns) -> Dict[str, Any]:
     """Dispatch the requested aggregations over the filtered columns."""
-    missing = [k for k in ("bin", "arrow") if k in hints]
-    if missing:
+    if "arrow" in hints:
         raise NotImplementedError(
-            f"aggregation hints {missing} are not ported yet (ROADMAP Queue 1 item 6's "
-            "tail; arrow needs geomesa_tpu/arrow/, item 19)"
+            "the arrow aggregation is not ported yet: it needs geomesa_tpu/arrow/ "
+            "(ROADMAP Queue 1 item 19)"
         )
     out: Dict[str, Any] = {}
     if "density" in hints:
         out["density"] = run_density(ft, hints["density"], columns)
     if "stats" in hints:
         out["stats"] = run_stats(ft, hints["stats"], columns)
+    if "bin" in hints:
+        out["bin"] = run_bin(ft, hints["bin"], columns)
     return out

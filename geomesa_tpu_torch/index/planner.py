@@ -109,6 +109,51 @@ class QueryPlan:
         return self.full_filter
 
 
+def spatial_only_shape(plan: QueryPlan, ft: FeatureType):
+    """The query's geometry list when ``plan`` can be answered from the z2
+    aggregate pyramid (``ops/pyramid.py``), else None.
+
+    The interior/boundary fusion is sound exactly when the plan is one z2
+    arm (no cross-index union) with no residual, the filter reads the
+    default geometry alone (a date or attribute predicate would make an
+    interior row's truth depend on a column the pyramid never summed), the
+    geometry extraction is precise, and every spatial leaf is
+    containment-shaped (BBOX, INTERSECTS, WITHIN: true for every point row
+    of a strictly interior cell). CONTAINS inverts the operands, DISJOINT
+    negates and DWITHIN reaches past the literal's shape: their covers
+    describe candidate ranges, not the predicate, so they decline."""
+    if plan.union is not None or plan.is_empty:
+        return None
+    if plan.index.name != "z2" or plan.secondary is not None:
+        return None
+    geom = ft.default_geometry
+    if geom is None:
+        return None
+    gv = plan.values.geometries
+    if gv is None or not gv.values or not gv.precise:
+        return None
+    if plan.full_filter is None:
+        return None
+    if set(ast.properties(plan.full_filter)) != {geom.name}:
+        return None
+    for node in ast.walk(plan.full_filter):
+        if isinstance(node, (ast.And, ast.Or)):
+            continue
+        if not isinstance(node, (ast.BBox, ast.Intersects, ast.Within)):
+            return None
+    return list(gv.values)
+
+
+def pyramid_worthwhile(interior_rows: int, boundary_rows: int) -> bool:
+    """The pyramid's cost model: answer from it only when the interior sums
+    carry weight. The boundary ring is scanned either way, so a query whose
+    candidates are mostly boundary gains nothing over the ordinary paths;
+    a ring of at most 256 rows is a trivial seek whatever the ratio."""
+    if interior_rows <= 0:
+        return False
+    return boundary_rows <= 4 * interior_rows or boundary_rows <= 256
+
+
 class QueryPlanner:
     """Plans queries for one feature type over its enabled indices."""
 

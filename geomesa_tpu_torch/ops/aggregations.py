@@ -19,6 +19,11 @@ a power of two); ``(x - xmin) / dx`` is a true IEEE divide; ``round`` is
 half to even; the f32 -> int32 cell conversion saturates (NaN -> 0) before
 the clip. One device is one shard: no psum, and the band cap is per
 device segment.
+
+``pyramid_counts_plain`` is the plain edition of the aggregate pyramid's
+build (the reference's ``make_pyramid_counts``, span "agg.pyramid"): the
+per-cell row counts of one z2 segment, whose hand kernel is
+``pyramid_counts`` (``csrc/pyramid_counts.cu``).
 """
 
 from __future__ import annotations
@@ -136,3 +141,15 @@ def density_dual(x, y, bins: Optional[torch.Tensor], offs: Optional[torch.Tensor
     count = cand.sum(dtype=torch.int32).reshape(1)
     idx = torch.nonzero_static(cand, size=band_cap, fill_value=-1).flatten()
     return grid, idx.to(torch.int32), count
+
+
+def pyramid_counts_plain(xi: torch.Tensor, yi: torch.Tensor, mask: torch.Tensor,
+                         bits: int) -> torch.Tensor:
+    """One segment's pyramid count grid -> int32 [2^bits, 2^bits]: each row
+    of ``mask`` counts in cell ``(yi >> s) << bits | (xi >> s)``, ``s = 31 -
+    bits``, from its int32 z2 grid coordinates ``xi, yi`` (0 .. 2^31 - 1).
+    Integer counts: equal to the reference's sort-and-search in any order."""
+    n = 1 << bits
+    shift = 31 - bits
+    flat = ((yi >> shift).to(torch.int64) << bits) | (xi >> shift).to(torch.int64)
+    return torch.bincount(flat[mask], minlength=n * n).to(torch.int32).reshape(n, n)

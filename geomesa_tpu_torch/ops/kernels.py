@@ -31,6 +31,9 @@ answers that):
     polygon ray cast of ``geomesa_tpu/parallel/executor.py``
     ``_poly_bitmap_batch_fn`` (the (hit, decided) planes), with the same
     attribute editions;
+  * ``pyramid_counts`` (``csrc/pyramid_counts.cu``) replaces the XLA
+    ``make_pyramid_counts`` of ``geomesa_tpu/ops/aggregations.py`` (the
+    aggregate pyramid's per-cell row counts of a z2 segment);
   * the coalescer's stacked full-table mask batches run on those kernels:
     ``exact_mask_batch`` (``exact_bitmap``'s bits) replaces
     ``_exact_mask_batch_fn``, and ``dual_mask_batch`` (``xz_dual_bitmap``'s
@@ -70,7 +73,11 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from geomesa_tpu_torch.ops.aggregations import density_dual, reciprocal_f32
+from geomesa_tpu_torch.ops.aggregations import (
+    density_dual,
+    pyramid_counts_plain,
+    reciprocal_f32,
+)
 from geomesa_tpu_torch.ops.filters import (
     ATTR_KINDS,
     attr_combine,
@@ -98,6 +105,7 @@ SOURCES = {
     "density_grid": "density_grid.cu",
     "knn_topk": "knn_topk.cu",
     "poly_dual_bitmap": "poly_dual_bitmap.cu",
+    "pyramid_counts": "pyramid_counts.cu",
 }
 # extra nvcc flags per source: the f32 arithmetic of the density band, the
 # kNN distance and the polygon ray cast must not contract into FMAs that the
@@ -137,12 +145,15 @@ LAUNCHES: Dict[str, int] = {
     "exact_mask_batch_z2_range": 0,
     "xz_mask_batch_xz2": 0,
     "poly_mask_batch_z2": 0,
+    # the aggregate pyramid's build (chip_smoke.py's pyramid phase)
+    "pyramid_counts": 0,
 }
 # launches per (instantiation, shape): "q=<descriptors>" for the bitmap
 # kernels, the mask batches and the count (+ " K=<codes>" for member and
 # notmember, " U=<lookup size>" for vocabmask, " E=<edges a query>" for the
 # polygons), "U=<bins>" for the histogram, "K=<boxes> W=<windows>" for the
-# masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k
+# masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k, "bits=<b>
+# n=<rows>" for the pyramid counts
 LAUNCH_SHAPES: Counter = Counter()
 # both counts move under one lock: wrappers launch from many threads
 _COUNT_LOCK = threading.Lock()
@@ -283,6 +294,7 @@ _ARGTYPES = {
     "knn_topk": [_P, _P, _P, _F, _F, _LL, _LL, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong)],
     "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
                          _I, _P, _P, _I],
+    "pyramid_counts": [_P, _P, _P, _I, _P, _LL, _P],
 }
 
 
@@ -1107,3 +1119,36 @@ def dual_mask_batch(kind: str, *args, **kwargs):
         return dual_mask_batch_plain(kind, *args, **kwargs)
     launch = _launch_xz_dual_bitmap if kind == "xz" else _launch_poly_dual_bitmap
     return launch(DUAL_MASK_NAMES[kind], *args, **kwargs)[:2]
+
+
+# -- the aggregate pyramid's counts -------------------------------------------
+
+PYRAMID_MIN_BITS, PYRAMID_MAX_BITS = 2, 12
+
+
+def pyramid_counts(xi, yi, mask, bits: int) -> torch.Tensor:
+    """One z2 segment's pyramid count grid -> int32 [2^bits, 2^bits] on the
+    rows' device (the reference's ``make_pyramid_counts``): the rows of
+    ``mask`` (bool[n], valid and finite geometry) counted by cell ``(yi >>
+    s) << bits | (xi >> s)``, ``s = 31 - bits``; ``xi, yi`` int32[n] are
+    the z2 grid coordinates, ``bits`` in [2, 12]."""
+    if not PYRAMID_MIN_BITS <= bits <= PYRAMID_MAX_BITS:
+        raise ValueError(f"pyramid_counts: bits ({bits}) not in "
+                         f"[{PYRAMID_MIN_BITS}, {PYRAMID_MAX_BITS}]")
+    if xi.device.type == "cpu":
+        return pyramid_counts_plain(xi, yi, mask, bits)
+    if xi.device.type != "cuda":
+        raise ValueError(f"pyramid_counts: unsupported device {xi.device}")
+    dev, n = xi.device, xi.shape[0]
+    _check(xi, "xi", torch.int32, dev, (n,))
+    _check(yi, "yi", torch.int32, dev, (n,))
+    _check(mask, "mask", torch.bool, dev, (n,))
+    fn = _lib("pyramid_counts").pyramid_counts
+    side = 1 << bits
+    with torch.cuda.device(dev):
+        out = torch.empty((side, side), dtype=torch.int32, device=dev)  # zeroed by the launcher
+        err = fn(xi.data_ptr(), yi.data_ptr(), mask.data_ptr(), bits, out.data_ptr(), n,
+                 _stream(dev))
+    _raise_on(err, "pyramid_counts")
+    _count("pyramid_counts", f"bits={bits} n={n}")
+    return out

@@ -66,6 +66,10 @@ stream takes there:
   * the device kNN (``knn_candidates``): one ``knn_topk`` launch per segment
     ranks every row by its f32 haversine distance to a point.
 
+  * the aggregate pyramid's build (``pyramid_counts``): one
+    ``pyramid_counts`` launch per z2 segment counts its valid, finite rows
+    by pyramid cell (``agg_mask``); the grids sum on the host.
+
   * the COALESCED route (``dispatch_coalesced``, the seam of the
     cross-query coalescer, ``parallel/batch.py``): concurrent queries'
     exact point plans (with one attribute's predicates too), extent plans
@@ -1072,6 +1076,29 @@ class DeviceSegment:
                                                boxes_dev, wins_dev, tk, codes, qcodes, akind)
         batch = _DualMaskBatch(hit, dec, self.n)
         return [_PendingDualMaskHits(batch, i) for i in range(len(descs))]
+
+    def agg_mask(self, table: IndexTable) -> torch.Tensor:
+        """The rows the aggregate pyramid's build counts (the reference's
+        ``agg_mask``): ``valid`` and a finite geometry (a null geometry's
+        lenient key is clipped into a cell and must never count there).
+        Cached per ``valid`` tensor: the port has no tombstones yet, but a
+        re-packed ``valid`` re-keys the cache as in the reference."""
+        got = getattr(self, "_agg_mask", None)
+        if got is not None and got[0] is self.valid:
+            return got[1]
+        with self._load_lock:
+            got = getattr(self, "_agg_mask", None)
+            if got is not None and got[0] is self.valid:
+                return got[1]
+            geom = table.ft.default_geometry.name
+            finite = np.concatenate(
+                [np.isfinite(np.asarray(b.full_col(geom + "__x"), dtype=np.float64))
+                 & np.isfinite(np.asarray(b.full_col(geom + "__y"), dtype=np.float64))
+                 for b in self.blocks]
+            ) if self.blocks else np.empty(0, dtype=bool)
+            mask = upload(pad_to_multiple(finite, GRANULE, False), self.device)
+            self._agg_mask = (self.valid, mask)
+            return mask
 
     def to_block_rows(self, rows: np.ndarray) -> List[Tuple[FeatureBlock, np.ndarray]]:
         """Segment-local candidate rows -> [(block, local rows)]."""
@@ -3002,6 +3029,31 @@ class TorchScanExecutor:
             elif len(vals):
                 st.observe_counts(vals, cnts)
         return stat
+
+    # -- the aggregate pyramid's build --------------------------------------------
+
+    def pyramid_counts(self, table: IndexTable, bits: int) -> Optional[np.ndarray]:
+        """[2^bits, 2^bits] int64 per-cell row counts of a z2 table for the
+        aggregate pyramid (``ops/pyramid.py``; the reference's
+        ``pyramid_counts``): one ``pyramid_counts`` launch per segment over
+        its resident grid coordinates (``xi, yi``) and ``agg_mask``, each
+        grid fetched and the grids summed in int64 on the host. None (the
+        host build answers) for any other table or a table with no rows."""
+        if table.index.name != "z2":
+            return None
+        dev = self.device_index(table)
+        if not dev.segments:
+            return None
+        n = 1 << bits
+        total = np.zeros((n, n), dtype=np.int64)
+        grids = []
+        with record_function("geomesa.dispatch"):
+            for seg in dev.segments:
+                deadline.check("device.dispatch")
+                grids.append(kernels.pyramid_counts(seg.xi, seg.yi, seg.agg_mask(table), bits))
+        for grid in grids:
+            total += _np_local(grid).astype(np.int64)
+        return total
 
     # -- device kNN ------------------------------------------------------------
 

@@ -21,9 +21,32 @@ result's grid is ``QueryResult.aggregate["density"]``. The stats hint
 (``hints={"stats": "Count();MinMax(a);TopK(b)"}``) is pushed down to the
 executor's ``stats_scan`` the same way (the per-value counts come back, the
 rows do not; ``plan.scan_path`` = ``device-stats``), its sketch in
-``QueryResult.aggregate["stats"]``. ``count`` asks the executor's
-``count_scan`` for the exact count of a filter (one int32 a segment), else
-counts the query's rows.
+``QueryResult.aggregate["stats"]``. An exact ``count`` of a filter
+tries the aggregate pyramid first (``_count_pyramid``), then asks the
+executor's ``count_scan`` (one int32 a segment), else counts the query's
+rows.
+
+The aggregate pyramid cache (``ops/pyramid.py``, the reference's GeoBlocks
+cache; ``geomesa.agg.*`` knobs, ``geomesa.agg.enabled=false`` the escape
+hatch): a spatial-only z2 filter's ``count``, a ``Count()``-only stats
+query (``plan.scan_path`` = ``agg-pyramid-stats``) and ``aggregate()``
+(exact count and per-column sum / min / max / non-null count) answer from
+the type's pyramid, built once a write generation on the device
+(``TorchScanExecutor.pyramid_counts``): interior cells from their partial
+sums, boundary cells by an exact scan of their z2 key ranges with the
+plan's own filter. A repeated density query answers from its memo
+(``agg-cache-density``). An injected ``agg.build`` fault degrades to the
+uncached paths with identical answers; a failed device build raises after
+``executor.degrade`` evicts the mirror.
+
+Projection (the reference's ``_finish`` / ``apply_projection``): a query's
+``properties`` may hold derived attributes ``name=EXPR`` in the transform
+language (``index/transforms.py``, ``tools/convert.py``), and the
+``sampling`` hint (a fraction, with an optional ``sample_by`` attribute)
+keeps every n-th row (of each value). Under an aggregation, sampling runs
+first and a transform is applied before the reducer, so a stats query over
+a computed property aggregates the derived values; the push-downs and the
+cache decline such queries.
 
 Serving (the reference's ``query``): each query runs under its budget
 (``query_timeout_s``, ``geomesa.query.timeout``; ``utils/deadline.py``)
@@ -39,9 +62,10 @@ kernel builds it triggered (``utils/devstats.py``), and ``scan_path``, its
 route.
 
 Tenants, brownout, circuit breakers, workload capture, audit, plan
-telemetry, visibility labels, age-off, deletes, the bin / arrow
-aggregations, the aggregate cache, pyramids, joins, sampling, transforms
-and streaming are not in this slice of the port. A device scan, count or
+telemetry, visibility labels, age-off, deletes, the arrow aggregation,
+joins and streaming are not in this slice of the port (nor, therefore,
+the reference's brownout gate, workload capture, plan telemetry and audit
+decisions around the pyramid). A device scan, count or
 stats push-down that fails raises (after ``executor.degrade`` evicts the
 mirror) instead of being answered from the host.
 """
@@ -82,7 +106,7 @@ from geomesa_tpu_torch.store.blocks import (
 from geomesa_tpu_torch.utils import admission as admission_mod
 from geomesa_tpu_torch.utils import deadline as deadline_mod
 from geomesa_tpu_torch.utils import devstats, trace
-from geomesa_tpu_torch.utils.audit import QueryTimeout, ShedLoad
+from geomesa_tpu_torch.utils.audit import QueryTimeout, ShedLoad, robustness_metrics
 
 DEFAULT_FLUSH_SIZE = 100_000
 
@@ -252,6 +276,9 @@ class TorchDataStore:
         self._tables: Dict[str, Dict[str, IndexTable]] = {}
         self._plan_cache: Dict[Any, QueryPlan] = {}
         self._plan_lock = threading.Lock()
+        # per-type write generation (``_note_write``): cache keys derive
+        # from it through ``schema_generation``
+        self._write_gen: Dict[str, int] = {}
 
     # -- schema ---------------------------------------------------------------
 
@@ -288,6 +315,25 @@ class TorchDataStore:
         for table in self._tables[ft.name].values():
             table.insert_record(record)
         self.stats.observe_columns(ft, columns)
+        self._note_write(ft.name)
+
+    def _note_write(self, name: str) -> None:
+        """Advance the type's write generation; every write calls this. The
+        aggregate cache drops the type's entries here too: the generation
+        in its keys already re-keys them, but dropping them now releases
+        their device copies at once."""
+        self._write_gen[name] = self._write_gen.get(name, 0) + 1
+        cache = self.__dict__.get("_agg_cache")
+        if cache is not None:
+            cache.invalidate(name)
+
+    def schema_generation(self, name: str) -> tuple:
+        """A value that changes whenever the type's rows may have changed:
+        the index tables' versions and the write counter."""
+        return (
+            tuple(t.version for t in self._tables[name].values()),
+            self._write_gen.get(name, 0),
+        )
 
     # -- queries --------------------------------------------------------------
 
@@ -388,10 +434,10 @@ class TorchDataStore:
         """The feature count (the reference's ``count``): without a query the
         rows written; with one, ``exact=False`` answers from the write-time
         sketches (the EXACT_COUNT hint / GeoMesaStats.getCount split) where
-        they can estimate, and an exact count asks the executor's device
-        count (``_count_device``), else counts the query's rows. The port
-        has no deletes, age-off or visibility labels yet, and no aggregate
-        pyramid: the reference tries its pyramid before the device count."""
+        they can estimate, and an exact count tries the aggregate pyramid
+        (``_count_pyramid``), then the executor's device count
+        (``_count_device``), else counts the query's rows. The port has no
+        deletes, age-off or visibility labels yet."""
         tables = self._tables[name]
         if query is None:
             return int(next(iter(tables.values())).num_rows)
@@ -401,6 +447,11 @@ class TorchDataStore:
             if est is not None:
                 return int(est)
         else:
+            if q.max_features is None and not q.hints:
+                plan = self._plan_cached(name, q)
+                got = self._count_pyramid(name, self.get_schema(name), q, plan)
+                if got is not None:
+                    return got
             got = self._count_device(name, q)
             if got is not None:
                 return got
@@ -428,6 +479,271 @@ class TorchDataStore:
         except Exception as e:
             self.executor.degrade(table, e)
             raise
+
+    # -- the aggregate pyramid cache (ops/pyramid.py) ---------------------------
+
+    def _agg_cache_obj(self):
+        """The store's aggregate cache, made at first use (one however many
+        threads ask: ``dict.setdefault`` is atomic)."""
+        cache = getattr(self, "_agg_cache", None)
+        if cache is None:
+            from geomesa_tpu_torch.ops.pyramid import AggCache
+
+            cache = self.__dict__.setdefault("_agg_cache", AggCache())
+        return cache
+
+    def _pyramid_for(self, name: str, ft) -> Optional[Any]:
+        """The type's cached pyramid, built at first use under the
+        ``agg.build`` envelope; None when the type has no z2 table or an
+        injected build fault degraded it (the caller answers from the
+        uncached scan, identically). A budget that dies raises; a failed
+        device build raises after ``executor.degrade`` evicts the mirror."""
+        from geomesa_tpu_torch.ops.pyramid import BUILD_FAULTS, agg_knobs, build_pyramid
+
+        table = self._tables[name].get("z2")
+        if table is None:
+            return None
+        bits, levels, ttl, _cap = agg_knobs()
+        cache = self._agg_cache_obj()
+        key = ("pyramid", name, self.schema_generation(name), bits, levels)
+        pyr = cache.get(key, ttl)
+        if pyr is not None:
+            return pyr
+        try:
+            pyr = build_pyramid(table, ft, self.executor)
+        except QueryTimeout:
+            raise
+        except BUILD_FAULTS as e:
+            _degrade_agg(e)
+            return None
+        except Exception as e:
+            self.executor.degrade(table, e)
+            raise
+        cache.put(key, pyr)
+        return pyr
+
+    def _agg_eligible(self, name: str) -> bool:
+        """The store-state gates of every pyramid consumer: the cache is on
+        and the type has a z2 table (the port has no visibility labels or
+        age-off, the reference's other two gates)."""
+        from geomesa_tpu_torch.ops.pyramid import agg_enabled
+
+        return agg_enabled() and "z2" in self._tables.get(name, {})
+
+    def _pyramid_classify(self, name, ft, query: Query, plan):
+        """The gate -> build -> classify pipeline under every pyramid
+        consumer: eligibility, the spatial-only shape, the declines before
+        the build (no interior cell possible) and after the classification
+        (the boundary dominates), and the (possibly degraded) build.
+        Returns ``(pyr, interior_rows, boundary_cells, interior_mask)`` or
+        None (the caller answers uncached)."""
+        from geomesa_tpu_torch.filter.parser import to_cql
+        from geomesa_tpu_torch.index.planner import pyramid_worthwhile, spatial_only_shape
+        from geomesa_tpu_torch.ops.pyramid import agg_knobs, could_have_interior
+
+        if not self._agg_eligible(name):
+            return None
+        geoms = spatial_only_shape(plan, ft)
+        if geoms is None:
+            return None
+        if not could_have_interior(geoms, agg_knobs()[0]):
+            devstats.devstats_metrics().inc("agg.cache.declined")
+            return None
+        pyr = self._pyramid_for(name, ft)
+        if pyr is None:
+            return None
+        interior, boundary_rows, _cand, cells, imask = pyr.classify(
+            geoms, memo_key=to_cql(query.filter))
+        if not pyramid_worthwhile(interior, boundary_rows):
+            devstats.devstats_metrics().inc("agg.cache.declined")
+            return None
+        return pyr, interior, cells, imask
+
+    def _count_pyramid(self, name, ft, query: Query, plan) -> Optional[int]:
+        """The exact count from the pyramid: interior partial sums plus the
+        exact boundary-ring scan; None -> the ordinary paths count."""
+        got = self._pyramid_classify(name, ft, query, plan)
+        if got is None:
+            return None
+        pyr, interior, cells, _imask = got
+        n = interior
+        if len(cells):
+            parts = self._agg_boundary_parts(name, ft, plan, pyr.cell_ranges(cells))
+            n += sum(len(r) for _b, r in parts)
+        return n
+
+    def _agg_boundary_parts(self, name, ft, plan, ranges) -> List[tuple]:
+        """Seek only the boundary cells' z2 key ranges and keep the rows the
+        plan's own filter passes: the uncached scan's per-row semantics."""
+        table = self._tables[name]["z2"]
+        pf = plan.post_filter
+        pf_props = set(ast.properties(pf)) if pf is not None else None
+        parts: List[tuple] = []
+        for block, rows in table.scan(ranges):
+            deadline_mod.check("agg.boundary")
+            if pf_props is not None and len(rows):
+                fcols = _gather_filter_cols(block, rows, pf_props)
+                mask = self.executor.post_filter(ft, plan, fcols)
+                if not mask.all():
+                    rows = rows[mask]
+            if len(rows):
+                parts.append((block, rows))
+        return parts
+
+    def _density_key(self, name: str, query: Query) -> Optional[tuple]:
+        """The memo key of one density query: everything that decides the
+        grid (filter, grid spec, weight, projection) and the schema
+        generation."""
+        from geomesa_tpu_torch.filter.parser import to_cql
+
+        spec = query.hints.get("density") or {}
+        try:
+            env = tuple(float(v) for v in spec["envelope"])
+            w, h = int(spec["width"]), int(spec["height"])
+        except (KeyError, TypeError, ValueError):
+            return None
+        return (
+            "density", name, self.schema_generation(name), to_cql(query.filter), env, w, h,
+            spec.get("weight"),
+            tuple(query.properties) if query.properties is not None else None,
+        )
+
+    @staticmethod
+    def _memoizable(query: Query) -> bool:
+        """The cache's hint whitelist: aggregation hints only (sampling
+        changes the rows and loose_bbox the filter's contract, so their
+        grids must never share a memo entry with an exact query's) and no
+        transform."""
+        return not (set(query.hints) - set(AGGREGATION_HINTS)) and _untransformed(query)
+
+    def _agg_shortcut(self, name, ft, query: Query, plan) -> Optional[QueryResult]:
+        """The cache's answers ahead of the push-downs: a memoized density
+        grid, or a ``Count()``-only stats query from the pyramid."""
+        from geomesa_tpu_torch.ops.pyramid import agg_enabled, agg_knobs
+
+        if not agg_enabled() or not self._memoizable(query):
+            return None
+        hints = set(query.hints) & set(AGGREGATION_HINTS)
+        if hints == {"density"}:
+            key = self._density_key(name, query)
+            if key is None:
+                return None
+            entry = self._agg_cache_obj().get(key, agg_knobs()[2])
+            if entry is None:
+                return None
+            plan.scan_path = "agg-cache-density"
+            trace.event("agg.cache", result="hit")
+            return QueryResult(ft, _empty_columns(ft), plan, {"density": entry.grid.copy()},
+                               scan_path=plan.scan_path)
+        if hints == {"stats"}:
+            stat = _count_only_stats(query.hints["stats"])
+            if stat is None:
+                return None
+            n = self._count_pyramid(name, ft, query, plan)
+            if n is None:
+                return None
+            for st in stat.stats if hasattr(stat, "stats") else [stat]:
+                st.count = n
+            plan.scan_path = "agg-pyramid-stats"
+            trace.event("agg.cache", result="hit")
+            return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat},
+                               scan_path=plan.scan_path)
+        return None
+
+    def _agg_density_fill(self, name, query: Query, result: QueryResult) -> None:
+        """Memoize a density grid just computed (device or host reducer) so
+        the next identical query answers with no dispatch."""
+        from geomesa_tpu_torch.ops.pyramid import DensityMemo, agg_enabled
+
+        if not agg_enabled() or not self._memoizable(query):
+            return
+        if set(query.hints) & set(AGGREGATION_HINTS) != {"density"}:
+            return
+        grid = (result.aggregate or {}).get("density")
+        key = self._density_key(name, query)
+        if grid is None or key is None:
+            return
+        self._agg_cache_obj().put(key, DensityMemo(np.asarray(grid)))
+
+    def aggregate(self, name: str, query: Union[str, Query] = "INCLUDE",
+                  columns: Optional[Sequence[str]] = None) -> Dict[str, Any]:
+        """The exact matching-row count and, per numeric column of
+        ``columns``, its non-null count, sum, min and max (the reference's
+        ``aggregate``): ``{"count": n, "columns": {c: {"count", "sum",
+        "min", "max"}}}``. A spatial-only z2 filter answers from the
+        aggregate pyramid (interior partial sums and the exact boundary
+        ring), anything else from the ordinary exact query. Counts, integer
+        sums, min and max are the same either way; float sums may differ
+        in the last place (summation order). Runs under the query's budget
+        and one admission slot."""
+        from geomesa_tpu_torch.ops.pyramid import AggError
+
+        ft = self.get_schema(name)
+        q = self._as_query(query)
+        cols = list(columns or [])
+        for c in cols:
+            a = next((a for a in ft.attributes if a.name == c), None)
+            if a is None:
+                raise AggError(f"unknown column {c!r}")
+            dt = a.type.numpy_dtype
+            if dt is None or np.dtype(dt).kind not in "iufb":
+                raise AggError(f"column {c!r} is not numeric")
+        with trace.span("query.aggregate", type=name) as root:
+            try:
+                with deadline_mod.budget(self.query_timeout_s):
+                    with self.admission.admit(priority=admission_mod.classify(q.hints)):
+                        got = self._aggregate_pyramid(name, ft, q, cols)
+                        path = "agg-pyramid"
+                        if got is None:
+                            # the exact fallback (the slot and the budget
+                            # are reentrant)
+                            res = self.query(name, q)
+                            got = _aggregate_columns(ft, res.columns, cols)
+                            path = "agg-exact-fallback"
+                        if root.recording:
+                            root.set_attr("scan_path", path)
+                        return got
+            except (QueryTimeout, ShedLoad) as e:
+                if root.recording:
+                    root.set_attr("outcome", "timeout" if isinstance(e, QueryTimeout) else "shed")
+                raise
+
+    def _aggregate_pyramid(self, name, ft, q: Query, cols: List[str]) -> Optional[Dict[str, Any]]:
+        from geomesa_tpu_torch.ops.pyramid import BUILD_FAULTS
+
+        if q.max_features is not None or q.hints:
+            return None
+        plan = self._plan_cached(name, q)
+        got = self._pyramid_classify(name, ft, q, plan)
+        if got is None:
+            return None
+        pyr, interior, cells, imask = got
+        try:
+            pyr.ensure_columns(self._tables[name]["z2"], ft, cols)
+        except BUILD_FAULTS as e:
+            _degrade_agg(e)
+            return None
+        parts = (self._agg_boundary_parts(name, ft, plan, pyr.cell_ranges(cells))
+                 if len(cells) else [])
+        out: Dict[str, Any] = {"count": interior + sum(len(r) for _b, r in parts), "columns": {}}
+        for c in cols:
+            g = pyr.col_grids[c]
+            occupied = imask & (g["count"] > 0)
+            cnt = int(g["count"][imask].sum())
+            total = g["sum"][imask].sum()
+            mn = g["min"][occupied].min() if occupied.any() else np.inf
+            mx = g["max"][occupied].max() if occupied.any() else -np.inf
+            for block, rows in parts:
+                v = block.gather(c, rows)
+                nulls = np.asarray(block.gather(c + "__null", rows), dtype=bool)
+                vv = np.asarray(v)[~nulls]
+                if len(vv):
+                    cnt += len(vv)
+                    total = total + vv.sum()
+                    mn = min(mn, float(vv.min()))
+                    mx = max(mx, float(vv.max()))
+            out["columns"][c] = _column_summary(ft, c, cnt, total, mn, mx)
+        return out
 
     def query_many(self, name: str, queries: Sequence[Union[str, Query]]) -> List[QueryResult]:
         """Execute many queries with PIPELINED device dispatch: phase 1 plans
@@ -481,18 +797,22 @@ class TorchDataStore:
             return results
 
     def _execute(self, name, ft, query: Query, plan: QueryPlan, pending=None) -> QueryResult:
-        """route -> scan -> merge; a density or stats query of one plan first
-        tries the device push-down."""
-        aggregating = has_aggregation(query.hints)
-        if aggregating and (query.hints.get("sampling") or not _untransformed(query)):
-            raise NotImplementedError(
-                "sampling and transforms are not ported (ROADMAP Queue 1 item 17)"
-            )
+        """route -> scan -> merge. The aggregate cache answers first where it
+        can (a memoized density grid, a ``Count()`` stats query from the
+        pyramid); a density or stats query of one plan, unsampled and
+        untransformed, then tries the device push-down; every density grid
+        computed is memoized."""
         if plan.is_empty:
             empty = _empty_columns(ft)
-            agg = run_aggregation(ft, query.hints, empty) if aggregating else None
+            agg = run_aggregation(ft, query.hints, empty) if has_aggregation(query.hints) else None
             return QueryResult(ft, empty, plan, agg, scan_path="empty")
-        if plan.union is None and set(query.hints) & set(AGGREGATION_HINTS) == {"density"}:
+        got = self._agg_shortcut(name, ft, query, plan)
+        if got is not None:
+            return got
+        aggs = set(query.hints) & set(AGGREGATION_HINTS)
+        pushable = (plan.union is None and not query.hints.get("sampling")
+                    and _untransformed(query))
+        if pushable and aggs == {"density"}:
             density_scan = getattr(self.executor, "density_scan", None)
             grid = None
             if density_scan is not None:
@@ -501,9 +821,11 @@ class TorchDataStore:
                 )
             if grid is not None:
                 plan.scan_path = "device-density"
-                return QueryResult(ft, _empty_columns(ft), plan, {"density": grid},
-                                   scan_path=plan.scan_path)
-        if plan.union is None and set(query.hints) & set(AGGREGATION_HINTS) == {"stats"}:
+                result = QueryResult(ft, _empty_columns(ft), plan, {"density": grid},
+                                     scan_path=plan.scan_path)
+                self._agg_density_fill(name, query, result)
+                return result
+        if pushable and aggs == {"stats"}:
             stats_scan = getattr(self.executor, "stats_scan", None)
             stat = None
             if stats_scan is not None:
@@ -531,6 +853,7 @@ class TorchDataStore:
         # this query's own routes: a cached plan object is shared by the
         # concurrent queries of one filter, whose routes may differ
         result.scan_path = "+".join(sorted(set(labels)))
+        self._agg_density_fill(name, query, result)
         return result
 
     def _route(self, plan: QueryPlan) -> List[QueryPlan]:
@@ -683,8 +1006,8 @@ def _gather_filter_cols(block, rows, props) -> Columns:
 
 def _output_columns(query: Query) -> Optional[set]:
     """Base names the query result must carry; None = everything. A
-    superset of the projection: sort reads the result's columns (the
-    reference's ``_output_columns``, which adds sampling's)."""
+    superset of the projection: sort and sampling read the result's
+    columns (the reference's ``_output_columns``)."""
     props = query.properties
     if props is None or has_aggregation(query.hints):
         return None
@@ -693,6 +1016,9 @@ def _output_columns(query: Query) -> Optional[set]:
     out = set(props)
     if query.sort_by:
         out.update(a for a, _ in query.sort_by)
+    sample_by = query.hints.get("sample_by")
+    if sample_by:
+        out.add(sample_by)
     return out
 
 
@@ -729,21 +1055,32 @@ def _materialize(columns) -> Columns:
 
 
 def _finish(ft: FeatureType, query: Query, plan: QueryPlan, columns) -> QueryResult:
-    """The host reducer over materialized columns when the query
-    aggregates; a plain stream (no sort, limit or transform) keeps the
-    lazy mapping, already restricted to its keys; anything else
-    materializes and takes sort, limit and projection."""
+    """The reference's ``_finish``. An aggregating query samples its rows,
+    applies its transform (the reducer sees the derived schema) and runs
+    the host reducer; a plain stream (no sort, limit, sampling or
+    transform) keeps the lazy mapping, already restricted to its keys,
+    under the projection's narrowed type; anything else materializes and
+    takes ``apply_projection``."""
+    from geomesa_tpu_torch.index.transforms import QueryTransforms
+
     if has_aggregation(query.hints):
-        return QueryResult(ft, _empty_columns(ft), plan,
-                           run_aggregation(ft, query.hints, _materialize(columns)))
+        columns = _apply_sampling(query, _materialize(columns))
+        tf = QueryTransforms.parse(ft, query.properties)
+        if tf is not None:
+            ft, columns = tf.apply(columns)
+        return QueryResult(ft, _empty_columns(ft), plan, run_aggregation(ft, query.hints, columns))
     if (
         isinstance(columns, LazyColumns)
         and not query.sort_by
         and query.max_features is None
+        and not query.hints.get("sampling")
         and _untransformed(query)
     ):
+        if query.properties is not None:
+            ft = _narrow_ft(ft, query.properties)
         return QueryResult(ft, columns, plan)
-    return QueryResult(ft, _apply_query_options(query, _materialize(columns)), plan)
+    ft, columns = apply_projection(ft, query, _materialize(columns))
+    return QueryResult(ft, columns, plan)
 
 
 def _empty_columns(ft: FeatureType) -> Columns:
@@ -770,9 +1107,129 @@ def _dedupe_by_fid(columns: Columns) -> Columns:
     return take_rows(columns, np.sort(first_idx))
 
 
+def _degrade_agg(e: BaseException) -> None:
+    """An injected ``agg.build`` fault: the aggregation answers from the
+    uncached exact scan (the reference's ``degrade.agg_to_scan``)."""
+    robustness_metrics().inc("degrade.agg_to_scan")
+    trace.event("degrade.agg_to_scan", reason=f"{type(e).__name__}: {e}")
+
+
+def _count_only_stats(spec):
+    """The parsed stat when ``spec`` holds ``Count()`` stats alone (the
+    pyramid answers those exactly), else None: per-value sketches cannot
+    be rebuilt from per-cell scalars."""
+    from geomesa_tpu_torch.stats.parser import parse_stat
+    from geomesa_tpu_torch.stats.sketches import CountStat
+
+    try:
+        stat = parse_stat(spec)
+    except Exception:  # noqa: BLE001 - a malformed spec: run_stats raises it
+        return None
+    stats = stat.stats if hasattr(stat, "stats") else [stat]
+    if not stats or not all(isinstance(st, CountStat) for st in stats):
+        return None
+    return stat
+
+
+def _column_summary(ft, col, cnt, total, mn, mx):
+    """One column's aggregate, the same from the pyramid and the fallback:
+    integer-backed columns report integer sums, floats float sums, an
+    all-null column None bounds."""
+    a = next((a for a in ft.attributes if a.name == col), None)
+    int_backed = (
+        a is not None
+        and a.type.numpy_dtype is not None
+        and np.dtype(a.type.numpy_dtype).kind in "iub"
+    )
+    return {
+        "count": int(cnt),
+        "sum": int(total) if int_backed else float(total),
+        "min": float(mn) if cnt else None,
+        "max": float(mx) if cnt else None,
+    }
+
+
+def _aggregate_columns(ft, columns, cols) -> Dict[str, Any]:
+    """The exact aggregate of already-filtered result columns: the uncached
+    answer the pyramid's must equal."""
+    n = getattr(columns, "num_rows", None)
+    if n is None:
+        n = len(next(iter(columns.values()), []))
+    out: Dict[str, Any] = {"count": int(n), "columns": {}}
+    for c in cols:
+        v = np.asarray(columns[c])
+        nulls = columns.get(c + "__null")
+        if nulls is not None:
+            v = v[~np.asarray(nulls, dtype=bool)]
+        cnt = len(v)
+        total = v.sum() if cnt else 0
+        mn = float(v.min()) if cnt else np.inf
+        mx = float(v.max()) if cnt else -np.inf
+        out["columns"][c] = _column_summary(ft, c, cnt, total, mn, mx)
+    return out
+
+
+def _narrow_ft(ft: FeatureType, props: Sequence[str]) -> FeatureType:
+    """The result type narrowed to a projection, like the reference's
+    transform schema: consumers of ``result.ft`` see only the present
+    attributes (and no date binding to a projected-away one)."""
+    keep = set(props)
+    user_data = dict(ft.user_data)
+    if user_data.get("geomesa.index.dtg") not in keep:
+        user_data.pop("geomesa.index.dtg", None)
+    return FeatureType(ft.name, [a for a in ft.attributes if a.name in keep], user_data)
+
+
+def _apply_sampling(query: Query, columns: Columns) -> Columns:
+    """``hints["sampling"]`` = a fraction in (0, 1]: every n-th row, n =
+    round(1 / fraction); with ``hints["sample_by"]`` every n-th row of each
+    of that attribute's values (the SamplingIterator / FeatureSampler
+    analog)."""
+    frac = query.hints.get("sampling")
+    if not frac or frac >= 1.0:
+        return columns
+    n = len(next(iter(columns.values()), []))
+    if n == 0:
+        return columns
+    nth = max(1, int(round(1.0 / float(frac))))
+    by = query.hints.get("sample_by")
+    keep = np.zeros(n, dtype=bool)
+    if by and by in columns:
+        col = columns[by]
+        for v in np.unique(col):
+            keep[np.flatnonzero(col == v)[::nth]] = True
+    else:
+        keep[::nth] = True
+    return {k: v[keep] for k, v in columns.items()}
+
+
+def apply_projection(ft: FeatureType, query: Query, columns: Columns):
+    """Sampling, sort, limit and projection, derived attributes included
+    (``out=EXPR`` properties, QueryPlanner.scala:192-284) -> (the result
+    type, the projected columns)."""
+    from dataclasses import replace
+
+    from geomesa_tpu_torch.index.transforms import QueryTransforms
+
+    tf = QueryTransforms.parse(ft, query.properties)
+    if tf is None:
+        columns = _apply_query_options(query, columns)
+        if query.properties is not None:
+            keep = set(query.properties)
+            ft = _narrow_ft(ft, query.properties)
+            columns = {k: v for k, v in columns.items()
+                       if k.startswith("__") or _column_base(k) in keep}
+        return ft, columns
+    # sampling, sort and limit read the stored attributes; the projection
+    # must not run first (the expressions read their source columns)
+    columns = _apply_query_options(replace(query, properties=None), columns)
+    return tf.apply(columns)
+
+
 def _apply_query_options(query: Query, columns: Columns) -> Columns:
-    """Sort, limit and projection (the reference's _apply_query_options;
-    sampling and derived-attribute transforms are not in this slice)."""
+    """Sampling, sort, limit and projection (the reference's
+    ``_apply_query_options``)."""
+    columns = _apply_sampling(query, columns)
     n = len(next(iter(columns.values()), []))
     if query.sort_by and n:
         keys = []

@@ -54,6 +54,8 @@ _DURATION_MS = {
     "h": 3_600_000, "hour": 3_600_000, "hours": 3_600_000,
     "d": 86_400_000, "day": 86_400_000, "days": 86_400_000,
 }
+_BYTES = {"b": 1, "k": 1024, "kb": 1024, "m": 1024**2, "mb": 1024**2,
+          "g": 1024**3, "gb": 1024**3, "t": 1024**4, "tb": 1024**4}
 
 
 class SystemProperty:
@@ -103,10 +105,21 @@ class SystemProperty:
                 continue
         return None
 
-    def to_duration_s(self) -> Optional[float]:
-        """``to_duration_ms`` in seconds (None stays None)."""
+    def to_duration_s(self, default_s: Optional[float] = None) -> Optional[float]:
+        """``to_duration_ms`` in seconds; ``default_s`` when it is None."""
         ms = self.to_duration_ms()
-        return None if ms is None else ms / 1000.0
+        return default_s if ms is None else ms / 1000.0
+
+    def to_bytes(self) -> Optional[int]:
+        """'64MB' / '600KB' / '1024' -> bytes (binary units; a bare number
+        is bytes). An unparsable value falls back to the default."""
+        for v in (self.get(), self.default):
+            if v is None:
+                continue
+            m = re.match(r"^\s*(\d+(?:\.\d+)?)\s*([a-zA-Z]*)\s*$", str(v))
+            if m and (m.group(2) or "b").lower() in _BYTES:
+                return int(float(m.group(1)) * _BYTES[(m.group(2) or "b").lower()])
+        return None
 
 
 # the scan-range budget (QueryProperties.scala:18 'geomesa.scan.ranges.target';
@@ -129,3 +142,15 @@ PRIORITY_DEFAULT = SystemProperty("geomesa.priority.default", "interactive")
 BATCH_ENABLED = SystemProperty("geomesa.batch.enabled", "true")
 BATCH_WINDOW_MS = SystemProperty("geomesa.batch.window.ms", "2")
 BATCH_MAX_QUERIES = SystemProperty("geomesa.batch.max.queries", "32")
+# the aggregate pyramid cache (ops/pyramid.py): counts and per-column
+# sum/min/max/count answered from interior partial sums plus the exact
+# boundary ring, and a density-grid memo. `cell.bits` sets the finest
+# level (2^bits x 2^bits cells over the world), `levels` the coarser
+# halvings above it the polygon descent walks; entries expire `cache.ttl`
+# after their last use and the cache holds at most `cache.bytes` (LRU
+# past it); enabled=false is the escape hatch
+AGG_ENABLED = SystemProperty("geomesa.agg.enabled", "true")
+AGG_LEVELS = SystemProperty("geomesa.agg.levels", "3")
+AGG_CELL_BITS = SystemProperty("geomesa.agg.cell.bits", "8")
+AGG_CACHE_TTL = SystemProperty("geomesa.agg.cache.ttl", "10 minutes")
+AGG_CACHE_BYTES = SystemProperty("geomesa.agg.cache.bytes", "64MB")

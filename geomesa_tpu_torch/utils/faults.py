@@ -1,11 +1,14 @@
 """Deterministic fault injection at named boundaries.
 
 Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
-``fault_point``. The port places one point so far:
+``fault_point``. The port places two points so far:
 
     batch.coalesce     the cross-query coalescer's shared phase
                        (parallel/batch.py): a fault there degrades the
                        whole group to solo execution with identical answers
+    agg.build          the aggregate pyramid's build and its column grids
+                       (ops/pyramid.py): a fault there degrades the
+                       aggregation to the uncached exact scan
 
 (the reference's ``device.dispatch`` and ``device.fetch`` come with the
 port's host degrade). Kinds: ``error`` raises ``InjectedFault`` (an

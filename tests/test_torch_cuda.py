@@ -1309,3 +1309,80 @@ def test_launch_counts_exact_under_threads_on_the_card(cuda):
     torch.cuda.synchronize()
     assert kernels.LAUNCHES["exact_mask_batch_z3"] == 800
     assert kernels.LAUNCH_SHAPES == {("exact_mask_batch_z3", "q=2"): 800}
+
+
+def _pyramid_rows(n: int, seed: int, order: str):
+    """Grid coordinates over the full 31-bit range (the corners and 2^31 - 1
+    included), a mask with null-geometry rows cleared and the last 100 rows
+    as pads, in z-like sorted order or shuffled."""
+    rng = np.random.default_rng(seed)
+    xi = rng.integers(0, 2**31, n, dtype=np.int64).astype(np.int32)
+    yi = rng.integers(0, 2**31, n, dtype=np.int64).astype(np.int32)
+    xi[:4] = [0, 2**31 - 1, 0, 2**31 - 1]
+    yi[:4] = [0, 0, 2**31 - 1, 2**31 - 1]
+    mask = rng.random(n) > 0.1
+    mask[-100:] = False
+    xi[-100:] = 0
+    yi[-100:] = 0
+    if order == "sorted":
+        o = np.lexsort((xi, yi))
+        xi, yi, mask = xi[o], yi[o], mask[o]
+    return xi, yi, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12])
+@pytest.mark.parametrize("order", ["sorted", "shuffled"])
+@pytest.mark.parametrize("n", [1024, 1000, 3 * 1024 * 1024 + 77])
+def test_pyramid_counts_matches_plain_on_the_card(cuda, n, order, bits):
+    """Exact on sorted and shuffled rows, with pads and coordinates at
+    2^31 - 1, at a row count that is not a multiple of the block."""
+    xi, yi, mask = (torch.from_numpy(a).to(cuda) for a in _pyramid_rows(n, n + bits, order))
+    before = kernels.LAUNCHES["pyramid_counts"]
+    got = kernels.pyramid_counts(xi, yi, mask, bits)
+    want = agg.pyramid_counts_plain(xi, yi, mask, bits)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1 << bits, 1 << bits)
+    assert torch.equal(got, want)
+    assert int(got.sum()) == int(mask.sum())
+    assert kernels.LAUNCHES["pyramid_counts"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12])
+def test_pyramid_counts_all_masked_and_empty_on_the_card(cuda, bits):
+    xi, yi, _mask = (torch.from_numpy(a).to(cuda) for a in _pyramid_rows(4096, 5, "shuffled"))
+    none = torch.zeros(4096, dtype=torch.bool, device=cuda)
+    got = kernels.pyramid_counts(xi, yi, none, bits)
+    assert torch.equal(got, agg.pyramid_counts_plain(xi, yi, none, bits))
+    assert not got.any()
+    empty = torch.empty(0, dtype=torch.int32, device=cuda)
+    got = kernels.pyramid_counts(empty, empty, torch.empty(0, dtype=torch.bool, device=cuda),
+                                 bits)
+    assert not got.any() and tuple(got.shape) == (1 << bits, 1 << bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12])
+def test_pyramid_counts_sum_over_segments_equals_their_union_on_the_card(cuda, bits):
+    """The executor sums per-segment grids: two segments' grids add up to
+    the grid of their rows together."""
+    xi, yi, mask = (torch.from_numpy(a).to(cuda) for a in _pyramid_rows(300_001, bits, "sorted"))
+    cut = 123_457
+    parts = [kernels.pyramid_counts(xi[s], yi[s], mask[s].contiguous(), bits)
+             for s in (slice(0, cut), slice(cut, None))]
+    whole = kernels.pyramid_counts(xi, yi, mask, bits)
+    assert torch.equal(parts[0] + parts[1], whole)
+    assert torch.equal(whole, agg.pyramid_counts_plain(xi, yi, mask, bits))
+
+
+@pytest.mark.cuda
+def test_pyramid_counts_rejects_bad_arguments_on_the_card(cuda):
+    xi = torch.zeros(1024, dtype=torch.int32, device=cuda)
+    mask = torch.ones(1024, dtype=torch.bool, device=cuda)
+    for bits in (1, 13):
+        with pytest.raises(ValueError):
+            kernels.pyramid_counts(xi, xi, mask, bits)
+    with pytest.raises(TypeError):
+        kernels.pyramid_counts(xi.to(torch.int64), xi, mask, 8)
+    with pytest.raises(ValueError):
+        kernels.pyramid_counts(xi, xi, mask[:512], 8)

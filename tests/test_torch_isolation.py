@@ -3,9 +3,11 @@
 ``import geomesa_tpu_torch`` and config #1, density (z3, z2), config #3
 (xz2, xz3), config #4 (the attribute planes), counts and a stats query,
 config #5 (a kNN search and a TubeSelect), a polygon stream, host-seek
-queries and a coalesced wave of concurrent queries through it, with the
-native range walks and decode, must load neither ``jax`` nor any
-``geomesa_tpu`` module.
+queries, a coalesced wave of concurrent queries, a count and an
+``aggregate()`` through the aggregate pyramid, a transform and a sampled
+query through it, with the native range walks and decode, and the
+pyramid, transform and converter modules, must load neither ``jax`` nor
+any ``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -177,6 +179,25 @@ for i, r in enumerate(wave):
     m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
     assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
     assert r.scan_path == "device-exact/mask" and r.coalesced == 4, r.scan_path
+# the aggregate pyramid: a count and an aggregate() through it (the build's
+# kernel, its plain edition on the CPU), then a transform and a sampled query
+import geomesa_tpu_torch.index.transforms
+import geomesa_tpu_torch.ops.pyramid
+import geomesa_tpu_torch.tools.convert
+from geomesa_tpu_torch.utils import devstats
+box = "bbox(geom, -85.0, 32.0, -65.0, 44.0)"
+m = (x >= -85) & (x <= -65) & (y >= 32) & (y <= 44)
+b0 = devstats.devstats_metrics().counter("agg.cache.builds")
+assert store.count("gdelt", box) == int(m.sum())
+assert devstats.devstats_metrics().counter("agg.cache.builds") == b0 + 1
+q = store._as_query(box)
+assert store._count_pyramid("gdelt", store.get_schema("gdelt"), q, store._plan_cached("gdelt", q))
+got = store.aggregate("gdelt", box, columns=["dtg"])
+assert got["count"] == int(m.sum()) and got["columns"]["dtg"]["sum"] == int(t[m].sum()), got
+r = store.query("gdelt", Query.cql(box, properties=["geom", "d=dateToMillis($dtg)"]))
+assert sorted(r.columns["d"].tolist()) == sorted(t[m].tolist())
+r = store.query("gdelt", Query.cql(box, hints={"sampling": 0.5}))
+assert len(r) == (int(m.sum()) + 1) // 2
 from geomesa_tpu_torch import native
 st = native.status()
 assert all(v["loaded"] for v in st.values()), st
@@ -191,8 +212,9 @@ assert not bad, bad
 def test_port_runs_config1_without_jax_or_the_reference():
     """Config #1 (z3), density (z3, z2), config #3 (xz2, xz3), config #4
     (device and host-seek routes), counts and a stats query, config #5 (kNN,
-    TubeSelect), the polygon plane, host-seek queries, a coalesced wave, and
-    the native libraries they run, load no JAX."""
+    TubeSelect), the polygon plane, host-seek queries, a coalesced wave, the
+    aggregate pyramid (a count and an aggregate), a transform, a sampled
+    query, and the native libraries they run, load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

@@ -36,6 +36,8 @@ def _modules():
 MODULES = _modules()
 KERNELS = os.path.join("ops", "kernels.py")
 MESH = os.path.join("parallel", "mesh.py")
+EXECUTOR = os.path.join("parallel", "executor.py")
+PYRAMID = os.path.join("ops", "pyramid.py")
 
 
 def _functions(tree):
@@ -114,6 +116,19 @@ def test_every_launching_wrapper_counts_its_launch():
     # and nothing but a launcher counts: a count means a launch
     counting = {name for name, fn in _functions(MODULES[KERNELS]) if _called(fn, "_count")}
     assert counting == {name for name, _fn in launchers}
+
+
+def test_pyramid_counts_launch_and_grid_copies_are_counted():
+    """The pyramid build's wrapper counts its launch, the executor fetches
+    each segment's grid through the counted helper, and the pyramid's
+    device copies go up through ``upload``."""
+    kern = dict(_functions(MODULES[KERNELS]))["pyramid_counts"]
+    assert _called(kern, "_raise_on") and _called(kern, "_count")
+    build = dict(_functions(MODULES[EXECUTOR]))["TorchScanExecutor.pyramid_counts"]
+    assert _called(build, "pyramid_counts") and _called(build, "_np_local")
+    assert not (_called(build, "cpu") or _called(build, "numpy"))
+    resident = dict(_functions(MODULES[PYRAMID]))["AggPyramid.ensure_device"]
+    assert _called(resident, "upload")
 
 
 @pytest.mark.parametrize("method", ["cpu", "numpy"])

@@ -223,17 +223,18 @@ def test_device_stats_declines_over_vocab_cap(stores, monkeypatch):
 
 
 def test_device_stats_declines_on_transform(stores):
-    """A computed property: the reference's device path declines and its
-    host path aggregates the transformed values; the port has no transforms
-    yet (ROADMAP Queue 1 item 17) and raises, answering no stats of the
-    stored column in their place."""
+    """A computed property: the device path declines and the host path
+    aggregates the transformed values, in the reference and in the port."""
     host, tpu, port = stores
     props = ["doubled=multiply($val, 2)"]
     rq = RefQuery.cql(CQL, properties=props, hints={"stats": "MinMax(doubled)"})
     assert tpu.query("st", rq).plan.scan_path != "device-stats"
-    assert host.query("st", rq).aggregate["stats"].max is not None
-    with pytest.raises(NotImplementedError, match="transforms"):
-        port.query("st", Query.cql(CQL, properties=props, hints={"stats": "MinMax(doubled)"}))
+    want = host.query("st", rq).aggregate["stats"]
+    assert want.max is not None
+    got = port.query("st", Query.cql(CQL, properties=props, hints={"stats": "MinMax(doubled)"}))
+    assert got.scan_path != "device-stats"
+    assert _state(got) == _state(host.query("st", rq))
+    assert (got.aggregate["stats"].min, got.aggregate["stats"].max) == (want.min, want.max)
 
 
 def test_stats_stream_through_query_many(stores):
