@@ -183,7 +183,11 @@ Phases (any failure raises and the script exits non-zero):
      kernel phase: ``pyramid_counts`` at each (bits, segment) it launched
      against ``pyramid_counts_plain`` (``torch.bincount`` of the flat cell
      ids timed as its library call), and the device counts of the turns
-     with the cache off where no earlier phase timed their shape;
+     with the cache off where no earlier phase timed their shape; after
+     the path's launches are read, config #1's build at 8 and 12 bits split
+     into its steps on host clocks around a synchronised device
+     (``build_split``: the mask upload, kernel, grid fetch, int64 sum,
+     levels, stats and uploads), whose launches no path counts;
   5. every kernel must have launched during its path's run, at every
      shape that phase 3 timed, and every shape a path launched must be
      timed; the ranking, per kernel, sums launches x (ms - bound) over
@@ -1672,18 +1676,20 @@ def kernel_checks(cases, int32_per_s, fp32_per_s, ab=None):
 def ab_times(case, src):
     """Device ms per launch of ``case``'s kernel built from its own source
     and from ``src``, in turns (own, other, other, own), each checked
-    against the plain edition first; the other design is called through
-    ``case["ab_kernel"]`` where the case has one."""
+    against the plain edition first, with each turn's split by kernel
+    (``own_pass_ms``, ``other_pass_ms``); the other design is called
+    through ``case["ab_kernel"]`` where the case has one."""
     from geomesa_tpu_torch.ops import kernels
 
     lib = case["source"].rsplit("/", 1)[1][:-3]
     want = case["plain"]()
-    times = {"own": [], "other": []}
+    times = {"own": [], "other": [], "own_pass_ms": [], "other_pass_ms": []}
     for which in ("own", "other", "other", "own"):
         per_call = case.get("launches", lambda: None)
         if which == "own":
-            times[which].append(kernel_ms(case["kernel"], case["symbol"],
-                                          per_call=per_call())[0])
+            got = kernel_ms(case["kernel"], case["symbol"], per_call=per_call())
+            times[which].append(got[0])
+            times["own_pass_ms"].append(got[4])
             continue
         other = case.get("ab_kernel", case["kernel"])
         with kernels.using_source(lib, src):
@@ -1693,7 +1699,9 @@ def ab_times(case, src):
                 all(torch.equal(g, w) for g, w in zip(got, want))
             if not ok:
                 raise AssertionError(f"{case['name']} from {src} differs from its plain edition")
-            times[which].append(kernel_ms(other, case["symbol"], per_call=per_call())[0])
+            got = kernel_ms(other, case["symbol"], per_call=per_call())
+            times[which].append(got[0])
+            times["other_pass_ms"].append(got[4])
     log(f"{case['name']} {case['tag']} A/B vs {src}: own {times['own']} other {times['other']} ms")
     return times
 
@@ -1934,6 +1942,10 @@ def main() -> int:
     kernels.reset_launches()
     metrics_pyr = pyramid_path(store, pyr_items, data1, data4, streams6, oracle6)
     launched["pyramid"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    # after the launches are read: the split's own launches are not the path's
+    metrics_pyr["build_split"] = {f"config1_bits{bits}": build_split(store, "gdelt", bits)
+                                  for bits in sorted(PYR_BITS)}
+    log(f"pyramid build split: {json.dumps(metrics_pyr['build_split'])}")
     pyramid_s = time.perf_counter() - t_pyr
     entries += kernel_checks(
         pyramid_cases(store, pyr_items, launched["pyramid"][1],
@@ -3769,6 +3781,77 @@ def build_totals(reg):
     return reg.counter("agg.cache.builds"), totals.get("agg.build", (0, 0.0))
 
 
+def build_split(store, table_name, bits):
+    """One cold build of ``table_name``'s pyramid at ``bits``, taken step by
+    step as ``ops/pyramid.build_pyramid`` and
+    ``TorchScanExecutor.pyramid_counts`` take it, each step's ms on the
+    host's clock around a synchronised device: the ``agg_mask`` upload
+    (only the first build of a segment pays it), the kernel, the grid fetch
+    (``_np_local``), the int64 conversion and sum over segments, the level
+    reductions, ``AggPyramid``'s stats (``counts[0].sum()`` and the
+    occupied count) and ``ensure_device``'s uploads. The parts' grid equals
+    the plain edition's."""
+    from geomesa_tpu_torch.ops import aggregations, kernels
+    from geomesa_tpu_torch.ops.pyramid import agg_knobs
+    from geomesa_tpu_torch.parallel.executor import _np_local
+    from geomesa_tpu_torch.parallel.mesh import upload
+    from geomesa_tpu_torch.utils.config import properties
+
+    table = store._tables[table_name]["z2"]
+    segs = store.executor.device_index(table).segments
+    with properties(geomesa_agg_cell_bits=str(bits)):
+        levels = agg_knobs()[1]
+    out = {}
+
+    def step(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0) * 1e3
+        return got
+
+    def fresh_masks():
+        for seg in segs:
+            seg.__dict__.pop("_agg_mask", None)
+        return [seg.agg_mask(table) for seg in segs]
+
+    masks = step("agg_mask_ms", fresh_masks)
+    grids = step("kernel_ms", lambda: [
+        kernels.pyramid_counts(seg.xi, seg.yi, m, bits, starts=seg.block_bounds)
+        for seg, m in zip(segs, masks)])
+    host = step("fetch_ms", lambda: [_np_local(g) for g in grids])
+
+    def int64_sum():
+        total = np.zeros((1 << bits, 1 << bits), dtype=np.int64)
+        for g in host:
+            total += g.astype(np.int64)
+        return total
+
+    total = step("int64_sum_ms", int64_sum)
+
+    def reduce_levels():
+        counts = [np.asarray(total, dtype=np.int64)]
+        for _ in range(1, levels):
+            g = counts[-1]
+            if g.shape[0] < 2:
+                break
+            counts.append(g.reshape(g.shape[0] // 2, 2, g.shape[1] // 2, 2).sum(axis=(1, 3)))
+        return counts
+
+    counts = step("levels_ms", reduce_levels)
+    rows, occupied = step("stats_ms", lambda: (int(counts[0].sum()), int((counts[0] > 0).sum())))
+    step("ensure_device_ms", lambda: [upload(g.astype(np.int32), store.executor.device)
+                                      for g in counts])
+    want = sum(aggregations.pyramid_counts_plain(seg.xi, seg.yi, m, bits).to(torch.int64)
+               for seg, m in zip(segs, masks))
+    if not np.array_equal(_np_local(want), total):
+        raise AssertionError(f"build split {table_name} bits={bits}: the grid differs")
+    out.update(segments=len(segs), levels=len(counts), rows=rows, occupied=occupied,
+               parts_ms=sum(v for k, v in out.items() if k.endswith("_ms")))
+    return out
+
+
 def bin_oracle(fids, x, y, t) -> np.ndarray:
     """BIN records of rows (track = the fid's 4-byte little-endian signed
     blake2b, date in seconds, f32 lat and lon), ordered by their fields."""
@@ -3798,7 +3881,9 @@ def pyramid_path(store, items, data1, data4, streams6, oracle6):
     and, with the cache off, from the exact fallback; (4) config #6's stream
     (f) twice: the second pass on ``agg-cache-density``, every grid equal to
     the oracle; (5) on config #1's PROJ_BOX a transform, a sampled query
-    (without and with ``sample_by``) and a ``bin`` query against numpy."""
+    (without and with ``sample_by``) and a ``bin`` query against numpy.
+    ``main`` splits config #1's cold build at 8 and 12 bits into its steps
+    (``build_split``) once this path's launches are read."""
     from geomesa_tpu_torch.index.planner import Query
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.utils import devstats
@@ -3937,6 +4022,27 @@ def projection_checks(store, data1):
     return out
 
 
+def pyramid_counts_caller(xi, yi, mask, bits, starts):
+    """The ``pyramid_counts`` library called with the whole C interface,
+    whichever design it holds (for ``--ab``): a design that sizes no
+    scratch (one that zeroes the grid itself and reads only the first
+    seven arguments) gets none."""
+    from geomesa_tpu_torch.ops import kernels
+
+    lib = kernels._lib("pyramid_counts")
+    n, side = xi.shape[0], 1 << bits
+    words = lib.pyramid_counts_scratch(n, bits) if hasattr(lib, "pyramid_counts_scratch") else 0
+    scratch = torch.empty(max(words, 1), dtype=torch.int32, device=xi.device)
+    out = torch.empty((side, side), dtype=torch.int32, device=xi.device)
+    lo, hi = kernels.pyramid_block(starts, n)
+    err = lib.pyramid_counts(xi.data_ptr(), yi.data_ptr(), mask.data_ptr(), bits, out.data_ptr(),
+                             n, kernels._stream(xi.device), lo, hi,
+                             scratch.data_ptr() if words else None, words)
+    if err:
+        raise RuntimeError(f"pyramid_counts launch failed: CUDA error {err}")
+    return out
+
+
 def pyramid_case(table, seg, bits, path):
     """One ``pyramid_counts`` shape: a z2 segment's grid coordinates and
     ``agg_mask`` at ``bits``. Bound: bytes, xi, yi and the mask read once
@@ -3947,7 +4053,7 @@ def pyramid_case(table, seg, bits, path):
     from geomesa_tpu_torch.ops import aggregations, kernels
 
     n = seg.n_padded
-    xi, yi, mask = seg.xi, seg.yi, seg.agg_mask(table)
+    xi, yi, mask, starts = seg.xi, seg.yi, seg.agg_mask(table), seg.block_bounds
     shift = 31 - bits
     flat = ((yi >> shift).to(torch.int64) << bits) | (xi >> shift).to(torch.int64)
     cells = 1 << (2 * bits)
@@ -3956,7 +4062,8 @@ def pyramid_case(table, seg, bits, path):
         name="pyramid_counts", path=path, tag=f"bits={bits} n={n}", symbol="pyramid_counts_",
         replaces="geomesa_tpu/ops/aggregations.py:388",
         source="geomesa_tpu_torch/csrc/pyramid_counts.cu",
-        kernel=lambda: (kernels.pyramid_counts(xi, yi, mask, bits),),
+        kernel=lambda: (kernels.pyramid_counts(xi, yi, mask, bits, starts=starts),),
+        ab_kernel=lambda: (pyramid_counts_caller(xi, yi, mask, bits, starts),),
         plain=lambda: (aggregations.pyramid_counts_plain(xi, yi, mask, bits),),
         bytes=9 * n + 4 * cells,
         ops=0,

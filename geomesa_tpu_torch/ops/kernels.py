@@ -33,7 +33,12 @@ answers that):
     attribute editions;
   * ``pyramid_counts`` (``csrc/pyramid_counts.cu``) replaces the XLA
     ``make_pyramid_counts`` of ``geomesa_tpu/ops/aggregations.py`` (the
-    aggregate pyramid's per-cell row counts of a z2 segment);
+    aggregate pyramid's per-cell row counts of a z2 segment): a grid that
+    L2 holds (up to 10 bits) is zeroed and each warp's runs of a cell added
+    with one atomic; a larger one is stored once, cell by cell, by tiles of
+    the segment's longest key-sorted block that each own a z range, with
+    shared runs, other blocks and rows out of order added by a later atomic
+    pass;
   * the coalescer's stacked full-table mask batches run on those kernels:
     ``exact_mask_batch`` (``exact_bitmap``'s bits) replaces
     ``_exact_mask_batch_fn``, and ``dual_mask_batch`` (``xz_dual_bitmap``'s
@@ -294,7 +299,7 @@ _ARGTYPES = {
     "knn_topk": [_P, _P, _P, _F, _F, _LL, _LL, _P, _P, _P, ctypes.POINTER(ctypes.c_longlong)],
     "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
                          _I, _P, _P, _I],
-    "pyramid_counts": [_P, _P, _P, _I, _P, _LL, _P],
+    "pyramid_counts": [_P, _P, _P, _I, _P, _LL, _P, _LL, _LL, _P, _LL],
 }
 
 
@@ -311,6 +316,10 @@ def _load(name: str, path: str) -> ctypes.CDLL:
     if name == "knn_topk":
         lib.knn_topk_scratch.restype = ctypes.c_longlong
         lib.knn_topk_scratch.argtypes = [_LL, _LL]
+    # an earlier design of pyramid_counts (an --ab source) sizes no scratch
+    if name == "pyramid_counts" and hasattr(lib, "pyramid_counts_scratch"):
+        lib.pyramid_counts_scratch.restype = ctypes.c_longlong
+        lib.pyramid_counts_scratch.argtypes = [_LL, _I]
     _LIBS[name] = lib
     return lib
 
@@ -1126,15 +1135,35 @@ def dual_mask_batch(kind: str, *args, **kwargs):
 PYRAMID_MIN_BITS, PYRAMID_MAX_BITS = 2, 12
 
 
-def pyramid_counts(xi, yi, mask, bits: int) -> torch.Tensor:
+def pyramid_block(starts, n: int) -> Tuple[int, int]:
+    """The rows [lo, hi) the ``pyramid_counts`` kernel takes as its one
+    key-sorted block: the longest block of ``starts`` (the row offsets of
+    a segment's key-sorted blocks, then the end of the last one; the pad
+    rows past it belong to no block), or all ``n`` rows without them."""
+    if starts is None:
+        return 0, n
+    bounds = [int(s) for s in starts]
+    if len(bounds) < 2 or bounds[0] < 0 or bounds[-1] > n or \
+            any(b < a for a, b in zip(bounds, bounds[1:])):
+        raise ValueError(f"pyramid_counts: block bounds {bounds} not ascending in [0, {n}]")
+    i = max(range(len(bounds) - 1), key=lambda j: bounds[j + 1] - bounds[j])
+    return bounds[i], bounds[i + 1]
+
+
+def pyramid_counts(xi, yi, mask, bits: int, starts=None) -> torch.Tensor:
     """One z2 segment's pyramid count grid -> int32 [2^bits, 2^bits] on the
     rows' device (the reference's ``make_pyramid_counts``): the rows of
     ``mask`` (bool[n], valid and finite geometry) counted by cell ``(yi >>
     s) << bits | (xi >> s)``, ``s = 31 - bits``; ``xi, yi`` int32[n] are
-    the z2 grid coordinates, ``bits`` in [2, 12]."""
+    the z2 grid coordinates, ``bits`` in [2, 12]. ``starts`` (see
+    :func:`pyramid_block`) names the segment's key-sorted blocks, whose
+    order the kernel uses; without it the kernel takes all ``n`` rows as
+    one key-sorted block. The grid is exact in any order: rows out of
+    order only cost the kernel's fallbacks their time."""
     if not PYRAMID_MIN_BITS <= bits <= PYRAMID_MAX_BITS:
         raise ValueError(f"pyramid_counts: bits ({bits}) not in "
                          f"[{PYRAMID_MIN_BITS}, {PYRAMID_MAX_BITS}]")
+    lo, hi = pyramid_block(starts, xi.shape[0])
     if xi.device.type == "cpu":
         return pyramid_counts_plain(xi, yi, mask, bits)
     if xi.device.type != "cuda":
@@ -1143,12 +1172,15 @@ def pyramid_counts(xi, yi, mask, bits: int) -> torch.Tensor:
     _check(xi, "xi", torch.int32, dev, (n,))
     _check(yi, "yi", torch.int32, dev, (n,))
     _check(mask, "mask", torch.bool, dev, (n,))
-    fn = _lib("pyramid_counts").pyramid_counts
+    lib = _lib("pyramid_counts")
     side = 1 << bits
     with torch.cuda.device(dev):
-        out = torch.empty((side, side), dtype=torch.int32, device=dev)  # zeroed by the launcher
-        err = fn(xi.data_ptr(), yi.data_ptr(), mask.data_ptr(), bits, out.data_ptr(), n,
-                 _stream(dev))
+        words = lib.pyramid_counts_scratch(n, bits)
+        scratch = torch.empty(words, dtype=torch.int32, device=dev)
+        out = torch.empty((side, side), dtype=torch.int32, device=dev)  # every cell written
+        err = lib.pyramid_counts(xi.data_ptr(), yi.data_ptr(), mask.data_ptr(), bits,
+                                 out.data_ptr(), n, _stream(dev), lo, hi, scratch.data_ptr(),
+                                 words)
     _raise_on(err, "pyramid_counts")
     _count("pyramid_counts", f"bits={bits} n={n}")
     return out

@@ -1077,6 +1077,12 @@ class DeviceSegment:
         batch = _DualMaskBatch(hit, dec, self.n)
         return [_PendingDualMaskHits(batch, i) for i in range(len(descs))]
 
+    @property
+    def block_bounds(self) -> List[int]:
+        """Row offsets of the segment's key-sorted blocks, then the end of
+        the last one (the pad rows past it belong to no block)."""
+        return self.block_starts + [self.n]
+
     def agg_mask(self, table: IndexTable) -> torch.Tensor:
         """The rows the aggregate pyramid's build counts (the reference's
         ``agg_mask``): ``valid`` and a finite geometry (a null geometry's
@@ -3036,8 +3042,10 @@ class TorchScanExecutor:
         """[2^bits, 2^bits] int64 per-cell row counts of a z2 table for the
         aggregate pyramid (``ops/pyramid.py``; the reference's
         ``pyramid_counts``): one ``pyramid_counts`` launch per segment over
-        its resident grid coordinates (``xi, yi``) and ``agg_mask``, each
-        grid fetched and the grids summed in int64 on the host. None (the
+        its resident grid coordinates (``xi, yi``) and ``agg_mask``, with
+        its block bounds (the kernel counts the key-sorted runs of the
+        longest block), each grid fetched and the grids summed in int64 on
+        the host. None (the
         host build answers) for any other table or a table with no rows."""
         if table.index.name != "z2":
             return None
@@ -3050,7 +3058,8 @@ class TorchScanExecutor:
         with record_function("geomesa.dispatch"):
             for seg in dev.segments:
                 deadline.check("device.dispatch")
-                grids.append(kernels.pyramid_counts(seg.xi, seg.yi, seg.agg_mask(table), bits))
+                grids.append(kernels.pyramid_counts(seg.xi, seg.yi, seg.agg_mask(table), bits,
+                                                    starts=seg.block_bounds))
         for grid in grids:
             total += _np_local(grid).astype(np.int64)
         return total

@@ -1,21 +1,27 @@
-"""Times the kNN and polygon kernels at the shapes their paths launch, on one GPU.
+"""Times the kNN, polygon and pyramid kernels at the shapes their paths launch, on one GPU.
 
-A kernel round's quick loop: builds config #5's table and the polygon
-table at full size (``chip_smoke.config5`` / ``config_poly``), then runs
-``chip_smoke.kernel_checks`` on ``knn_topk`` at k = 17, 26 and 1125 and on
-``poly_dual_bitmap`` at z2 q=24 E=16 and z3 q=8 E=32: each launch held
+A kernel round's quick loop: builds config #5's table, the polygon table
+and config #1's table at full size (``chip_smoke.config5`` /
+``config_poly`` / ``config1``), then runs ``chip_smoke.kernel_checks`` on
+``knn_topk`` at k = 17, 26 and 1125, on ``poly_dual_bitmap`` at z2 q=24
+E=16 and z3 q=8 E=32 and on ``pyramid_counts`` at 8 and 12 cell bits over
+config #1's z2 segment and the polygon table's: each launch held
 bitwise against its plain edition, its device time split by kernel
 (``pass_ms``) beside its bound, read in two profiler windows and the
 larger kept (``ms_windows``; an entry whose windows differ by more than
 5%, or fall below the bound, is flagged), and, for each DIR holding another design
 of a kernel's source (``DIR/knn_topk.cu``, ``DIR/poly_dual_bitmap.cu``,
-same C interface), timed in turns with the committed design. With a DIR
+``DIR/pyramid_counts.cu``, same C interface), timed in turns with the
+committed design, each turn's split by kernel beside it. With a DIR
 holding another ``knn_topk.cu`` it also times config #5's searches end to
 end in turns under each design (``knn_search``: (n), bench_knn's query at
 k = 10, and (o)'s 16 points at k = 1000; ms a search on the host's clock,
-SEARCH_ROUNDS rounds). It checks no launch count: ``chip_smoke.py`` does.
+SEARCH_ROUNDS rounds); with another ``pyramid_counts.cu``, the cold
+pyramid build of config #1's table and the polygon table at 8 and 12
+bits (``build_pyramid``'s ``agg.build`` ms, BUILD_ROUNDS rounds). It
+checks no launch count: ``chip_smoke.py`` does.
 
-    python3 kernel_ab.py [--ab DIR [DIR ...]] [--rows N] [--out DIR]
+    python3 kernel_ab.py [--ab DIR [DIR ...]] [--rows N] [--gdelt N] [--out DIR]
 
 Prints one line per (kernel, shape); with ``--out DIR`` it also writes
 the entries to ``DIR/kernel_ab.json``.
@@ -26,7 +32,7 @@ import json
 import os
 import sys
 import time
-from contextlib import nullcontext
+from contextlib import contextmanager, nullcontext
 
 import torch
 
@@ -34,6 +40,11 @@ import chip_smoke as cs
 
 SHAPES = {("knn_topk", "k=17"), ("knn_topk", "k=26"), ("knn_topk", "k=1125"),
           ("poly_dual_bitmap_z2", "q=24 E=16"), ("poly_dual_bitmap_z3", "q=8 E=32")}
+# the pyramid phase's builds: cell bits over config #1's z2 segment and the
+# polygon table's (their shape tags follow from the tables' padded rows)
+PYRAMID_BITS = (8, 12)
+PYRAMID_TABLES = ("gdelt", cs.POLY_TABLE)
+BUILD_ROUNDS = 3
 
 
 def search_ms(store, points, k: int) -> float:
@@ -67,10 +78,68 @@ def search_ab(store, src: str) -> dict:
     return out
 
 
+def pyramid_cases(store):
+    """``pyramid_counts`` at PYRAMID_BITS over each table's z2 segment."""
+    cases = []
+    for name in PYRAMID_TABLES:
+        table = store._tables[name]["z2"]
+        for seg in store.executor.device_index(table).segments:
+            cases += [cs.pyramid_case(table, seg, bits, "pyramid") for bits in PYRAMID_BITS]
+    return cases
+
+
+@contextmanager
+def other_pyramid_design(src: str):
+    """Inside the block, the pyramid build launches the ``pyramid_counts``
+    built from ``src`` through ``chip_smoke.pyramid_counts_caller`` (which
+    takes a design of any scratch), uncounted."""
+    from geomesa_tpu_torch.ops import kernels
+
+    own = kernels.pyramid_counts
+    kernels.pyramid_counts = lambda xi, yi, mask, bits, starts=None: cs.pyramid_counts_caller(
+        xi, yi, mask, bits, starts)
+    try:
+        with kernels.using_source("pyramid_counts", src):
+            yield
+    finally:
+        kernels.pyramid_counts = own
+
+
+def build_ab(store, src: str) -> dict:
+    """The cold pyramid build (``build_pyramid``, its ``agg.build`` timer)
+    of each PYRAMID_TABLES table at each PYRAMID_BITS under the committed
+    ``pyramid_counts`` and the one built from ``src``, in turns (own,
+    other, other, own; BUILD_ROUNDS times), each after one warm-up build."""
+    from geomesa_tpu_torch.ops.pyramid import build_pyramid
+    from geomesa_tpu_torch.utils.config import properties
+    from geomesa_tpu_torch.utils.devstats import devstats_metrics
+
+    reg = devstats_metrics()
+
+    def build_ms(name, bits):
+        with properties(geomesa_agg_cell_bits=str(bits)):
+            _c, _g, _t, before = reg.snapshot()
+            build_pyramid(store._tables[name]["z2"], store.get_schema(name), store.executor)
+            _c, _g, _t, after = reg.snapshot()
+        return (after["agg.build"][1] - before.get("agg.build", (0, 0.0))[1]) * 1e3
+
+    keys = [(name, bits) for name in PYRAMID_TABLES for bits in PYRAMID_BITS]
+    out = {f"{name}_bits{bits}": {"own": [], "other": []} for name, bits in keys}
+    for which in ("own", "other", "other", "own") * BUILD_ROUNDS:
+        with other_pyramid_design(src) if which == "other" else nullcontext():
+            for name, bits in keys:
+                build_ms(name, bits)
+                out[f"{name}_bits{bits}"][which].append(build_ms(name, bits))
+    cs.log(f"cold builds A/B vs {src}: {json.dumps(out)}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ab", nargs="+", default=[], metavar="DIR")
-    ap.add_argument("--rows", type=int, default=cs.KNN_ROWS, help="points of each table")
+    ap.add_argument("--rows", type=int, default=cs.KNN_ROWS,
+                    help="points of config #5's and the polygon table")
+    ap.add_argument("--gdelt", type=int, default=20_000_000, help="config #1 points")
     ap.add_argument("--out", help="directory for kernel_ab.json (none written without it)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -83,26 +152,29 @@ def main() -> int:
 
     cs.log(f"card: {cs.card_line()}")
     kernels.build_all()
-    for name in ("knn_topk", "poly_dual_bitmap"):
+    for name in ("knn_topk", "poly_dual_bitmap", "pyramid_counts"):
         for line in kernels.ptxas_report()[name].splitlines():
             if "registers" in line or "spill" in line:
                 cs.log(f"ptxas {name}: {line.strip()}")
     ab = {}
     for d in args.ab:
-        for name in ("knn_topk", "poly_dual_bitmap"):
+        for name in ("knn_topk", "poly_dual_bitmap", "pyramid_counts"):
             if os.path.exists(os.path.join(d, name + ".cu")):
                 ab.setdefault(name, []).append(os.path.join(d, name + ".cu"))
     store = TorchDataStore()
     _data, _track, _oracle, plans_m, _setup = cs.config5(store, args.rows)
     _streams, plans_p, _oracle_p, _setup_p = cs.config_poly(store, args.rows, plans_m)
+    cs.config1(store, args.gdelt)
     entries = cs.kernel_checks(
-        cs.knn_cases(store, SHAPES) + cs.poly_cases(store, plans_p, SHAPES),
+        cs.knn_cases(store, SHAPES) + cs.poly_cases(store, plans_p, SHAPES)
+        + pyramid_cases(store),
         cs.lane_ops_per_s(cs.INT32_LANES_PER_SM), cs.lane_ops_per_s(cs.FP32_LANES_PER_SM), ab)
     searches = {src: search_ab(store, src) for src in ab.get("knn_topk", [])}
+    builds = {src: build_ab(store, src) for src in ab.get("pyramid_counts", [])}
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "kernel_ab.json"), "w") as f:
-            json.dump({"kernels": entries, "searches": searches}, f, indent=1)
+            json.dump({"kernels": entries, "searches": searches, "builds": builds}, f, indent=1)
     for e in entries:
         print(e["name"], e["shape_tag"], f"{e['ms']:.4f} ms, bound {e['bound_ms']:.4f}",
               f"windows {e['ms_windows']}" + (" FLAGGED" if e["flagged"] else ""),
@@ -111,6 +183,8 @@ def main() -> int:
               {k: e[k] for k in ("live_pairs", "straddle_rows", "edge_rows") if k in e})
     for src, times in searches.items():
         print("searches", src, json.dumps(times))
+    for src, times in builds.items():
+        print("cold builds", src, json.dumps(times))
     print(f"{sum(e['flagged'] for e in entries)} of {len(entries)} entries flagged")
     print(cs.card_line())
     return 0

@@ -1375,6 +1375,54 @@ def test_pyramid_counts_sum_over_segments_equals_their_union_on_the_card(cuda, b
     assert torch.equal(whole, agg.pyramid_counts_plain(xi, yi, mask, bits))
 
 
+_LAYOUTS_ON_CARD = {}
+
+
+def _layout_on(cuda, name):
+    """``pyramid_layouts.pyramid_layout(name)`` on the card, made once a module."""
+    from pyramid_layouts import pyramid_layout
+
+    if name not in _LAYOUTS_ON_CARD:
+        xi, yi, mask, starts = pyramid_layout(name)
+        _LAYOUTS_ON_CARD[name] = tuple(torch.from_numpy(a).to(cuda) for a in (xi, yi, mask)) + (
+            starts,)
+    return _LAYOUTS_ON_CARD[name]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12])
+@pytest.mark.parametrize("layout", ["hot_cell", "long_run", "three_blocks", "shuffled",
+                                    "pads_nulls", "gap", "n1", "n31", "n4097"])
+def test_pyramid_counts_matches_plain_on_run_layouts_on_the_card(cuda, layout, bits):
+    """Bitwise against the plain edition on the layouts that break a run
+    design (``tests/pyramid_layouts.py``; the reference's answers in
+    ``tests/test_torch_pyramid.py``), with the layout's block bounds and
+    with none (the kernel then takes all n rows as one key-sorted block,
+    and its fallbacks keep the grid exact where they are not), one launch
+    each."""
+    xi, yi, mask, starts = _layout_on(cuda, layout)
+    want = agg.pyramid_counts_plain(xi, yi, mask, bits)
+    for bounds in (starts, None):
+        before = kernels.LAUNCHES["pyramid_counts"]
+        got = kernels.pyramid_counts(xi, yi, mask, bits, starts=bounds)
+        assert torch.equal(got, want), (layout, bits, bounds)
+        assert kernels.LAUNCHES["pyramid_counts"] == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12])
+@pytest.mark.parametrize("offset", [1, 4, 16])
+def test_pyramid_counts_on_unaligned_slices_on_the_card(cuda, offset, bits):
+    """A slice whose data pointers are not 16-byte aligned (offset 1: no
+    column is; 4: the mask is not) takes the row-by-row loader; offset 16
+    keeps the vector loads. Each is exact, its bounds shifted with it."""
+    xi, yi, mask, starts = _layout_on(cuda, "pads_nulls")
+    xs, ys, ms = xi[offset:], yi[offset:], mask[offset:]
+    bounds = [0] + [b - offset for b in starts[1:]]
+    got = kernels.pyramid_counts(xs, ys, ms, bits, starts=bounds)
+    assert torch.equal(got, agg.pyramid_counts_plain(xs, ys, ms, bits))
+
+
 @pytest.mark.cuda
 def test_pyramid_counts_rejects_bad_arguments_on_the_card(cuda):
     xi = torch.zeros(1024, dtype=torch.int32, device=cuda)
@@ -1386,3 +1434,5 @@ def test_pyramid_counts_rejects_bad_arguments_on_the_card(cuda):
         kernels.pyramid_counts(xi.to(torch.int64), xi, mask, 8)
     with pytest.raises(ValueError):
         kernels.pyramid_counts(xi, xi, mask[:512], 8)
+    with pytest.raises(ValueError):
+        kernels.pyramid_counts(xi, xi, mask, 8, starts=[0, 2048])

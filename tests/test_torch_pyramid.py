@@ -12,7 +12,11 @@ TTL, the byte cap, ``agg.build`` faults and deadlines, concurrent callers).
 Kernel level: ``pyramid_counts_plain`` (the plain edition of the
 ``pyramid_counts`` kernel) against the reference's ``make_pyramid_counts``
 and both builds' ``host_counts``, bit for bit, on sorted and shuffled rows,
-null geometries and bits 2, 8 and 12.
+null geometries and bits 2, 8 and 12; and on the layouts that break a run
+design (``tests/pyramid_layouts.py``: a hot cell of over 4M rows, a run
+over many tiles, three sorted blocks, shuffled rows, pads and a masked row
+inside a run, a long empty gap, 1, 31 and 4,097 rows), which the card
+tests hold the kernel to.
 
 Left out (their modules are not ported): the sharded-store cases
 (``ShardedDataStore``), the shard breaker case, the web ``/stats/aggregate``
@@ -42,6 +46,7 @@ from geomesa_tpu.utils.config import properties as ref_properties
 
 from geomesa_tpu_torch.geom.base import Point
 from geomesa_tpu_torch.index.planner import Query
+from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops import pyramid as port_pyr
 from geomesa_tpu_torch.ops.aggregations import pyramid_counts_plain
 from geomesa_tpu_torch.parallel.executor import TorchScanExecutor
@@ -50,6 +55,7 @@ from geomesa_tpu_torch.store.datastore import TorchDataStore
 from geomesa_tpu_torch.utils import deadline, devstats, faults
 from geomesa_tpu_torch.utils.audit import QueryTimeout, robustness_metrics
 from geomesa_tpu_torch.utils.config import properties
+from pyramid_layouts import PYRAMID_LAYOUTS, pyramid_layout
 
 SPEC = "val:Integer,w:Double,dtg:Date,*geom:Point:srid=4326"
 T0 = 1483228800000
@@ -164,6 +170,38 @@ def test_pyramid_counts_plain_matches_make_pyramid_counts(order, bits):
     shift = 31 - bits
     flat = ((yi[mask] >> shift).astype(np.int64) << bits) | (xi[mask] >> shift)
     assert np.array_equal(got.numpy().ravel(), np.bincount(flat, minlength=4**bits))
+
+
+@pytest.fixture(scope="module")
+def layouts():
+    return {}
+
+
+@pytest.mark.parametrize("bits", [2, 8, 12])
+@pytest.mark.parametrize("layout", sorted(PYRAMID_LAYOUTS))
+def test_pyramid_counts_plain_matches_make_pyramid_counts_on_run_layouts(layouts, layout, bits):
+    """The layouts the card tests run ``pyramid_counts`` on: the plain
+    edition (through the wrapper, with the layout's block bounds) equals
+    the reference's ``make_pyramid_counts`` exactly."""
+    if layout not in layouts:
+        layouts[layout] = pyramid_layout(layout)
+    xi, yi, mask, starts = layouts[layout]
+    assert len(xi) == PYRAMID_LAYOUTS[layout] and starts[-1] <= len(xi)
+    want = np.asarray(make_pyramid_counts(_mesh(), bits)(xi, yi, mask))
+    got = kernels.pyramid_counts(torch.from_numpy(xi), torch.from_numpy(yi),
+                                 torch.from_numpy(mask), bits, starts=starts)
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1 << bits, 1 << bits)
+    assert np.array_equal(got.numpy(), want)
+    assert int(want.sum()) == int(mask.sum())
+
+
+def test_pyramid_block_takes_the_longest_block():
+    assert kernels.pyramid_block(None, 10) == (0, 10)
+    assert kernels.pyramid_block([0, 3, 9, 10], 12) == (3, 9)
+    assert kernels.pyramid_block([0, 4, 8], 8) == (0, 4)
+    for bad in ([5], [0, 11], [-1, 4], [0, 6, 5]):
+        with pytest.raises(ValueError):
+            kernels.pyramid_block(bad, 10)
 
 
 # -- answer parity ------------------------------------------------------------
