@@ -63,7 +63,7 @@ against its plain PyTorch edition:
     editions;
   * concurrent serving (the reference's scripts/bench_gate.py
     ``run_concurrent_stream`` and ``_receipt_probe``): 8 barrier-started
-    client threads of 4 ``store.query`` calls each on four streams, config
+    client threads of 2 ``store.query`` calls each on four streams, config
     #1's jittered ``bbox AND DURING``, config #3's (a) boxes, the polygon
     plane's (l) stars and config #4's (j), once with the cross-query
     coalescer on (the defaults) and once with ``geomesa.batch.enabled=false``:
@@ -76,7 +76,22 @@ against its plain PyTorch edition:
     stream (l)'s 24 star counts with the cache on and off in turns,
     ``store.aggregate`` of config #4's box over goldstein, stream (f) again
     from the density memo, and a transform, sampled and ``bin`` query: the
-    ``pyramid_counts`` kernel.
+    ``pyramid_counts`` kernel;
+  * the write lifecycle and labels (the reference's ``delete_features``,
+    ``compact``, age-off and visibility): 1% of config #1's fids drawn by
+    seed plus every row of one stream box deleted, then its 20 queries,
+    their counts (the device count, and the rebuilt pyramid at 8 and 12
+    bits) and the (h) heatmaps; ``geomesa.feature.expiry`` over about 30%
+    of its rows, then ``age_off()``; 1% of config #3's ways deleted,
+    streams (a)-(e) before and after ``compact``; an 8M-row GDELT-style
+    table with a ``__vis__`` column of eight label expressions under three
+    authorization sets: ``exact_bitmap_z3``, ``exact_count_z3``,
+    ``density_grid_z3``, ``xz_dual_bitmap_xz2`` / ``_xz3`` and
+    ``pyramid_counts`` on holed masks;
+  * the faults: config #1's stream and stream (a) under a seeded
+    ``device.dispatch`` / ``device.fetch`` schedule until the device
+    circuit breaker opens, the open circuit, the probe that closes it, and
+    one failed device kNN.
 
 The aggregate cache (``geomesa.agg.enabled``) is off for every phase but
 the pyramid phase: with it on, the density streams' repeated queries would
@@ -92,7 +107,8 @@ default.
 Run from the repository root with one CUDA device:
 
     python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--attr N] [--knn N]
-                          [--poly N] [--seed S] [--out DIR] [--ab DIR [DIR ...]]
+                          [--poly N] [--labels N] [--seed S] [--out DIR]
+                          [--ab DIR [DIR ...]]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
@@ -188,10 +204,10 @@ Phases (any failure raises and the script exits non-zero):
      into its steps on host clocks around a synchronised device
      (``build_split``: the mask upload, kernel, grid fetch, int64 sum,
      levels, stats and uploads), whose launches no path counts;
-  5. every kernel must have launched during its path's run, at every
-     shape that phase 3 timed, and every shape a path launched must be
-     timed; the ranking, per kernel, sums launches x (ms - bound) over
-     its shapes;
+  5. (after phase 8) every kernel must have launched during its path's
+     run, at every shape that phase 3 timed, and every shape a path
+     launched must be timed; the ranking, per kernel, sums launches x
+     (ms - bound) over its shapes;
   6. the host-seek stream: config #1's 20 queries under
      ``GEOMESA_SEEK=auto`` (one sync query timed, the stream pipelined with
      fids unread and read), every query checked against brute force, its
@@ -215,7 +231,25 @@ Phases (any failure raises and the script exits non-zero):
      config #5's (n) and of its 16 points of (o) at k = 1000
      (``geomesa.dispatch``, ``fetch``, ``certify``, ``block_rows``,
      ``rerank``) and of the polygon stream (l), with the ring rows per
-     query of (l) and (m).
+     query of (l) and (m);
+  8. the lifecycle and fault phases, each a path of its own (their
+     launches read with the counts reset just before). Their shapes are
+     timed as entries of their own, tagged with the table's state: `` holes``
+     (rows tombstoned: config #1's table after the deletes, the ways
+     before the compaction), `` compacted`` (the ways rebuilt by
+     ``compact``, 1% fewer rows) and `` labelled`` (the labelled table).
+     ``lifecycle`` (config #1's deletes), ``ageoff`` (each answer the
+     rows at or after one cut inside the clock's drift over the phase; its
+     shapes are the lifecycle's holed ones), ``compaction`` (holed dual
+     planes), ``compaction_mask`` (holed masks) and ``compacted``,
+     ``labels`` (every answer equal to the numpy oracle of box AND label,
+     the count and the density push-down declined), then ``faults``,
+     ``faults_ways`` and ``faults_knn`` (every answer equal to the
+     fault-free one, one ``degrade.device_to_host`` a fired fault, no
+     launch while the breaker is open, the probe's receipt with the
+     rebuilt mirror's host -> device bytes, the kNN's identical list on
+     ``host-bbox``). The run fails if a degrade, a breaker opening or a
+     kNN trip appears before the fault phase.
 
 Prints a ``{"native": {...}}`` line (each host library's load status and
 its host ms per call beside its plain edition's), a metrics line (with
@@ -254,6 +288,8 @@ FP32_LANES_PER_SM = 128
 
 # config #1 stream length (bench.py's 20 queries) and residual stream length
 REPS = 20
+# the script's start, for the elapsed seconds of each log line
+_T0 = time.perf_counter()
 RESIDUAL_REPS = 8
 
 
@@ -1006,7 +1042,7 @@ def poly_oracle(x, y, t, rings, timed: bool) -> np.ndarray:
 
 
 def log(msg: str) -> None:
-    sys.stderr.write(f"[chip_smoke] {msg}\n")
+    sys.stderr.write(f"[chip_smoke +{time.perf_counter() - _T0:.1f}s] {msg}\n")
     sys.stderr.flush()
 
 
@@ -1114,9 +1150,22 @@ def max_abs_err(got, want) -> int:
 
 
 def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
-    got = set(res.fids.tolist())
-    want = {f"{prefix}{i}" for i in want_rows}
-    if got != want:
+    """The result's fids are exactly ``prefix<row>`` of ``want_rows``, each
+    once: compared as row numbers read from the code points
+    (``fid_rows``) where the fids are fixed-width unicode with that
+    one-character prefix, else as sets of strings."""
+    fids = np.asarray(res.fids)
+    want = np.unique(np.asarray(want_rows, dtype=np.int64))
+    if fids.dtype.kind == "U" and len(prefix) == 1 and len(fids):
+        cps = np.ascontiguousarray(fids).view(np.uint32).reshape(len(fids), -1)
+        if (cps[:, 0] == ord(prefix)).all():
+            got = fid_rows(fids)
+            if len(got) != len(want) or not np.array_equal(got, want):
+                raise AssertionError(f"{what}: fid-set parity failed ({len(got)} device vs "
+                                     f"{len(want)} brute force)")
+            return
+    got = set(fids.tolist())
+    if len(got) != len(fids) or got != {f"{prefix}{i}" for i in want}:
         raise AssertionError(
             f"{what}: fid-set parity failed ({len(got)} device vs {len(want)} brute force)"
         )
@@ -1558,8 +1607,10 @@ def density_cases(store, streams):
         if during:
             plan = store._plan_cached(tname, Query.cql(cql))
             wins = torch.as_tensor(pad_windows(ex._ms_windows(table.ft, plan)), device=dev)
+        # the temporal-valid column with windows, as density_scan passes it
+        valid = seg.tvalid if during and seg.tvalid is not None else seg.valid
         args = (seg.xf, seg.yf, seg.bins if during else None, seg.t_ms if during else None,
-                seg.valid, boxes, wins, env, width, height, cap)
+                valid, boxes, wins, env, width, height, cap)
         n = seg.n_padded
         n_valid, live, wide, k, w, ids = density_work(args)
         cnt = int(kernels.density_grid_plain(*args)[2][0])
@@ -1808,6 +1859,7 @@ def main() -> int:
     ap.add_argument("--attr", type=int, default=ATTR_ROWS, help="config #4 points")
     ap.add_argument("--knn", type=int, default=KNN_ROWS, help="config #5 points")
     ap.add_argument("--poly", type=int, default=POLY_ROWS, help="polygon-plane points")
+    ap.add_argument("--labels", type=int, default=LABEL_ROWS, help="labelled-table points")
     ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
     ap.add_argument("--ab", nargs="+", default=[], metavar="DIR",
@@ -1955,13 +2007,6 @@ def main() -> int:
     attr_nulls = attr_nulls_check(store)
     log(f"main-path launches: { {p: s for p, (_n, s) in launched.items()} }")
 
-    # -- phase 5: each path went through its kernels, at every timed shape ----
-    ranking = check_launches(entries, launched, set(kernels.LAUNCHES))
-    log(f"launches x (ms - bound) per smoke run: {json.dumps(ranking)}")
-    flagged = [e for e in entries if e["flagged"]]
-    log(f"{len(flagged)} of {len(entries)} kernel entries flagged by their profiler windows: "
-        f"{[(e['name'], e['shape_tag'], e['ms_windows']) for e in flagged]}")
-
     # -- phase 6: the host-seek route and the native host libraries -------------
     seek = seek_stream(store, data1, streams1)
     seek["crossover"] = seek_crossover(store, data1)
@@ -2008,6 +2053,46 @@ def main() -> int:
         rows = host_tested_rows(store, {name: plans_p[name]}, table_name)[name]
         metrics_p[f"stream_{name}"]["host_tested_rows_per_query"] = rows
 
+    # -- phase 8: deletes, age-off, compaction, labels, then the faults -------
+    t_life = time.perf_counter()
+    ints = (int32_per_s, fp32_per_s)
+    kernels.reset_launches()
+    metrics_life, alive1 = lifecycle_path(store, data1, streams1, streams6)
+    launched["lifecycle"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, HOLES))
+    entries += kernel_checks(lifecycle_cases(store, plans1, streams1, streams6,
+                                             launched["lifecycle"][1]), *ints)
+    kernels.reset_launches()
+    metrics_life["ageoff"], alive1 = ageoff_path(store, data1, streams1, alive1)
+    # config #1's table, holed further: timed by the lifecycle's holed entries
+    launched["ageoff"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, HOLES))
+    metrics_life["compaction"], compact_launched = compaction_path(
+        store, ways3, streams3, oracle3, entries, ints)
+    ways_dead = metrics_life["compaction"].pop("dead")
+    launched.update(compact_launched)
+    kernels.reset_launches()
+    metrics_life["labels"] = labels_path(store, args.labels, streams1)
+    launched["labels"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, LABELLED))
+    entries += kernel_checks(labels_cases(store, streams1, launched["labels"][1]), *ints)
+    lifecycle_s = time.perf_counter() - t_life
+    # no phase but the fault phase may degrade, open the breaker or trip the kNN
+    before = robustness_counters()
+    if any(before.values()) or getattr(store.executor, "_device_tripped", False):
+        raise AssertionError(f"degrades outside the fault phase: {before}")
+    t_fault = time.perf_counter()
+    metrics_faults, fault_launched = fault_path(store, data1, streams1, alive1, streams3, oracle3,
+                                                ways_dead)
+    launched.update(fault_launched)
+    entries += kernel_checks(knn_host_cases(store, launched["faults_knn"][1]), *ints)
+    fault_s = time.perf_counter() - t_fault
+    log(f"lifecycle phases {lifecycle_s:.1f} s, fault phase {fault_s:.1f} s")
+
+    # -- phase 5: each path went through its kernels, at every timed shape ----
+    ranking = check_launches(entries, launched, set(kernels.LAUNCHES))
+    log(f"launches x (ms - bound) per smoke run: {json.dumps(ranking)}")
+    flagged = [e for e in entries if e["flagged"]]
+    log(f"{len(flagged)} of {len(entries)} kernel entries flagged by their profiler windows: "
+        f"{[(e['name'], e['shape_tag'], e['ms_windows']) for e in flagged]}")
+
     metrics = {
         "rows": args.rows,
         "card": card,
@@ -2035,6 +2120,10 @@ def main() -> int:
         "concurrent_phase_s": concurrent_s,
         "pyramid": metrics_pyr,
         "pyramid_phase_s": pyramid_s,
+        "lifecycle": metrics_life,
+        "lifecycle_phases_s": lifecycle_s,
+        "faults": metrics_faults,
+        "fault_phase_s": fault_s,
         "flagged_kernel_entries": [f"{e['name']} {e['shape_tag']}" for e in entries
                                    if e["flagged"]],
         "script_s": time.perf_counter() - t_start,
@@ -2188,6 +2277,7 @@ def config1_path(store, data, streams):
     for i, (r, (a, b)) in enumerate(zip(results, resid)):
         expect_fids(r, np.flatnonzero(in_box(x, y, a) | in_box(x, y, b)), f"residual z2 query {i}")
     torch.cuda.synchronize()
+    log(f"config #1 path: {pipe_s * 1e3:.2f} ms/query pipelined, {sync_s * 1e3:.2f} ms sync")
     return {
         "features_per_s": len(x) / pipe_s,
         "query_ms_sync": sync_s * 1e3,
@@ -3483,7 +3573,9 @@ def push_down_cases(store, items, launched, timed):
 # K barrier-started client threads of M store.query calls each (the
 # reference's scripts/bench_gate.py run_concurrent_stream shape)
 CONC_THREADS = 8
-CONC_ROUNDS = 4
+# 2 calls a thread (4 until the lifecycle and fault phases came: the cut
+# keeps the script inside its limit)
+CONC_ROUNDS = 2
 # stream -> (table, the route of a query that rode a stacked sweep)
 CONC_STREAMS = {
     "config1": ("gdelt", "device-exact/mask"),
@@ -4221,13 +4313,14 @@ CROSSOVER = (
     ((-180.0, -51.5, 105.0, 90.0), (3, 25)),
     ((-180.0, -51.5, 105.0, 90.0), (2, 31)),
 )
-CROSSOVER_REPS = 2
+# one query a case (2 until the lifecycle and fault phases came)
+CROSSOVER_REPS = 1
 
 
 def seek_crossover(store, data):
     """The host seek against the device route where the chooser's cutoff
-    (``SEEK_FRAC``) decides: per CROSSOVER case, 2 queries (its window
-    shifted by 0 and 1 hour) under ``GEOMESA_SEEK=1`` and ``0``, each
+    (``SEEK_FRAC``) decides: per CROSSOVER case, ``CROSSOVER_REPS`` queries
+    (its window shifted by 0, 1, ... hours) under ``GEOMESA_SEEK=1`` and ``0``, each
     pipelined (a warm query_many, then timed with fids unread and read),
     both routes' answers held against brute force; the share of the table
     in the plans' ranges and the route ``auto`` takes."""
@@ -4389,6 +4482,579 @@ def native_timings(store, data, plans1, plans3, walks):
     }
     log(f"native host libraries: {json.dumps(out)}")
     return out
+
+
+# -- the write lifecycle, the labels and the faults ----------------------------
+
+# shape-tag suffixes of the kernel shapes the lifecycle and fault phases
+# launch, timed as entries of their own: holed masks (rows tombstoned
+# inside the key-sorted runs), the ways table after ``compact`` and the
+# labelled table
+HOLES = " holes"
+COMPACTED = " compacted"
+LABELLED = " labelled"
+# the host kNN's bbox queries on config #5's table (the fault phase's trip)
+ON_KNN = " knn"
+# config #3's streams whose plans ``xz_cases`` reads
+XZ_CASE_STREAMS = ("xz3_or_during", "xz2_or", "xz3_bbox_during", "xz2_bbox", "xz2_triangle")
+# the share of config #1's fids the lifecycle phase deletes (drawn by seed),
+# besides every row of one of the stream's boxes
+DELETE_FRAC = 0.01
+DELETE_BOX_INDEX = 3
+# the share of config #1's rows the age-off window expires
+EXPIRE_FRAC = 0.3
+# the labelled table: config #1's generator at LABEL_ROWS rows, a __vis__
+# column of eight label expressions, queried under three authorization sets
+LABEL_TABLE = "labelled"
+LABEL_ROWS = 8_000_000
+LABELS = ("", "USA", "USA&SECRET", "USA|GBR", "(USA|GBR)&SECRET", "GBR", "SECRET",
+          "GBR&SECRET")
+LABEL_AUTHS = {"none": [], "usa": ["USA"], "cleared": ["USA", "GBR", "SECRET"]}
+# the fault phase's schedule and the breaker it runs under (its cooldown set
+# through the knob's override tier; the phase moves the breaker's clock)
+FAULT_SCHEDULE = "device.dispatch:error=0.05,device.fetch:error=0.1"
+FAULT_SEED = 23
+BREAKER_FAILURES = 3
+BREAKER_COOLDOWN_S = 2.0
+# queries of config #1's stream and of stream (a) asked while the circuit is
+# open (each answered by a host table scan at full size)
+OPEN_QUERIES = (5, 6)
+# the robustness counters no phase but the fault phase may move
+FAULT_COUNTERS = ("degrade.device_to_host", "degrade.mirror_rebuilds", "degrade.agg_to_scan",
+                  "degrade.coalesce_to_solo", "breaker.device.opens")
+
+
+def label_readable(label: str, auths) -> bool:
+    """The numpy oracle's label test, independent of the port's parser: an
+    expression of the eight labels is Python boolean arithmetic over
+    membership."""
+    if not label:
+        return True
+    expr = label.replace("&", " and ").replace("|", " or ")
+    return bool(eval(expr, {}, {name: name in auths for name in ("USA", "GBR", "SECRET")}))
+
+
+def robustness_counters() -> dict:
+    from geomesa_tpu_torch.utils.audit import robustness_metrics
+
+    reg = robustness_metrics()
+    return {k: reg.counter(k) for k in FAULT_COUNTERS}
+
+
+def relabel(shapes, suffix) -> dict:
+    """A path's launch shapes with ``suffix`` on every tag."""
+    return {(name, tag + suffix): c for (name, tag), c in shapes.items()}
+
+
+def tag_cases(cases, suffix):
+    """Kernel cases re-tagged with ``suffix`` (the table state of their
+    path)."""
+    for c in cases:
+        c["tag"] += suffix
+        c["shape"] += suffix
+    return cases
+
+
+def take_launches(acc, suffix="", plain=()):
+    """Fold the launches since the last reset into ``acc`` (a path's
+    (counts, shapes)), each tag with ``suffix`` but those of the kernels
+    named in ``plain``, and reset the counts."""
+    from geomesa_tpu_torch.ops import kernels
+
+    counts, shapes = acc
+    for name, c in kernels.LAUNCHES.items():
+        counts[name] = counts.get(name, 0) + c
+    for (name, tag), c in kernels.LAUNCH_SHAPES.items():
+        key = (name, tag if name in plain else tag + suffix)
+        shapes[key] = shapes.get(key, 0) + c
+    kernels.reset_launches()
+
+
+def xz_path_cases(store, streams3, shapes, suffix, path):
+    """``xz_cases`` (config #3's kernels on the ways' segments as they
+    stand) at the shapes a later path launched, tagged with ``suffix``;
+    fails on a launched shape with no case."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    plans = {k: [store._plan_cached("ways", Query.cql(c)) for c, _ in streams3[k]]
+             for k in XZ_CASE_STREAMS}
+    cases = {}
+    for c in xz_cases(store, plans):
+        key = (c["name"], c["tag"] + suffix)
+        if shapes.get(key) and key not in cases:
+            c["path"] = path
+            cases[key] = c
+    missing = [k for k, v in shapes.items() if v and k not in cases]
+    if missing:
+        raise AssertionError(f"{path} path launched {missing}: no case")
+    return tag_cases(list(cases.values()), suffix)
+
+
+def host_ms_once(fn):
+    """(ms on the host clock of one call of ``fn`` around a synchronised
+    device, its value)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, got
+
+
+def lifecycle_path(store, data1, streams1, streams6):
+    """Deletes on config #1's table: 1% of the fids drawn by seed plus every
+    row of one of the stream's boxes; then the 20 ``bbox AND DURING``
+    queries through ``query_many`` (and the first alone), ``count`` of the
+    same boxes from the device count (with DURING) and from the rebuilt
+    pyramid at 8 and 12 cell bits (bbox only), and the (h) heatmaps, each
+    answer equal to brute force over the surviving rows. Returns (metrics,
+    the alive mask)."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.utils.config import properties
+
+    x, y, t = data1
+    n = len(x)
+    boxes, cqls = streams1["config1"]
+    rng = np.random.default_rng(91)
+    dead = np.zeros(n, dtype=bool)
+    dead[rng.choice(n, int(n * DELETE_FRAC), replace=False)] = True
+    dead |= in_box(x, y, boxes[DELETE_BOX_INDEX])
+    alive = ~dead
+    doomed = np.char.add("f", np.flatnonzero(dead).astype(str))
+    out = {"deleted": int(dead.sum())}
+    ex = store.executor
+    out["delete_features_ms"], _ = host_ms_once(
+        lambda: store.delete_features("gdelt", doomed.tolist()))
+    for name in ("z3", "z2"):
+        out[f"apply_tombstones_{name}_ms"], _ = host_ms_once(
+            lambda nm=name: ex.device_index(store._tables["gdelt"][nm]))
+    log(f"lifecycle: {out['deleted']} deletes in {out['delete_features_ms']:.1f} ms, "
+        f"tombstones on the z3 mirror {out['apply_tombstones_z3_ms']:.1f} ms, "
+        f"on the z2 mirror {out['apply_tombstones_z2_ms']:.1f} ms")
+    res = store.query("gdelt", QUERY)
+    expect_fids(res, np.flatnonzero(in_box(x, y, BOX) & (t > T_LO) & (t < T_HI) & alive),
+                "lifecycle lone query")
+    queries = [Query.cql(c, properties=[]) for c in cqls]
+    t0 = time.perf_counter()
+    results = store.query_many("gdelt", queries)
+    out["query_ms_pipelined"] = (time.perf_counter() - t0) * 1e3 / len(queries)
+    for i, (r, b) in enumerate(zip(results, boxes)):
+        m = in_box(x, y, b) & (t > T_LO) & (t < T_HI) & alive
+        expect_fids(r, np.flatnonzero(m), f"lifecycle query {i}")
+        if r.scan_path != "device-exact/bitmap":
+            raise AssertionError(f"lifecycle query {i} took {r.scan_path}")
+    if len(results[DELETE_BOX_INDEX]):
+        raise AssertionError("the deleted box still answers rows")
+    for i, (cql, b) in enumerate(zip(cqls, boxes)):
+        want = int((in_box(x, y, b) & (t > T_LO) & (t < T_HI) & alive).sum())
+        got = store._count_device("gdelt", Query.cql(cql))
+        if got != want or store.count("gdelt", cql) != want:
+            raise AssertionError(f"lifecycle device count {i}: {got} vs {want}")
+    out["pyramid"] = {}
+    for bits in (8, 12):
+        routes = []
+        with properties(geomesa_agg_enabled="true", geomesa_agg_cell_bits=str(bits)):
+            for i, b in enumerate(boxes):
+                cql = bbox_cql(b)
+                want = int((in_box(x, y, b) & alive).sum())
+                got = store.count("gdelt", cql)
+                if got != want:
+                    raise AssertionError(f"lifecycle pyramid count {i} at {bits} bits: "
+                                         f"{got} vs {want}")
+                routes.append(pyramid_route(store, "gdelt", cql)[0])
+        if "pyramid" not in routes:
+            raise AssertionError(f"the rebuilt pyramid at {bits} bits answered no count")
+        out["pyramid"][f"bits{bits}"] = {"pyramid_counts": routes.count("pyramid")}
+    tname, items, _route = streams6["h_gdelt_64x32"]
+    for i, (cql, box, during, (w, h)) in enumerate(items):
+        res = store.query(tname, Query.cql(cql, hints=density_hint(box, w, h)))
+        want = density_oracle(x[alive], y[alive], t[alive], box, during, w, h)
+        if res.scan_path != "device-density" or not np.array_equal(
+                res.aggregate["density"], want):
+            raise AssertionError(f"lifecycle heatmap {i}: {res.scan_path}")
+    torch.cuda.synchronize()
+    return out, alive
+
+
+def lifecycle_cases(store, plans1, streams1, streams6, launched):
+    """The holed kernel cases of the lifecycle path, one per shape it
+    launched: ``exact_bitmap_z3`` with ``tvalid`` holed (q = 1 and the
+    stream's 20), ``exact_count_z3``, ``density_grid_z3`` (stream (h)) and
+    ``pyramid_counts`` at 8 and 12 bits with ``agg_mask`` holed inside its
+    key-sorted runs."""
+    ex = store.executor
+    tables = store._tables["gdelt"]
+    seg3 = ex.device_index(tables["z3"]).segments[0]
+    seg2 = ex.device_index(tables["z2"]).segments[0]
+    descs = [ex._exact_descriptor(tables["z3"], p) for p in plans1["config1"]]
+    ebox = _up(store, np.stack([d[0] for d in descs]))
+    ewin = _up(store, np.stack([d[1] for d in descs]))
+    cases = []
+    for name, tag in sorted(launched):
+        base = tag[:-len(HOLES)]
+        if name == "exact_bitmap_z3":
+            q = int(base.split("=")[1])
+            cases.append(exact_case(name, seg3, ebox[:q], ewin[:q], "lifecycle"))
+        elif name == "exact_count_z3":
+            cases.append(count_case(name, seg3, ebox[0], ewin[0], "lifecycle"))
+        elif name == "exact_count_z2":
+            # a bbox count the pyramid declined (the boundary dominated)
+            table, plan = _plan_of(store, "gdelt", bbox_cql(streams1["config1"][0][0]))
+            box, _win = ex._exact_descriptor(table, plan)
+            cases.append(count_case(name, seg2, _up(store, box), None, "lifecycle"))
+        elif name == "density_grid_z3":
+            cases += density_cases(store, {"lifecycle": streams6["h_gdelt_64x32"]})
+        elif name == "pyramid_counts":
+            bits = int(base.split()[0].split("=")[1])
+            cases.append(pyramid_case(tables["z2"], seg2, bits, "lifecycle"))
+        else:
+            raise AssertionError(f"lifecycle path launched {name} {tag}: no holed case")
+    return tag_cases(cases, HOLES)
+
+
+def ageoff_path(store, data1, streams1, alive):
+    """Age-off on config #1's type: ``geomesa.feature.expiry`` in its user
+    data expires about 30% of the rows; the 20 queries and their counts
+    (through the query: the device count declines) mask them at scan;
+    then ``age_off()`` tombstones them, the window goes, and the device
+    count answers again. A row whose date falls inside the cut's drift
+    over the phase (the store reads the clock at each scan) may go either
+    way; each answer must be the rows at or after one cut inside that
+    drift. Returns (metrics, the alive mask after the sweep)."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    x, y, t = data1
+    boxes, cqls = streams1["config1"]
+    ft = store.get_schema("gdelt")
+    cut = int(np.quantile(t, EXPIRE_FRAC))
+    expiry_ms = int(time.time() * 1000) - cut
+    ft.user_data["geomesa.feature.expiry"] = f"{expiry_ms} ms"
+    out = {"expiry_ms": expiry_ms}
+
+    def drift():
+        return int(time.time() * 1000) - expiry_ms
+
+    def check(rows_got, m_base, lo, hi, what):
+        """``rows_got`` = the rows of ``m_base`` at or after one cut in [lo, hi]."""
+        sure = m_base & (t >= hi)
+        maybe = m_base & (t >= lo) & (t < hi)
+        got = np.zeros(len(t), dtype=bool)
+        got[rows_got] = True
+        if (got & ~(sure | maybe)).any() or (sure & ~got).any():
+            raise AssertionError(f"{what}: rows outside the age-off window")
+        kept, dropped = t[got & maybe], t[maybe & ~got]
+        if len(kept) and len(dropped) and dropped.max() >= kept.min():
+            raise AssertionError(f"{what}: no one cut explains the answer")
+
+    try:
+        if store._shortcuts_ok("gdelt", ft):
+            raise AssertionError("an aging type must decline the count shortcuts")
+        lo = drift()
+        results = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
+        counts = [store.count("gdelt", c) for c in cqls[:4]]
+        hi = drift()
+        for i, (r, b) in enumerate(zip(results, boxes)):
+            m = in_box(x, y, b) & (t > T_LO) & (t < T_HI) & alive
+            fids = np.asarray(r.fids, dtype=np.str_)
+            got = fid_rows(fids) if len(fids) else np.empty(0, dtype=np.int64)
+            check(got, m, lo, hi, f"age-off query {i}")
+        for i, (c, b) in enumerate(zip(counts, boxes)):
+            m = in_box(x, y, b) & (t > T_LO) & (t < T_HI) & alive
+            if not int((m & (t >= hi)).sum()) <= c <= int((m & (t >= lo)).sum()):
+                raise AssertionError(f"age-off count {i}: {c}")
+        lo = drift()
+        out["age_off_ms"], aged = host_ms_once(lambda: store.age_off("gdelt"))
+        hi = drift()
+    finally:
+        del ft.user_data["geomesa.feature.expiry"]
+    tomb = store._tables["gdelt"]["z3"].tombstones
+    gone = np.zeros(len(t), dtype=bool)
+    gone[fid_rows(np.asarray(list(tomb), dtype=np.str_))] = True
+    swept = gone & alive
+    if int(swept.sum()) != aged:
+        raise AssertionError(f"age_off returned {aged}, tombstoned {int(swept.sum())}")
+    check(np.flatnonzero(alive & ~swept), alive, lo, hi, "the age_off sweep")
+    alive = alive & ~swept
+    out["aged_off"] = aged
+    for i, (cql, b) in enumerate(zip(cqls, boxes)):
+        want = int((in_box(x, y, b) & (t > T_LO) & (t < T_HI) & alive).sum())
+        got = store._count_device("gdelt", Query.cql(cql))
+        if got != want:
+            raise AssertionError(f"device count after age_off {i}: {got} vs {want}")
+    log(f"age-off: {aged} rows swept in {out['age_off_ms']:.1f} ms")
+    torch.cuda.synchronize()
+    return out, alive
+
+
+def compaction_path(store, ways, streams3, oracle3, entries_out, ints):
+    """Compaction on config #3's ways: 1% tombstoned by seed; streams (a)-(c)
+    on the holed dual planes (the ``compaction`` path), (d) and (e) on the
+    holed masks (``compaction_mask``), then ``compact`` and every stream
+    again on the rebuilt mirror (``compacted``), each query equal to
+    ``oracle_rows`` less the deleted ways. Each path's shapes are timed
+    as entries of their own, tagged `` holes`` or `` compacted``, into
+    ``entries_out``. Returns (metrics, {path: launches})."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import kernels
+
+    n = len(ways["kind"])
+    dead = np.zeros(n, dtype=bool)
+    dead[np.random.default_rng(92).choice(n, n // 100, replace=False)] = True
+    store.delete_features("ways", np.char.add("w", np.flatnonzero(dead).astype(str)).tolist())
+    out = {"deleted": int(dead.sum())}
+    launched = {}
+
+    def run(names, what):
+        for name in names:
+            items = streams3[name]
+            results = store.query_many("ways", [Query.cql(c, properties=[]) for c, _ in items])
+            for i, r in enumerate(results):
+                rows = oracle3[name][i]
+                expect_fids(r, rows[~dead[rows]], f"{what} {name} query {i}", prefix="w")
+
+    kernels.reset_launches()
+    run(("xz2_bbox", "xz3_bbox_during", "xz2_triangle"), "holed")
+    launched["compaction"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, HOLES))
+    kernels.reset_launches()
+    run(("xz2_or", "xz3_or_during"), "holed")
+    launched["compaction_mask"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, HOLES))
+    entries_out += kernel_checks(
+        xz_path_cases(store, streams3, launched["compaction"][1], HOLES, "compaction")
+        + xz_path_cases(store, streams3, launched["compaction_mask"][1], HOLES,
+                        "compaction_mask"), *ints)
+    out["compact_ms"], _ = host_ms_once(lambda: store.compact("ways"))
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    run(("xz2_bbox",), "compacted")
+    out["first_stream_after_compact_ms"] = (time.perf_counter() - t0) * 1e3
+    run(("xz3_bbox_during", "xz2_triangle", "xz2_or", "xz3_or_during"), "compacted")
+    launched["compacted"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, COMPACTED))
+    for table in store._tables["ways"].values():
+        if table.tombstones or len(table.blocks) != 1:
+            raise AssertionError("compaction left tombstones or several blocks")
+    entries_out += kernel_checks(
+        xz_path_cases(store, streams3, launched["compacted"][1], COMPACTED, "compacted"), *ints)
+    out["dead"] = dead
+    log(f"compaction: {out['deleted']} ways deleted, compact {out['compact_ms']:.0f} ms, "
+        f"the first stream after it (the mirror rebuild) "
+        f"{out['first_stream_after_compact_ms']:.0f} ms")
+    torch.cuda.synchronize()
+    return out, launched
+
+
+def labels_path(store, n, streams1):
+    """A GDELT-style table of ``n`` rows ingested through
+    ``writer.write_columns`` with a ``__vis__`` column of eight label
+    expressions, config #1's 20 queries under three authorization sets
+    (fids equal to the numpy oracle of box AND label), and the declines:
+    no device count (the count equals the oracle's), no density
+    push-down (the grid equals the oracle's)."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    x, y, t = synthesize(n, seed=31)
+    labels = np.random.default_rng(32).integers(0, len(LABELS), n)
+    vis = np.asarray(LABELS, dtype=object)[labels]
+    ft = parse_spec(LABEL_TABLE, "dtg:Date,*geom:Point:srid=4326")
+    store.create_schema(ft)
+    fids = np.char.add("f", np.arange(n).astype(f"<U{len(str(n - 1))}"))
+    t0 = time.perf_counter()
+    store.writer(LABEL_TABLE).write_columns(
+        {"__fid__": fids, "geom__x": x, "geom__y": y, "dtg": t, "__vis__": vis})
+    out = {"rows": n, "ingest_s": time.perf_counter() - t0}
+    boxes, cqls = streams1["config1"]
+    queries = [Query.cql(c, properties=[]) for c in cqls]
+    try:
+        for name, auths in LABEL_AUTHS.items():
+            store.auths = auths
+            readable = np.array([label_readable(lb, auths) for lb in LABELS])[labels]
+            t0 = time.perf_counter()
+            results = store.query_many(LABEL_TABLE, queries)
+            out[f"{name}_query_ms_pipelined"] = (time.perf_counter() - t0) * 1e3 / len(queries)
+            for i, (r, b) in enumerate(zip(results, boxes)):
+                m = in_box(x, y, b) & (t > T_LO) & (t < T_HI) & readable
+                expect_fids(r, np.flatnonzero(m), f"labels {name} query {i}")
+                if not r.scan_path.startswith("device"):
+                    raise AssertionError(f"labels {name} query {i} took {r.scan_path}")
+            table, plan = _plan_of(store, LABEL_TABLE, cqls[0])
+            if store.executor.count_scan(table, plan) is not None:
+                raise AssertionError("a labelled table must decline the device count")
+            want = int((in_box(x, y, boxes[0]) & (t > T_LO) & (t < T_HI) & readable).sum())
+            if store.count(LABEL_TABLE, cqls[0]) != want:
+                raise AssertionError(f"labels {name}: count")
+            res = store.query(LABEL_TABLE, Query.cql(cqls[0], hints=density_hint(boxes[0], 64,
+                                                                                 32)))
+            grid = density_oracle(x[readable], y[readable], t[readable], boxes[0], True, 64, 32)
+            if res.scan_path == "device-density" or not np.array_equal(
+                    res.aggregate["density"], grid):
+                raise AssertionError(f"labels {name}: density {res.scan_path}")
+            out[f"{name}_readable"] = int(readable.sum())
+            log(f"labels {name}: {out[f'{name}_query_ms_pipelined']:.2f} ms/query pipelined, "
+                f"{int(readable.sum())} readable rows")
+    finally:
+        store.auths = None
+    torch.cuda.synchronize()
+    return out
+
+
+def labels_cases(store, streams1, shapes):
+    """``exact_bitmap_z3`` on the labelled table's z3 segment at each q the
+    labels path launched it (config #1's queries' descriptors), tagged
+    `` labelled``; fails on any other launched shape."""
+    ex = store.executor
+    cqls = streams1["config1"][1]
+    seg = ex.device_index(store._tables[LABEL_TABLE]["z3"]).segments[0]
+    descs = [ex._exact_descriptor(*_plan_of(store, LABEL_TABLE, c)) for c in cqls]
+    ebox = _up(store, np.stack([d[0] for d in descs]))
+    ewin = _up(store, np.stack([d[1] for d in descs]))
+    cases = []
+    for name, tag in sorted(k for k, v in shapes.items() if v):
+        if name != "exact_bitmap_z3":
+            raise AssertionError(f"labels path launched {name} {tag}: no case")
+        q = int(tag[:-len(LABELLED)].split("=")[1])
+        cases.append(exact_case(name, seg, ebox[:q], ewin[:q], "labels"))
+    return tag_cases(cases, LABELLED)
+
+
+def knn_host_cases(store, shapes):
+    """``exact_bitmap`` on config #5's segment at the host kNN's first
+    window around ``KNN_QUERY`` (q = 1), for the shapes the fault phase's
+    tripped kNN launched, tagged `` knn`` (its ``knn_topk`` launches are
+    config #5's shapes, timed there); fails on any other launched shape."""
+    from geomesa_tpu_torch.process.geodesy import degrees_boxes
+    from geomesa_tpu_torch.process.knn import _bbox_cql
+
+    ex = store.executor
+    cql = _bbox_cql(store.get_schema(KNN_TABLE), degrees_boxes(*KNN_QUERY, 1000.0), None)
+    table, plan = _plan_of(store, KNN_TABLE, cql)
+    box, win = ex._exact_descriptor(table, plan)
+    seg = ex.device_index(table).segments[0]
+    cases = []
+    for name, tag in sorted(k for k, v in shapes.items() if v):
+        if name == "knn_topk":
+            continue
+        if (name, tag) != (f"exact_bitmap_{table.index.name}", "q=1" + ON_KNN):
+            raise AssertionError(f"the kNN trip launched {name} {tag}: no case")
+        cases.append(exact_case(name, seg, _up(store, box[None]),
+                                None if win is None else _up(store, win[None]), "faults_knn"))
+    return tag_cases(cases, ON_KNN)
+
+
+def fault_path(store, data1, streams1, alive, streams3, oracle3, ways_dead):
+    """Config #1's stream and stream (a) under the seeded
+    ``FAULT_SCHEDULE`` until the breaker opens: every answer equal to the
+    fault-free one and each fired fault one ``degrade.device_to_host``;
+    while open (the first ``OPEN_QUERIES`` of each stream), no kernel
+    launches and every route reads ``host-table-breaker``; after the cooldown the probe query closes the
+    circuit and rebuilds the mirror (its receipt's host -> device bytes).
+    Last, one injected device-kNN failure answers the identical list on
+    ``host-bbox`` and trips the session's device-kNN flag. Returns
+    (metrics, {path: launches}): ``faults`` (config #1's holed table),
+    ``faults_ways`` (the compacted ways) and ``faults_knn`` (``knn_topk``
+    and the host kNN's bbox queries, tagged `` knn``)."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.process import knn_search, last_knn_path
+    from geomesa_tpu_torch.utils import faults
+    from geomesa_tpu_torch.utils.audit import robustness_metrics
+    from geomesa_tpu_torch.utils.breaker import CircuitBreaker
+    from geomesa_tpu_torch.utils.config import properties
+
+    x, y, t = data1
+    boxes, cqls = streams1["config1"]
+    ex = store.executor
+    reg = robustness_metrics()
+    # the breaker's clock moves only when the phase moves it: the open
+    # circuit's checks (host scans at full size) may take longer than the
+    # cooldown, which must not elapse before the probe is due
+    clock = [0.0]
+    with properties(geomesa_breaker_failures=str(BREAKER_FAILURES),
+                    geomesa_breaker_cooldown=f"{BREAKER_COOLDOWN_S} seconds"):
+        ex.breaker = CircuitBreaker("device", clock=lambda: clock[0])
+    if ex.breaker.cooldown_s != BREAKER_COOLDOWN_S:
+        raise AssertionError("the cooldown knob did not reach the breaker")
+    q1 = [Query.cql(c, properties=[]) for c in cqls]
+    qa = [Query.cql(c, properties=[]) for c, _ in streams3["xz2_bbox"]]
+    want1 = [np.flatnonzero(in_box(x, y, b) & (t > T_LO) & (t < T_HI) & alive) for b in boxes]
+    want_a = [rows[~ways_dead[rows]] for rows in oracle3["xz2_bbox"]]
+
+    def check(res1, res_a, what):
+        for i, r in enumerate(res1):
+            expect_fids(r, want1[i], f"{what} config #1 query {i}")
+        for i, r in enumerate(res_a):
+            expect_fids(r, want_a[i], f"{what} stream (a) query {i}", prefix="w")
+
+    def fired():
+        return sum(v for k, v in reg.report().items()
+                   if k.startswith(("fault.device.dispatch.", "fault.device.fetch.")))
+
+    f0, d0 = fired(), reg.counter("degrade.device_to_host")
+    out = {"schedule": FAULT_SCHEDULE, "seed": FAULT_SEED}
+    launched = {p: ({}, {}) for p in ("faults", "faults_ways", "faults_knn")}
+    t_phase = time.perf_counter()
+    rounds = 0
+    routes = {}
+    kernels.reset_launches()
+    with faults.inject(FAULT_SCHEDULE, seed=FAULT_SEED):
+        while ex.breaker.state != "open":
+            rounds += 1
+            if rounds > 50:
+                raise AssertionError("the breaker never opened under the schedule")
+            res1 = store.query_many("gdelt", q1)
+            take_launches(launched["faults"], HOLES)
+            res_a = store.query_many("ways", qa)
+            take_launches(launched["faults_ways"], COMPACTED)
+            check(res1, res_a, f"faults round {rounds}")
+            for r in res1 + res_a:
+                routes[r.scan_path] = routes.get(r.scan_path, 0) + 1
+    out.update(rounds=rounds, fired=fired() - f0,
+               degrades=reg.counter("degrade.device_to_host") - d0, routes=routes)
+    if out["fired"] == 0 or out["degrades"] != out["fired"]:
+        raise AssertionError(f"faults: {out['fired']} fired, {out['degrades']} degrades")
+    out["rounds_s"] = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    res1 = store.query_many("gdelt", q1[:OPEN_QUERIES[0]])
+    res_a = store.query_many("ways", qa[:OPEN_QUERIES[1]])
+    out["open_circuit_s"] = time.perf_counter() - t0
+    check(res1, res_a, "open circuit")
+    if {r.scan_path for r in res1 + res_a} != {"host-table-breaker"}:
+        raise AssertionError(f"open circuit routes: {sorted({r.scan_path for r in res1 + res_a})}")
+    if any(kernels.LAUNCHES.values()):
+        raise AssertionError("a kernel launched while the circuit was open")
+    if ex.breaker.state != "open":
+        raise AssertionError(f"the circuit left open early: {ex.breaker.state}")
+    clock[0] += BREAKER_COOLDOWN_S
+    rebuilt = id(store._tables["gdelt"]["z3"]) not in ex._cache
+    probe = store.query("gdelt", QUERY)
+    take_launches(launched["faults"], HOLES)
+    expect_fids(probe, want1[0], "the probe query")
+    if ex.breaker.state != "closed" or not probe.scan_path.startswith("device"):
+        raise AssertionError(f"the probe left the breaker {ex.breaker.state} "
+                             f"({probe.scan_path})")
+    out["probe_receipt"] = probe.receipt
+    out["probe_rebuilt_mirror"] = rebuilt
+    # a rebuilt mirror uploads at least the z3 keys and the exact columns
+    if probe.receipt["h2d_bytes"] < (8 * len(x) if rebuilt else 1):
+        raise AssertionError(f"the probe query moved {probe.receipt['h2d_bytes']} B up")
+    log(f"faults: {out['fired']} fired over {rounds} rounds ({out['rounds_s']:.1f} s), "
+        f"{out['degrades']} degrades, routes {routes}; the open circuit "
+        f"{out['open_circuit_s']:.1f} s; the probe moved {probe.receipt['h2d_bytes']} B up")
+    ex.breaker = CircuitBreaker("device")
+    # last: the device-kNN trip is sticky for the session
+    got = knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K)
+    if last_knn_path() != "device-topk":
+        raise AssertionError(f"the fault-free kNN took {last_knn_path()}")
+    d0 = reg.counter("degrade.device_to_host")
+    with faults.inject("device.fetch:error@0x1", seed=FAULT_SEED):
+        tripped = knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K)
+    if tripped != got or last_knn_path() != "host-bbox" or not getattr(ex, "_device_tripped", False):
+        raise AssertionError(f"the kNN trip: {last_knn_path()}, same list {tripped == got}")
+    if reg.counter("degrade.device_to_host") != d0 + 1:
+        raise AssertionError("the kNN failure did not degrade once")
+    out["knn_trip"] = {"path": last_knn_path(), "same_list": True}
+    take_launches(launched["faults_knn"], ON_KNN, plain=("knn_topk",))
+    torch.cuda.synchronize()
+    return out, launched
+
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -207,6 +207,31 @@ _BUILD_LOCKS: Dict[str, threading.Lock] = {}
 _LOCKS_LOCK = threading.Lock()
 
 
+class KernelError(RuntimeError):
+    """A fault of the program in a hand kernel, not of the link: it failed
+    to build, its wrapper was called with tensors it does not take, or its
+    launch failed. The executor degrades nothing on it, strikes no breaker
+    and the query raises."""
+
+
+class KernelBuildError(KernelError):
+    """A kernel library failed to build or load (``nvcc`` failed or is
+    missing, or the library does not load)."""
+
+
+class KernelLaunchError(KernelError):
+    """A kernel's C entry point returned a CUDA error."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A wrapper was given tensors or sizes its kernel does not take (a
+    ``ValueError`` too, as the checks raised before)."""
+
+
+class KernelDtypeError(KernelArgumentError, TypeError):
+    """A wrapper was given a tensor of the wrong dtype."""
+
+
 def reset_launches() -> None:
     with _COUNT_LOCK:
         for k in LAUNCHES:
@@ -335,7 +360,12 @@ def _lib(name: str) -> ctypes.CDLL:
     with lock:
         lib = _LIBS.get(name)
         if lib is None:
-            lib = _load(name, _compile(name))
+            try:
+                lib = _load(name, _compile(name))
+            except KernelBuildError:
+                raise
+            except Exception as e:
+                raise KernelBuildError(f"{name}: {type(e).__name__}: {e}") from e
     return lib
 
 
@@ -354,18 +384,18 @@ def using_source(name: str, src: str):
 
 def _check(t: torch.Tensor, what: str, dtype, device, shape=None) -> None:
     if t.dtype != dtype:
-        raise TypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
+        raise KernelDtypeError(f"{what}: dtype {t.dtype}, expected {dtype}")
     if t.device != device:
-        raise ValueError(f"{what}: on {t.device}, expected {device}")
+        raise KernelArgumentError(f"{what}: on {t.device}, expected {device}")
     if not t.is_contiguous():
-        raise ValueError(f"{what}: not contiguous")
+        raise KernelArgumentError(f"{what}: not contiguous")
     if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise KernelArgumentError(f"{what}: shape {tuple(t.shape)}, expected {tuple(shape)}")
 
 
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        raise KernelLaunchError(f"{name} launch failed: CUDA error {err}")
 
 
 def _stream(device: torch.device) -> int:
@@ -387,18 +417,18 @@ def candidate_mask(xi, yi, valid, boxes, bins=None, offs=None, windows=None) -> 
             return z3_query_mask(xi, yi, bins, offs, valid, boxes, windows)
         return z2_query_mask(xi, yi, valid, boxes)
     if xi.device.type != "cuda":
-        raise ValueError(f"candidate_mask: unsupported device {xi.device}")
+        raise KernelArgumentError(f"candidate_mask: unsupported device {xi.device}")
     dev, n = xi.device, xi.shape[0]
     if n % 4:
-        raise ValueError(f"candidate_mask: rows ({n}) must be a multiple of 4")
+        raise KernelArgumentError(f"candidate_mask: rows ({n}) must be a multiple of 4")
     cols = [("xi", xi), ("yi", yi)] + ([("bins", bins), ("offs", offs)] if has_time else [])
     for what, t in cols:
         _check(t, what, torch.int32, dev, (n,))
         if t.data_ptr() % 16:
-            raise ValueError(f"candidate_mask: {what} is not 16-byte aligned")
+            raise KernelArgumentError(f"candidate_mask: {what} is not 16-byte aligned")
     _check(valid, "valid", torch.bool, dev, (n,))
     if valid.data_ptr() % 4:
-        raise ValueError("candidate_mask: valid is not 4-byte aligned")
+        raise KernelArgumentError("candidate_mask: valid is not 4-byte aligned")
     _check(boxes, "boxes", torch.int32, dev)
     k = boxes.shape[0]
     w = 0
@@ -406,9 +436,9 @@ def candidate_mask(xi, yi, valid, boxes, bins=None, offs=None, windows=None) -> 
         _check(windows, "windows", torch.int32, dev)
         w = windows.shape[0]
     if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
-        raise ValueError("candidate_mask: boxes must be [K, 4] and windows [W, 3]")
+        raise KernelArgumentError("candidate_mask: boxes must be [K, 4] and windows [W, 3]")
     if 4 * (4 * k + 3 * w) > _CAND_SMEM:
-        raise ValueError(f"candidate_mask: {k} boxes / {w} windows exceed shared memory")
+        raise KernelArgumentError(f"candidate_mask: {k} boxes / {w} windows exceed shared memory")
     fn = _lib("candidate_mask").candidate_mask
     with torch.cuda.device(dev):
         out = torch.empty(n, dtype=torch.bool, device=dev)
@@ -462,13 +492,13 @@ def _attr_launch_args(codes, qcodes, attr_kind, n: int, q: int, dev, what: str):
     without one."""
     if attr_kind is None:
         if codes is not None or qcodes is not None:
-            raise ValueError(f"{what}: codes and qcodes need an attr_kind")
+            raise KernelArgumentError(f"{what}: codes and qcodes need an attr_kind")
         return 0, 0, ""
     if attr_kind not in ATTR_KINDS:
-        raise ValueError(f"{what}: unknown attr_kind {attr_kind!r}")
+        raise KernelArgumentError(f"{what}: unknown attr_kind {attr_kind!r}")
     _check(codes, "codes", torch.int32, dev, (n,))
     if qcodes is None or qcodes.dim() != 2 or qcodes.shape[0] != q:
-        raise ValueError(f"{what}: qcodes must be [{q}, ...] for {attr_kind}")
+        raise KernelArgumentError(f"{what}: qcodes must be [{q}, ...] for {attr_kind}")
     width = qcodes.shape[1]
     if attr_kind == "range":
         _check(qcodes, "qcodes", torch.int32, dev, (q, 2))
@@ -476,12 +506,12 @@ def _attr_launch_args(codes, qcodes, attr_kind, n: int, q: int, dev, what: str):
     elif attr_kind == "vocabmask":
         _check(qcodes, "qcodes", torch.uint8, dev)
         if not 0 < width <= ATTR_MAX_U:
-            raise ValueError(f"{what}: lookup size {width} not in [1, {ATTR_MAX_U}]")
+            raise KernelArgumentError(f"{what}: lookup size {width} not in [1, {ATTR_MAX_U}]")
         tag = f" U={width}"
     else:
         _check(qcodes, "qcodes", torch.int32, dev)
         if not 0 < width <= ATTR_MAX_K:
-            raise ValueError(f"{what}: {width} codes not in [1, {ATTR_MAX_K}]")
+            raise KernelArgumentError(f"{what}: {width} codes not in [1, {ATTR_MAX_K}]")
         tag = f" K={width}"
     return ATTR_KINDS.index(attr_kind) + 1, width, tag
 
@@ -518,13 +548,13 @@ def _launch_exact_bitmap(name: str, xk, yk, tk, valid, boxes, wins, codes, qcode
     (+ ``_<edition>``)."""
     has_time = wins is not None
     if xk.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {xk.device}")
+        raise KernelArgumentError(f"{name}: unsupported device {xk.device}")
     dev, n = xk.device, xk.shape[0]
     q = boxes.shape[0]
     if n % 32 or n >= 2**31:
-        raise ValueError(f"exact_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
+        raise KernelArgumentError(f"exact_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
     if not 0 < q <= EXACT_MAX_Q:
-        raise ValueError(f"exact_bitmap: q ({q}) must be in [1, {EXACT_MAX_Q}]")
+        raise KernelArgumentError(f"exact_bitmap: q ({q}) must be in [1, {EXACT_MAX_Q}]")
     for what, t in [("xk", xk), ("yk", yk)] + ([("tk", tk)] if has_time else []):
         _check(t, what, torch.int64, dev, (n,))
     _check(valid, "valid", torch.bool, dev, (n,))
@@ -589,7 +619,7 @@ def _one_query(xk, yk, tk, valid, box, win, what: str):
     (device, rows)."""
     dev, n = xk.device, xk.shape[0]
     if n % 32 or n >= 2**31:
-        raise ValueError(f"{what}: rows ({n}) must be a multiple of 32 below 2^31")
+        raise KernelArgumentError(f"{what}: rows ({n}) must be a multiple of 32 below 2^31")
     for name, t in [("xk", xk), ("yk", yk)] + ([("tk", tk)] if win is not None else []):
         _check(t, name, torch.int64, dev, (n,))
     _check(valid, "valid", torch.bool, dev, (n,))
@@ -611,7 +641,7 @@ def exact_count(xk, yk, tk, valid, box, win=None, codes=None, qcodes=None, attr_
         return exact_count_plain(xk, yk, tk if has_time else None, valid, box, win, codes,
                                  qcodes, attr_kind)
     if xk.device.type != "cuda":
-        raise ValueError(f"exact_count: unsupported device {xk.device}")
+        raise KernelArgumentError(f"exact_count: unsupported device {xk.device}")
     dev, n = _one_query(xk, yk, tk, valid, box, win, "exact_count")
     edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, 1, dev, "exact_count")
     fn = _lib("exact_bitmap").exact_count
@@ -651,12 +681,12 @@ def exact_stat_hist(xk, yk, tk, valid, box, win, codes, u_pad: int):
     a code outside [0, u_pad) counts in word 0 only."""
     has_time = win is not None
     if not 1 <= u_pad <= STAT_HIST_MAX_U:
-        raise ValueError(f"exact_stat_hist: u_pad ({u_pad}) not in [1, {STAT_HIST_MAX_U}]")
+        raise KernelArgumentError(f"exact_stat_hist: u_pad ({u_pad}) not in [1, {STAT_HIST_MAX_U}]")
     if xk.device.type == "cpu":
         return exact_stat_hist_plain(xk, yk, tk if has_time else None, valid, box, win, codes,
                                      u_pad)
     if xk.device.type != "cuda":
-        raise ValueError(f"exact_stat_hist: unsupported device {xk.device}")
+        raise KernelArgumentError(f"exact_stat_hist: unsupported device {xk.device}")
     dev, n = _one_query(xk, yk, tk, valid, box, win, "exact_stat_hist")
     _check(codes, "codes", torch.int32, dev, (n,))
     fn = _lib("exact_bitmap").exact_stat_hist
@@ -723,10 +753,10 @@ def xz_mask(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
     if bxmin.device.type == "cpu":
         return xz_mask_plain(bxmin, bymin, bxmax, bymax, valid, boxes, bins, offs, windows)
     if bxmin.device.type != "cuda":
-        raise ValueError(f"xz_mask: unsupported device {bxmin.device}")
+        raise KernelArgumentError(f"xz_mask: unsupported device {bxmin.device}")
     dev, n = bxmin.device, bxmin.shape[0]
     if n % 4:
-        raise ValueError(f"xz_mask: rows ({n}) must be a multiple of 4")
+        raise KernelArgumentError(f"xz_mask: rows ({n}) must be a multiple of 4")
     cols = [(w, t, torch.float32) for w, t in
             (("bxmin", bxmin), ("bymin", bymin), ("bxmax", bxmax), ("bymax", bymax))]
     if has_time:
@@ -734,19 +764,19 @@ def xz_mask(bxmin, bymin, bxmax, bymax, valid, boxes, bins=None, offs=None,
     for what, t, dtype in cols:
         _check(t, what, dtype, dev, (n,))
         if t.data_ptr() % 16:
-            raise ValueError(f"xz_mask: {what} is not 16-byte aligned")
+            raise KernelArgumentError(f"xz_mask: {what} is not 16-byte aligned")
     _check(valid, "valid", torch.bool, dev, (n,))
     if valid.data_ptr() % 4:
-        raise ValueError("xz_mask: valid is not 4-byte aligned")
+        raise KernelArgumentError("xz_mask: valid is not 4-byte aligned")
     _check(boxes, "boxes", torch.float32, dev)
     k, w = boxes.shape[0], 0
     if has_time:
         _check(windows, "windows", torch.int32, dev)
         w = windows.shape[0]
     if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
-        raise ValueError("xz_mask: boxes must be [K, 4] and windows [W, 3]")
+        raise KernelArgumentError("xz_mask: boxes must be [K, 4] and windows [W, 3]")
     if 4 * (4 * k + 3 * w) > _CAND_SMEM:
-        raise ValueError(f"xz_mask: {k} boxes / {w} windows exceed shared memory")
+        raise KernelArgumentError(f"xz_mask: {k} boxes / {w} windows exceed shared memory")
     fn = _lib("xz_mask").xz_mask
     with torch.cuda.device(dev):
         out = torch.empty(n, dtype=torch.bool, device=dev)
@@ -821,13 +851,13 @@ def _launch_xz_dual_bitmap(name: str, bxmin, bymin, bxmax, bymax, isrect, valid,
     (+ ``_<edition>``)."""
     has_time = tk is not None
     if bxmin.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {bxmin.device}")
+        raise KernelArgumentError(f"{name}: unsupported device {bxmin.device}")
     dev, n = bxmin.device, bxmin.shape[0]
     q = descs.shape[0]
     if n % 32 or n >= 2**31:
-        raise ValueError(f"xz_dual_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
+        raise KernelArgumentError(f"xz_dual_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
     if not 0 < q <= EXACT_MAX_Q:
-        raise ValueError(f"xz_dual_bitmap: q ({q}) must be in [1, {EXACT_MAX_Q}]")
+        raise KernelArgumentError(f"xz_dual_bitmap: q ({q}) must be in [1, {EXACT_MAX_Q}]")
     cols = [("bxmin", bxmin), ("bymin", bymin), ("bxmax", bxmax), ("bymax", bymax)]
     for what, t in cols + ([("tk", tk)] if has_time else []):
         _check(t, what, torch.int64, dev, (n,))
@@ -890,13 +920,13 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         return density_grid_plain(x, y, bins, offs, valid, boxes, windows, env,
                                   width, height, band_cap)
     if x.device.type != "cuda":
-        raise ValueError(f"density_grid: unsupported device {x.device}")
+        raise KernelArgumentError(f"density_grid: unsupported device {x.device}")
     dev, n = x.device, x.shape[0]
     if n >= 2**31 or n % DENSITY_ROWS:
-        raise ValueError(f"density_grid: rows ({n}) must be a multiple of {DENSITY_ROWS} "
+        raise KernelArgumentError(f"density_grid: rows ({n}) must be a multiple of {DENSITY_ROWS} "
                          "below 2^31")
     if not (0 < width and 0 < height and width * height < 2**31 // 4):
-        raise ValueError(f"density_grid: bad grid {width} x {height}")
+        raise KernelArgumentError(f"density_grid: bad grid {width} x {height}")
     cols = [("x", x, torch.float32), ("y", y, torch.float32), ("valid", valid, torch.bool)]
     if has_time:
         cols += [("bins", bins, torch.int32), ("offs", offs, torch.int32)]
@@ -904,7 +934,7 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         _check(t, what, dtype, dev, (n,))
         # each thread loads its 4 rows' valid as 4 bytes, the rest as 16
         if t.data_ptr() % (4 if t is valid else 16):
-            raise ValueError(f"density_grid: {what} is not {4 if t is valid else 16}-byte aligned")
+            raise KernelArgumentError(f"density_grid: {what} is not {4 if t is valid else 16}-byte aligned")
     _check(boxes, "boxes", torch.float32, dev)
     _check(env, "env", torch.float32, dev, (4,))
     k, w = boxes.shape[0], 0
@@ -912,10 +942,10 @@ def density_grid(x, y, bins, offs, valid, boxes, windows, env,
         _check(windows, "windows", torch.int32, dev)
         w = windows.shape[0]
     if boxes.shape[1:] != (4,) or (has_time and windows.shape[1:] != (3,)):
-        raise ValueError("density_grid: boxes must be [K, 4] and windows [W, 3]")
+        raise KernelArgumentError("density_grid: boxes must be [K, 4] and windows [W, 3]")
     # shared memory: the boxes, their margins and reject bounds, the windows
     if 4 * (10 * k + 3 * w) > _CAND_SMEM:
-        raise ValueError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
+        raise KernelArgumentError(f"density_grid: {k} boxes / {w} windows exceed shared memory")
     fn = _lib("density_grid").density_grid
     with torch.cuda.device(dev):
         grid = torch.zeros((height, width), dtype=torch.int32, device=dev)
@@ -970,14 +1000,14 @@ def knn_topk(xf, yf, valid, qx: float, qy: float, k: int) -> torch.Tensor:
     (f32 distance, row) (see :func:`knn_distances`; invalid rows rank at
     +inf, by row). ``xf, yf`` float32[n] degrees, ``valid`` bool[n], k >= 1."""
     if k < 1:
-        raise ValueError(f"knn_topk: k ({k}) must be at least 1")
+        raise KernelArgumentError(f"knn_topk: k ({k}) must be at least 1")
     if xf.device.type == "cpu":
         return knn_topk_plain(xf, yf, valid, qx, qy, k)
     if xf.device.type != "cuda":
-        raise ValueError(f"knn_topk: unsupported device {xf.device}")
+        raise KernelArgumentError(f"knn_topk: unsupported device {xf.device}")
     dev, n = xf.device, xf.shape[0]
     if n >= 2**31:
-        raise ValueError(f"knn_topk: rows ({n}) must be below 2^31")
+        raise KernelArgumentError(f"knn_topk: rows ({n}) must be below 2^31")
     _check(xf, "xf", torch.float32, dev, (n,))
     _check(yf, "yf", torch.float32, dev, (n,))
     _check(valid, "valid", torch.bool, dev, (n,))
@@ -986,7 +1016,7 @@ def knn_topk(xf, yf, valid, qx: float, qy: float, k: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         words = lib.knn_topk_scratch(n, kk)
         if words < 0:
-            raise RuntimeError("knn_topk: CUDA error sizing the scratch")
+            raise KernelLaunchError("knn_topk: CUDA error sizing the scratch")
         scratch = torch.empty(max(1, words), dtype=torch.int64, device=dev)
         out = torch.empty(kk, dtype=torch.int64, device=dev)
         passes = ctypes.c_longlong(0)
@@ -1052,13 +1082,13 @@ def _launch_poly_dual_bitmap(name: str, xk, yk, valid, xf, yf, edges, boxes, win
     (+ ``_<edition>``)."""
     has_time = wins is not None
     if xk.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {xk.device}")
+        raise KernelArgumentError(f"{name}: unsupported device {xk.device}")
     dev, n = xk.device, xk.shape[0]
     q = boxes.shape[0]
     if n % 32 or n >= 2**31:
-        raise ValueError(f"poly_dual_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
+        raise KernelArgumentError(f"poly_dual_bitmap: rows ({n}) must be a multiple of 32 below 2^31")
     if not 0 < q <= POLY_MAX_Q:
-        raise ValueError(f"poly_dual_bitmap: q ({q}) must be in [1, {POLY_MAX_Q}]")
+        raise KernelArgumentError(f"poly_dual_bitmap: q ({q}) must be in [1, {POLY_MAX_Q}]")
     for what, t in [("xk", xk), ("yk", yk)] + ([("tk", tk)] if has_time else []):
         _check(t, what, torch.int64, dev, (n,))
     _check(valid, "valid", torch.bool, dev, (n,))
@@ -1069,7 +1099,7 @@ def _launch_poly_dual_bitmap(name: str, xk, yk, valid, xf, yf, edges, boxes, win
         _check(wins, "wins", torch.int64, dev, (q, 2))
     _check(edges, "edges", torch.float32, dev)
     if edges.dim() != 3 or edges.shape[0] != q or edges.shape[2] != 4 or edges.shape[1] < 1:
-        raise ValueError(f"poly_dual_bitmap: edges must be [{q}, E, 4], not {tuple(edges.shape)}")
+        raise KernelArgumentError(f"poly_dual_bitmap: edges must be [{q}, E, 4], not {tuple(edges.shape)}")
     ecap = edges.shape[1]
     edition, width, tag = _attr_launch_args(codes, qcodes, attr_kind, n, q, dev,
                                             "poly_dual_bitmap")
@@ -1107,7 +1137,7 @@ def dual_mask_batch_plain(kind: str, *args, **kwargs):
     (:func:`xz_dual_bitmap_plain`'s or :func:`poly_dual_bitmap_plain`'s
     planes)."""
     if kind not in DUAL_MASK_NAMES:
-        raise ValueError(f"dual_mask_batch: unknown kind {kind!r}")
+        raise KernelArgumentError(f"dual_mask_batch: unknown kind {kind!r}")
     plain = xz_dual_bitmap_plain if kind == "xz" else poly_dual_bitmap_plain
     return plain(*args, **kwargs)[:2]
 
@@ -1123,7 +1153,7 @@ def dual_mask_batch(kind: str, *args, **kwargs):
     ``_z2`` (+ ``_<edition>``); q is the real query count (the polygon
     kernel takes any q up to ``POLY_MAX_Q``)."""
     if kind not in DUAL_MASK_NAMES:
-        raise ValueError(f"dual_mask_batch: unknown kind {kind!r}")
+        raise KernelArgumentError(f"dual_mask_batch: unknown kind {kind!r}")
     if args[0].device.type == "cpu":
         return dual_mask_batch_plain(kind, *args, **kwargs)
     launch = _launch_xz_dual_bitmap if kind == "xz" else _launch_poly_dual_bitmap
@@ -1145,7 +1175,7 @@ def pyramid_block(starts, n: int) -> Tuple[int, int]:
     bounds = [int(s) for s in starts]
     if len(bounds) < 2 or bounds[0] < 0 or bounds[-1] > n or \
             any(b < a for a, b in zip(bounds, bounds[1:])):
-        raise ValueError(f"pyramid_counts: block bounds {bounds} not ascending in [0, {n}]")
+        raise KernelArgumentError(f"pyramid_counts: block bounds {bounds} not ascending in [0, {n}]")
     i = max(range(len(bounds) - 1), key=lambda j: bounds[j + 1] - bounds[j])
     return bounds[i], bounds[i + 1]
 
@@ -1161,13 +1191,13 @@ def pyramid_counts(xi, yi, mask, bits: int, starts=None) -> torch.Tensor:
     one key-sorted block. The grid is exact in any order: rows out of
     order only cost the kernel's fallbacks their time."""
     if not PYRAMID_MIN_BITS <= bits <= PYRAMID_MAX_BITS:
-        raise ValueError(f"pyramid_counts: bits ({bits}) not in "
+        raise KernelArgumentError(f"pyramid_counts: bits ({bits}) not in "
                          f"[{PYRAMID_MIN_BITS}, {PYRAMID_MAX_BITS}]")
     lo, hi = pyramid_block(starts, xi.shape[0])
     if xi.device.type == "cpu":
         return pyramid_counts_plain(xi, yi, mask, bits)
     if xi.device.type != "cuda":
-        raise ValueError(f"pyramid_counts: unsupported device {xi.device}")
+        raise KernelArgumentError(f"pyramid_counts: unsupported device {xi.device}")
     dev, n = xi.device, xi.shape[0]
     _check(xi, "xi", torch.int32, dev, (n,))
     _check(yi, "yi", torch.int32, dev, (n,))

@@ -40,10 +40,14 @@ A write moves the type's generation and drops its entries.
 
 Failure envelope: ``agg.build`` is a fault point (``utils/faults.py``)
 paired with a span and a deadline check; an injected fault there degrades
-the aggregation to the uncached exact scan with identical answers. A
-failed device build is not degraded: the executor evicts its mirror and
-the failure re-raises. The reference's ``/debug/device`` web endpoint is
-not ported; ``agg_debug`` returns its block.
+the aggregation to the uncached exact scan with identical answers. The
+device count runs under the executor's breaker (``push_down``): while the
+circuit is open the build counts on the host (``host_counts``, bit for
+bit the same), and a failed device count degrades the executor (its
+mirror evicted) and raises ``DeviceBuildFailed``, which the store degrades
+to the uncached scan as it does an injected fault. The reference's
+``/debug/device`` web endpoint is not ported; ``agg_debug`` returns its
+block.
 """
 
 from __future__ import annotations
@@ -85,9 +89,13 @@ _CACHES_LOCK = threading.Lock()
 _LAST_BUILD: Dict[str, Any] = {}
 _LAST_BUILD_LOCK = threading.Lock()
 
-# what the agg.build fault point raises; the store degrades these (and only
-# these) to the uncached scan
-BUILD_FAULTS = (faults.InjectedFault, faults.InjectedDrop)
+class DeviceBuildFailed(RuntimeError):
+    """The build's device count failed (the executor degraded already)."""
+
+
+# what the agg.build fault point and a failed device count raise; the store
+# degrades these (and only these) to the uncached scan
+BUILD_FAULTS = (faults.InjectedFault, faults.InjectedDrop, DeviceBuildFailed)
 
 
 class AggError(ValueError):
@@ -164,9 +172,13 @@ def host_counts(table, ft, bits: int) -> np.ndarray:
 def build_pyramid(table, ft, executor=None) -> "AggPyramid":
     """One type's pyramid, under the ``agg.build`` span, deadline check and
     fault point. The counts come from the executor's ``pyramid_counts``
-    (the device kernel over the z2 mirrors) where it answers, else from
-    ``host_counts`` (a store without mirrors). An injected fault raises one
-    of ``BUILD_FAULTS``; a device failure raises whatever it raised."""
+    (the device kernel over the z2 mirrors, under the executor's
+    ``push_down`` breaker envelope) where it answers, else from
+    ``host_counts`` (no executor, or an open circuit). An
+    injected fault or a failed device count raises one of
+    ``BUILD_FAULTS``."""
+    from geomesa_tpu_torch.parallel.executor import HOST_DEGRADED, HostRoute
+
     bits, levels, _ttl, _cap = agg_knobs()
     reg = devstats_metrics()
     t0 = time.perf_counter()
@@ -174,9 +186,12 @@ def build_pyramid(table, ft, executor=None) -> "AggPyramid":
         deadline.check("agg.build")
         faults.fault_point("agg.build")
         counts0 = None
-        pyramid_counts = getattr(executor, "pyramid_counts", None)
-        if pyramid_counts is not None:
-            counts0 = pyramid_counts(table, bits)
+        if executor is not None:
+            counts0 = executor.push_down(table, executor.pyramid_counts, table, bits)
+            if counts0 is HOST_DEGRADED:
+                raise DeviceBuildFailed("the device count of the pyramid failed")
+            if isinstance(counts0, HostRoute):
+                counts0 = None  # an open circuit: the host counts
         if counts0 is None:
             counts0 = host_counts(table, ft, bits)
         counts = [np.asarray(counts0, dtype=np.int64)]
@@ -186,9 +201,10 @@ def build_pyramid(table, ft, executor=None) -> "AggPyramid":
                 break
             counts.append(g.reshape(g.shape[0] // 2, 2, g.shape[1] // 2, 2).sum(axis=(1, 3)))
         pyr = AggPyramid(table.index.sfc(ft), ft, counts)
-        device = getattr(executor, "device", None)
-        if device is not None:
-            pyr.ensure_device(device)
+        if executor is not None:
+            got = executor.push_down(table, pyr.ensure_device, executor.device)
+            if got is HOST_DEGRADED:
+                raise DeviceBuildFailed("the pyramid's device copies failed")
     reg.inc("agg.cache.builds")
     reg.update_timer("agg.build", time.perf_counter() - t0)
     with _LAST_BUILD_LOCK:

@@ -22,7 +22,9 @@ The contract:
 * **Member isolation.** A member's failure lands on that member. A
   failure of the shared phase (the ``batch.coalesce`` fault point around
   planning and the stacked dispatch) degrades the whole group to solo
-  execution with identical answers (``degrade.coalesce_to_solo``).
+  execution with identical answers (``degrade.coalesce_to_solo``); a
+  device failure of the stacked sweep also degrades the executor
+  (``degrade.device_to_host``: the mirrors go, the breaker takes a strike).
 * **Receipts split.** The shared sweep's costs, its buffer fetch
   included (the leader prefetches inside the shared phase), collect in
   the leader's context (``devstats.collecting``) and are apportioned so
@@ -39,6 +41,7 @@ import threading
 import time
 from typing import Any, Dict, List, Optional
 
+from geomesa_tpu_torch.ops.kernels import KernelError
 from geomesa_tpu_torch.utils import audit, deadline, devstats, faults, trace
 from geomesa_tpu_torch.utils.audit import QueryTimeout, robustness_metrics
 
@@ -218,6 +221,12 @@ class QueryCoalescer:
                 # the seam, the siblings run solo
                 members[0].finish(e)
                 return
+            if isinstance(e, KernelError):
+                # a fault of the program: every member raises it, none is
+                # answered by another route
+                for m in members:
+                    m.finish(e)
+                return
             robustness_metrics().inc("degrade.coalesce_to_solo")
             trace.event("degrade.coalesce_to_solo", reason=f"{type(e).__name__}: {e}",
                         n=len(members))
@@ -283,15 +292,23 @@ class QueryCoalescer:
                 items.append((store._tables[name][arm.index.name], arm))
         pending: Dict[int, object] = {}
         if items:
-            pending = store.executor.dispatch_coalesced(items)
-            # fetch the shared buffers now, inside the shared collector: the
-            # sweep's bytes apportion across the members instead of landing
-            # on the first one to resolve
-            for scan in {id(s): s for s in pending.values()}.values():
-                for _seg, ph in getattr(scan, "pending", ()):
-                    fn = getattr(ph, "prefetch", None)
-                    if fn is not None:
-                        fn()
+            try:
+                pending = store.executor.dispatch_coalesced(items)
+                # fetch the shared buffers now, inside the shared collector:
+                # the sweep's bytes apportion across the members instead of
+                # landing on the first one to resolve
+                for scan in {id(s): s for s in pending.values()}.values():
+                    for _seg, ph in getattr(scan, "pending", ()):
+                        fn = getattr(ph, "prefetch", None)
+                        if fn is not None:
+                            fn()
+            except (QueryTimeout, KernelError):
+                raise
+            except Exception as e:
+                # a device failure of the stacked sweep: the mirrors go and
+                # the breaker takes its strike, then the group runs solo
+                store.executor.degrade(None, e)
+                raise
         return [(m, plan, pending) for m, plan in live]
 
 

@@ -94,7 +94,21 @@ stream takes there:
 Dispatch and fetch check the ambient query budget (``utils/deadline.py``:
 ``device.dispatch`` a plan and a segment, ``device.fetch`` a copy); every
 copy over the link goes through ``mesh.upload`` / ``_np_local`` and counts
-in ``utils/devstats.py``. A segment's lazy column loads take a lock, so
+in ``utils/devstats.py``, and each is a fault point of the same name.
+
+Deletes: the table's fid tombstones clear the rows' bits of each resident
+segment's ``valid`` and of its temporal-valid columns (``valid & ~nulls``)
+and pyramid mask, so every kernel leaves deleted rows out and no row
+uploads again; a compaction rewrites the blocks and the mirror rebuilds.
+The host seek strips tombstones through ``IndexTable.tombstone_keep``. A
+table whose rows carry visibility labels takes no push-down that returns
+no rows (count, stats, density, kNN): the host's auth check decides.
+
+Failures: the device circuit breaker and the host degrade (see
+``TorchScanExecutor``). A device failure evicts the table's mirror and the
+store answers from the host table scan (``scan_path`` =
+``host-table-degraded``); while the circuit is open, queries go to the host
+at once (``host-table-breaker``). A segment's lazy column loads take a lock, so
 concurrent first queries upload once. The exact path and batched dispatch
 are always on. A lone extent query
 takes the dual route (the reference sends it to the candidate route).
@@ -156,7 +170,9 @@ from geomesa_tpu_torch.parallel.mesh import (
 from geomesa_tpu_torch.stats.parser import parse_stat
 from geomesa_tpu_torch.stats.sketches import CountStat, SeqStat
 from geomesa_tpu_torch.store.blocks import FeatureBlock, IndexTable, expand_intervals
-from geomesa_tpu_torch.utils import audit, deadline, devstats
+from geomesa_tpu_torch.utils import audit, deadline, devstats, trace
+from geomesa_tpu_torch.utils.audit import QueryTimeout, robustness_metrics
+from geomesa_tpu_torch.utils.breaker import CircuitBreaker
 
 # initial hit-run capacity: 4096 runs * 8B = 32 KiB per segment transfer
 HIT_CAPACITY0 = 4096
@@ -268,9 +284,8 @@ def _runs_from_mask(m: torch.Tensor, rcap: int) -> torch.Tensor:
 
 def _np_local(t: torch.Tensor) -> np.ndarray:
     """Device tensor -> host numpy: the executor's one device -> host copy
-    (``mesh.fetch``, which counts the bytes), after the budget check of the
-    device.fetch boundary."""
-    deadline.check("device.fetch")
+    (``mesh.fetch``: the ``device.fetch`` budget check and fault point,
+    and the byte count)."""
     return fetch(t)
 
 
@@ -330,14 +345,21 @@ class DeviceSegment:
         self.block_starts = [sum(b.n for b in self.blocks[:i]) for i in range(len(self.blocks))]
         self.n = n
         self.n_padded = len(columns["valid"])
+        # the host copy of ``valid``'s real rows: tombstones clear bits of
+        # it (``apply_tombstones``) and every temporal-valid column and the
+        # pyramid's mask derive from it
+        self._valid_host = np.array(columns["valid"][:n], dtype=bool)
         self.valid = upload(columns["valid"], device)
         self.xi = self.yi = self.bins = self.ti = None
         self.bxmin = self.bymin = self.bxmax = self.bymax = None
         for name in _CANDIDATE_COLUMNS[kind]:
             setattr(self, name, upload(columns[name], device))
         self.xk = self.yk = self.tk = self.tvalid = None
+        # null dates of the rows, kept once a temporal-valid column is made
+        self._t_nulls: Optional[np.ndarray] = None
         self._exact_loaded = False
         self.xz_keys = self.xz_isrect = self.xz_tk = self.xz_tvalid = None
+        self._xz_t_nulls: Optional[np.ndarray] = None
         self._exact_xz_loaded = False
         self.xf = self.yf = self.t_ms = None
         self._raw_loaded = False
@@ -432,15 +454,46 @@ class DeviceSegment:
         """``tvalid``: null dates are stored as 0 + a __null mask, and the
         host evaluator rejects them for any temporal predicate, so a
         temporal device test (the exact mask, the density windows) needs
-        its own valid column (bbox-only queries keep them)."""
+        its own valid column, ``valid & ~nulls`` (bbox-only queries keep
+        them): tombstoned rows stay cleared in it."""
         if self.tvalid is not None:
             return
         dtg = ft.default_date.name
         nulls = np.concatenate([b.full_col(dtg + "__null") for b in self.blocks])
-        if nulls.any():
-            self.tvalid = upload(pad_to_multiple(~nulls, GRANULE, False), self.device)
-        else:
-            self.tvalid = self.valid
+        self._t_nulls = nulls if nulls.any() else None
+        self.tvalid = self._temporal_valid(self._t_nulls)
+
+    def _temporal_valid(self, nulls: Optional[np.ndarray]) -> torch.Tensor:
+        """``valid`` with the null-date rows cleared (``valid`` itself when
+        there are none)."""
+        if nulls is None:
+            return self.valid
+        return upload(pad_to_multiple(self._valid_host & ~nulls, GRANULE, False), self.device)
+
+    def apply_tombstones(self, table: IndexTable) -> None:
+        """Clear deleted rows in the device valid columns (the reference's
+        ``apply_tombstones``): a delete flips valid bits, so the next
+        device scan leaves the rows out; no row is re-packed. ``valid`` is
+        uploaded anew (its identity re-keys ``agg_mask``'s cache) and the
+        temporal-valid columns follow it. The keep mask is computed per
+        record block from its fids, in record order, then gathered into
+        the segment's key order."""
+        if not self.n:
+            return
+        keep = np.concatenate([
+            table.fid_keep(b.record.columns["__fid__"])[b.rowid] if b.record is not None
+            else table.fid_keep(b.full_col("__fid__"))
+            for b in self.blocks
+        ])
+        if np.array_equal(keep, self._valid_host):
+            return
+        with self._load_lock:
+            self._valid_host = keep
+            self.valid = upload(pad_to_multiple(keep, GRANULE, False), self.device)
+            if self.tvalid is not None:
+                self.tvalid = self._temporal_valid(self._t_nulls)
+            if self.xz_tvalid is not None:
+                self.xz_tvalid = self._temporal_valid(self._xz_t_nulls)
 
     def load_exact_xz(self, table: IndexTable) -> None:
         """Pack the int64 sort keys of the envelope companions, the isrect
@@ -472,12 +525,10 @@ class DeviceSegment:
             self.xz_tk = upload(pad_to_multiple(
                 np.concatenate([b.full_col(dtg).astype(np.int64) for b in self.blocks]),
                 GRANULE, _INT64_MIN), self.device)
-            # null dates: the temporal test rejects them (see load_exact)
+            # null dates: the temporal test rejects them (see _load_tvalid)
             nulls = np.concatenate([b.full_col(dtg + "__null") for b in self.blocks])
-            self.xz_tvalid = (
-                upload(pad_to_multiple(~nulls, GRANULE, False), self.device)
-                if nulls.any() else self.valid
-            )
+            self._xz_t_nulls = nulls if nulls.any() else None
+            self.xz_tvalid = self._temporal_valid(self._xz_t_nulls)
         self._exact_xz_loaded = True
 
     def load_raw(self, table: IndexTable) -> bool:
@@ -1085,10 +1136,10 @@ class DeviceSegment:
 
     def agg_mask(self, table: IndexTable) -> torch.Tensor:
         """The rows the aggregate pyramid's build counts (the reference's
-        ``agg_mask``): ``valid`` and a finite geometry (a null geometry's
-        lenient key is clipped into a cell and must never count there).
-        Cached per ``valid`` tensor: the port has no tombstones yet, but a
-        re-packed ``valid`` re-keys the cache as in the reference."""
+        ``agg_mask``): ``valid`` (tombstones cleared) and a finite geometry
+        (a null geometry's lenient key is clipped into a cell and must
+        never count there). Cached per ``valid`` tensor: a delete uploads a
+        new ``valid`` and so re-keys the cache."""
         got = getattr(self, "_agg_mask", None)
         if got is not None and got[0] is self.valid:
             return got[1]
@@ -1102,7 +1153,7 @@ class DeviceSegment:
                  & np.isfinite(np.asarray(b.full_col(geom + "__y"), dtype=np.float64))
                  for b in self.blocks]
             ) if self.blocks else np.empty(0, dtype=bool)
-            mask = upload(pad_to_multiple(finite, GRANULE, False), self.device)
+            mask = upload(pad_to_multiple(self._valid_host & finite, GRANULE, False), self.device)
             self._agg_mask = (self.valid, mask)
             return mask
 
@@ -1614,17 +1665,30 @@ class _HostSeekScan:
         self.pred = pred
 
     def __iter__(self):
-        if self.pred is not None:
-            if self.pred[0] == "xz":
-                yield from self._iter_native_xz()
-            else:
-                yield from self._iter_native()
+        """Each block's rows, tombstoned rows stripped (``table.
+        tombstone_keep``, after every seek edition)."""
+        if self.pred is None:
+            ft = self.table.ft
+            # a null date's key comes from its stored date: a contained
+            # range of a temporal index may hold it, so it takes the full
+            # filter (which rejects it for a temporal predicate)
+            dtg = (ft.default_date.name if ft.default_date is not None
+                   and self.table.index.name in ("z3", "xz3") else None)
+            for block, starts, ends, flags in self.per_block:
+                with record_function("geomesa.seek"):
+                    rows, covered = self.table.expand_covered(block, starts, ends, flags)
+                    if dtg is not None and block.has_nulls(dtg) and covered.any():
+                        covered = covered & ~block.gather(dtg + "__null", rows)
+                if len(rows):
+                    yield block, rows, covered
             return
-        for block, starts, ends, flags in self.per_block:
-            with record_function("geomesa.seek"):
-                rows, covered = expand_intervals(starts, ends, flags)
+        found = self._iter_native_xz() if self.pred[0] == "xz" else self._iter_native()
+        for block, rows in found:
+            keep = self.table.tombstone_keep(block, rows)
+            if keep is not None:
+                rows = rows[keep]
             if len(rows):
-                yield block, rows, covered
+                yield block, rows
 
     def _iter_native_xz(self):
         """Extent plans: the C++ envelope scan decides overlap and inside
@@ -1729,13 +1793,16 @@ class _HostSeekScan:
 
 class DeviceIndex:
     """Segmented device-resident mirror of one index table: appended blocks
-    become new segments, and past MAX_SEGMENTS (or after blocks were
-    rewritten) the mirror rebuilds as one merged segment."""
+    become new segments, new tombstones flip valid bits of the resident
+    segments (``DeviceSegment.apply_tombstones``), and past MAX_SEGMENTS
+    (or after blocks were rewritten: a compaction) the mirror rebuilds as
+    one merged segment."""
 
     def __init__(self, device: torch.device, table: IndexTable):
         self.device = device
         self.segments: List[DeviceSegment] = []
         self.version = -1
+        self._n_tombstones = 0
         self.refresh(table)
 
     def refresh(self, table: IndexTable) -> None:
@@ -1744,28 +1811,72 @@ class DeviceIndex:
         synced = [i for s in self.segments for i in s.block_ids]
         if [id(b) for b in table.blocks[: len(synced)]] != synced:
             self.segments, synced = [], []
+            self._n_tombstones = 0
         new_blocks = table.blocks[len(synced):]
+        fresh = None
         if new_blocks and len(self.segments) >= MAX_SEGMENTS:
-            self.segments = [DeviceSegment.from_blocks(table, table.blocks, self.device)]
+            fresh = DeviceSegment.from_blocks(table, table.blocks, self.device)
+            self.segments = [fresh]
         elif new_blocks:
-            self.segments.append(DeviceSegment.from_blocks(table, new_blocks, self.device))
+            fresh = DeviceSegment.from_blocks(table, new_blocks, self.device)
+            self.segments.append(fresh)
+        if fresh is not None and table.tombstones:
+            fresh.apply_tombstones(table)
+        if len(table.tombstones) != self._n_tombstones:
+            for seg in self.segments:
+                if seg is not fresh:
+                    seg.apply_tombstones(table)
+            self._n_tombstones = len(table.tombstones)
         self.version = table.version
+
+
+class HostRoute:
+    """What a guarded device call returns when the host must answer: the
+    circuit is open (``HOST_BREAKER``) or the device call failed and
+    degraded (``HOST_DEGRADED``). ``label`` is the scan route the store
+    reports."""
+
+    __slots__ = ("label",)
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __repr__(self) -> str:
+        return f"HostRoute({self.label!r})"
+
+
+HOST_BREAKER = HostRoute("host-table-breaker")
+HOST_DEGRADED = HostRoute("host-table-degraded")
 
 
 class TorchScanExecutor:
     """Pluggable executor for TorchDataStore: device pre-filter for
     z2/z3/xz2/xz3 plans (None elsewhere: the store scans the host blocks);
-    also evaluates the exact post-filter (numpy) on candidates."""
+    also evaluates the exact post-filter (numpy) on candidates.
+
+    The device circuit breaker (``breaker``, ``utils/breaker.py``) guards
+    every device call the store makes: ``scan_candidates``,
+    ``dispatch_many``, ``dispatch_coalesced`` and, through ``push_down``,
+    the count, stats, density, kNN and pyramid builds. A device failure
+    degrades (``degrade``): the table's mirror is evicted, the breaker
+    takes a strike and the host table scan answers; while the circuit is
+    open no device work is attempted. A ``QueryTimeout`` or a fault of a
+    hand kernel (``kernels.KernelError``: it failed to build, was called
+    with arguments it does not take, or its launch failed) degrades
+    nothing: it strikes no breaker, releases a half-open probe slot and
+    raises."""
 
     # one batched launch answers at most this many queries
     BATCH_MAX = 64
 
-    def __init__(self, device: Optional[Device] = None):
+    def __init__(self, device: Optional[Device] = None,
+                 breaker: Optional[CircuitBreaker] = None):
         self.device = default_device(device)
         # id() keys can be recycled after GC, so each entry holds a weakref
         # to its table: identity is re-checked on hit
         self._cache: Dict[int, Tuple[weakref.ref, DeviceIndex]] = {}
         self._cache_lock = threading.RLock()
+        self.breaker = breaker if breaker is not None else CircuitBreaker("device")
 
     def device_index(self, table: IndexTable) -> DeviceIndex:
         # one lock: concurrent queries of one table share one mirror
@@ -1787,6 +1898,14 @@ class TorchScanExecutor:
             and bool(plan.values.spatial_envelopes)
         )
 
+    @staticmethod
+    def _has_visibilities(table: IndexTable) -> bool:
+        """Whether a row of the table carries a visibility label: the
+        push-downs that hand back no rows (count, stats, density, kNN)
+        decline, since only the host's per-row auth check may decide what
+        a caller sees."""
+        return any(b.has_col("__vis__") for b in table.blocks)
+
     def _scan_eligible(self, table: IndexTable, plan: QueryPlan) -> bool:
         """Shared gate for any device dispatch: index family supported and
         binned (z3/xz3) plans have bins."""
@@ -1807,7 +1926,59 @@ class TorchScanExecutor:
             return seek
         return self._dispatch_nonseek(table, plan)
 
-    scan_candidates = dispatch_candidates
+    def scan_candidates(self, table: IndexTable, plan: QueryPlan):
+        """``dispatch_candidates`` under the breaker envelope (the
+        reference's ``scan_candidates``): None or a host seek when the
+        executor declines the device (a half-open probe slot is released),
+        ``HOST_BREAKER`` while the circuit is open (no dispatch at all),
+        ``HOST_DEGRADED`` after a dispatch failure (``degrade`` ran). The
+        store answers the last two from the host table scan; a failure
+        while the scan resolves degrades in the store the same way."""
+        if not self.breaker.allow():
+            trace.event("breaker.short_circuit", breaker=self.breaker.name)
+            return HOST_BREAKER
+        try:
+            scan = self.dispatch_candidates(table, plan)
+        except (QueryTimeout, kernels.KernelError):
+            # no verdict on the link: no degrade, no strike, no eviction
+            self.breaker.cancel_probe()
+            raise
+        except Exception as e:
+            self.degrade(table, e)
+            return HOST_DEGRADED
+        if scan is None or isinstance(scan, _HostSeekScan):
+            # no device boundary was crossed: the probe slot is released
+            self.breaker.cancel_probe()
+        return scan
+
+    def push_down(self, table: Optional[IndexTable], fn, *args):
+        """One device call that answers whole (a count, stats, density,
+        kNN or pyramid build) under the breaker envelope: ``fn(*args)``,
+        None when it declines, ``HOST_BREAKER`` while the circuit is open,
+        ``HOST_DEGRADED`` after a failure (``degrade`` ran). A value other
+        than None closes a half-open circuit."""
+        if not self.breaker.allow():
+            trace.event("breaker.short_circuit", breaker=self.breaker.name)
+            return HOST_BREAKER
+        try:
+            got = fn(*args)
+        except (QueryTimeout, kernels.KernelError):
+            self.breaker.cancel_probe()
+            raise
+        except Exception as e:
+            self.degrade(table, e)
+            return HOST_DEGRADED
+        if got is None:
+            self.breaker.cancel_probe()
+        else:
+            self.record_device_success()
+        return got
+
+    def record_device_success(self) -> None:
+        """A device scan resolved cleanly end to end (the store calls this
+        after consuming one): closes a half-open circuit, whose probe query
+        has just rebuilt the mirror it needed."""
+        self.breaker.record_success()
 
     def _dispatch_nonseek(self, table: IndexTable, plan: QueryPlan, desc=_DESC_UNSET):
         """The device dispatch after the seek choice declined. ``desc`` lets
@@ -1869,15 +2040,33 @@ class TorchScanExecutor:
             kind != "vocabmask" or all(seg.attr_vocab_ok(attr) for seg in dev.segments))
 
     def degrade(self, table: Optional[IndexTable], exc: BaseException) -> None:
-        """Evict the failed table's device mirror (None evicts every mirror)
-        so the next query rebuilds it from the host table. The datastore
-        re-raises ``exc`` after this: the port answers no query from the
-        host in place of a failed device scan."""
+        """Record a device -> host degradation (the reference's
+        ``degrade``): evict the failed table's device mirror (None evicts
+        every mirror: a batched dispatch failed mid-stream) so the next
+        query that wants it rebuilds it from the host table, strike the
+        breaker, count ``degrade.device_to_host`` (and
+        ``degrade.mirror_rebuilds`` per mirror evicted) in
+        ``robustness_metrics()``, record the decision and write one stderr
+        line. The caller answers from the host table scan."""
+        import sys
+
         with self._cache_lock:
             if table is None:
+                evicted = len(self._cache)
                 self._cache.clear()
             else:
-                self._cache.pop(id(table), None)
+                evicted = int(self._cache.pop(id(table), None) is not None)
+        self.breaker.record_failure()
+        m = robustness_metrics()
+        m.inc("degrade.device_to_host")
+        if evicted:
+            m.inc("degrade.mirror_rebuilds", evicted)
+        trace.event("degrade.device_to_host", reason=f"{type(exc).__name__}: {exc}",
+                    mirrors_evicted=evicted)
+        audit.decision("degrade", "device_to_host", error=type(exc).__name__,
+                       mirrors_evicted=evicted)
+        sys.stderr.write(f"[executor] device scan failed ({type(exc).__name__}: {exc}); "
+                         "host path answers; mirror marked for rebuild\n")
 
     def dispatch_many(self, items: Sequence[Tuple[IndexTable, QueryPlan]]):
         """Dispatch a query stream; returns {id(plan): scan | None}.
@@ -1893,7 +2082,17 @@ class TorchScanExecutor:
         groups also per attribute and edition of their attribute plane; the
         others dispatch as dispatch_candidates would."""
         out: Dict[int, object] = {}
-        self._dispatch_many_batches(items, out)
+        if not self.breaker.allow():
+            # an open circuit: the whole batch takes the host path
+            trace.event("breaker.short_circuit", breaker=self.breaker.name)
+            return {id(plan): HOST_BREAKER for _table, plan in items}
+        try:
+            self._dispatch_many_batches(items, out)
+        except (QueryTimeout, kernels.KernelError):
+            self.breaker.cancel_probe()
+            raise
+        # any other failure reaches ``degrade`` in the caller, whose strike
+        # settles a half-open probe
         return out
 
     def _dispatch_many_batches(self, items: Sequence[Tuple[IndexTable, QueryPlan]],
@@ -1999,9 +2198,22 @@ class TorchScanExecutor:
                                  past the vocabmask lookup)
 
         ``batch.coalesce.plans.stacked`` and ``.rest`` count the split.
-        Unlike the reference there is no breaker envelope: a failure
-        raises to the caller."""
+        Same breaker envelope as ``dispatch_many``: an open circuit answers
+        the whole group from the host path, and a failure raises to the
+        coalescer, which runs the members solo."""
         out: Dict[int, object] = {}
+        if not self.breaker.allow():
+            trace.event("breaker.short_circuit", breaker=self.breaker.name)
+            return {id(plan): HOST_BREAKER for _table, plan in items}
+        try:
+            return self._dispatch_coalesced(items, out)
+        except (QueryTimeout, kernels.KernelError):
+            self.breaker.cancel_probe()
+            raise
+
+    def _dispatch_coalesced(self, items: Sequence[Tuple[IndexTable, QueryPlan]],
+                            out: Dict[int, object]):
+        """``dispatch_coalesced``'s body, into ``out``."""
         # (id(table), has_time, extra) -> (table, has_time, extra, [(pid, plan, desc)]);
         # extra = None | (attr, edition)
         mask_groups: Dict[tuple, tuple] = {}
@@ -2855,6 +3067,8 @@ class TorchScanExecutor:
         (``mesh.device_auto_declines``)."""
         if device_auto_declines("GEOMESA_COUNT_DEVICE", device=self.device):
             return None
+        if self._has_visibilities(table):
+            return None  # per-row auth checks need the host path
         if table.index.name in ("xz2", "xz3"):
             return self._count_xz_scan(table, plan)
         if table.index.name not in ("z2", "z3") or not self._scan_eligible(table, plan):
@@ -2949,6 +3163,8 @@ class TorchScanExecutor:
         if device_auto_declines("GEOMESA_STATS_DEVICE", device=self.device):
             return None
         if table.index.name not in ("z2", "z3") or not self._scan_eligible(table, plan):
+            return None
+        if self._has_visibilities(table):
             return None
         desc = self._exact_descriptor(table, plan)
         if desc is None:
@@ -3085,6 +3301,8 @@ class TorchScanExecutor:
         nearest, which f32 ranking alone can miss at the k-th place."""
         if table.index.name not in ("z2", "z3"):
             return None
+        if self._has_visibilities(table):
+            return None  # per-row auth checks need the host path
         if k < 1:
             return []
         dev = self.device_index(table)
@@ -3191,6 +3409,8 @@ class TorchScanExecutor:
             return None
         if plan.secondary is not None or spec.get("weight") or spec.get("exact"):
             return None
+        if self._has_visibilities(table):
+            return None  # per-row auth checks need the host reducer
         gv = plan.values.geometries
         if not gv.values or not gv.precise or not all(g.is_rectangle() for g in gv.values):
             return None

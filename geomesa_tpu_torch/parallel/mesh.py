@@ -5,11 +5,16 @@ shards rows over a JAX mesh; this slice of the port runs on one CUDA device
 (or on the CPU when a caller asks for it, as the tests do). ``upload`` is
 the one host -> device copy and ``fetch`` the one device -> host copy of
 the port: each counts its bytes in ``utils/devstats.py``
-(``device.h2d.bytes`` / ``device.d2h.bytes`` and the query's receipt).
+(``device.h2d.bytes`` / ``device.d2h.bytes`` and the query's receipt), and
+each is a fault point with its span and its budget check
+(``device.dispatch`` and ``device.fetch``, ``utils/faults.py``), so an
+injected fault surfaces where a failing device would. ``device_tripped`` /
+``trip_device`` keep the session's sticky device-kNN trip.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from typing import Dict, Optional, Union
@@ -18,7 +23,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from geomesa_tpu_torch.utils import devstats
+from geomesa_tpu_torch.utils import deadline, devstats, faults, trace
 
 Device = Union[str, torch.device]
 
@@ -50,18 +55,31 @@ def pad_to_multiple(arr: np.ndarray, multiple: int, fill) -> np.ndarray:
 
 
 def upload(arr: np.ndarray, device: torch.device) -> torch.Tensor:
-    """Host array -> contiguous tensor on ``device``, its bytes counted as
-    host -> device (on the CPU too: the bytes that crossed the boundary
-    helper)."""
+    """Host array -> contiguous tensor on ``device`` (the
+    ``device.dispatch`` boundary: its span, budget check and fault point),
+    its bytes counted as host -> device after the copy (on the CPU too: the
+    bytes that crossed the boundary helper; a faulted copy moved
+    nothing)."""
     arr = np.ascontiguousarray(arr)
+    with trace.span("device.dispatch", bytes=int(arr.nbytes)):
+        deadline.check("device.dispatch")
+        faults.fault_point("device.dispatch")
+        out = torch.as_tensor(arr, device=device)
     devstats.count_h2d(arr.nbytes)
-    return torch.as_tensor(arr, device=device)
+    return out
 
 
-def fetch(t: torch.Tensor) -> np.ndarray:
-    """Device tensor -> host numpy array (the device.fetch boundary), its
-    bytes counted as device -> host."""
-    with record_function("geomesa.fetch"):
+def fetch(t: torch.Tensor, boundary: bool = True) -> np.ndarray:
+    """Device tensor -> host numpy array (the ``device.fetch`` boundary:
+    its span, budget check and fault point), its bytes counted as device
+    -> host. ``boundary=False`` skips the span, the check and the fault
+    point (the link probe's own round trips)."""
+    nbytes = int(t.numel() * t.element_size())
+    with record_function("geomesa.fetch"), (
+            trace.span("device.fetch", bytes=nbytes) if boundary else contextlib.nullcontext()):
+        if boundary:
+            deadline.check("device.fetch")
+            faults.fault_point("device.fetch")
         out = t.cpu().numpy()
     devstats.count_d2h(out.nbytes)
     return out
@@ -82,11 +100,11 @@ def link_latency_ms(device: Optional[Device] = None) -> float:
     got = _LINK_LATENCY_MS.get(key)
     if got is None:
         x = torch.zeros(8, dtype=torch.float32, device=dev)
-        fetch(x + 1)  # the first trip pays the allocations
+        fetch(x + 1, boundary=False)  # the first trip pays the allocations
         samples = []
         for _ in range(5):
             t0 = time.perf_counter()
-            fetch(x + 1)
+            fetch(x + 1, boundary=False)
             samples.append((time.perf_counter() - t0) * 1e3)
         # the least, not the median: the cost choice wants the link's floor,
         # and contention on the host only ever inflates a sample
@@ -110,3 +128,28 @@ def device_auto_declines(env_var: str, link_cap_ms: float = 10.0,
     if dev.type == "cpu":
         return True
     return link_latency_ms(dev) > link_cap_ms
+
+
+def device_tripped(executor, env_var: str) -> bool:
+    """True when a device path already failed this session AND the caller
+    has not forced this path on (``env_var`` != "1"): an automatic path
+    stays on the host after one failure instead of paying it per call; an
+    explicit "1" keeps trying (the reference's ``device_tripped``)."""
+    if os.environ.get(env_var, "auto") == "1":
+        return False
+    return bool(getattr(executor, "_device_tripped", False))
+
+
+def trip_device(executor, env_var: str, tag: str, exc: BaseException) -> None:
+    """Record a device-path failure: one stderr line, a
+    ``decision.degrade.<tag>_to_host`` count, and the executor's session
+    trip flag, unless the caller forced this path on (a failure under a
+    forced "1" must not send the other automatic paths to the host)."""
+    import sys
+
+    from geomesa_tpu_torch.utils import audit
+
+    if os.environ.get(env_var, "auto") != "1":
+        executor._device_tripped = True
+    audit.decision("degrade", f"{tag}_to_host", error=type(exc).__name__)
+    sys.stderr.write(f"[{tag}] device path failed ({type(exc).__name__}); host path answers\n")

@@ -16,10 +16,15 @@ Two paths answer here:
 ``GEOMESA_KNN_DEVICE`` = ``auto`` (default) | ``1`` | ``0`` picks the path:
 under auto the device answers when the store's executor runs on a CUDA
 device whose measured round trip (``link_latency_ms``) is at most 10 ms. A
-``cql`` filter always takes the host path. The store surface this lean
-datastore leaves out (age-off, audit, metrics, lazy partitions) has no
-branch here, and a device failure is not caught: it raises, as every
-device route of the port does.
+``cql`` filter always takes the host path, as does a type under age-off
+(expired rows are masked by the query path only) or with visibility labels
+(the executor declines). The device top-k runs under the executor's
+breaker (``push_down``): while the circuit is open the host path answers,
+and a device failure degrades the executor and trips the session's
+device-kNN flag (``mesh.trip_device``): later calls take the host path
+unless ``GEOMESA_KNN_DEVICE=1``. A ``QueryTimeout`` or a kernel that fails
+to build raises. The reference's audit, metrics and lazy partitions have
+no branch here.
 """
 
 from __future__ import annotations
@@ -68,9 +73,12 @@ def knn_search(
 
     ``last_knn_path()`` reports which path answered this thread's most
     recent call ("device-topk" | "host-bbox")."""
+    from geomesa_tpu_torch.parallel.mesh import device_tripped
+
     _PATH_LOCAL.path = "host-bbox"
     ft = store.get_schema(name)
-    if cql is None and _device_knn_wanted(store):
+    if (cql is None and _device_knn_wanted(store)
+            and not device_tripped(store.executor, "GEOMESA_KNN_DEVICE")):
         direct = _device_knn(store, name, ft, x, y, k, max_radius_m)
         if direct is not None:
             _PATH_LOCAL.path = "device-topk"
@@ -127,17 +135,27 @@ def _device_knn(store, name: str, ft, x: float, y: float, k: int,
     """The device top-k (``executor.knn_candidates``): every segment ranks
     its rows and returns its candidates; the exact f64 re-rank is here
     (``geomesa.rerank`` in a profiler trace).
-    None when the store's executor has no device top-k or the type no
-    point index."""
+    None when the store's executor has no device top-k, the type no point
+    index or a retention window, the circuit is open or the device call
+    failed (degraded; the session's device-kNN flag trips)."""
+    from geomesa_tpu_torch.parallel.executor import HOST_DEGRADED, HostRoute
+    from geomesa_tpu_torch.parallel.mesh import trip_device
+
     knn = getattr(store.executor, "knn_candidates", None)
     if knn is None:
         return None
+    if store._age_off_cutoff(ft) is not None:
+        return None  # expired rows are masked by the query path only
     tables = store._tables.get(name, {})
     table = tables.get("z3") or tables.get("z2")
     if table is None or table.num_rows == 0:
         return None
-    parts = knn(table, x, y, k)
-    if parts is None:
+    parts = store.executor.push_down(table, knn, table, x, y, k)
+    if parts is HOST_DEGRADED:
+        trip_device(store.executor, "GEOMESA_KNN_DEVICE", "knn",
+                    RuntimeError("the device top-k failed"))
+        return None
+    if parts is None or isinstance(parts, HostRoute):
         return None
     geom = ft.default_geometry.name
     fids: List[str] = []

@@ -83,6 +83,47 @@ def take_rows(columns: Columns, rows: np.ndarray) -> Columns:
     return {k: v[rows] for k, v in columns.items()}
 
 
+def record_rows_decoded(columns: Columns, rows: np.ndarray) -> Columns:
+    """``take_rows`` with dictionary columns DECODED to values (null -> ""
+    plus the ``__null`` mask) and vocabs dropped: vocabs are not
+    row-aligned and codes of different batches are not comparable, so
+    compaction merges through values and re-interns afterwards."""
+    out = {}
+    for k, v in columns.items():
+        if k.endswith("__vocab"):
+            continue
+        vocab = columns.get(k + "__vocab")
+        out[k] = dict_decode(v[rows], vocab) if vocab is not None else v[rows]
+    return out
+
+
+def concat_columns(parts: Sequence[Columns]) -> Columns:
+    """Row-concatenate column dicts. A part without a ``__null`` companion
+    has no nulls, and one without ``__vis__`` no visibility labels."""
+    if not parts:
+        return {}
+    if len(parts) == 1:
+        return dict(parts[0])
+    keys = set()
+    for p in parts:
+        keys.update(p.keys())
+    n_parts = [num_rows(p) for p in parts]
+    out: Columns = {}
+    for k in keys:
+        arrs = []
+        for p, n in zip(parts, n_parts):
+            if k in p:
+                arrs.append(p[k])
+            elif k.endswith("__null"):
+                arrs.append(np.zeros(n, dtype=bool))
+            elif k == "__vis__":
+                arrs.append(np.full(n, None, dtype=object))
+            else:
+                raise KeyError(f"Column {k} missing from a part")
+        out[k] = np.concatenate(arrs)
+    return out
+
+
 def intern_fids(columns: Columns) -> Columns:
     """Convert an object-dtype ``__fid__`` column to fixed-width unicode
     when every entry is a str: fancy-indexing a U-array is a memcpy, ~6x
@@ -680,19 +721,80 @@ class FeatureBlock:
         )
 
 
+def _unicode_hash(a: np.ndarray) -> np.ndarray:
+    """A 64-bit polynomial hash of each fixed-width unicode string (its
+    code points, trailing zeros included), vectorized over the array."""
+    width = a.dtype.itemsize // 4
+    cps = np.ascontiguousarray(a).view(np.uint32).reshape(len(a), width)
+    h = np.zeros(len(a), dtype=np.uint64)
+    mult = np.uint64(0x100000001B3)
+    for j in range(width):
+        h = (h * mult) ^ cps[:, j].astype(np.uint64)
+    return h
+
+
+class _UnicodeProbe:
+    """A fixed-width unicode probe set, hashed and sorted once at each
+    width it is asked at, for ``isin`` over many value arrays."""
+
+    __slots__ = ("probe", "_at")
+
+    def __init__(self, probe: np.ndarray):
+        self.probe = probe
+        self._at: Dict[int, Tuple[np.ndarray, np.ndarray]] = {}
+
+    def _sorted(self, dtype) -> Tuple[np.ndarray, np.ndarray]:
+        width = dtype.itemsize // 4
+        got = self._at.get(width)
+        if got is None:
+            # a probe longer than the column's width matches no value
+            # (astype would truncate it into a false match)
+            probe = self.probe[np.char.str_len(self.probe) <= width].astype(dtype)
+            ph = _unicode_hash(probe)
+            order = np.argsort(ph, kind="stable")
+            got = self._at[width] = (ph[order], probe[order])
+        return got
+
+    def isin(self, values: np.ndarray) -> np.ndarray:
+        """``np.isin(values, probe)`` without sorting ``values``: a binary
+        search of the sorted probe hashes finds each value's candidate, an
+        elementwise string compare settles it, and the few values whose
+        hash matched another string (a collision) take ``np.isin``."""
+        out = np.zeros(len(values), dtype=bool)
+        ph, probe = self._sorted(values.dtype)
+        if not len(ph) or not len(values):
+            return out
+        vh = _unicode_hash(values)
+        pos = np.minimum(np.searchsorted(ph, vh), len(ph) - 1)
+        cand = np.flatnonzero(ph[pos] == vh)
+        if len(cand):
+            same = values[cand] == probe[pos[cand]]
+            out[cand[same]] = True
+            rest = cand[~same]
+            if len(rest):
+                out[rest] = np.isin(values[rest], probe)
+        return out
+
+
 class IndexTable:
     """All sealed blocks for one index of one feature type.
 
     The analog of a reference index table: writes land in sealed sorted
     blocks (one per flush); scans prune by bin slice + key stats and
-    searchsorted into each block. (The reference's fid tombstones and
-    compaction wait for a later slice of the port.)
+    searchsorted into each block. Deletes are fid tombstones applied at
+    scan time (``tombstone_keep``, the one filter every host scan goes
+    through); ``compact`` folds them in.
     """
 
     def __init__(self, index: IndexKeySpace, ft: FeatureType):
         self.index = index
         self.ft = ft
         self.blocks: List[FeatureBlock] = []
+        self.tombstones: set = set()
+        # the tombstones as one array for np.isin and as a hashed probe,
+        # made at first use after each delete
+        self._tomb_arr: Optional[np.ndarray] = None
+        self._tomb_probe: Optional[_UnicodeProbe] = None
         # bumped on every mutation; device-resident mirrors key off this
         self.version = 0
 
@@ -716,13 +818,114 @@ class IndexTable:
         self.blocks.append(FeatureBlock.build(self.index, self.ft, record))
         self.version += 1
 
+    def delete(self, fids: Sequence[str]):
+        self.tombstones.update(fids)
+        self._tomb_arr = self._tomb_probe = None
+        self.version += 1
+
+    def tombstone_array(self) -> np.ndarray:
+        """The tombstoned fids as one array (``np.isin``'s right side)."""
+        arr = self._tomb_arr
+        if arr is None:
+            arr = self._tomb_arr = np.asarray(list(self.tombstones))
+        return arr
+
+    def fid_keep(self, fids: np.ndarray) -> np.ndarray:
+        """Bool mask over ``fids``: True where the fid is not tombstoned
+        (``np.isin`` semantics; fixed-width unicode fids go by hash first,
+        see ``_UnicodeProbe``)."""
+        if not self.tombstones:
+            return np.ones(len(fids), dtype=bool)
+        tomb = self.tombstone_array()
+        if fids.dtype.kind == "U" and tomb.dtype.kind == "U":
+            if self._tomb_probe is None:
+                self._tomb_probe = _UnicodeProbe(tomb)
+            return ~self._tomb_probe.isin(fids)
+        return ~np.isin(fids, tomb)
+
     def scan(self, ranges: Sequence[ScanRange]) -> Iterator[Tuple[FeatureBlock, np.ndarray]]:
         for b in self.blocks:
-            rows = b.scan(ranges)
+            rows = self._strip_tombstones(b, b.scan(ranges))
             if len(rows):
                 yield b, rows
 
+    def scan_covered(
+        self, ranges: Sequence[ScanRange]
+    ) -> Iterator[Tuple[FeatureBlock, np.ndarray, np.ndarray]]:
+        """Like ``scan`` but yields (block, rows, covered): ``covered`` rows
+        came from ``contained`` ranges and satisfy the plan's primary
+        predicate (no post-filter needed for them)."""
+        for b in self.blocks:
+            starts, ends, flags = b.scan_intervals(ranges)
+            rows, covered = self.expand_covered(b, starts, ends, flags)
+            if len(rows):
+                yield b, rows, covered
+
+    def expand_covered(
+        self, block: FeatureBlock, starts, ends, flags
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """(rows, covered) from seek intervals, tombstones stripped: the
+        expansion step of ``scan_covered`` and of the executor's host seek
+        (which reuses its cost probe's intervals)."""
+        rows, covered = expand_intervals(starts, ends, flags)
+        keep = self.tombstone_keep(block, rows)
+        if keep is not None:
+            rows = rows[keep]
+            covered = covered[keep]
+        return rows, covered
+
     def scan_all(self) -> Iterator[Tuple[FeatureBlock, np.ndarray]]:
         for b in self.blocks:
-            if b.n:
-                yield b, np.arange(b.n, dtype=np.int64)
+            rows = self._strip_tombstones(b, np.arange(b.n, dtype=np.int64))
+            if len(rows):
+                yield b, rows
+
+    def tombstone_keep(self, b: FeatureBlock, rows: np.ndarray) -> Optional[np.ndarray]:
+        """Bool keep-mask over ``rows`` against this table's tombstones, or
+        None when nothing is stripped: the ONE tombstone filter every host
+        scan path (plain, covered, native seek) goes through."""
+        if not self.tombstones or not len(rows):
+            return None
+        keep = self.fid_keep(b.gather("__fid__", rows))
+        return None if keep.all() else keep
+
+    def _strip_tombstones(self, b: FeatureBlock, rows: np.ndarray) -> np.ndarray:
+        keep = self.tombstone_keep(b, rows)
+        return rows if keep is None else rows[keep]
+
+    def compact(self, record: Optional[RecordBlock] = None):
+        """Merge all blocks into one, dropping tombstoned rows. With
+        ``record`` given, rebuild against that pre-merged shared record
+        block (the datastore compacts all of a type's tables against ONE
+        merged record); otherwise merge this table's own record parts.
+        The reference also spills the merged record to disk
+        (``geomesa.spill.dir``); the port keeps it in memory."""
+        if record is None:
+            if len(self.blocks) <= 1 and not self.tombstones:
+                return
+            record = self.merged_record()
+        self.blocks = []
+        self.tombstones = set()
+        self._tomb_arr = self._tomb_probe = None
+        self.version += 1
+        self.insert_record(record)
+
+    def merged_record(self) -> RecordBlock:
+        """Live rows of every record block, tombstones dropped, in record
+        order: the input of a store-level compaction. Dictionary columns
+        decode per part (vocabs are batch-relative) and the merged batch
+        re-encodes with one vocab."""
+        parts = []
+        seen = set()
+        for b in self.blocks:
+            rb = b.record
+            if rb is None or id(rb) in seen:
+                continue
+            seen.add(id(rb))
+            rows = np.arange(rb.n, dtype=np.int64)
+            if self.tombstones:
+                rows = rows[self.fid_keep(rb.columns["__fid__"])]
+            if len(rows):
+                parts.append(record_rows_decoded(rb.columns, rows))
+        merged = intern_string_columns(self.ft, intern_fids(concat_columns(parts)))
+        return RecordBlock(merged)

@@ -61,13 +61,30 @@ result carries ``receipt``, the bytes its query moved each way and the
 kernel builds it triggered (``utils/devstats.py``), and ``scan_path``, its
 route.
 
-Tenants, brownout, circuit breakers, workload capture, audit, plan
-telemetry, visibility labels, age-off, deletes, the arrow aggregation,
-joins and streaming are not in this slice of the port (nor, therefore,
-the reference's brownout gate, workload capture, plan telemetry and audit
-decisions around the pyramid). A device scan, count or
-stats push-down that fails raises (after ``executor.degrade`` evicts the
-mirror) instead of being answered from the host.
+The write lifecycle (the reference's): ``delete_features`` tombstones fids
+in every index table (host scans strip them, the device mirrors clear
+their valid bits), ``compact`` rewrites a type's tables from one merged
+record without them, and age-off (``geomesa.feature.expiry`` in the type's
+user data or the knob of that name) masks expired rows at scan time, while
+``age_off()`` tombstones them. Visibility labels: a feature's ``__vis__``
+expression (the writer's ``visibility=``, or a ``__vis__`` column of
+``write_columns``) is checked against the store's ``auths`` on every row a
+scan returns (``security/visibility.py``); a labelled or aging type takes
+none of the count shortcuts, the pyramid or the density memo, and the
+executor declines its count, stats, density and kNN push-downs.
+
+Parity under faults: a device scan, count, stats, density or pyramid
+push-down that fails degrades (``executor.degrade``: the mirror evicted,
+a breaker strike, ``degrade.device_to_host``) and the query answers from
+the host table scan, ``scan_path`` = ``host-table-degraded``; while the
+executor's circuit is open, ``host-table-breaker``. A ``QueryTimeout`` or
+a fault of a hand kernel (``kernels.KernelError``: a failed build, a bad
+argument, a failed launch) raises.
+
+Tenants, brownout, workload capture, audit, plan telemetry, the arrow
+aggregation, joins and streaming are not in this slice of the port (nor,
+therefore, the reference's brownout gate, workload capture, plan telemetry
+and audit decisions around the pyramid).
 """
 
 from __future__ import annotations
@@ -88,7 +105,8 @@ from geomesa_tpu_torch.index.aggregators import (
 )
 from geomesa_tpu_torch.index.keyspace import IndexKeySpace, default_indices
 from geomesa_tpu_torch.index.planner import Query, QueryPlan, QueryPlanner
-from geomesa_tpu_torch.parallel.executor import TorchScanExecutor
+from geomesa_tpu_torch.ops.kernels import KernelError
+from geomesa_tpu_torch.parallel.executor import HostRoute, TorchScanExecutor
 from geomesa_tpu_torch.parallel.mesh import Device
 from geomesa_tpu_torch.schema.feature import Feature
 from geomesa_tpu_torch.schema.featuretype import AttributeType, FeatureType
@@ -208,7 +226,8 @@ class QueryResult:
 
 class FeatureWriter:
     """Buffered appender; flush seals one block per index (GeoMesaFeatureWriter
-    analog; fids default to random UUIDs)."""
+    analog; fids default to random UUIDs). A feature's ``visibility`` is its
+    label expression (``security/visibility.py``), stored in ``__vis__``."""
 
     def __init__(self, store: "TorchDataStore", ft: FeatureType, flush_size: int):
         self.store = store
@@ -216,12 +235,29 @@ class FeatureWriter:
         self.buffer = ColumnBuffer(ft)
         self.flush_size = flush_size
 
-    def write(self, values: Sequence[Any], fid: Optional[str] = None) -> str:
+    def write(self, values: Sequence[Any], fid: Optional[str] = None,
+              visibility: Optional[str] = None) -> str:
         fid = fid if fid is not None else str(uuid.uuid4())
-        self.buffer.append(Feature(self.ft, fid, values))
+        user_data = {"visibility": visibility} if visibility else None
+        self.buffer.append(Feature(self.ft, fid, values, user_data))
         if len(self.buffer) >= self.flush_size:
             self.flush()
         return fid
+
+    def write_feature(self, feature: Feature) -> str:
+        if feature.fid is None:
+            feature = Feature(self.ft, str(uuid.uuid4()), feature.values, feature.user_data)
+        self.buffer.append(feature)
+        if len(self.buffer) >= self.flush_size:
+            self.flush()
+        return feature.fid
+
+    def write_columns(self, columns: Columns) -> None:
+        """Bulk columnar ingest (no row objects): the buffered rows first,
+        then ``columns`` as one batch (a ``__vis__`` object column carries
+        the labels)."""
+        self.flush()
+        self.store._insert_columns(self.ft, columns)
 
     def flush(self):
         if len(self.buffer):
@@ -245,14 +281,17 @@ class TorchDataStore:
     when there is none). ``query_timeout_s`` (None: the
     ``geomesa.query.timeout`` knob, unbounded by default), ``max_inflight``
     and ``max_queue`` (None: ``geomesa.query.max.inflight`` 64 and
-    ``.queue.depth`` 256) set the serving bounds."""
+    ``.queue.depth`` 256) set the serving bounds. ``auths`` is an
+    ``AuthorizationsProvider``, a list of authorizations or None (no
+    authorizations: only unlabelled features are readable)."""
 
     # cross-query coalescing at the admission point (parallel/batch.py)
     COALESCE_QUERIES = True
 
     def __init__(self, executor=None, flush_size: int = DEFAULT_FLUSH_SIZE,
                  device: Optional[Device] = None, query_timeout_s: Optional[float] = None,
-                 max_inflight: Optional[int] = None, max_queue: Optional[int] = None):
+                 max_inflight: Optional[int] = None, max_queue: Optional[int] = None,
+                 auths: Optional[Any] = None):
         from geomesa_tpu_torch.utils.config import (
             QUERY_MAX_INFLIGHT,
             QUERY_QUEUE_DEPTH,
@@ -261,6 +300,7 @@ class TorchDataStore:
 
         self.executor = executor if executor is not None else TorchScanExecutor(device)
         self.flush_size = flush_size
+        self.auths = auths
         self.query_timeout_s = (QUERY_TIMEOUT.to_duration_s() if query_timeout_s is None
                                 else query_timeout_s)
         if max_inflight is None:
@@ -279,6 +319,14 @@ class TorchDataStore:
         # per-type write generation (``_note_write``): cache keys derive
         # from it through ``schema_generation``
         self._write_gen: Dict[str, int] = {}
+
+    @property
+    def authorizations(self) -> List[str]:
+        if self.auths is None:
+            return []
+        if hasattr(self.auths, "get_authorizations"):
+            return list(self.auths.get_authorizations())
+        return list(self.auths)
 
     # -- schema ---------------------------------------------------------------
 
@@ -334,6 +382,104 @@ class TorchDataStore:
             tuple(t.version for t in self._tables[name].values()),
             self._write_gen.get(name, 0),
         )
+
+    # -- the write lifecycle -------------------------------------------------
+
+    def delete_features(self, name: str, fids: Sequence[str]) -> None:
+        """Tombstone ``fids`` in every index table of the type: host scans
+        strip them and the device mirrors clear their valid bits at the
+        next query (no row uploads again)."""
+        for table in self._tables[name].values():
+            table.delete(fids)
+        self._note_write(name)
+
+    def compact(self, name: str) -> None:
+        """Rewrite every index table of the type from ONE merged record
+        block of its live rows (tombstones dropped); the device mirrors
+        rebuild at the next query. The reference also spills the merged
+        record (``geomesa.spill.dir``); the port keeps it in memory."""
+        tables = self._tables[name]
+        first = next(iter(tables.values()))
+        if len(first.blocks) <= 1 and not first.tombstones:
+            return
+        # deletes are store-wide: the fullest table (no __valid__ row
+        # filter) holds every live row
+        full = next(
+            (t for t in tables.values() if t.index.name in ("id", "z2", "z3", "xz2", "xz3")),
+            first,
+        )
+        record = full.merged_record()
+        for table in tables.values():
+            table.compact(record)
+        self._note_write(name)
+
+    def _age_off_cutoff(self, ft: FeatureType) -> Optional[int]:
+        """Epoch ms below which a row has expired, or None: the retention of
+        the type's ``geomesa.feature.expiry`` user data, else of the knob of
+        that name (e.g. ``7 days``); a type without a date never expires."""
+        if ft.default_date is None:
+            return None
+        import time
+
+        from geomesa_tpu_torch.utils.config import FEATURE_EXPIRY, SystemProperty
+
+        spec = (ft.user_data or {}).get("geomesa.feature.expiry")
+        ms = SystemProperty("", str(spec)).to_duration_ms() if spec is not None else None
+        if ms is None:
+            ms = FEATURE_EXPIRY.to_duration_ms()
+        if ms is None:
+            return None
+        return int(time.time() * 1000) - ms
+
+    def _age_off_keep(self, ft, block, rows, age_cutoff) -> Optional[np.ndarray]:
+        """Keep-mask of the rows within the retention window, or None when
+        all are (null dates never expire)."""
+        if age_cutoff is None or not len(rows):
+            return None
+        dtg = ft.default_date.name
+        alive = block.gather(dtg, rows) >= age_cutoff
+        alive |= block.gather(dtg + "__null", rows)
+        return None if alive.all() else alive
+
+    def age_off(self, name: str) -> int:
+        """Tombstone the expired features (the maintenance sweep of the
+        reference's ``age_off``); returns how many."""
+        ft = self.get_schema(name)
+        cutoff = self._age_off_cutoff(ft)
+        if cutoff is None:
+            return 0
+        dtg = ft.default_date.name
+        victims: List[np.ndarray] = []
+        table = next(iter(self._tables[name].values()))
+        for b, rows in table.scan_all():
+            dead = (b.gather(dtg, rows) < cutoff) & ~b.gather(dtg + "__null", rows)
+            if dead.any():
+                victims.append(b.gather("__fid__", rows[dead]))
+        fids = np.concatenate(victims) if victims else np.empty(0)
+        if len(fids):
+            self.delete_features(name, fids.tolist())
+        return int(len(fids))
+
+    def _has_vis(self, name: str) -> bool:
+        """Whether a row of the type carries a visibility label."""
+        first = next(iter(self._tables[name].values()))
+        return any(b.has_col("__vis__") for b in first.blocks)
+
+    def _shortcuts_ok(self, name: str, ft: FeatureType) -> bool:
+        """The gate of every answer that does not scan rows through the
+        auth and age-off checks (the row-count shortcuts, the pyramid, the
+        density memo): no labelled row and no retention window."""
+        return not self._has_vis(name) and self._age_off_cutoff(ft) is None
+
+    def _visibility_keep(self, block, rows) -> Optional[np.ndarray]:
+        """Keep-mask of the rows the store's authorizations may read, or
+        None when all are readable."""
+        if not len(rows) or not block.has_col("__vis__"):
+            return None
+        from geomesa_tpu_torch.security import visibility_mask
+
+        vmask = visibility_mask(block.gather("__vis__", rows), self.authorizations)
+        return None if vmask.all() else vmask
 
     # -- queries --------------------------------------------------------------
 
@@ -436,20 +582,27 @@ class TorchDataStore:
         sketches (the EXACT_COUNT hint / GeoMesaStats.getCount split) where
         they can estimate, and an exact count tries the aggregate pyramid
         (``_count_pyramid``), then the executor's device count
-        (``_count_device``), else counts the query's rows. The port has no
-        deletes, age-off or visibility labels yet."""
-        tables = self._tables[name]
+        (``_count_device``), else counts the query's rows. A labelled or
+        aging type counts through the query (auths and age-off apply per
+        row; the write-time sketches saw every row)."""
+        ft = self.get_schema(name)
+        first = next(iter(self._tables[name].values()))
+        shortcuts = self._shortcuts_ok(name, ft)
         if query is None:
-            return int(next(iter(tables.values())).num_rows)
+            if not shortcuts:
+                return len(self.query(name))
+            if not first.tombstones:
+                return int(first.num_rows)
+            return sum(len(rows) for _b, rows in first.scan_all())
         q = self._as_query(query)
         if not exact:
-            est = self.stats.get_count(self.get_schema(name), q.filter)
+            est = self.stats.get_count(ft, q.filter) if shortcuts else None
             if est is not None:
                 return int(est)
-        else:
+        elif shortcuts:
             if q.max_features is None and not q.hints:
                 plan = self._plan_cached(name, q)
-                got = self._count_pyramid(name, self.get_schema(name), q, plan)
+                got = self._count_pyramid(name, ft, q, plan)
                 if got is not None:
                     return got
             got = self._count_device(name, q)
@@ -461,8 +614,8 @@ class TorchDataStore:
         """The executor's ``count_scan`` of the query's plan, when its
         semantics are ``len`` of the query's rows (no limit, no hints, no
         union: the host dedupes overlapping arms); None -> the caller
-        counts the rows. A failed device count raises after the mirror is
-        evicted."""
+        counts the rows, as it does after a failed device count (degraded)
+        or while the circuit is open."""
         count_scan = getattr(self.executor, "count_scan", None)
         if count_scan is None or q.max_features is not None or q.hints:
             return None
@@ -472,13 +625,8 @@ class TorchDataStore:
         table = self._tables[name].get(plan.index.name)
         if table is None:
             return None
-        try:
-            return count_scan(table, plan)
-        except QueryTimeout:
-            raise  # a budget is no verdict on the device
-        except Exception as e:
-            self.executor.degrade(table, e)
-            raise
+        got = self.executor.push_down(table, count_scan, table, plan)
+        return None if isinstance(got, HostRoute) else got
 
     # -- the aggregate pyramid cache (ops/pyramid.py) ---------------------------
 
@@ -494,10 +642,11 @@ class TorchDataStore:
 
     def _pyramid_for(self, name: str, ft) -> Optional[Any]:
         """The type's cached pyramid, built at first use under the
-        ``agg.build`` envelope; None when the type has no z2 table or an
-        injected build fault degraded it (the caller answers from the
-        uncached scan, identically). A budget that dies raises; a failed
-        device build raises after ``executor.degrade`` evicts the mirror."""
+        ``agg.build`` envelope; None when the type has no z2 table or the
+        build degraded (an injected fault, or a failed device count that
+        degraded the executor): the caller answers from the uncached scan,
+        identically. A budget that dies raises, as does a kernel that fails
+        to build."""
         from geomesa_tpu_torch.ops.pyramid import BUILD_FAULTS, agg_knobs, build_pyramid
 
         table = self._tables[name].get("z2")
@@ -511,24 +660,20 @@ class TorchDataStore:
             return pyr
         try:
             pyr = build_pyramid(table, ft, self.executor)
-        except QueryTimeout:
-            raise
         except BUILD_FAULTS as e:
             _degrade_agg(e)
             return None
-        except Exception as e:
-            self.executor.degrade(table, e)
-            raise
         cache.put(key, pyr)
         return pyr
 
     def _agg_eligible(self, name: str) -> bool:
-        """The store-state gates of every pyramid consumer: the cache is on
-        and the type has a z2 table (the port has no visibility labels or
-        age-off, the reference's other two gates)."""
+        """The store-state gates of every pyramid consumer: the cache is on,
+        the type has a z2 table, and no row carries a label and no retention
+        window applies (the pyramid counted every row)."""
         from geomesa_tpu_torch.ops.pyramid import agg_enabled
 
-        return agg_enabled() and "z2" in self._tables.get(name, {})
+        return (agg_enabled() and "z2" in self._tables.get(name, {})
+                and self._shortcuts_ok(name, self.get_schema(name)))
 
     def _pyramid_classify(self, name, ft, query: Query, plan):
         """The gate -> build -> classify pipeline under every pyramid
@@ -621,7 +766,7 @@ class TorchDataStore:
         grid, or a ``Count()``-only stats query from the pyramid."""
         from geomesa_tpu_torch.ops.pyramid import agg_enabled, agg_knobs
 
-        if not agg_enabled() or not self._memoizable(query):
+        if not agg_enabled() or not self._memoizable(query) or not self._shortcuts_ok(name, ft):
             return None
         hints = set(query.hints) & set(AGGREGATION_HINTS)
         if hints == {"density"}:
@@ -657,6 +802,8 @@ class TorchDataStore:
 
         if not agg_enabled() or not self._memoizable(query):
             return
+        if not self._shortcuts_ok(name, self.get_schema(name)):
+            return  # a grid under labels or age-off is the caller's alone
         if set(query.hints) & set(AGGREGATION_HINTS) != {"density"}:
             return
         grid = (result.aggregate or {}).get("density")
@@ -782,11 +929,16 @@ class TorchDataStore:
                         try:
                             with record_function("geomesa.dispatch"):
                                 pending.update(dispatch_many(items))
-                        except QueryTimeout:
+                        except (QueryTimeout, KernelError):
                             raise
                         except Exception as e:
+                            # the batched dispatch died mid-stream: every
+                            # mirror goes and each query of the batch
+                            # answers from the host table scan
                             self.executor.degrade(None, e)
-                            raise
+                            from geomesa_tpu_torch.parallel.executor import HOST_DEGRADED
+
+                            pending = dict.fromkeys(pending, HOST_DEGRADED)
             results = []
             for q, p in zip(qs, plans):
                 with deadline_mod.budget(self.query_timeout_s):
@@ -810,16 +962,23 @@ class TorchDataStore:
         if got is not None:
             return got
         aggs = set(query.hints) & set(AGGREGATION_HINTS)
+        # an aging type's push-downs would count expired rows: the host
+        # reducer answers (labelled tables: the executor declines)
         pushable = (plan.union is None and not query.hints.get("sampling")
-                    and _untransformed(query))
+                    and _untransformed(query) and self._age_off_cutoff(ft) is None)
+        # a push-down that degraded or met an open circuit: the host table
+        # scan answers, under its label
+        host: Optional[HostRoute] = None
         if pushable and aggs == {"density"}:
             density_scan = getattr(self.executor, "density_scan", None)
             grid = None
             if density_scan is not None:
-                grid = density_scan(
-                    self._tables[name][plan.index.name], plan, query.hints["density"]
-                )
-            if grid is not None:
+                table = self._tables[name][plan.index.name]
+                grid = self.executor.push_down(table, density_scan, table, plan,
+                                               query.hints["density"])
+            if isinstance(grid, HostRoute):
+                host = grid
+            elif grid is not None:
                 plan.scan_path = "device-density"
                 result = QueryResult(ft, _empty_columns(ft), plan, {"density": grid},
                                      scan_path=plan.scan_path)
@@ -830,21 +989,17 @@ class TorchDataStore:
             stat = None
             if stats_scan is not None:
                 table = self._tables[name][plan.index.name]
-                try:
-                    stat = stats_scan(table, plan, query.hints["stats"])
-                except QueryTimeout:
-                    raise
-                except Exception as e:
-                    self.executor.degrade(table, e)
-                    raise
-            if stat is not None:
+                stat = self.executor.push_down(table, stats_scan, table, plan, query.hints["stats"])
+            if isinstance(stat, HostRoute):
+                host = stat
+            elif stat is not None:
                 plan.scan_path = "device-stats"
                 return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat},
                                    scan_path=plan.scan_path)
         parts: List[tuple] = []
         labels: List[str] = []
         for arm in self._route(plan):
-            parts.extend(self._scan_parts(name, ft, arm, pending, labels))
+            parts.extend(self._scan_parts(name, ft, arm, pending, labels, host))
         with record_function("geomesa.assemble"):
             columns = _columns_from_parts(ft, query, parts)
             if plan.union is not None:
@@ -864,61 +1019,97 @@ class TorchDataStore:
         return [plan]
 
     def _scan_parts(self, name, ft, plan: QueryPlan, pending=None,
-                    labels: Optional[List[str]] = None) -> List[tuple]:
+                    labels: Optional[List[str]] = None,
+                    host: Optional[HostRoute] = None) -> List[tuple]:
         """Scan one plan into (block, final rows) parts; its route goes to
-        ``plan.scan_path`` and ``labels``."""
+        ``plan.scan_path`` and ``labels``. ``host`` (a push-down that
+        degraded or met an open circuit) sends the plan to the host table
+        scan under that route. A scan that fails while it resolves degrades
+        the query to the host table scan (``host-table-degraded``, the
+        reference's ``_scan_parts``): identical rows, since the host path
+        evaluates the full filter; a device scan resolved end to end closes
+        a half-open circuit."""
         table = self._tables[name][plan.index.name]
-        if pending is not None and id(plan) in pending:
+        if host is not None:
+            scan = host
+        elif pending is not None and id(plan) in pending:
             scan = pending[id(plan)]  # pre-dispatched (query_many, the coalescer)
         else:
             scan = self.executor.scan_candidates(table, plan)
-        plan.scan_path = label = _scan_label(scan)
-        if labels is not None:
-            labels.append(label)
-        if scan is None:
-            rows = table.scan(plan.ranges) if plan.ranges else table.scan_all()
-            return self._consume(ft, plan, rows, False)
+        label = _scan_label(scan)
         try:
-            return self._consume(ft, plan, scan, scan.exact)
-        except QueryTimeout:
-            raise
-        except Exception as e:
-            self.executor.degrade(table, e)
-            raise
+            if scan is None or isinstance(scan, HostRoute):
+                return self._host_parts(ft, plan, table)
+            try:
+                parts = self._consume(ft, plan, scan, scan.exact)
+            except (QueryTimeout, KernelError):
+                raise
+            except Exception as e:
+                self.executor.degrade(table, e)
+                label = "host-table-degraded"
+                return self._host_parts(ft, plan, table)
+            if label.startswith("device"):
+                self.executor.record_device_success()
+            return parts
+        finally:
+            plan.scan_path = label
+            if labels is not None:
+                labels.append(label)
+
+    def _host_parts(self, ft, plan: QueryPlan, table) -> List[tuple]:
+        """The host table scan of one plan: its ranges (or every row), the
+        full filter."""
+        rows = table.scan(plan.ranges) if plan.ranges else table.scan_all()
+        return self._consume(ft, plan, rows, False)
 
     def _consume(self, ft, plan: QueryPlan, scan, exact: bool) -> List[tuple]:
         """Post-filter each (block, rows) candidate set with the full
-        filter, unless the scan evaluated the query's own predicate. A host
+        filter, unless the scan evaluated the query's own predicate; the
+        age-off window and the visibility check apply to every scan. A host
         seek's (block, rows, covered) triples take the covered split."""
         pf_props = (
             set(ast.properties(plan.post_filter))
             if plan.post_filter is not None and not exact
             else None
         )
+        age_cutoff = self._age_off_cutoff(ft)
         parts = []
         for item in scan:
             block, rows = item[0], item[1]
             covered = item[2] if len(item) == 3 else None
             if covered is not None and pf_props is not None and covered.any():
-                rows = self._filter_block_covered(ft, plan, block, rows, covered, pf_props)
-            elif pf_props is not None and len(rows):
-                with record_function("geomesa.post_filter"):
-                    fcols = _gather_filter_cols(block, rows, pf_props)
-                    mask = self.executor.post_filter(ft, plan, fcols)
-                if not mask.all():
-                    rows = rows[mask]
+                rows = self._filter_block_covered(ft, plan, block, rows, covered, age_cutoff,
+                                                  pf_props)
+            else:
+                alive = self._age_off_keep(ft, block, rows, age_cutoff)
+                if alive is not None:
+                    rows = rows[alive]
+                if pf_props is not None and len(rows):
+                    with record_function("geomesa.post_filter"):
+                        fcols = _gather_filter_cols(block, rows, pf_props)
+                        mask = self.executor.post_filter(ft, plan, fcols)
+                    if not mask.all():
+                        rows = rows[mask]
+                vmask = self._visibility_keep(block, rows)
+                if vmask is not None:
+                    rows = rows[vmask]
             if len(rows):
                 parts.append((block, rows))
         return parts
 
-    def _filter_block_covered(self, ft, plan: QueryPlan, block, rows, covered,
+    def _filter_block_covered(self, ft, plan: QueryPlan, block, rows, covered, age_cutoff,
                               pf_props) -> np.ndarray:
         """Covered-split filtering of one block (the reference's
         ``_filter_block_covered``): rows of ``contained`` ranges satisfy the
         plan's primary predicate, so the full post-filter runs only on the
-        uncovered rest and covered rows take just the residual secondary."""
+        uncovered rest and covered rows take just the residual secondary;
+        the age-off window first, the visibility check last."""
         from geomesa_tpu_torch.filter.evaluate import evaluate
 
+        alive = self._age_off_keep(ft, block, rows, age_cutoff)
+        if alive is not None:
+            rows = rows[alive]
+            covered = covered[alive]
         keep = covered.copy()
         with record_function("geomesa.post_filter"):
             uncov = np.flatnonzero(~covered)
@@ -930,7 +1121,10 @@ class TorchDataStore:
                 scols = _gather_filter_cols(
                     block, rows[cov], set(ast.properties(plan.secondary)))
                 keep[cov] = evaluate(plan.secondary, ft, scols)
-        return rows if keep.all() else rows[keep]
+        if not keep.all():
+            rows = rows[keep]
+        vmask = self._visibility_keep(block, rows)
+        return rows if vmask is None else rows[vmask]
 
 
 # derived scan-internal companion suffixes (dictionary vocabs, envelope
@@ -949,11 +1143,14 @@ def _untransformed(query: Query) -> bool:
 
 def _scan_label(scan) -> str:
     """Execution-path label of a scan (the reference's ``_scan_label``;
-    None = the executor declined and the host table scan ran). Device
-    scans carry a suffix for the wire format: ``/mask`` (the coalescer's
-    full-table planes), ``/bitmap`` (span-framed bitmaps) or ``/runs``."""
+    None = the executor declined and the host table scan ran; a
+    ``HostRoute`` names why the host answers). Device scans carry a suffix
+    for the wire format: ``/mask`` (the coalescer's full-table planes),
+    ``/bitmap`` (span-framed bitmaps) or ``/runs``."""
     if scan is None:
         return "host-table"
+    if isinstance(scan, HostRoute):
+        return scan.label
     name = type(scan).__name__
     if name == "_HostSeekScan":
         return "host-seek"

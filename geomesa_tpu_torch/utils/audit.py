@@ -137,6 +137,12 @@ def robustness_metrics() -> MetricsRegistry:
         shed.queue_timeout         queries whose budget died in the queue
         shed.priority.<class>      sheds by priority class
         degrade.coalesce_to_solo   coalesced groups run solo after a seam fault
+        degrade.device_to_host     device calls that failed and degraded to
+                                   the host table scan (``executor.degrade``)
+        degrade.mirror_rebuilds    device mirrors evicted by those degrades
+        degrade.agg_to_scan        pyramid builds degraded to the uncached scan
+        breaker.<name>.*           circuit transitions and short circuits
+                                   (``utils/breaker.py``)
         decision.<point>.<reason>  reason-coded declines (``decision``)
     """
     global _ROBUSTNESS

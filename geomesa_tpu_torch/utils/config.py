@@ -154,3 +154,13 @@ AGG_LEVELS = SystemProperty("geomesa.agg.levels", "3")
 AGG_CELL_BITS = SystemProperty("geomesa.agg.cell.bits", "8")
 AGG_CACHE_TTL = SystemProperty("geomesa.agg.cache.ttl", "10 minutes")
 AGG_CACHE_BYTES = SystemProperty("geomesa.agg.cache.bytes", "64MB")
+# the device circuit breaker (utils/breaker.py): trip open after `failures`
+# device failures inside `window`, short-circuit to the host for
+# `cooldown`, then let one probe query through; read when a breaker is made
+BREAKER_FAILURES = SystemProperty("geomesa.breaker.failures", "5")
+BREAKER_WINDOW = SystemProperty("geomesa.breaker.window", "30 seconds")
+BREAKER_COOLDOWN = SystemProperty("geomesa.breaker.cooldown", "5 seconds")
+# the store-wide retention window of dated types (age-off: rows whose date
+# is older than now minus this are masked at scan, and ``age_off()``
+# tombstones them); a type's own `geomesa.feature.expiry` user data wins
+FEATURE_EXPIRY = SystemProperty("geomesa.feature.expiry", None)

@@ -1,8 +1,14 @@
 """Deterministic fault injection at named boundaries.
 
 Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
-``fault_point``. The port places two points so far:
+``fault_point``. The port places four points:
 
+    device.dispatch    every host -> device copy (``parallel/mesh.py``
+                       ``upload``: mirror builds and query descriptors): a
+                       fault there degrades the query to the host table
+                       scan with identical answers (``degrade.device_to_host``)
+    device.fetch       every device -> host copy (``mesh.fetch``): the same
+                       degrade, from wherever the scan was resolving
     batch.coalesce     the cross-query coalescer's shared phase
                        (parallel/batch.py): a fault there degrades the
                        whole group to solo execution with identical answers
@@ -10,8 +16,7 @@ Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
                        (ops/pyramid.py): a fault there degrades the
                        aggregation to the uncached exact scan
 
-(the reference's ``device.dispatch`` and ``device.fetch`` come with the
-port's host degrade). Kinds: ``error`` raises ``InjectedFault`` (an
+Kinds: ``error`` raises ``InjectedFault`` (an
 OSError), ``drop`` raises ``InjectedDrop`` (a ConnectionError),
 ``latency`` sleeps a few ms (never past the ambient budget), ``crash``
 raises ``SimulatedCrash`` (a BaseException no ``except Exception``

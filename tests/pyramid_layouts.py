@@ -82,3 +82,17 @@ def pyramid_layout(name: str, n: int = 0, seed: int = 5):
         mask[run[len(run) // 2]] = False
     return (x.astype(np.int32), y.astype(np.int32), mask,
             blocks if blocks is not None else [0, n])
+
+
+def holed_in_runs(xi, yi, mask):
+    """``mask`` with holes inside the key-sorted runs of one 12-bit cell
+    (what deletes leave): each run's first and last row and every third
+    row cleared. Returns a new mask."""
+    mask = mask.copy()
+    cell = ((yi.astype(np.int64) >> 19) << 12) | (xi.astype(np.int64) >> 19)
+    if len(cell) > 1:
+        edge = np.flatnonzero(np.diff(cell) != 0)
+        mask[np.concatenate([[0], edge + 1])] = False
+        mask[np.concatenate([edge, [len(cell) - 1]])] = False
+        mask[::3] = False
+    return mask

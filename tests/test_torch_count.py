@@ -7,10 +7,9 @@ on a one-device CPU mesh and into the port's ``TorchDataStore(device="cpu")``,
 with ``GEOMESA_COUNT_DEVICE=1`` (and the reference's
 ``GEOMESA_EXACT_DEVICE=1``), as that file sets them. Counts are equal
 integers, and the port's ``count_scan`` answers (is not None) exactly where
-the reference's does. The port has no deletes: where the reference deletes
-rows, the port's table is written without them. A failed device count
-re-raises in the port (no host degrade, ROADMAP Queue 3), where the
-reference trips to the host.
+the reference's does. Where the reference deletes rows, the port's table
+is written without them (``tests/test_torch_lifecycle.py`` deletes in both).
+A failed device count degrades to the host count in both.
 
 Kernel level: ``exact_count_plain`` (the plain edition of the count kernel)
 with each attribute edition against the reference's ``_exact_count_fn``.
@@ -152,9 +151,13 @@ def test_count_ineligible_shapes_fall_back():
 
 
 def test_count_respects_limit_and_failure_trip(monkeypatch):
-    """A limit keeps len() semantics; a device count that fails evicts the
-    mirror and re-raises (the port answers nothing from the host in place of
-    a failed device scan, where the reference trips to the host)."""
+    """A limit keeps len() semantics; a device count that fails degrades:
+    the mirror is evicted (``degrade.mirror_rebuilds``),
+    ``degrade.device_to_host`` counts the degrade, and the
+    count answers from the host with the reference's number (the reference
+    trips to the host the same way)."""
+    from geomesa_tpu_torch.utils.audit import robustness_metrics
+
     ref, port = _store(n=6000)
     q = Query.cql("bbox(geom, -60, -40, 40, 30)", max_features=5)
     assert port.count("t", q) == ref.count(
@@ -169,12 +172,17 @@ def test_count_respects_limit_and_failure_trip(monkeypatch):
     port.count("t", CQLS[0])  # the mirror
     assert port.executor._cache
     monkeypatch.setattr(port.executor, "count_scan", boom)
+    reg = robustness_metrics()
+    d0 = reg.counter("degrade.device_to_host")
+    r0 = reg.counter("degrade.mirror_rebuilds")
     # the aggregate pyramid counts a spatial-only filter before the device
     # count (as the reference's does): off, the count reaches count_scan
     with properties(geomesa_agg_enabled="false"):
-        with pytest.raises(RuntimeError, match="UNAVAILABLE"):
-            port.count("t", CQLS[0])
-    assert calls["n"] == 1 and not port.executor._cache
+        assert port.count("t", CQLS[0]) == len(ref.query("t", CQLS[0]))
+    assert calls["n"] == 1
+    assert reg.counter("degrade.device_to_host") == d0 + 1
+    # the failed count evicted the mirror (the host answer then rebuilt it)
+    assert reg.counter("degrade.mirror_rebuilds") == r0 + 1
     monkeypatch.undo()  # the count_scan back; the gate on auto: the host counts
     assert port.count("t", CQLS[0]) == len(ref.query("t", CQLS[0]))
 

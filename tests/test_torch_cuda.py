@@ -1411,6 +1411,25 @@ def test_pyramid_counts_matches_plain_on_run_layouts_on_the_card(cuda, layout, b
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bits", [2, 8, 12])
+@pytest.mark.parametrize("layout", ["hot_cell", "long_run", "three_blocks", "shuffled",
+                                    "pads_nulls", "gap", "n1", "n31", "n4097"])
+def test_pyramid_counts_with_holes_inside_runs_on_the_card(cuda, layout, bits):
+    """The layouts with holes punched inside their key-sorted runs (what
+    deletes leave in ``agg_mask``; ``pyramid_layouts.holed_in_runs``):
+    bitwise against the plain edition, with the layout's block bounds."""
+    from pyramid_layouts import holed_in_runs
+
+    xi, yi, mask, starts = _layout_on(cuda, layout)
+    holed = torch.from_numpy(holed_in_runs(xi.cpu().numpy(), yi.cpu().numpy(),
+                                           mask.cpu().numpy())).to(cuda)
+    want = agg.pyramid_counts_plain(xi, yi, holed, bits)
+    got = kernels.pyramid_counts(xi, yi, holed, bits, starts=starts)
+    assert torch.equal(got, want), (layout, bits)
+    assert int(want.sum()) == int(holed.sum())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [2, 8, 12])
 @pytest.mark.parametrize("offset", [1, 4, 16])
 def test_pyramid_counts_on_unaligned_slices_on_the_card(cuda, offset, bits):
     """A slice whose data pointers are not 16-byte aligned (offset 1: no

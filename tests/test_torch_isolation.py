@@ -6,8 +6,9 @@ config #5 (a kNN search and a TubeSelect), a polygon stream, host-seek
 queries, a coalesced wave of concurrent queries, a count and an
 ``aggregate()`` through the aggregate pyramid, a transform and a sampled
 query through it, with the native range walks and decode, and the
-pyramid, transform and converter modules, must load neither ``jax`` nor
-any ``geomesa_tpu`` module.
+pyramid, transform and converter modules, then a delete, an ``age_off``
+sweep, a labelled query and a degraded query (the security, breaker and
+fault modules), must load neither ``jax`` nor any ``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -198,6 +199,41 @@ r = store.query("gdelt", Query.cql(box, properties=["geom", "d=dateToMillis($dtg
 assert sorted(r.columns["d"].tolist()) == sorted(t[m].tolist())
 r = store.query("gdelt", Query.cql(box, hints={"sampling": 0.5}))
 assert len(r) == (int(m.sum()) + 1) // 2
+# the write lifecycle and the labels: a delete (the device mirror's valid
+# bits), an age_off sweep and a labelled query, then one device fault
+# answered from the host
+import time as _time
+from geomesa_tpu_torch.utils import faults
+os.environ["GEOMESA_SEEK"] = "0"
+doomed = [f"f{j}" for j in range(0, n, 5)]
+store.delete_features("gdelt", doomed)
+res = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
+for i, r in enumerate(res):
+    m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
+    m &= np.arange(n) % 5 != 0
+    assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
+    assert r.plan.scan_path == "device-exact/bitmap", r.plan.scan_path
+cut = int(np.datetime64("2026-01-20T00:00:00", "ms").astype(np.int64))
+os.environ["GEOMESA_FEATURE_EXPIRY"] = f"{int(_time.time() * 1000) - cut} ms"
+aged = store.age_off("gdelt")
+del os.environ["GEOMESA_FEATURE_EXPIRY"]
+alive = (t >= cut) & (np.arange(n) % 5 != 0)
+assert aged == int(((t < cut) & (np.arange(n) % 5 != 0)).sum())
+assert store.count("gdelt", cqls[0]) == int((alive & (x >= -80) & (x <= -70) & (y >= 36)
+                                            & (y <= 41) & (t > lo) & (t < hi)).sum())
+vft = parse_spec("labelled", "dtg:Date,*geom:Point:srid=4326")
+store.create_schema(vft)
+labels = np.array(["", "USA", "USA&SECRET", None], dtype=object)[np.arange(n) % 4]
+store.writer("labelled").write_columns({"__fid__": fids, "geom__x": x, "geom__y": y, "dtg": t,
+                                        "__vis__": labels})
+store.auths = ["USA"]
+r = store.query("labelled", cqls[0])
+m = (x >= -80) & (x <= -70) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi) & (np.arange(n) % 4 != 2)
+assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}
+assert store.count("labelled", cqls[0]) == int(m.sum())
+with faults.inject("device.fetch:error@0x1", seed=1):
+    r = store.query("gdelt", cqls[1])
+assert r.scan_path == "host-table-degraded", r.scan_path
 from geomesa_tpu_torch import native
 st = native.status()
 assert all(v["loaded"] for v in st.values()), st
@@ -214,7 +250,8 @@ def test_port_runs_config1_without_jax_or_the_reference():
     (device and host-seek routes), counts and a stats query, config #5 (kNN,
     TubeSelect), the polygon plane, host-seek queries, a coalesced wave, the
     aggregate pyramid (a count and an aggregate), a transform, a sampled
-    query, and the native libraries they run, load no JAX."""
+    query, a delete, an age_off sweep, a labelled query, a degraded query,
+    and the native libraries they run, load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

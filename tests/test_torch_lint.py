@@ -4,11 +4,15 @@
   ``kernels._LIBS``), and only it and the native host loader import
   ``ctypes``;
 * every wrapper in ``ops/kernels.py`` that launches (checks a launch's
-  error with ``_raise_on``) also counts the launch (``_count``);
+  error with ``_raise_on``) also counts the launch (``_count``), and
+  every fault it raises is a ``KernelError``;
 * ``.cpu()`` and ``.numpy()`` appear only in the counted device -> host
   helper (``parallel/mesh.py`` ``fetch``), and ``torch.as_tensor`` /
   ``torch.from_numpy`` only in the counted host -> device helper
   (``upload``): every copy over the link is in the device receipts;
+* those two helpers carry the ``device.dispatch`` / ``device.fetch`` fault
+  points (with their spans and budget checks), so every copy over the
+  link can fail the way a device does; only the link probe skips them;
 * no module imports ``jax`` or anything of ``geomesa_tpu``.
 """
 
@@ -118,6 +122,27 @@ def test_every_launching_wrapper_counts_its_launch():
     assert counting == {name for name, _fn in launchers}
 
 
+def test_kernel_faults_raise_kernel_errors():
+    """Every exception ``ops/kernels.py`` raises is a ``KernelError`` (a
+    build, argument or launch fault, which the executor's envelopes
+    re-raise instead of degrading to the host), but inside ``_compile``,
+    whose failure ``_lib`` wraps in ``KernelBuildError``."""
+    kernel_errors = {"KernelError", "KernelBuildError", "KernelLaunchError",
+                     "KernelArgumentError", "KernelDtypeError"}
+    offenders = []
+    for name, fn in _functions(MODULES[KERNELS]):
+        if name == "_compile":
+            continue
+        for n in ast.walk(fn):
+            if isinstance(n, ast.Raise) and isinstance(n.exc, ast.Call):
+                f = n.exc.func
+                if not (isinstance(f, ast.Name) and f.id in kernel_errors):
+                    offenders.append(f"{name}:{n.lineno}")
+    assert not offenders, offenders
+    lib = dict(_functions(MODULES[KERNELS]))["_lib"]
+    assert _called(lib, "KernelBuildError")
+
+
 def test_pyramid_counts_launch_and_grid_copies_are_counted():
     """The pyramid build's wrapper counts its launch, the executor fetches
     each segment's grid through the counted helper, and the pyramid's
@@ -153,3 +178,31 @@ def test_no_module_imports_jax_or_the_reference():
             offenders += [f"{mod}:{n.lineno} {x}" for x in names
                           if x.split(".")[0] in ("jax", "jaxlib", "geomesa_tpu")]
     assert not offenders, offenders
+
+
+def _strings(node):
+    return {n.value for n in ast.walk(node) if isinstance(n, ast.Constant)
+            and isinstance(n.value, str)}
+
+
+@pytest.mark.parametrize("helper,point", [("upload", "device.dispatch"),
+                                          ("fetch", "device.fetch")])
+def test_link_helpers_carry_the_fault_points(helper, point):
+    fn = dict(_functions(MODULES[MESH]))[helper]
+    for call in ("fault_point", "check", "span"):
+        assert _called(fn, call), (helper, call)
+    assert point in _strings(fn)
+    assert _called(dict(_functions(MODULES[EXECUTOR]))["_np_local"], "fetch")
+
+
+def test_only_the_link_probe_skips_the_fetch_fault_point():
+    """``fetch(..., boundary=False)`` (no span, check or fault point) only
+    in ``link_latency_ms``."""
+    sites = []
+    for mod, tree in MODULES.items():
+        for fname, fn in _functions(MODULES[mod]):
+            for n in ast.walk(fn):
+                if isinstance(n, ast.Call) and any(k.arg == "boundary" for k in n.keywords) \
+                        and _called(n, "fetch"):
+                    sites.append((mod, fname))
+    assert sites and set(sites) == {(MESH, "link_latency_ms")}, sites
