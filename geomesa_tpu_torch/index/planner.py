@@ -23,6 +23,7 @@ from geomesa_tpu_torch.index.keyspace import (
 )
 from geomesa_tpu_torch.index.strategy import get_filter_strategies
 from geomesa_tpu_torch.schema.featuretype import FeatureType
+from geomesa_tpu_torch.utils import trace
 
 
 class Explainer:
@@ -174,7 +175,18 @@ class QueryPlanner:
         max_ranges = _ranges_target(max_ranges)
         explain = explain or Explainer()
         f = simplify(query.filter)
-        return self._plan_or(f, explain, max_ranges)
+        with trace.span("plan", type=self.ft.name) as sp:
+            plan = self._plan_or(f, explain, max_ranges)
+            if sp.recording:
+                # the Explainer's trace is the plan's provenance
+                sp.set_attr("filter", to_cql(f))
+                sp.set_attr("index", plan.index.name)
+                sp.set_attr("cost", plan.cost)
+                sp.set_attr("n_ranges", len(plan.ranges))
+                if plan.union is not None:
+                    sp.set_attr("union_arms", len(plan.union))
+                sp.set_attr("explain", plan.explain)
+        return plan
 
     def _plan_or(
         self,
@@ -271,7 +283,9 @@ class QueryPlanner:
             explain("Full table scan (no index applies)")
             ranges: List[ScanRange] = []
         else:
-            ranges = best.index.get_ranges(self.ft, best.values, max_ranges)
+            with trace.span("plan.range_decomposition", index=best.index.name) as rsp:
+                ranges = best.index.get_ranges(self.ft, best.values, max_ranges)
+                rsp.set_attr("n_ranges", len(ranges))
         explain(f"Ranges: {len(ranges)}")
 
         full = None if isinstance(f, ast.Include) else f

@@ -1266,6 +1266,14 @@ class _PendingHits:
         return _expand_runs(starts, lens)
 
 
+def _shared_fetch_span(q: int):
+    """The span around the fetch of a batched buffer that serves ``q``
+    queries (the reference's ``device.fetch.shared``): the whole wait lands
+    on the query that resolves first, and ``shared_q`` lets a reader
+    apportion it across the batch."""
+    return trace.span("device.fetch.shared", shared_q=int(q))
+
+
 class _BitmapBatch:
     """One bitmap batch (headers + span windows), fetched once. Remembers
     the stream's widest span on the segment (once per batch)."""
@@ -1281,7 +1289,8 @@ class _BitmapBatch:
 
     def _fetch(self):
         if self._np is None:
-            self._np = (_np_local(self.hdr), _np_local(self.bits))
+            with _shared_fetch_span(self.hdr.shape[0]):
+                self._np = (_np_local(self.hdr), _np_local(self.bits))
             self.hdr = self.bits = None
             h = self._np[0]
             spans = np.where(h[:, 0] > 0, h[:, 2] - h[:, 3] + 1, 0)
@@ -1443,7 +1452,8 @@ class _MaskBatch:
 
     def _fetch(self) -> np.ndarray:
         if self._np is None:
-            self._np = _np_local(self.buf)
+            with _shared_fetch_span(self.buf.shape[0]):
+                self._np = _np_local(self.buf)
             self.buf = None
         return self._np
 
@@ -1482,7 +1492,8 @@ class _DualMaskBatch:
 
     def _fetch(self):
         if self._np is None:
-            self._np = (_np_local(self.hit), _np_local(self.dec))
+            with _shared_fetch_span(self.hit.shape[0]):
+                self._np = (_np_local(self.hit), _np_local(self.dec))
             self.hit = self.dec = None
         return self._np
 

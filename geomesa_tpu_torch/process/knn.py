@@ -23,14 +23,18 @@ breaker (``push_down``): while the circuit is open the host path answers,
 and a device failure degrades the executor and trips the session's
 device-kNN flag (``mesh.trip_device``): later calls take the host path
 unless ``GEOMESA_KNN_DEVICE=1``. A ``QueryTimeout`` or a kernel that fails
-to build raises. The reference's audit, metrics and lazy partitions have
-no branch here.
+to build raises. The device path skips ``store.query``, so it audits
+itself, as the reference's does: the store's ``queries`` counter and
+``query.scan`` timer and one ``QueryEvent`` (``scan_path`` =
+``device-topk``, its receipt); the host path is audited by each bbox query
+it issues. The reference's lazy partitions have no branch here.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -138,6 +142,45 @@ def _device_knn(store, name: str, ft, x: float, y: float, k: int,
     None when the store's executor has no device top-k, the type no point
     index or a retention window, the circuit is open or the device call
     failed (degraded; the session's device-kNN flag trips)."""
+    from geomesa_tpu_torch.utils import devstats
+
+    t0 = time.perf_counter()
+    with devstats.collecting() as own:
+        out = _device_knn_rows(store, name, ft, x, y, k, max_radius_m)
+    if out is not None:
+        _audit_knn(store, name, x, y, k, len(out), t0, devstats.receipt_of(own))
+    return out
+
+
+def _audit_knn(store, name: str, x: float, y: float, k: int, hits: int, t0: float,
+               receipt) -> None:
+    """The device path's own audit (it skips ``store.query``)."""
+    if store.metrics is not None:
+        store.metrics.inc("queries")
+        store.metrics.update_timer("query.scan", time.perf_counter() - t0)
+    if store.audit_writer is not None:
+        from geomesa_tpu_torch.utils.audit import QueryEvent
+
+        store.audit_writer.write_event(QueryEvent(
+            store=type(store).__name__,
+            type_name=name,
+            user=store.user,
+            filter=f"KNN({x}, {y}, k={k})",
+            hints={"knn": k},
+            date_ms=int(time.time() * 1000),
+            planning_ms=0.0,
+            scanning_ms=1000 * (time.perf_counter() - t0),
+            hits=hits,
+            scan_path="device-topk",
+            recompiles=int(receipt["recompiles"]),
+            h2d_bytes=int(receipt["h2d_bytes"]),
+            d2h_bytes=int(receipt["d2h_bytes"]),
+            pad_ratio=float(receipt["pad_ratio"]),
+        ))
+
+
+def _device_knn_rows(store, name: str, ft, x: float, y: float, k: int,
+                     max_radius_m: float):
     from geomesa_tpu_torch.parallel.executor import HOST_DEGRADED, HostRoute
     from geomesa_tpu_torch.parallel.mesh import trip_device
 

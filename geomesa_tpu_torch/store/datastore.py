@@ -35,9 +35,14 @@ the type's pyramid, built once a write generation on the device
 (``TorchScanExecutor.pyramid_counts``): interior cells from their partial
 sums, boundary cells by an exact scan of their z2 key ranges with the
 plan's own filter. A repeated density query answers from its memo
-(``agg-cache-density``). An injected ``agg.build`` fault degrades to the
-uncached paths with identical answers; a failed device build raises after
-``executor.degrade`` evicts the mirror.
+(``agg-cache-density``). An injected ``agg.build`` fault, or a device
+build that fails (``DeviceBuildFailed``: a failed link copy, after
+``executor.degrade`` evicts the mirror), degrades to the uncached paths
+with identical answers (``decision.pyramid.build_degraded``); a fault of a
+hand kernel raises. The reference's four telemetry hooks around the
+pyramid are here: the declines ``sub_cell_region`` and
+``boundary_dominates``, ``build_degraded``, and the brownout ladder's
+deferral of a cold build (``brownout_deferred``).
 
 Projection (the reference's ``_finish`` / ``apply_projection``): a query's
 ``properties`` may hold derived attributes ``name=EXPR`` in the transform
@@ -81,15 +86,32 @@ executor's circuit is open, ``host-table-breaker``. A ``QueryTimeout`` or
 a fault of a hand kernel (``kernels.KernelError``: a failed build, a bad
 argument, a failed launch) raises.
 
-Tenants, brownout, workload capture, audit, plan telemetry, the arrow
-aggregation, joins and streaming are not in this slice of the port (nor,
-therefore, the reference's brownout gate, workload capture, plan telemetry
-and audit decisions around the pyramid).
+Telemetry (the reference's): every query runs under a span tree whose
+stages are ``query`` -> ``query.plan`` (``plan``,
+``plan.range_decomposition``) -> ``scan`` -> ``scan.block`` (``rows_in``,
+``rows_out``) -> ``scan.post_filter``, then ``query.assemble``; the tree
+records when a trace is open, an exporter is installed
+(``utils/trace.py``) or a slow-query budget is set (``slow_query_s``,
+``geomesa.query.slow.threshold``), else each span is the shared no-op.
+``explain_analyze`` runs a query under a forced trace and returns its
+stages, decisions, receipt, estimate against actual and the share of its
+wall the named stages explain. Every query, ``query_many`` member and
+aggregate is audited: an ``audit_writer`` gets one ``QueryEvent``,
+``metrics`` counts and times it, and (on by default) its plan fingerprint
+(``utils/plans.py``, ``_plans_obj``) and its tenant (``utils/tenants.py``,
+``_tenants_obj``) fold it in. The brownout ladder (``utils/brownout.py``)
+sits on the admission gate and the pyramid's cold build; a timeline
+sampler (``utils/timeline.py``) ticks it. Workload capture, the durable
+telemetry spool, the arrow aggregation, joins and streaming are not in
+the port yet.
 """
 
 from __future__ import annotations
 
+import logging
+import math
 import threading
+import time
 import uuid
 from collections.abc import Mapping
 from typing import Any, Dict, List, Optional, Sequence, Union
@@ -122,8 +144,11 @@ from geomesa_tpu_torch.store.blocks import (
     take_rows,
 )
 from geomesa_tpu_torch.utils import admission as admission_mod
+from geomesa_tpu_torch.utils import audit as audit_mod
 from geomesa_tpu_torch.utils import deadline as deadline_mod
 from geomesa_tpu_torch.utils import devstats, trace
+from geomesa_tpu_torch.utils import plans as plans_mod
+from geomesa_tpu_torch.utils import tenants as tenants_mod
 from geomesa_tpu_torch.utils.audit import QueryTimeout, ShedLoad, robustness_metrics
 
 DEFAULT_FLUSH_SIZE = 100_000
@@ -283,7 +308,13 @@ class TorchDataStore:
     and ``max_queue`` (None: ``geomesa.query.max.inflight`` 64 and
     ``.queue.depth`` 256) set the serving bounds. ``auths`` is an
     ``AuthorizationsProvider``, a list of authorizations or None (no
-    authorizations: only unlabelled features are readable)."""
+    authorizations: only unlabelled features are readable).
+    ``audit_writer`` (``utils.audit.AuditWriter``) receives one
+    ``QueryEvent`` a query and ``metrics`` (``MetricsRegistry``) its
+    counters and timers; ``user`` names the caller in the events;
+    ``slow_query_s`` (None: ``geomesa.query.slow.threshold``, unset by
+    default) forces every query's span tree and logs the queries slower
+    than it."""
 
     # cross-query coalescing at the admission point (parallel/batch.py)
     COALESCE_QUERIES = True
@@ -291,11 +322,15 @@ class TorchDataStore:
     def __init__(self, executor=None, flush_size: int = DEFAULT_FLUSH_SIZE,
                  device: Optional[Device] = None, query_timeout_s: Optional[float] = None,
                  max_inflight: Optional[int] = None, max_queue: Optional[int] = None,
-                 auths: Optional[Any] = None):
+                 auths: Optional[Any] = None, audit_writer: Optional[Any] = None,
+                 metrics: Optional[Any] = None, slow_query_s: Optional[float] = None,
+                 user: str = "unknown"):
+        from geomesa_tpu_torch.utils.brownout import BrownoutController
         from geomesa_tpu_torch.utils.config import (
             QUERY_MAX_INFLIGHT,
             QUERY_QUEUE_DEPTH,
             QUERY_TIMEOUT,
+            SLOW_QUERY_THRESHOLD,
         )
 
         self.executor = executor if executor is not None else TorchScanExecutor(device)
@@ -303,12 +338,22 @@ class TorchDataStore:
         self.auths = auths
         self.query_timeout_s = (QUERY_TIMEOUT.to_duration_s() if query_timeout_s is None
                                 else query_timeout_s)
+        self.audit_writer = audit_writer
+        self.metrics = metrics
+        self.slow_query_s = (SLOW_QUERY_THRESHOLD.to_duration_s() if slow_query_s is None
+                             else slow_query_s)
+        self.user = user
         if max_inflight is None:
             max_inflight = QUERY_MAX_INFLIGHT.to_int() or 64
         if max_queue is None:
             mq = QUERY_QUEUE_DEPTH.to_int()
             max_queue = 256 if mq is None else mq
         self.admission = admission_mod.AdmissionController(max_inflight, max_queue)
+        # the brownout ladder: ticked by a timeline sampler, consulted by
+        # the admission gate and the pyramid's cold build (one attribute
+        # read a query while it sits at level 0)
+        self._brownout = BrownoutController()
+        self.admission.brownout = self._brownout
         # write-time sketches feeding the cost-based strategy choice
         self.stats = SketchStats()
         self._schemas: Dict[str, FeatureType] = {}
@@ -319,6 +364,18 @@ class TorchDataStore:
         # per-type write generation (``_note_write``): cache keys derive
         # from it through ``schema_generation``
         self._write_gen: Dict[str, int] = {}
+        if self.metrics is not None and hasattr(self.metrics, "gauge_fn"):
+            # one plan-cache gauge a registry, summed over the live stores
+            # that share it (a registry never pins a store)
+            import weakref
+
+            stores = getattr(self.metrics, "_plan_cache_stores", None)
+            if stores is None:
+                stores = weakref.WeakSet()
+                self.metrics._plan_cache_stores = stores
+                self.metrics.gauge_fn("plan_cache.size",
+                                      lambda: sum(len(s._plan_cache) for s in stores))
+            stores.add(self)
 
     @property
     def authorizations(self) -> List[str]:
@@ -348,6 +405,22 @@ class TorchDataStore:
         if name not in self._schemas:
             raise KeyError(f"Unknown feature type: {name}")
         return self._schemas[name]
+
+    @property
+    def type_names(self) -> List[str]:
+        return sorted(self._schemas.keys())
+
+    def delete_schema(self, name: str) -> None:
+        """Drop a type and its tables. The write generation survives (a
+        delete and recreate never reproduces an old ``schema_generation``)
+        and moves, which drops the type's pyramid entries; the type's cached
+        plans go too."""
+        self.get_schema(name)
+        del self._schemas[name], self._indices[name], self._tables[name]
+        with self._plan_lock:
+            for key in [k for k in self._plan_cache if k[0] == name]:
+                del self._plan_cache[key]
+        self._note_write(name)
 
     # -- writes ---------------------------------------------------------------
 
@@ -490,21 +563,87 @@ class TorchDataStore:
         return query if isinstance(query, Query) else Query.cql(query)
 
     def _plan_cached(self, name: str, query: Query) -> QueryPlan:
-        """Plan cache keyed on (type, filter text, table state)."""
+        """Plan cache keyed on (type, filter text, table state), LRU, under
+        a ``query.plan`` span (``cache`` = hit | miss; a hit carries the
+        cached plan's provenance itself)."""
         from geomesa_tpu_torch.filter.parser import to_cql
 
-        versions = tuple(t.version for t in self._tables[name].values())
-        key = (name, to_cql(query.filter), versions)
-        with self._plan_lock:
-            plan = self._plan_cache.pop(key, None)
-        if plan is None:
-            plan = self.planner(name).plan(query)
-        with self._plan_lock:
-            if key not in self._plan_cache and len(self._plan_cache) >= 256:
-                self._plan_cache.pop(next(iter(self._plan_cache)))
-            # a concurrent first plan of the key wins: one plan object a key
-            plan = self._plan_cache.setdefault(key, plan)
+        with trace.span("query.plan") as sp:
+            versions = tuple(t.version for t in self._tables[name].values())
+            key = (name, to_cql(query.filter), versions)
+            with self._plan_lock:
+                plan = self._plan_cache.pop(key, None)
+            if plan is None:
+                sp.set_attr("cache", "miss")
+                plan = self.planner(name).plan(query)
+            elif sp.recording:
+                sp.set_attr("cache", "hit")
+                sp.set_attr("index", plan.index.name)
+                sp.set_attr("explain", plan.explain)
+            with self._plan_lock:
+                if key not in self._plan_cache and len(self._plan_cache) >= 256:
+                    self._plan_cache.pop(next(iter(self._plan_cache)))
+                # a concurrent first plan of the key wins: one plan object a key
+                plan = self._plan_cache.setdefault(key, plan)
         return plan
+
+    def explain(self, name: str, query: Union[str, Query]) -> str:
+        """The planner's Explainer trace of a query (a fresh plan)."""
+        return self.planner(name).plan(self._as_query(query)).explain
+
+    def explain_analyze(self, name: str, query: Union[str, Query] = "INCLUDE") -> Dict[str, Any]:
+        """EXPLAIN ANALYZE (the reference's): run the query for real under a
+        forced trace and return its plan annotated with what happened: the
+        stages (``stages``, wall and self ms, rows in and out per block),
+        the receipt, the reason-coded decisions, the plan-time estimate
+        against the scanned rows (``misestimate_log2``), the fingerprint,
+        and ``attribution``: the share of the query's wall that the named
+        stages below its root explain. The query runs through the ordinary
+        envelope (budget, admission, audit, fingerprint)."""
+        q = self._as_query(query)
+        # the forced wrapper makes query()'s whole tree record with no
+        # exporter; the child is read directly, so concurrent queries stay
+        # out of it
+        with trace.span("explain.analyze", force=True, type=name) as wrap:
+            result = self.query(name, q)
+        root = next((c for c in wrap.children if c.name == "query"), wrap)
+        plan = result.plan
+        blocks = root.find("scan.block")
+        rows_in = sum(int(b.attributes.get("rows_in", 0)) for b in blocks)
+        rows_out = sum(int(b.attributes.get("rows_out", 0)) for b in blocks)
+        decisions = [
+            {"point": ev["name"][len("decision."):],
+             **{k: v for k, v in ev.items() if k not in ("name", "t_ms")}}
+            for sp in root.walk() for ev in sp.events if ev["name"].startswith("decision.")
+        ]
+        est_cost = float(getattr(plan, "cost", 0.0) or 0.0)
+        scan_path = _audit_path(result)
+        key = plans_mod.fingerprint_key("query", name, plan=plan, query=q, scan_path=scan_path)
+        return {
+            "type": name,
+            "trace_id": root.trace_id,
+            "fingerprint": plans_mod.fingerprint_id(key),
+            "plan": {
+                "index": getattr(plan.index, "name", ""),
+                "scan_path": scan_path,
+                "union_arms": len(plan.union) if plan.union else 0,
+                "explain": plan.explain,
+            },
+            "estimate": {"cost": est_cost, "ranges": len(plan.ranges)},
+            "actual": {
+                "hits": len(result),
+                "rows_scanned": rows_in,
+                "rows_out": rows_out,
+                "blocks": len(blocks),
+                "duration_ms": round(root.duration_ms, 3),
+            },
+            # signed log2: +k = the cost model under-estimated by ~2^k
+            "misestimate_log2": round(math.log2((rows_in + 1.0) / (est_cost + 1.0)), 3),
+            "receipt": root.attributes.get("device", {}),
+            "attribution": attribution(root),
+            "decisions": decisions,
+            "stages": _stage_tree(root),
+        }
 
     def query(self, name: str, query: Union[str, Query] = "INCLUDE") -> QueryResult:
         """One query under its budget and an admission slot (the
@@ -512,33 +651,58 @@ class TorchDataStore:
         its queue are full and raises ``QueryTimeout`` when its budget dies,
         never a truncated result. Admitted, it rides the coalescer when
         another query is in flight (``_coalesced``), else runs alone; the
-        result carries its receipt either way."""
+        result carries its receipt either way. The query is audited
+        (``_audit``), a timed-out or shed one too (``_audit_failure``), and
+        logged when slower than ``slow_query_s``."""
         ft = self.get_schema(name)
         query = self._as_query(query)
-        with trace.span("query", type=name) as root:
-            try:
-                with deadline_mod.budget(self.query_timeout_s):
-                    with self.admission.admit(priority=admission_mod.classify(query.hints)):
-                        out = self._coalesced(name, ft, query)
-                        if out is not None:
-                            result, receipt = out.result, out.receipt
-                            result.coalesced = out.group_n
-                        else:
-                            with devstats.collecting() as own:
-                                result = self._execute(name, ft, query,
-                                                       self._plan_cached(name, query))
-                            receipt = devstats.receipt_of(own)
-                        result.receipt = receipt
-                        if root.recording:
-                            root.set_attr("hits", len(result))
-                            root.set_attr("scan_path", result.scan_path)
-                            root.set_attr("device", receipt)
-                            root.set_attr("coalesced", result.coalesced)
-                        return result
-            except (QueryTimeout, ShedLoad) as e:
-                if root.recording:
-                    root.set_attr("outcome", "timeout" if isinstance(e, QueryTimeout) else "shed")
-                raise
+        root = trace.NOOP
+        plan = None
+        # the plan-telemetry scope: decisions and per-block rows collect
+        # here until ``_audit`` folds them into the fingerprint
+        ptok = plans_mod.begin()
+        try:
+            with trace.span("query", force=self.slow_query_s is not None, type=name) as root:
+                t_admit = time.perf_counter()
+                try:
+                    with deadline_mod.budget(self.query_timeout_s):
+                        with self.admission.admit(
+                                priority=admission_mod.classify(query.hints)):
+                            out = self._coalesced(name, ft, query)
+                            if out is not None:
+                                plan = out.plan
+                                result, receipt = out.result, out.receipt
+                                result.coalesced = out.group_n
+                                plans_mod.note("coalesce",
+                                               "joined" if out.group_n > 1 else "solo")
+                                t_start, t_planned = t_admit, t_admit + out.plan_s
+                            else:
+                                with devstats.collecting() as own:
+                                    t_start = time.perf_counter()
+                                    plan = self._plan_cached(name, query)
+                                    t_planned = time.perf_counter()
+                                    result = self._execute(name, ft, query, plan)
+                                receipt = devstats.receipt_of(own)
+                            result.receipt = receipt
+                            if root.recording:
+                                root.set_attr("hits", len(result))
+                                root.set_attr("scan_path", _audit_path(result))
+                                root.set_attr("device", receipt)
+                                root.set_attr("coalesced", result.coalesced)
+                            if self._auditing():
+                                self._audit(name, query, plan, result, t_start, t_planned,
+                                            receipt)
+                            return result
+                except (QueryTimeout, ShedLoad) as e:
+                    outcome = "timeout" if isinstance(e, QueryTimeout) else "shed"
+                    if root.recording:
+                        root.set_attr("outcome", outcome)
+                    if self._auditing():
+                        self._audit_failure(name, query, plan, t_admit, outcome)
+                    raise
+        finally:
+            plans_mod.end(ptok)
+            self._log_slow_query(name, plan, root)
 
     def _coalescer_obj(self):
         """The store's coalescer, made at first use (one instance however
@@ -569,6 +733,185 @@ class TorchDataStore:
         if not batch_knobs()[0]:
             return None
         return co.submit(name, ft, query)
+
+    # -- audit, plan telemetry and metering --------------------------------------
+
+    def _auditing(self) -> bool:
+        """Whether the audit step runs at all: an audit writer, a metrics
+        registry, plan telemetry or the tenant meter is listening (each
+        sink is checked again in ``_audit``)."""
+        return (self.audit_writer is not None or self.metrics is not None
+                or plans_mod.enabled() or tenants_mod.enabled())
+
+    @staticmethod
+    def _collect_scan_path(plan) -> str:
+        """The plan's route as the reference audits it: a union joins its
+        arms' labels."""
+        if plan.union is not None:
+            arms = [getattr(a, "scan_path", "") for a in plan.union]
+            return "+".join(sorted({a for a in arms if a}))
+        return getattr(plan, "scan_path", "")
+
+    def _audit(self, name, query, plan, result, t_start, t_planned, receipt) -> None:
+        """One finished query into every sink: the ``queries`` counter and
+        the ``query.plan`` / ``query.scan`` timers, one ``QueryEvent``, its
+        plan fingerprint (estimates against the pending scope's actuals)
+        and its tenant."""
+        from geomesa_tpu_torch.filter.parser import to_cql
+        from geomesa_tpu_torch.utils.audit import QueryEvent
+
+        now = time.perf_counter()
+        hits = len(result)
+        scan_path = _audit_path(result)
+        if self.metrics is not None:
+            self.metrics.inc("queries")
+            self.metrics.update_timer("query.plan", t_planned - t_start)
+            self.metrics.update_timer("query.scan", now - t_planned)
+        if self.audit_writer is not None:
+            self.audit_writer.write_event(QueryEvent(
+                store=type(self).__name__,
+                type_name=name,
+                user=self.user,
+                filter=to_cql(query.filter),
+                hints=dict(query.hints),
+                date_ms=int(time.time() * 1000),
+                planning_ms=1000 * (t_planned - t_start),
+                scanning_ms=1000 * (now - t_planned),
+                hits=hits,
+                scan_path=scan_path,
+                # inside the query's root span: the event and the tree
+                # join on this id
+                trace_id=trace.current_trace_id() or "",
+                recompiles=receipt["recompiles"],
+                h2d_bytes=receipt["h2d_bytes"],
+                d2h_bytes=receipt["d2h_bytes"],
+                pad_ratio=receipt["pad_ratio"],
+            ))
+        if plans_mod.enabled():
+            self._plans_obj().observe(
+                "query", name, plan=plan, query=query, scan_path=scan_path, outcome="ok",
+                hits=hits, duration_s=now - t_start, receipt=receipt, est_cost=plan.cost,
+                est_ranges=len(plan.ranges))
+        self._observe_workload("query", name, query=query, outcome="ok",
+                               duration_s=now - t_start, rows=hits, receipt=receipt)
+
+    def _audit_failure(self, name, query, plan, t_admit, outcome: str) -> None:
+        """The audit of a query that failed crisply (timeout or shed): no
+        hits, the elapsed wall (admission wait included) as its scan time."""
+        from geomesa_tpu_torch.filter.parser import to_cql
+        from geomesa_tpu_torch.utils.audit import QueryEvent
+
+        elapsed_ms = 1000 * (time.perf_counter() - t_admit)
+        scan_path = self._collect_scan_path(plan) if plan is not None else ""
+        if self.metrics is not None:
+            self.metrics.inc("queries")
+            self.metrics.inc(f"queries.{outcome}")
+        if self.audit_writer is not None:
+            self.audit_writer.write_event(QueryEvent(
+                store=type(self).__name__,
+                type_name=name,
+                user=self.user,
+                filter=to_cql(query.filter),
+                hints=dict(query.hints),
+                date_ms=int(time.time() * 1000),
+                planning_ms=0.0,
+                scanning_ms=elapsed_ms,
+                hits=0,
+                scan_path=scan_path,
+                trace_id=trace.current_trace_id() or "",
+                outcome=outcome,
+            ))
+        if plans_mod.enabled():
+            self._plans_obj().observe(
+                "query", name, plan=plan, query=query, scan_path=scan_path, outcome=outcome,
+                hits=0, duration_s=elapsed_ms / 1000.0,
+                est_cost=plan.cost if plan is not None else None,
+                est_ranges=len(plan.ranges) if plan is not None else None)
+        self._observe_workload("query", name, query=query, outcome=outcome,
+                               duration_s=elapsed_ms / 1000.0)
+
+    def _plans_obj(self):
+        """The store's plan-fingerprint registry, made at first use (one
+        however many threads ask)."""
+        reg = getattr(self, "_plans", None)
+        if reg is None:
+            reg = self.__dict__.setdefault("_plans", plans_mod.PlanRegistry())
+        return reg
+
+    def _tenants_obj(self):
+        """The store's tenant registry, made at first use."""
+        reg = getattr(self, "_tenants", None)
+        if reg is None:
+            reg = self.__dict__.setdefault("_tenants", tenants_mod.TenantRegistry())
+        return reg
+
+    def _observe_workload(self, cls, type_name, *, query=None, outcome="ok", duration_s=0.0,
+                          rows=0, receipt=None) -> None:
+        """The tenant meter of one finished request (the reference's seam
+        also captures the workload, which waits for the durable spool). A
+        pure observer, after the result is final."""
+        if tenants_mod.enabled():
+            self._tenants_obj().observe(tenants_mod.tenant_of(query), cls, outcome=outcome,
+                                        duration_s=duration_s, rows=rows, receipt=receipt)
+
+    def _log_slow_query(self, name: str, plan, root) -> None:
+        """A query slower than ``slow_query_s`` logs its span tree and its
+        plan (``geomesa_tpu_torch.slowquery``), within the storm guard's
+        budget (``utils.audit.slow_query_note``); every slow query files a
+        summary in the tail."""
+        from geomesa_tpu_torch.utils.audit import slow_query_note
+
+        if self.slow_query_s is None or not root.recording:
+            return
+        if root.duration_ms < self.slow_query_s * 1000.0:
+            return
+        if not slow_query_note({
+            "kind": "query",
+            "type": name,
+            "trace_id": root.trace_id,
+            "duration_ms": round(root.duration_ms, 1),
+            "budget_ms": round(self.slow_query_s * 1000.0, 1),
+        }):
+            return
+        logging.getLogger("geomesa_tpu_torch.slowquery").warning(
+            "slow query type=%s trace=%s took %.1fms (budget %.0fms)\n%s\nexplain:\n%s",
+            name, root.trace_id, root.duration_ms, self.slow_query_s * 1000.0, root.render(),
+            plan.explain if plan is not None else "<planning failed>")
+
+    def _log_slow_batch(self, name: str, batch) -> None:
+        """``query_many``'s slow log: the batch's own overhead (planning and
+        the pipelined dispatch, outside its queries' spans) over the budget
+        logs the batch tree, each member's wall net of the shares of shared
+        fetches (``device.fetch.shared``) that belong to its batchmates."""
+        from geomesa_tpu_torch.utils.audit import slow_query_note
+
+        if self.slow_query_s is None or not batch.recording:
+            return
+        own_ms = batch.duration_ms - sum(c.duration_ms for c in batch.children
+                                         if c.name == "query")
+        if own_ms < self.slow_query_s * 1000.0:
+            return
+        if not slow_query_note({
+            "kind": "batch",
+            "type": name,
+            "trace_id": batch.trace_id,
+            "duration_ms": round(batch.duration_ms, 1),
+            "overhead_ms": round(own_ms, 1),
+            "budget_ms": round(self.slow_query_s * 1000.0, 1),
+        }):
+            return
+        members = []
+        for i, c in enumerate(c for c in batch.children if c.name == "query"):
+            shared_ms = sum(
+                s.duration_ms * (s.attributes.get("shared_q", 1) - 1)
+                / max(s.attributes.get("shared_q", 1), 1)
+                for s in c.find("device.fetch.shared"))
+            members.append(f"  member {i}: {c.duration_ms - shared_ms:.1f}ms attributed"
+                           f" (raw {c.duration_ms:.1f}ms)")
+        logging.getLogger("geomesa_tpu_torch.slowquery").warning(
+            "slow query batch type=%s trace=%s overhead %.1fms of %.1fms total "
+            "(budget %.0fms)\n%s\n%s", name, batch.trace_id, own_ms, batch.duration_ms,
+            self.slow_query_s * 1000.0, "\n".join(members), batch.render())
 
     @staticmethod
     def _pushes_down(query: Query) -> bool:
@@ -626,7 +969,10 @@ class TorchDataStore:
         if table is None:
             return None
         got = self.executor.push_down(table, count_scan, table, plan)
-        return None if isinstance(got, HostRoute) else got
+        if isinstance(got, HostRoute):
+            _push_down_declined(got, "count_to_host")
+            return None
+        return got
 
     # -- the aggregate pyramid cache (ops/pyramid.py) ---------------------------
 
@@ -658,6 +1004,17 @@ class TorchDataStore:
         pyr = cache.get(key, ttl)
         if pyr is not None:
             return pyr
+        # a cold build is optional work (the exact scan answers the same):
+        # at the brownout ladder's speculation-off level it defers, and a
+        # warm pyramid above keeps answering
+        bo = self._brownout
+        if not bo.speculation_allowed():
+            from geomesa_tpu_torch.utils import brownout as brownout_mod
+
+            if brownout_mod.enabled():
+                devstats.devstats_metrics().inc("agg.cache.declined")
+                audit_mod.decision("pyramid", "brownout_deferred", level=bo.level)
+                return None
         try:
             pyr = build_pyramid(table, ft, self.executor)
         except BUILD_FAULTS as e:
@@ -692,7 +1049,9 @@ class TorchDataStore:
         if geoms is None:
             return None
         if not could_have_interior(geoms, agg_knobs()[0]):
+            # a sub-cell region: declined before paying for the build
             devstats.devstats_metrics().inc("agg.cache.declined")
+            audit_mod.decision("pyramid", "sub_cell_region", type=name)
             return None
         pyr = self._pyramid_for(name, ft)
         if pyr is None:
@@ -701,6 +1060,8 @@ class TorchDataStore:
             geoms, memo_key=to_cql(query.filter))
         if not pyramid_worthwhile(interior, boundary_rows):
             devstats.devstats_metrics().inc("agg.cache.declined")
+            audit_mod.decision("pyramid", "boundary_dominates", interior=int(interior),
+                               boundary_rows=int(boundary_rows))
             return None
         return pyr, interior, cells, imask
 
@@ -777,7 +1138,8 @@ class TorchDataStore:
             if entry is None:
                 return None
             plan.scan_path = "agg-cache-density"
-            trace.event("agg.cache", result="hit")
+            trace.set_attr("agg.cache", "hit")
+            plans_mod.note("pyramid", "hit")
             return QueryResult(ft, _empty_columns(ft), plan, {"density": entry.grid.copy()},
                                scan_path=plan.scan_path)
         if hints == {"stats"}:
@@ -790,7 +1152,8 @@ class TorchDataStore:
             for st in stat.stats if hasattr(stat, "stats") else [stat]:
                 st.count = n
             plan.scan_path = "agg-pyramid-stats"
-            trace.event("agg.cache", result="hit")
+            trace.set_attr("agg.cache", "hit")
+            plans_mod.note("pyramid", "hit")
             return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat},
                                scan_path=plan.scan_path)
         return None
@@ -835,25 +1198,61 @@ class TorchDataStore:
             dt = a.type.numpy_dtype
             if dt is None or np.dtype(dt).kind not in "iufb":
                 raise AggError(f"column {c!r} is not numeric")
-        with trace.span("query.aggregate", type=name) as root:
-            try:
-                with deadline_mod.budget(self.query_timeout_s):
-                    with self.admission.admit(priority=admission_mod.classify(q.hints)):
-                        got = self._aggregate_pyramid(name, ft, q, cols)
-                        path = "agg-pyramid"
-                        if got is None:
-                            # the exact fallback (the slot and the budget
-                            # are reentrant)
-                            res = self.query(name, q)
-                            got = _aggregate_columns(ft, res.columns, cols)
-                            path = "agg-exact-fallback"
-                        if root.recording:
-                            root.set_attr("scan_path", path)
-                        return got
-            except (QueryTimeout, ShedLoad) as e:
-                if root.recording:
-                    root.set_attr("outcome", "timeout" if isinstance(e, QueryTimeout) else "shed")
-                raise
+        t0 = time.perf_counter()
+        root = trace.NOOP
+        ptok = plans_mod.begin()
+        try:
+            with trace.span("query.aggregate", force=self.slow_query_s is not None,
+                            type=name) as root:
+                try:
+                    with deadline_mod.budget(self.query_timeout_s):
+                        with self.admission.admit(priority=admission_mod.classify(q.hints)):
+                            got = self._aggregate_pyramid(name, ft, q, cols)
+                            if got is None:
+                                # the exact fallback (the slot and the budget
+                                # are reentrant); its inner query audits
+                                # itself as a query
+                                res = self.query(name, q)
+                                got = _aggregate_columns(ft, res.columns, cols)
+                                path = "agg-exact-fallback"
+                            else:
+                                path = "agg-pyramid"
+                                plans_mod.note("pyramid", "hit")
+                                if root.recording:
+                                    root.set_attr("agg.cache", "hit")
+                            if root.recording:
+                                root.set_attr("scan_path", path)
+                            # the aggregate class of the SLO engine: one
+                            # counter and timer a call
+                            if self.metrics is not None:
+                                self.metrics.inc("queries.aggregate")
+                                self.metrics.update_timer("query.aggregate",
+                                                          time.perf_counter() - t0)
+                            if plans_mod.enabled():
+                                self._plans_obj().observe(
+                                    "aggregate", name, query=q, scan_path=path, outcome="ok",
+                                    hits=int(got.get("count", 0)),
+                                    duration_s=time.perf_counter() - t0)
+                            self._observe_workload("aggregate", name, query=q, outcome="ok",
+                                                   duration_s=time.perf_counter() - t0,
+                                                   rows=int(got.get("count", 0)))
+                            return got
+                except (QueryTimeout, ShedLoad) as e:
+                    outcome = "timeout" if isinstance(e, QueryTimeout) else "shed"
+                    if root.recording:
+                        root.set_attr("outcome", outcome)
+                    if self.metrics is not None:
+                        self.metrics.inc("queries.aggregate")
+                        self.metrics.inc(f"queries.aggregate.{outcome}")
+                    if plans_mod.enabled():
+                        self._plans_obj().observe("aggregate", name, query=q, outcome=outcome,
+                                                  duration_s=time.perf_counter() - t0)
+                    self._observe_workload("aggregate", name, query=q, outcome=outcome,
+                                           duration_s=time.perf_counter() - t0)
+                    raise
+        finally:
+            plans_mod.end(ptok)
+            self._log_slow_query(name, None, root)
 
     def _aggregate_pyramid(self, name, ft, q: Query, cols: List[str]) -> Optional[Dict[str, Any]]:
         from geomesa_tpu_torch.ops.pyramid import BUILD_FAULTS
@@ -899,54 +1298,91 @@ class TorchDataStore:
         post-filters in order. Results are positionally identical to
         ``[query(name, q) for q in queries]``. Density and stats queries are
         left out of the dispatch: their push-downs launch their own kernels
-        (and one that declines scans alone)."""
+        (and one that declines scans alone). The batch runs under one
+        ``query.batch`` root; each query resolves under a ``query`` span of
+        its own and is audited like a solo query."""
         ft = self.get_schema(name)
         qs = [self._as_query(q) for q in queries]
-        # one admission slot for the batch (its queries share one pipeline
-        # and must not wait on their own batchmates), classed as its most
-        # important query; the queue wait is bounded by one budget
-        batch_pri = min((admission_mod.classify(q.hints) for q in qs),
-                        key=admission_mod.PRIORITIES.index, default=None)
-        with self.admission.admit(self.query_timeout_s, batch_pri):
-            # the shared phase (planning and the batched dispatch) runs
-            # under one budget, each query's resolve under its own
-            with deadline_mod.budget(self.query_timeout_s):
-                with record_function("geomesa.plan"):
-                    plans = [self._plan_cached(name, q) for q in qs]
-                pending: Dict[int, object] = {}
-                dispatch_many = getattr(self.executor, "dispatch_many", None)
-                if dispatch_many is not None:
-                    items = []
-                    for q, plan in zip(qs, plans):
-                        if self._pushes_down(q):
-                            continue
-                        for arm in plan.union if plan.union is not None else [plan]:
-                            if arm.is_empty or id(arm) in pending:
-                                continue
-                            pending[id(arm)] = None
-                            items.append((self._tables[name][arm.index.name], arm))
-                    if items:
-                        try:
-                            with record_function("geomesa.dispatch"):
-                                pending.update(dispatch_many(items))
-                        except (QueryTimeout, KernelError):
-                            raise
-                        except Exception as e:
-                            # the batched dispatch died mid-stream: every
-                            # mirror goes and each query of the batch
-                            # answers from the host table scan
-                            self.executor.degrade(None, e)
-                            from geomesa_tpu_torch.parallel.executor import HOST_DEGRADED
+        batch = trace.NOOP
+        try:
+            with trace.span("query.batch", force=self.slow_query_s is not None, type=name,
+                            n=len(qs)) as batch:
+                # one admission slot for the batch (its queries share one
+                # pipeline and must not wait on their own batchmates),
+                # classed as its most important query; the queue wait is
+                # bounded by one budget
+                batch_pri = min((admission_mod.classify(q.hints) for q in qs),
+                                key=admission_mod.PRIORITIES.index, default=None)
+                with self.admission.admit(self.query_timeout_s, batch_pri):
+                    with devstats.collecting() as shared:
+                        results = self._query_many_planned(name, ft, qs)
+                    if batch.recording:
+                        batch.set_attr("device", devstats.receipt_of(shared))
+                    return results
+        finally:
+            self._log_slow_batch(name, batch)
 
-                            pending = dict.fromkeys(pending, HOST_DEGRADED)
-            results = []
-            for q, p in zip(qs, plans):
-                with deadline_mod.budget(self.query_timeout_s):
-                    with devstats.collecting() as own:
-                        result = self._execute(name, ft, q, p, pending)
-                result.receipt = devstats.receipt_of(own)
-                results.append(result)
-            return results
+    def _query_many_planned(self, name, ft, qs: List[Query]) -> List[QueryResult]:
+        plan_s: List[float] = []
+        plans: List[QueryPlan] = []
+        # the shared phase (planning and the batched dispatch) runs under
+        # one budget, each query's resolve under its own
+        with deadline_mod.budget(self.query_timeout_s):
+            with record_function("geomesa.plan"):
+                for q in qs:
+                    t0 = time.perf_counter()
+                    plans.append(self._plan_cached(name, q))
+                    plan_s.append(time.perf_counter() - t0)
+            pending: Dict[int, object] = {}
+            dispatch_many = getattr(self.executor, "dispatch_many", None)
+            if dispatch_many is not None:
+                items = []
+                for q, plan in zip(qs, plans):
+                    if self._pushes_down(q):
+                        continue
+                    for arm in plan.union if plan.union is not None else [plan]:
+                        if arm.is_empty or id(arm) in pending:
+                            continue
+                        pending[id(arm)] = None
+                        items.append((self._tables[name][arm.index.name], arm))
+                if items:
+                    try:
+                        with record_function("geomesa.dispatch"):
+                            pending.update(dispatch_many(items))
+                    except (QueryTimeout, KernelError):
+                        raise
+                    except Exception as e:
+                        # the batched dispatch died mid-stream: every
+                        # mirror goes and each query of the batch answers
+                        # from the host table scan
+                        self.executor.degrade(None, e)
+                        from geomesa_tpu_torch.parallel.executor import HOST_DEGRADED
+
+                        pending = dict.fromkeys(pending, HOST_DEGRADED)
+        results = []
+        for q, plan, dt in zip(qs, plans, plan_s):
+            t_resolve = time.perf_counter()
+            root = trace.NOOP
+            ptok = plans_mod.begin()
+            try:
+                with trace.span("query", force=self.slow_query_s is not None, type=name,
+                                batched=True) as root:
+                    with deadline_mod.budget(self.query_timeout_s):
+                        with devstats.collecting() as own:
+                            result = self._execute(name, ft, q, plan, pending)
+                        receipt = result.receipt = devstats.receipt_of(own)
+                        if root.recording:
+                            root.set_attr("hits", len(result))
+                            root.set_attr("scan_path", _audit_path(result))
+                            root.set_attr("device", receipt)
+                        if self._auditing():
+                            self._audit(name, q, plan, result, t_resolve - dt, t_resolve,
+                                        receipt)
+            finally:
+                plans_mod.end(ptok)
+                self._log_slow_query(name, plan, root)
+            results.append(result)
+        return results
 
     def _execute(self, name, ft, query: Query, plan: QueryPlan, pending=None) -> QueryResult:
         """route -> scan -> merge. The aggregate cache answers first where it
@@ -978,6 +1414,7 @@ class TorchDataStore:
                                                query.hints["density"])
             if isinstance(grid, HostRoute):
                 host = grid
+                _push_down_declined(grid, "density_to_host")
             elif grid is not None:
                 plan.scan_path = "device-density"
                 result = QueryResult(ft, _empty_columns(ft), plan, {"density": grid},
@@ -992,6 +1429,7 @@ class TorchDataStore:
                 stat = self.executor.push_down(table, stats_scan, table, plan, query.hints["stats"])
             if isinstance(stat, HostRoute):
                 host = stat
+                _push_down_declined(stat, "stats_to_host")
             elif stat is not None:
                 plan.scan_path = "device-stats"
                 return QueryResult(ft, _empty_columns(ft), plan, {"stats": stat},
@@ -1000,7 +1438,7 @@ class TorchDataStore:
         labels: List[str] = []
         for arm in self._route(plan):
             parts.extend(self._scan_parts(name, ft, arm, pending, labels, host))
-        with record_function("geomesa.assemble"):
+        with trace.span("query.assemble"), record_function("geomesa.assemble"):
             columns = _columns_from_parts(ft, query, parts)
             if plan.union is not None:
                 columns = _dedupe_by_fid(_materialize(columns))
@@ -1028,33 +1466,35 @@ class TorchDataStore:
         the query to the host table scan (``host-table-degraded``, the
         reference's ``_scan_parts``): identical rows, since the host path
         evaluates the full filter; a device scan resolved end to end closes
-        a half-open circuit."""
+        a half-open circuit. The work runs under a ``scan`` span."""
         table = self._tables[name][plan.index.name]
-        if host is not None:
-            scan = host
-        elif pending is not None and id(plan) in pending:
-            scan = pending[id(plan)]  # pre-dispatched (query_many, the coalescer)
-        else:
-            scan = self.executor.scan_candidates(table, plan)
-        label = _scan_label(scan)
-        try:
-            if scan is None or isinstance(scan, HostRoute):
-                return self._host_parts(ft, plan, table)
+        with trace.span("scan", index=plan.index.name) as sp:
+            if host is not None:
+                scan = host
+            elif pending is not None and id(plan) in pending:
+                scan = pending[id(plan)]  # pre-dispatched (query_many, the coalescer)
+            else:
+                scan = self.executor.scan_candidates(table, plan)
+            label = _scan_label(scan)
             try:
-                parts = self._consume(ft, plan, scan, scan.exact)
-            except (QueryTimeout, KernelError):
-                raise
-            except Exception as e:
-                self.executor.degrade(table, e)
-                label = "host-table-degraded"
-                return self._host_parts(ft, plan, table)
-            if label.startswith("device"):
-                self.executor.record_device_success()
-            return parts
-        finally:
-            plan.scan_path = label
-            if labels is not None:
-                labels.append(label)
+                if scan is None or isinstance(scan, HostRoute):
+                    return self._host_parts(ft, plan, table)
+                try:
+                    parts = self._consume(ft, plan, scan, scan.exact)
+                except (QueryTimeout, KernelError):
+                    raise
+                except Exception as e:
+                    self.executor.degrade(table, e)
+                    label = "host-table-degraded"
+                    return self._host_parts(ft, plan, table)
+                if label.startswith("device"):
+                    self.executor.record_device_success()
+                return parts
+            finally:
+                plan.scan_path = label
+                sp.set_attr("scan_path", label)
+                if labels is not None:
+                    labels.append(label)
 
     def _host_parts(self, ft, plan: QueryPlan, table) -> List[tuple]:
         """The host table scan of one plan: its ranges (or every row), the
@@ -1066,7 +1506,10 @@ class TorchDataStore:
         """Post-filter each (block, rows) candidate set with the full
         filter, unless the scan evaluated the query's own predicate; the
         age-off window and the visibility check apply to every scan. A host
-        seek's (block, rows, covered) triples take the covered split."""
+        seek's (block, rows, covered) triples take the covered split. Each
+        block runs under a ``scan.block`` span (``rows_in``, ``rows_out``:
+        a device route's candidates or hits, then the rows kept) and folds
+        its counts into the plan-telemetry scope."""
         pf_props = (
             set(ast.properties(plan.post_filter))
             if plan.post_filter is not None and not exact
@@ -1077,22 +1520,27 @@ class TorchDataStore:
         for item in scan:
             block, rows = item[0], item[1]
             covered = item[2] if len(item) == 3 else None
-            if covered is not None and pf_props is not None and covered.any():
-                rows = self._filter_block_covered(ft, plan, block, rows, covered, age_cutoff,
-                                                  pf_props)
-            else:
-                alive = self._age_off_keep(ft, block, rows, age_cutoff)
-                if alive is not None:
-                    rows = rows[alive]
-                if pf_props is not None and len(rows):
-                    with record_function("geomesa.post_filter"):
-                        fcols = _gather_filter_cols(block, rows, pf_props)
-                        mask = self.executor.post_filter(ft, plan, fcols)
-                    if not mask.all():
-                        rows = rows[mask]
-                vmask = self._visibility_keep(block, rows)
-                if vmask is not None:
-                    rows = rows[vmask]
+            rows_in = len(rows)
+            with trace.span("scan.block", rows_in=rows_in) as bsp:
+                if covered is not None and pf_props is not None and covered.any():
+                    rows = self._filter_block_covered(ft, plan, block, rows, covered,
+                                                      age_cutoff, pf_props)
+                else:
+                    alive = self._age_off_keep(ft, block, rows, age_cutoff)
+                    if alive is not None:
+                        rows = rows[alive]
+                    if pf_props is not None and len(rows):
+                        with record_function("geomesa.post_filter"):
+                            fcols = _gather_filter_cols(block, rows, pf_props)
+                            with trace.span("scan.post_filter", rows=len(rows)):
+                                mask = self.executor.post_filter(ft, plan, fcols)
+                        if not mask.all():
+                            rows = rows[mask]
+                    vmask = self._visibility_keep(block, rows)
+                    if vmask is not None:
+                        rows = rows[vmask]
+                bsp.set_attr("rows_out", len(rows))
+            plans_mod.note_scan(rows_in, len(rows))
             if len(rows):
                 parts.append((block, rows))
         return parts
@@ -1115,7 +1563,8 @@ class TorchDataStore:
             uncov = np.flatnonzero(~covered)
             if len(uncov):
                 fcols = _gather_filter_cols(block, rows[uncov], pf_props)
-                keep[uncov] = self.executor.post_filter(ft, plan, fcols)
+                with trace.span("scan.post_filter", rows=len(uncov)):
+                    keep[uncov] = self.executor.post_filter(ft, plan, fcols)
             if plan.secondary is not None:
                 cov = np.flatnonzero(covered)
                 scols = _gather_filter_cols(
@@ -1305,10 +1754,69 @@ def _dedupe_by_fid(columns: Columns) -> Columns:
 
 
 def _degrade_agg(e: BaseException) -> None:
-    """An injected ``agg.build`` fault: the aggregation answers from the
-    uncached exact scan (the reference's ``degrade.agg_to_scan``)."""
+    """A pyramid build that degraded (an injected ``agg.build`` fault or a
+    failed device build): the aggregation answers from the uncached exact
+    scan (the reference's ``degrade.agg_to_scan`` and its
+    ``build_degraded`` decision)."""
     robustness_metrics().inc("degrade.agg_to_scan")
     trace.event("degrade.agg_to_scan", reason=f"{type(e).__name__}: {e}")
+    audit_mod.decision("pyramid", "build_degraded", error=type(e).__name__)
+
+
+def _push_down_declined(route: HostRoute, reason: str) -> None:
+    """A count, stats or density push-down whose device call failed (the
+    host answers): the reference's ``degrade`` decision of that push-down.
+    An open circuit (``host-table-breaker``) crossed no device boundary
+    and records none."""
+    if route.label == "host-table-degraded":
+        audit_mod.decision("degrade", reason, route=route.label)
+
+
+def _audit_path(result: "QueryResult") -> str:
+    """The route a query's audit, fingerprint and root span carry: its own
+    ``scan_path``, "" for an empty plan (which the reference leaves
+    unlabelled)."""
+    return "" if result.scan_path == "empty" else result.scan_path
+
+
+# span attributes an EXPLAIN ANALYZE stage row carries: provenance and row
+# counts, not free-form payloads
+_STAGE_ATTRS = ("index", "scan_path", "type", "cost", "n_ranges", "union_arms", "rows_in",
+                "rows_out", "rows", "hits", "coalesced", "n", "shards")
+
+
+def _stage_tree(sp) -> Dict[str, Any]:
+    """One span subtree as an EXPLAIN ANALYZE stage row: wall and self
+    times, the provenance attributes, decision / degrade / fault events and
+    the nested stages."""
+    out: Dict[str, Any] = {
+        "stage": sp.name,
+        "duration_ms": round(sp.duration_ms, 3),
+        "self_ms": round(sp.self_time_ms, 3),
+    }
+    attrs = {k: sp.attributes[k] for k in _STAGE_ATTRS if k in sp.attributes}
+    if attrs:
+        out["attrs"] = attrs
+    events = [{k: v for k, v in ev.items() if k != "t_ms"} for ev in sp.events
+              if ev["name"].startswith(("decision.", "degrade.", "fault."))]
+    if events:
+        out["events"] = events
+    if sp.children:
+        out["stages"] = [_stage_tree(c) for c in sp.children]
+    return out
+
+
+def attribution(root) -> Dict[str, Any]:
+    """How much of a root span's wall its named stages explain: the sum of
+    the self times of every span below the root over the root's duration
+    (clamped at 1.0: concurrent stages can sum past the wall)."""
+    attributed = sum(s.self_time_ms for s in root.walk() if s is not root)
+    return {
+        "attributed_ms": round(attributed, 3),
+        "total_ms": round(root.duration_ms, 3),
+        "fraction": (round(min(attributed / root.duration_ms, 1.0), 4)
+                     if root.duration_ms > 0 else 1.0),
+    }
 
 
 def _count_only_stats(spec):

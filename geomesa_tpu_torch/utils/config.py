@@ -164,3 +164,56 @@ BREAKER_COOLDOWN = SystemProperty("geomesa.breaker.cooldown", "5 seconds")
 # is older than now minus this are masked at scan, and ``age_off()``
 # tombstones them); a type's own `geomesa.feature.expiry` user data wins
 FEATURE_EXPIRY = SystemProperty("geomesa.feature.expiry", None)
+# the slow-query log: a query slower than `threshold` (a duration; unset:
+# no log) logs its span tree and its plan, at most `max.per.min` full
+# renders a minute (the rest file a summary in the tail only)
+SLOW_QUERY_THRESHOLD = SystemProperty("geomesa.query.slow.threshold", None)
+SLOW_QUERY_MAX_PER_MIN = SystemProperty("geomesa.query.slow.max.per.min", "60")
+# the flight-recorder timeline (utils/timeline.py): one tick of counter,
+# gauge and timer deltas a `interval` into a ring covering `window`;
+# enabled=false starts no sampler
+TIMELINE_ENABLED = SystemProperty("geomesa.timeline.enabled", "true")
+TIMELINE_INTERVAL = SystemProperty("geomesa.timeline.interval", "1 second")
+TIMELINE_WINDOW = SystemProperty("geomesa.timeline.window", "1 hour")
+# per-tenant metering (utils/tenants.py): the `tenant` query hint (absent:
+# "anon") folds every query into a top-`max` LRU of per-tenant aggregates;
+# `priority` maps tenants to default priority classes,
+# "tenantA=critical,tenantB=background"
+TENANTS_ENABLED = SystemProperty("geomesa.tenants.enabled", "true")
+TENANTS_MAX = SystemProperty("geomesa.tenants.max", "64")
+TENANTS_PRIORITY = SystemProperty("geomesa.tenants.priority", None)
+# the SLO engine (utils/slo.py): availability and latency objectives per
+# query class, burned over a fast and a slow window of the timeline; a
+# class violates when both windows burn past their thresholds and the fast
+# one saw at least `min.events`; `exemplars` keeps (value, trace id) pairs
+# per latency bucket while a sampler runs
+SLO_ENABLED = SystemProperty("geomesa.slo.enabled", "true")
+SLO_EXEMPLARS = SystemProperty("geomesa.slo.exemplars", "true")
+SLO_WINDOW_FAST = SystemProperty("geomesa.slo.window.fast", "5 minutes")
+SLO_WINDOW_SLOW = SystemProperty("geomesa.slo.window.slow", "1 hour")
+SLO_BURN_FAST = SystemProperty("geomesa.slo.burn.fast", "14.4")
+SLO_BURN_SLOW = SystemProperty("geomesa.slo.burn.slow", "1.0")
+SLO_MIN_EVENTS = SystemProperty("geomesa.slo.min.events", "100")
+SLO_AVAILABILITY = SystemProperty("geomesa.slo.availability", "0.999")
+SLO_LATENCY_OBJECTIVE = SystemProperty("geomesa.slo.latency.objective", "0.99")
+SLO_QUERY_LATENCY_MS = SystemProperty("geomesa.slo.query.latency.ms", "250")
+SLO_JOIN_LATENCY_MS = SystemProperty("geomesa.slo.join.latency.ms", "1000")
+SLO_AGGREGATE_LATENCY_MS = SystemProperty("geomesa.slo.aggregate.latency.ms", "250")
+SLO_STREAM_FIRST_LATENCY_MS = SystemProperty("geomesa.slo.stream.first.latency.ms", "250")
+# plan telemetry (utils/plans.py): per-fingerprint aggregates of every
+# query, a top-`max` LRU; enabled=false leaves one flag read a query
+PLANS_ENABLED = SystemProperty("geomesa.plans.enabled", "true")
+PLANS_MAX = SystemProperty("geomesa.plans.max", "256")
+# the brownout ladder (utils/brownout.py): each timeline tick folds SLO
+# burn, the admission queue's fill (`queue.ratio.1`-`.3` enter levels 1-3)
+# and open breakers into a level, stepping one rung after `enter.ticks`
+# ticks over it or `exit.ticks` ticks under it; level 1 sheds background,
+# 2 batch and cold pyramid builds, 3 lets only critical queue;
+# `retry.after.s` floors a shed's Retry-After
+BROWNOUT_ENABLED = SystemProperty("geomesa.brownout.enabled", "true")
+BROWNOUT_ENTER_TICKS = SystemProperty("geomesa.brownout.enter.ticks", "2")
+BROWNOUT_EXIT_TICKS = SystemProperty("geomesa.brownout.exit.ticks", "3")
+BROWNOUT_QUEUE_RATIO_1 = SystemProperty("geomesa.brownout.queue.ratio.1", "0.5")
+BROWNOUT_QUEUE_RATIO_2 = SystemProperty("geomesa.brownout.queue.ratio.2", "0.75")
+BROWNOUT_QUEUE_RATIO_3 = SystemProperty("geomesa.brownout.queue.ratio.3", "0.95")
+BROWNOUT_RETRY_AFTER_S = SystemProperty("geomesa.brownout.retry.after.s", "1")

@@ -8,7 +8,10 @@ queries, a coalesced wave of concurrent queries, a count and an
 query through it, with the native range walks and decode, and the
 pyramid, transform and converter modules, then a delete, an ``age_off``
 sweep, a labelled query and a degraded query (the security, breaker and
-fault modules), must load neither ``jax`` nor any ``geomesa_tpu`` module.
+fault modules), then an EXPLAIN ANALYZE, an audited ``query_many`` and a
+timeline tick (the trace, audit, plans, tenants, timeline, SLO and
+brownout modules), must load neither ``jax`` nor any ``geomesa_tpu``
+module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -234,6 +237,25 @@ assert store.count("labelled", cqls[0]) == int(m.sum())
 with faults.inject("device.fetch:error@0x1", seed=1):
     r = store.query("gdelt", cqls[1])
 assert r.scan_path == "host-table-degraded", r.scan_path
+# the telemetry modules: one EXPLAIN ANALYZE and one audited query_many,
+# a timeline tick (the brownout ladder and the SLO engine read it)
+from geomesa_tpu_torch.utils import audit, brownout, plans, slo, tenants, timeline, trace
+store.audit_writer = audit.InMemoryAuditWriter()
+store.metrics = audit.MetricsRegistry()
+sampler = timeline.TimelineSampler(store=store, interval_s=1.0, window_s=60.0)
+sampler.tick()
+ea = store.explain_analyze("gdelt", cqls[2])
+assert ea["actual"]["hits"] == len(store.query("gdelt", cqls[2])) and ea["stages"]["stage"] == "query"
+assert ea["fingerprint"] in {r["fingerprint"] for r in store._plans_obj().rows(n=99)}
+res = store.query_many("gdelt", [Query.cql(c, properties=[]) for c in cqls])
+evs = store.audit_writer.events[-4:]
+assert [e.hits for e in evs] == [len(r) for r in res]
+assert [e.h2d_bytes for e in evs] == [r.receipt["h2d_bytes"] for r in res]
+snap = sampler.tick()
+assert snap["counters"]["queries"] >= 5 and snap["plans"] and snap["tenants"]
+assert slo.SloEngine(sampler).evaluate()["violating"] == []
+assert store._brownout.level == 0 and brownout.enabled() and tenants.enabled()
+print(audit.prometheus_text([store.metrics, audit.robustness_metrics()])[:40])
 from geomesa_tpu_torch import native
 st = native.status()
 assert all(v["loaded"] for v in st.values()), st
@@ -251,7 +273,9 @@ def test_port_runs_config1_without_jax_or_the_reference():
     TubeSelect), the polygon plane, host-seek queries, a coalesced wave, the
     aggregate pyramid (a count and an aggregate), a transform, a sampled
     query, a delete, an age_off sweep, a labelled query, a degraded query,
-    and the native libraries they run, load no JAX."""
+    an EXPLAIN ANALYZE, an audited query_many, a timeline tick with the SLO
+    engine and the brownout ladder, and the native libraries they run,
+    load no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

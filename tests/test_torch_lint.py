@@ -13,7 +13,17 @@
 * those two helpers carry the ``device.dispatch`` / ``device.fetch`` fault
   points (with their spans and budget checks), so every copy over the
   link can fail the way a device does; only the link probe skips them;
-* no module imports ``jax`` or anything of ``geomesa_tpu``.
+* no module imports ``jax`` or anything of ``geomesa_tpu``;
+* the telemetry modules (``utils/audit.py``, ``plans.py``, ``tenants.py``,
+  ``timeline.py``, ``slo.py``, ``brownout.py``, ``admission.py``) are in
+  the scan and touch no tensor: only ``utils/trace.py`` imports ``torch``
+  (for its profiler ranges);
+* every ``decision(point, reason)`` names its point as a string constant
+  and its reason as a stable code (a constant, or a name or f-string of
+  names that picks among constants; never a formatted message), and every
+  store
+  path that folds a query into the plan registry sits in an open
+  plan-telemetry scope (``plans.begin`` / ``end``).
 """
 
 import ast
@@ -206,3 +216,66 @@ def test_only_the_link_probe_skips_the_fetch_fault_point():
                         and _called(n, "fetch"):
                     sites.append((mod, fname))
     assert sites and set(sites) == {(MESH, "link_latency_ms")}, sites
+
+
+TELEMETRY = [os.path.join("utils", f"{m}.py") for m in
+             ("audit", "plans", "tenants", "timeline", "slo", "brownout", "admission", "trace")]
+
+
+def _imports(tree):
+    out = set()
+    for n in ast.walk(tree):
+        if isinstance(n, ast.Import):
+            out.update(a.name.split(".")[0] for a in n.names)
+        elif isinstance(n, ast.ImportFrom) and n.level == 0 and n.module:
+            out.add(n.module.split(".")[0])
+    return out
+
+
+@pytest.mark.parametrize("mod", TELEMETRY)
+def test_telemetry_modules_touch_no_tensor(mod):
+    assert mod in MODULES
+    uses_torch = "torch" in _imports(MODULES[mod])
+    assert uses_torch == (mod == os.path.join("utils", "trace.py")), mod
+
+
+def _stable_code(node) -> bool:
+    """A string constant, a name (a code chosen among constants) or an
+    f-string of constants and names: never a call or an attribute, which is
+    how an exception's message would get in."""
+    if isinstance(node, ast.Constant):
+        return isinstance(node.value, str)
+    if isinstance(node, ast.Name):
+        return True
+    if isinstance(node, ast.JoinedStr):
+        return all(isinstance(v, ast.Constant) or (isinstance(v, ast.FormattedValue)
+                                                    and isinstance(v.value, ast.Name))
+                   for v in node.values)
+    return False
+
+
+def test_decisions_name_stable_codes():
+    sites = []
+    for mod, tree in MODULES.items():
+        for n in ast.walk(tree):
+            if isinstance(n, ast.Call) and (
+                    (isinstance(n.func, ast.Name) and n.func.id == "decision")
+                    or (isinstance(n.func, ast.Attribute) and n.func.attr == "decision")):
+                point, reason = (n.args + [None, None])[:2]
+                ok = (isinstance(point, ast.Constant) and isinstance(point.value, str)
+                      and reason is not None and _stable_code(reason))
+                sites.append((mod, n.lineno, ok))
+    assert len(sites) >= 12
+    assert all(ok for *_s, ok in sites), [s for s in sites if not s[2]]
+
+
+def test_store_observes_plans_inside_a_scope():
+    """``query``, each ``query_many`` member and ``aggregate`` open the
+    pending scope their observation drains (``plans.begin`` ... ``end``)."""
+    store = dict(_functions(MODULES[os.path.join("store", "datastore.py")]))
+    for fn in ("TorchDataStore.query", "TorchDataStore._query_many_planned",
+               "TorchDataStore.aggregate"):
+        assert _called(store[fn], "begin") and _called(store[fn], "end"), fn
+    for fn in ("TorchDataStore._audit", "TorchDataStore._audit_failure",
+               "TorchDataStore.aggregate"):
+        assert _called(store[fn], "observe"), fn

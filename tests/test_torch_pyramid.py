@@ -18,10 +18,15 @@ over many tiles, three sorted blocks, shuffled rows, pads and a masked row
 inside a run, a long empty gap, 1, 31 and 4,097 rows), which the card
 tests hold the kernel to.
 
+Invalidation: a pyramid built by a count is dropped by a later delete,
+compaction or ``delete_schema`` (``agg.cache.invalidated`` moves), and the
+next count and ``aggregate()`` equal the reference's and numpy's over the
+surviving rows. A cache-answered query still writes its ``QueryEvent`` with
+a zero-dispatch receipt.
+
 Left out (their modules are not ported): the sharded-store cases
 (``ShardedDataStore``), the shard breaker case, the web ``/stats/aggregate``
-endpoint, the ``/debug/device`` block and the audit-writer receipt case;
-deletes, compaction and ``delete_schema`` (the port has none yet).
+endpoint and the ``/debug/device`` block.
 """
 
 import threading
@@ -34,6 +39,7 @@ import torch
 import jax
 from jax.sharding import Mesh
 
+from geomesa_tpu.geom.base import Point as RefPoint
 from geomesa_tpu.index.planner import Query as RefQuery
 from geomesa_tpu.ops import pyramid as ref_pyr
 from geomesa_tpu.ops.aggregations import make_pyramid_counts
@@ -52,8 +58,12 @@ from geomesa_tpu_torch.ops.aggregations import pyramid_counts_plain
 from geomesa_tpu_torch.parallel.executor import TorchScanExecutor
 from geomesa_tpu_torch.schema.featuretype import parse_spec
 from geomesa_tpu_torch.store.datastore import TorchDataStore
-from geomesa_tpu_torch.utils import deadline, devstats, faults
-from geomesa_tpu_torch.utils.audit import QueryTimeout, robustness_metrics
+from geomesa_tpu_torch.utils import deadline, devstats, faults, trace
+from geomesa_tpu_torch.utils.audit import (
+    InMemoryAuditWriter,
+    QueryTimeout,
+    robustness_metrics,
+)
 from geomesa_tpu_torch.utils.config import properties
 from pyramid_layouts import PYRAMID_LAYOUTS, pyramid_layout
 
@@ -522,3 +532,99 @@ def test_eight_threads_count_through_one_pyramid():
     assert out == [want] * 8
     assert all(c is caches[0] for c in caches)
     assert len(caches[0]) == 1
+
+
+# -- invalidation of a built pyramid ------------------------------------------
+
+
+def _bbox_oracle(cols, dead, box=(-50.3, -25.7, 55.9, 35.2)):
+    """numpy over the surviving rows: the BBOX count and the val sum."""
+    x, y = cols["geom__x"], cols["geom__y"]
+    alive = ~np.isin(cols["__fid__"], list(dead))
+    m = alive & (x >= box[0]) & (x <= box[2]) & (y >= box[1]) & (y <= box[3])
+    return int(m.sum()), int(cols["val"][m].astype(np.int64).sum())
+
+
+@pytest.mark.parametrize("step", ["delete", "compact"])
+def test_built_pyramid_is_invalidated_by_the_lifecycle(step):
+    """The port's twin of the reference's invalidation tests: count through
+    the pyramid first, then delete (or delete and compact), then count and
+    aggregate again. The entry is dropped at once, and the next answers
+    equal the reference's and numpy's over the surviving rows."""
+    reg = devstats.devstats_metrics()
+    ref, port = _pair(seed=7)
+    cols = _columns(4000, 7, "e")
+    n0 = _bbox_oracle(cols, ())[0]
+    for ds in (ref, port):
+        assert ds.count("events", BBOX) == n0
+        assert ds.count("events", CQL) == ds.count("events", CQL)
+    assert _pyramid_route(port, BBOX)[0]
+    assert len(port._agg_cache) > 0
+    dead = [f"e{i}" for i in range(0, 4000, 7)]
+    i0 = reg.counter("agg.cache.invalidated")
+    for ds in (ref, port):
+        ds.delete_features("events", dead)
+        if step == "compact":
+            ds.compact("events")
+    assert reg.counter("agg.cache.invalidated") > i0
+    assert len(port._agg_cache) == 0
+    n, val = _bbox_oracle(cols, dead)
+    assert n < n0
+    assert port.count("events", BBOX) == ref.count("events", BBOX) == n
+    assert port.count("events", CQL) == ref.count("events", CQL)
+    got = port.aggregate("events", BBOX, columns=["val"])
+    assert got == ref.aggregate("events", BBOX, columns=["val"])
+    assert got["count"] == n and got["columns"]["val"]["sum"] == val
+    assert _pyramid_route(port, BBOX) == (True, n)  # rebuilt on the new generation
+
+
+def test_delete_schema_drops_pyramid_entries():
+    """``delete_schema`` drops the type's pyramid; a recreated type answers
+    its own rows, as in the reference."""
+    ref, port = _pair(seed=3)
+    for ds, parse, point in ((ref, ref_parse_spec, RefPoint), (port, parse_spec, Point)):
+        assert ds.count("events", CQL) == ds.count("events", CQL)
+        gen = ds._write_gen["events"]
+        assert len(ds._agg_cache) > 0
+        ds.delete_schema("events")
+        assert len(ds._agg_cache) == 0
+        assert "events" not in ds.type_names
+        ds.create_schema(parse("events", SPEC))
+        assert ds._write_gen["events"] == gen + 1  # the generation survives
+        with ds.writer("events") as w:
+            w.write([1, 0.1, T0, point(0.0, 0.0)], fid="only")
+        assert ds.count("events", CQL) == 1
+        assert ds.count("events", CQL) == 1
+    assert port.type_names == ref.type_names == ["events"]
+
+
+def test_cache_hit_writes_query_event_and_zero_dispatch_receipt():
+    """The reference's audit-writer receipt case: a ``Count()`` stats query
+    the pyramid answers writes its ``QueryEvent`` (route
+    ``agg-pyramid-stats``) with a zero-dispatch receipt, and the query's
+    root span says ``agg.cache`` = hit."""
+    port = TorchDataStore(executor=TorchScanExecutor(device="cpu"),
+                          audit_writer=InMemoryAuditWriter())
+    port.create_schema(parse_spec("events", SPEC))
+    port._insert_columns(port.get_schema("events"), _columns(4000, 0, "e"))
+    ring = trace.install(trace.InMemoryTraceExporter())
+    try:
+        def run():
+            q = Query.cql(CQL)
+            q.hints["stats"] = "Count()"
+            return port.query("events", q)
+
+        cold = run()
+        n0 = len(port.audit_writer.events)
+        hot = run()
+        assert int(hot.aggregate["stats"].count) == int(cold.aggregate["stats"].count)
+        evs = port.audit_writer.events
+        assert len(evs) == n0 + 1
+        ev = evs[-1]
+        assert ev.outcome == "ok" and ev.scan_path == "agg-pyramid-stats"
+        assert ev.recompiles == 0 and ev.h2d_bytes == 0 and ev.d2h_bytes == 0
+        assert ev.trace_id == ring.traces[-1].trace_id
+        root = ring.traces[-1]
+        assert root.name == "query" and root.attributes.get("agg.cache") == "hit"
+    finally:
+        trace.uninstall(ring)
