@@ -88,10 +88,20 @@ against its plain PyTorch edition:
     authorization sets: ``exact_bitmap_z3``, ``exact_count_z3``,
     ``density_grid_z3``, ``xz_dual_bitmap_xz2`` / ``_xz3`` and
     ``pyramid_counts`` on holed masks;
+  * the spatial join (``TorchDataStore.query_join``, ``ops/join.py``):
+    config #1's base query as the probe side against 1,024 seeded stars
+    (8-64 vertices, one in eight with a hole, radii 0.05-0.3 degrees on a
+    jittered grid astride its box: the adaptive splits run) with
+    ``contains`` and 4,096 seeded sites with ``dwithin(5000)``: the
+    ``join_pip`` and ``join_dwithin`` kernels;
+  * the device-assisted seek (``GEOMESA_SEEK=1 GEOMESA_DEVSEEK=1``):
+    config #1's 20 queries and config #3's streams (a) and (b): the
+    ``devseek`` and ``devseek_xz`` kernels;
   * the faults: config #1's stream and stream (a) under a seeded
     ``device.dispatch`` / ``device.fetch`` schedule until the device
-    circuit breaker opens, the open circuit, the probe that closes it, and
-    one failed device kNN.
+    circuit breaker opens, the open circuit, the probe that closes it, one
+    join under an injected ``join.probe`` fault, and one failed device
+    kNN.
 
 The aggregate cache (``geomesa.agg.enabled``) is off for every phase but
 the pyramid phase: with it on, the density streams' repeated queries would
@@ -212,7 +222,7 @@ Phases (any failure raises and the script exits non-zero):
      ``GEOMESA_SEEK=auto`` (one sync query timed, the stream pipelined with
      fids unread and read), every query checked against brute force, its
      routes and its launches recorded; the chooser's cutoff swept
-     (``seek_crossover``: four wider selectivities, each under the seek
+     (``seek_crossover``: two wider selectivities astride the cutoff, each under the seek
      and the device route, checked against brute force, pipelined with
      fids unread and read); the native host libraries at the
      main path's shapes, each against its plain edition on the same
@@ -249,6 +259,23 @@ Phases (any failure raises and the script exits non-zero):
      metering at their defaults and off, TELEMETRY_ROUNDS alternating
      rounds, every answer the same size in every round and the first
      round's answers equal fid for fid;
+  7c. the join phase, a path of its own (``join_path``): the fences and
+     sites written, each side's pairs against the script's own f64
+     oracle (an envelope prefilter by ``searchsorted`` on the sorted x
+     column, then an even-odd test over every ring with an exact on-edge
+     test, or the haversine): a cold join, JOIN_WARM warm ones (build
+     cache hits) and one host join under ``GEOMESA_JOIN_DEVICE=0``, each
+     timed (ms, pairs, band-verified pairs, chunks, buckets, splits, the
+     candidate cap, the route); then the device-seek phase, a path of its
+     own (``devseek_path``): config #1's 20 queries sync and pipelined and
+     streams (a) and (b) pipelined, every fid set equal to its oracle and
+     every query on ``device-seek`` / ``device-seek-xz`` (``host-seek``
+     past 2^22 candidates), then each stream's ms per query on the device
+     seek, the host seek and the device full scan, the least of three
+     alternating rounds; then their kernel phase: ``join_pip`` /
+     ``join_dwithin`` on the first probe chunk (``join_dwithin`` equal to
+     its plain edition but within 4 ulps of a threshold) and ``devseek`` /
+     ``devseek_xz`` at each candidate space the phase launched;
   8. the lifecycle and fault phases, each a path of its own (their
      launches read with the counts reset just before). Their shapes are
      timed as entries of their own, tagged with the table's state: `` holes``
@@ -264,8 +291,10 @@ Phases (any failure raises and the script exits non-zero):
      ``faults_ways`` and ``faults_knn`` (every answer equal to the
      fault-free one, one ``degrade.device_to_host`` a fired fault, no
      launch while the breaker is open, the probe's receipt with the
-     rebuilt mirror's host -> device bytes, the kNN's identical list on
-     ``host-bbox``). The run fails if a degrade, a breaker opening or a
+     rebuilt mirror's host -> device bytes, one join under an injected
+     ``join.probe`` fault with the fault-free pairs on
+     ``host-join-degraded`` and one ``degrade.join_to_host``, the kNN's
+     identical list on ``host-bbox``). The run fails if a degrade, a breaker opening or a
      kNN trip appears before the fault phase.
 
 Prints a ``{"native": {...}}`` line (each host library's load status and
@@ -980,10 +1009,11 @@ def synthesize_poly(n: int):
     return rng.uniform(-180, 180, n), rng.uniform(-85, 85, n)
 
 
-def star(cx: float, cy: float, r: float) -> np.ndarray:
-    """bench_poly's 12-point star, a closed ring, snapped to its WKT text."""
-    ang = np.linspace(0, 2 * np.pi, 13)[:-1]
-    rad = np.where(np.arange(12) % 2 == 0, r, 0.45 * r)
+def star(cx: float, cy: float, r: float, points: int = 12) -> np.ndarray:
+    """bench_poly's star (12 points by default; ``points`` even), a closed
+    ring, snapped to its WKT text."""
+    ang = np.linspace(0, 2 * np.pi, points + 1)[:-1]
+    rad = np.where(np.arange(points) % 2 == 0, r, 0.45 * r)
     pts = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], axis=1)
     return snapped(np.vstack([pts, pts[:1]]))
 
@@ -1188,17 +1218,25 @@ def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
         )
 
 
+def fid_numbers(fids: np.ndarray) -> np.ndarray:
+    """The numbers of one-letter-prefixed fids (``f123``; a fixed-width
+    unicode array, zero code points past each fid's end), in their order:
+    the digits' code points read column by column (Horner's rule)."""
+    a = np.ascontiguousarray(np.asarray(fids, dtype=str))
+    width = a.dtype.itemsize // 4
+    c = a.view(np.uint32).reshape(-1, width)
+    v = np.zeros(len(a), dtype=np.int64)
+    for k in range(1, width):
+        d = c[:, k]
+        v = np.where(d > 0, v * 10 + (d.astype(np.int64) - 48), v)
+    return v
+
+
 def fid_rows(fids: np.ndarray) -> np.ndarray:
     """Sorted row numbers of fids "f<row>" (a fixed-width unicode array),
     read from the code points, for result sets too large for a set of
     strings."""
-    a = np.ascontiguousarray(fids)
-    width = a.dtype.itemsize // 4
-    c = a.view(np.uint32).reshape(-1, width)[:, 1:].astype(np.int64)
-    digit = c > 0
-    power = digit.sum(1)[:, None] - 1 - np.arange(width - 1)[None, :]
-    val = (np.where(digit, c - 48, 0) * 10 ** np.clip(power, 0, None)).sum(1)
-    return np.sort(val)
+    return np.sort(fid_numbers(fids))
 
 
 # -- phases -----------------------------------------------------------------
@@ -2078,6 +2116,21 @@ def main() -> int:
     telemetry_s = time.perf_counter() - t_tel
     log(f"telemetry phase {telemetry_s:.1f} s")
 
+    # -- phase 7c: the spatial join and the device-assisted seek -----------------
+    t_join = time.perf_counter()
+    kernels.reset_launches()
+    metrics_join = join_path(store, data1)
+    launched["join"] = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    join_s = time.perf_counter() - t_join
+    t_seek = time.perf_counter()
+    metrics_devseek, launched["devseek"] = devseek_path(store, data1, streams1, streams3, oracle3)
+    devseek_s = time.perf_counter() - t_seek
+    entries += kernel_checks(join_cases(store, launched["join"][1])
+                             + devseek_cases(store, launched["devseek"][1], streams1, streams3),
+                             int32_per_s, fp32_per_s, ab)
+    log(f"join phase {join_s:.1f} s, device-seek phase {devseek_s:.1f} s, their kernels "
+        f"{time.perf_counter() - t_join - join_s - devseek_s:.1f} s")
+
     # -- phase 8: deletes, age-off, compaction, labels, then the faults -------
     t_life = time.perf_counter()
     ints = (int32_per_s, fp32_per_s)
@@ -2147,6 +2200,10 @@ def main() -> int:
         "pyramid_phase_s": pyramid_s,
         "telemetry": metrics_tel,
         "telemetry_phase_s": telemetry_s,
+        "join": metrics_join,
+        "join_phase_s": join_s,
+        "devseek": metrics_devseek,
+        "devseek_phase_s": devseek_s,
         "lifecycle": metrics_life,
         "lifecycle_phases_s": lifecycle_s,
         "faults": metrics_faults,
@@ -4332,13 +4389,12 @@ def seek_stream(store, data, streams):
 
 
 # the chooser's cutoff, swept: config #1's table under wider boxes and
-# windows, (box, DURING days) -> about 0.24, 0.37, 0.53 and 0.72 of the rows
-# in the plan's ranges (the chooser's own measure; config #1's stream: 0.09)
+# windows, (box, DURING days) -> about 0.37 and 0.53 of the rows in the
+# plan's ranges, astride the cutoff (the chooser's own measure; config #1's
+# stream: 0.09; the 0.24 and 0.72 cases went to keep the script's time)
 CROSSOVER = (
-    ((-165.0, -6.5, 15.0, 83.5), (5, 19)),
     ((-180.0, -51.5, 105.0, 90.0), (5, 19)),
     ((-180.0, -51.5, 105.0, 90.0), (3, 25)),
-    ((-180.0, -51.5, 105.0, 90.0), (2, 31)),
 )
 # one query a case (2 until the lifecycle and fault phases came)
 CROSSOVER_REPS = 1
@@ -4494,7 +4550,7 @@ def native_timings(store, data, plans1, plans3, walks):
         raise AssertionError("config #1's plans must take the native seek scan")
     nat_ms, got = host_ms(lambda: [list(sc) for sc in seeks])
     with plain_editions():
-        np_ms, want = host_ms(lambda: [list(sc) for sc in seeks])
+        np_ms, want = host_ms(lambda: [list(sc) for sc in seeks], reps=1)
     for g, w in zip(got, want):
         if len(g) != len(w) or not all(b1 is b2 and np.array_equal(r1, r2)
                                        for (b1, r1), (b2, r2) in zip(g, w)):
@@ -4770,7 +4826,7 @@ EXPIRE_FRAC = 0.3
 # the labelled table: config #1's generator at LABEL_ROWS rows, a __vis__
 # column of eight label expressions, queried under three authorization sets
 LABEL_TABLE = "labelled"
-LABEL_ROWS = 8_000_000
+LABEL_ROWS = 4_000_000
 LABELS = ("", "USA", "USA&SECRET", "USA|GBR", "(USA|GBR)&SECRET", "GBR", "SECRET",
           "GBR&SECRET")
 LABEL_AUTHS = {"none": [], "usa": ["USA"], "cleared": ["USA", "GBR", "SECRET"]}
@@ -4781,11 +4837,12 @@ FAULT_SEED = 23
 BREAKER_FAILURES = 3
 BREAKER_COOLDOWN_S = 2.0
 # queries of config #1's stream and of stream (a) asked while the circuit is
-# open (each answered by a host table scan at full size)
-OPEN_QUERIES = (5, 6)
+# open (each answered by a host table scan at full size; 5 and 6 until the
+# join and device-seek phases came)
+OPEN_QUERIES = (3, 3)
 # the robustness counters no phase but the fault phase may move
 FAULT_COUNTERS = ("degrade.device_to_host", "degrade.mirror_rebuilds", "degrade.agg_to_scan",
-                  "degrade.coalesce_to_solo", "breaker.device.opens")
+                  "degrade.coalesce_to_solo", "breaker.device.opens", "degrade.join_to_host")
 
 
 def label_readable(label: str, auths) -> bool:
@@ -5303,6 +5360,23 @@ def fault_path(store, data1, streams1, alive, streams3, oracle3, ways_dead):
         f"{out['degrades']} degrades, routes {routes}; the open circuit "
         f"{out['open_circuit_s']:.1f} s; the probe moved {probe.receipt['h2d_bytes']} B up")
     ex.breaker = CircuitBreaker("device")
+    # one join under one injected join.probe fault: the host reference join
+    # answers the same pairs (GEOMESA_JOIN_DEVICE=1 keeps the session flag
+    # down for the kNN below)
+    with env_set({"GEOMESA_JOIN_DEVICE": "1"}):
+        want_join = join_pair_keys(store.query_join("fences", ("gdelt", QUERY)))
+        j0, d0 = reg.counter("degrade.join_to_host"), reg.counter("degrade.device_to_host")
+        with faults.inject("join.probe:error@0x1", seed=FAULT_SEED):
+            got_join = store.query_join("fences", ("gdelt", QUERY))
+    if (got_join.stats["path"] != "host-join-degraded"
+            or not np.array_equal(join_pair_keys(got_join), want_join)
+            or reg.counter("degrade.join_to_host") != j0 + 1
+            or reg.counter("degrade.device_to_host") != d0 + 1):
+        raise AssertionError(f"the join fault: {got_join.stats['path']}, "
+                             f"{len(got_join)} pairs against {len(want_join)}")
+    out["join_fault"] = {"path": got_join.stats["path"], "pairs": int(len(got_join)),
+                         "same_pairs": True}
+    kernels.reset_launches()  # the joins' launches belong to no path
     # last: the device-kNN trip is sticky for the session
     got = knn_search(store, KNN_TABLE, *KNN_QUERY, k=KNN_K)
     if last_knn_path() != "device-topk":
@@ -5318,6 +5392,458 @@ def fault_path(store, data1, streams1, alive, streams3, oracle3, ways_dead):
     take_launches(launched["faults_knn"], ON_KNN, plain=("knn_topk",))
     torch.cuda.synchronize()
     return out, launched
+
+
+# -- the spatial join and the device-assisted seek -----------------------------
+
+# the join's build sides: 1,024 seeded stars (8-64 vertices, one in eight
+# with a hole, radii 0.05-0.3 degrees, on a jittered 32 x 32 grid over the
+# region, astride config #1's box) and 4,096 seeded sites in the region at
+# dwithin(JOIN_RADIUS_M); the probe side is config #1's base query
+JOIN_FENCES = 1024
+JOIN_SITES = 4096
+JOIN_RADIUS_M = 5000.0
+JOIN_REGION = (-82.0, 34.0, -68.0, 43.0)
+JOIN_WARM = 3
+# FP32-pipe instructions of csrc/join.cu's loops in their sm_90a SASS: a
+# (row, candidate, live edge) of join_pip, a straddling edge's crossing on
+# top, and a (row, candidate) of join_dwithin (the path of finite degrees);
+# and the integer work beside them (loop, parity, flag bits)
+JOIN_PIP_EDGE_FOPS = 34
+JOIN_PIP_STRADDLE_FOPS = 10
+JOIN_PIP_EDGE_IOPS = 2
+JOIN_DWITHIN_FOPS = 103
+JOIN_DWITHIN_IOPS = 20
+# the device-seek phase: config #1's stream and two of config #3's, each
+# timed in three alternating rounds of the three routes
+DEVSEEK_XZ_STREAMS = ("xz2_bbox", "xz3_bbox_during")
+DEVSEEK_ROUNDS = 3
+DEVSEEK_MODES = (
+    ("device_seek", {"GEOMESA_SEEK": "1", "GEOMESA_DEVSEEK": "1"}),
+    ("host_seek", {"GEOMESA_SEEK": "1", "GEOMESA_DEVSEEK": "0"}),
+    ("device_scan", {"GEOMESA_SEEK": "0", "GEOMESA_DEVSEEK": "0"}),
+)
+# a seek candidate's gathered bytes: x, y (and t) keys and valid; for
+# extents the four envelope keys, isrect and valid (and t)
+DEVSEEK_CAND_BYTES = {"devseek_z2": 17, "devseek_z3": 25, "devseek_xz_xz2": 34,
+                      "devseek_xz_xz3": 42}
+
+
+@contextlib.contextmanager
+def env_set(values):
+    """The environment variables of ``values`` set for the block, restored
+    after."""
+    old = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def join_fences(seed: int = 171):
+    """The contains join's build side: [(shell ring, hole ring or None)]."""
+    rng = np.random.default_rng(seed)
+    side = int(np.sqrt(JOIN_FENCES))
+    xmin, ymin, xmax, ymax = JOIN_REGION
+    w, h = (xmax - xmin) / side, (ymax - ymin) / side
+    out = []
+    for i in range(JOIN_FENCES):
+        cx = xmin + (i % side + rng.uniform(0.1, 0.9)) * w
+        cy = ymin + (i // side + rng.uniform(0.1, 0.9)) * h
+        r = rng.uniform(0.05, 0.3)
+        shell = star(cx, cy, r, 2 * int(rng.integers(4, 33)))
+        hole = star(cx, cy, 0.3 * r, 8)[::-1] if i % 8 == 0 else None
+        out.append((shell, hole))
+    return out
+
+
+def join_sites(seed: int = 172) -> np.ndarray:
+    """The dwithin join's build side: [JOIN_SITES, 2] points in the region."""
+    rng = np.random.default_rng(seed)
+    xmin, ymin, xmax, ymax = JOIN_REGION
+    return np.stack([rng.uniform(xmin, xmax, JOIN_SITES), rng.uniform(ymin, ymax, JOIN_SITES)], 1)
+
+
+def _pair_keys(b, p) -> np.ndarray:
+    return np.sort((np.asarray(b, np.int64) << 32) | np.asarray(p, np.int64))
+
+
+def join_contains_oracle(fences, px, py, rows) -> np.ndarray:
+    """Sorted (fence << 32 | config #1 row) keys of every probe point in a
+    fence, boundary inclusive, in f64: an envelope prefilter (searchsorted
+    on the sorted x column), then this script's own even-odd test over
+    every ring with an exact on-edge test (tests/test_join.py's reference),
+    sharing no code with the port."""
+    order = np.argsort(px, kind="stable")
+    sx = px[order]
+    bs, ps = [], []
+    for gi, (shell, hole) in enumerate(fences):
+        lo, hi = shell.min(0), shell.max(0)
+        cand = order[np.searchsorted(sx, lo[0], "left"):np.searchsorted(sx, hi[0], "right")]
+        cand = cand[(py[cand] >= lo[1]) & (py[cand] <= hi[1])]
+        if not len(cand):
+            continue
+        X, Y = px[cand][:, None], py[cand][:, None]
+        inside = np.zeros(len(cand), bool)
+        on = np.zeros(len(cand), bool)
+        for ring in [shell] + ([hole] if hole is not None else []):
+            x0, y0, x1, y1 = ring[:-1, 0], ring[:-1, 1], ring[1:, 0], ring[1:, 1]
+            dy = np.where(y1 != y0, y1 - y0, 1.0)
+            xint = x0 + (Y - y0) * (x1 - x0) / dy
+            inside ^= (((y0 > Y) != (y1 > Y)) & (xint > X)).sum(1) % 2 == 1
+            abx, aby = x1 - x0, y1 - y0
+            den = abx * abx + aby * aby
+            t = np.clip(((X - x0) * abx + (Y - y0) * aby) / np.where(den > 0, den, 1.0), 0, 1)
+            on |= (((X - (x0 + t * abx)) ** 2 + (Y - (y0 + t * aby)) ** 2) == 0.0).any(1)
+        m = inside | on
+        bs.append(np.full(int(m.sum()), gi))
+        ps.append(rows[cand[m]])
+    return _pair_keys(np.concatenate(bs), np.concatenate(ps))
+
+
+def join_dwithin_oracle(sites, px, py, rows, r: float) -> np.ndarray:
+    """Sorted (site << 32 | config #1 row) keys of every probe point within
+    ``r`` metres of a site (``haversine_np``, f64), after an envelope
+    prefilter wider than the cap."""
+    order = np.argsort(px, kind="stable")
+    sx = px[order]
+    dlat = 1.01 * r / 111000.0
+    bs, ps = [], []
+    for gi, (cx, cy) in enumerate(sites):
+        dlon = dlat / np.cos(np.radians(abs(cy) + dlat))
+        cand = order[np.searchsorted(sx, cx - dlon, "left"):np.searchsorted(sx, cx + dlon, "right")]
+        cand = cand[np.abs(py[cand] - cy) <= dlat]
+        m = haversine_np(px[cand], py[cand], cx, cy) <= r
+        bs.append(np.full(int(m.sum()), gi))
+        ps.append(rows[cand[m]])
+    return _pair_keys(np.concatenate(bs), np.concatenate(ps))
+
+
+def join_pair_keys(res) -> np.ndarray:
+    """A join result's pairs as sorted (build number << 32 | probe row)."""
+    b = fid_numbers(res.build.fids)[res.build_idx]
+    p = fid_numbers(res.probe.columns["__fid__"])[res.probe_idx]
+    return _pair_keys(b, p)
+
+
+def join_path(store, data1):
+    """The join phase: the fences and sites written through the writer, then
+    per build side a cold join (rebuild, upload, probe), JOIN_WARM warm ones
+    (cache hits) and, under GEOMESA_JOIN_DEVICE=0, one host join, each timed
+    on the host clock around a synchronised card; every pair set equal to
+    its f64 oracle, every device join on ``device-join``."""
+    from geomesa_tpu_torch.geom.base import Point, Polygon
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+
+    x, y, t = data1
+    rows = brute_force(x, y, t)
+    px, py = x[rows], y[rows]
+    fences, sites = join_fences(), join_sites()
+    t0 = time.perf_counter()
+    store.create_schema(parse_spec("fences", "fname:String,*geom:Polygon:srid=4326"))
+    with store.writer("fences") as w:
+        for i, (shell, hole) in enumerate(fences):
+            holes = [hole.tolist()] if hole is not None else []
+            w.write([f"n{i}", Polygon(shell.tolist(), holes=holes)], fid=f"g{i}")
+    store.create_schema(parse_spec("sites", "*geom:Point:srid=4326"))
+    with store.writer("sites") as w:
+        for i, (sx, sy) in enumerate(sites):
+            w.write([Point(float(sx), float(sy))], fid=f"s{i}")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = {"contains": join_contains_oracle(fences, px, py, rows),
+            "dwithin": join_dwithin_oracle(sites, px, py, rows, JOIN_RADIUS_M)}
+    out = {"probe_rows": int(len(rows)), "build_write_s": write_s,
+           "oracle_s": time.perf_counter() - t0}
+    for kind, build, pred in (("contains", "fences", "contains"),
+                              ("dwithin", "sites", f"dwithin({JOIN_RADIUS_M})")):
+        runs = []
+        for i in range(1 + JOIN_WARM):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = store.query_join(build, ("gdelt", QUERY), predicate=pred)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            st = res.stats
+            if st["path"] != "device-join" or st["build"] != ("rebuild" if i == 0 else "hit"):
+                raise AssertionError(f"{kind} join {i}: {st['path']} {st['build']}")
+            if not np.array_equal(join_pair_keys(res), want[kind]):
+                raise AssertionError(f"{kind} join {i}: {len(res)} pairs, oracle "
+                                     f"{len(want[kind])}")
+            runs.append(ms)
+        with env_set({"GEOMESA_JOIN_DEVICE": "0"}):
+            t0 = time.perf_counter()
+            host = store.query_join(build, ("gdelt", QUERY), predicate=pred)
+            host_ms = (time.perf_counter() - t0) * 1e3
+        if host.stats["path"] != "host-join" or not np.array_equal(join_pair_keys(host),
+                                                                   want[kind]):
+            raise AssertionError(f"{kind} host join: {host.stats['path']}, {len(host)} pairs")
+        out[kind] = {
+            "cold_ms": runs[0], "warm_ms": runs[1:], "host_ms": host_ms,
+            "pairs": int(len(res)), "band_verified": st["band_verified"],
+            "chunks": st["chunks"], "buckets": st["buckets"], "splits": st["splits"],
+            "max_bucket": st["max_bucket"], "cand_cap": st["candidate_cap"],
+            "route": st["path"], "host_route": host.stats["path"],
+        }
+        log(f"{kind} join: cold {runs[0]:.1f} ms, warm {[round(r, 1) for r in runs[1:]]} ms, "
+            f"host {host_ms:.1f} ms; {json.dumps(out[kind])}")
+    return out
+
+
+def same_parts(a, b) -> bool:
+    """Whether two lazy results hold the same rows of the same blocks (so
+    the same fids), compared without gathering a column."""
+    pa, pb = a.columns._parts, b.columns._parts
+    return len(pa) == len(pb) and all(
+        ba is bb and np.array_equal(ra, rb) for (ba, ra), (bb, rb) in zip(pa, pb))
+
+
+def _seek_candidates(store, table_name, queries) -> list:
+    """The candidate rows of each query's seek intervals (the chooser's
+    measure, ``_seek_intervals``)."""
+    out = []
+    for q in queries:
+        plan = store._plan_cached(table_name, q)
+        table = store._tables[table_name][plan.index.name]
+        out.append(store.executor._seek_intervals(table, plan)[1])
+    return out
+
+
+def devseek_path(store, data1, streams1, streams3, oracle3):
+    """The device-seek phase under GEOMESA_SEEK=1 GEOMESA_DEVSEEK=1:
+    config #1's 20 queries sync and pipelined, then streams (a) and (b) of
+    config #3 pipelined, every fid set equal to its oracle and every query
+    on ``device-seek`` / ``device-seek-xz`` (``host-seek`` where its
+    candidates pass the 2^22 budget; config #1's base query and (a)'s first
+    query must take the device). Its launches are read after these; then
+    each stream's ms per query on the device seek, the host seek
+    (GEOMESA_DEVSEEK=0) and the device full scan (GEOMESA_SEEK=0), the
+    least of DEVSEEK_ROUNDS alternating rounds (fids unread). Returns
+    (metrics, (launch counts, shapes))."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import kernels
+
+    x, y, t = data1
+    boxes, cqls = streams1["config1"]
+    streams = {"config1": ("gdelt", [Query.cql(c, properties=[]) for c in cqls],
+                           [brute_force(x, y, t, b) for b in boxes], "f", "device-seek")}
+    for k in DEVSEEK_XZ_STREAMS:
+        streams[k] = ("ways", [Query.cql(c, properties=[]) for c, _ in streams3[k]], oracle3[k],
+                      "w", "device-seek-xz")
+    cap = kernels.DEVSEEK_MAX_CAND
+    out = {}
+    with env_set(dict(DEVSEEK_MODES[0][1])):
+        kernels.reset_launches()
+        for name, (tname, queries, want, prefix, route) in streams.items():
+            t_stream = time.perf_counter()
+            cands = _seek_candidates(store, tname, queries)
+            results = store.query_many(tname, queries)
+            modes = [("pipelined", results)]
+            if name == "config1":
+                modes.append(("sync", [store.query(tname, q) for q in queries]))
+            t_queries = time.perf_counter()
+            for i, r in enumerate(results):
+                expect_fids(r, want[i], f"devseek {name} pipelined query {i}", prefix=prefix)
+            for how, res in modes:
+                for i, r in enumerate(res):
+                    if how == "sync" and not same_parts(r, results[i]):
+                        # the same rows of the same blocks: the fid set checked above
+                        raise AssertionError(f"devseek {name} sync query {i} differs from "
+                                             f"its pipelined answer")
+                    if r.scan_path != (route if cands[i] <= cap else "host-seek"):
+                        raise AssertionError(f"devseek {name} {how} query {i} ({cands[i]} "
+                                             f"candidates) took {r.scan_path}")
+            if cands[0] > cap:
+                raise AssertionError(f"devseek {name}: the first query has {cands[0]} candidates")
+            out[name] = {"queries": len(queries), "candidates": cands,
+                         "device_seek_queries": int(sum(c <= cap for c in cands)),
+                         "hits_per_query": sum(len(r) for r in results) / len(results),
+                         "checked_s": time.perf_counter() - t_stream,
+                         "queries_s": t_queries - t_stream}
+        launched = (dict(kernels.LAUNCHES), dict(kernels.LAUNCH_SHAPES))
+    for name, (tname, queries, _want, _p, _r) in streams.items():
+        times = {m: [] for m, _e in DEVSEEK_MODES}
+        for _ in range(DEVSEEK_ROUNDS):
+            for mode, env in DEVSEEK_MODES:
+                with env_set(dict(env)):
+                    store.query_many(tname, queries[:2])  # the mode's first dispatch
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    store.query_many(tname, queries)
+                    torch.cuda.synchronize()
+                    times[mode].append((time.perf_counter() - t0) * 1e3 / len(queries))
+        out[name].update({f"{m}_ms_per_query": min(v) for m, v in times.items()})
+        out[name]["rounds_ms_per_query"] = times
+        log(f"devseek {name}: " + ", ".join(f"{m} {min(v):.2f} ms/query" for m, v in times.items())
+            + f"; candidates/query {np.mean(out[name]['candidates']):,.0f}")
+    kernels.reset_launches()
+    return out, launched
+
+
+def join_cases(store, shapes):
+    """``join_pip`` and ``join_dwithin`` at each shape the join phase
+    launched, on the first probe chunk of config #1's base query against
+    the cached build: kernel and plain edition of the same launch inputs.
+
+    Bound: operations, the FP32-pipe instructions of the join kernels'
+    loops (JOIN_PIP_EDGE_FOPS a row, candidate and live edge and
+    JOIN_PIP_STRADDLE_FOPS more a straddling edge, counted on this chunk's
+    data; JOIN_DWITHIN_FOPS a row and candidate) at the FP32 rate; bytes,
+    the rows' coordinates, the layout, the candidate rows and each
+    referenced geometry's edges or point read once, and a flag a pair
+    written. ``join_dwithin`` agrees with its plain edition except within
+    4 ulps of a threshold (``dwithin_threshold_band``)."""
+    from geomesa_tpu_torch.ops import join as join_mod
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.ops.geometry import (
+        dwithin_threshold_band,
+        join_dwithin_distances,
+        snap_epsilon_deg,
+        snap_epsilon_m,
+    )
+    from geomesa_tpu_torch.parallel.executor import join_upload
+
+    dev = store.executor.device
+    builds = {b.spec.kind: b for b in store._join_cache._entries.values()}
+    probe = store.query("gdelt", QUERY)
+    px = np.asarray(probe.columns["geom__x"])
+    py = np.asarray(probe.columns["geom__y"])
+    chunk = join_mod._knobs()[4]
+    out = []
+    for name, tag in sorted(k for k in shapes if k[0] in ("join_pip", "join_dwithin")):
+        kind = "contains" if name == "join_pip" else "dwithin"
+        b = builds[kind]
+        d = b.ensure_device(dev)
+        rows, goff, grow = join_mod.group_rows(b.leaf_buckets(px[:chunk], py[:chunk]))
+        args = join_upload(dev, px[rows], py[rows], goff, grow)
+        rc = kernels._group_candidates(len(rows), args[2], args[3], d[2])
+        live = rc >= 0
+        used = torch.unique(rc[live])
+        n_rows, n_groups, c_cap = len(rows), len(grow), d[2].shape[1]
+        base_bytes = 8 * n_rows + 4 * (2 * n_groups + 1) + 4 * n_groups * c_cap + c_cap * n_rows
+        if kind == "contains":
+            eps = np.float32(max(snap_epsilon_deg(), join_mod.PIP_BAND_DEG))
+            kargs = (*args, d[2], d[0], d[1], eps)
+            want_tag = f"C={c_cap} E={d[0].shape[1]}"
+            n_edges, straddles = 0, 0
+            for r0 in range(0, n_rows, 256):
+                idx = rc[r0:r0 + 256].clamp(min=0).long()
+                e = d[0][idx]
+                emask = (torch.arange(e.shape[2], device=dev) < d[1][idx][..., None]) \
+                    & live[r0:r0 + 256, :, None]
+                yq = args[1][r0:r0 + 256, None, None]
+                straddles += int((((e[..., 1] > yq) != (e[..., 3] > yq)) & emask).sum())
+                n_edges += int(emask.sum())
+            work = dict(bytes=base_bytes + 16 * int(d[1][used.long()].sum()) + 4 * len(used),
+                        ops=JOIN_PIP_EDGE_IOPS * n_edges,
+                        fops=JOIN_PIP_EDGE_FOPS * n_edges + JOIN_PIP_STRADDLE_FOPS * straddles)
+            extra = {"edge_tests": n_edges, "straddles": straddles}
+            kernel = lambda a=kargs: (kernels.join_pip(*a),)
+            plain = lambda a=kargs: (kernels.join_pip_chunk_plain(*a),)
+            check = None
+        else:
+            r_m, eps = JOIN_RADIUS_M, snap_epsilon_m(JOIN_RADIUS_M)
+            kargs = (*args, d[2], d[0], d[1], r_m, eps)
+            want_tag = f"C={c_cap}"
+            pairs = int(live.sum())
+            work = dict(bytes=base_bytes + 8 * len(used), ops=JOIN_DWITHIN_IOPS * pairs,
+                        fops=JOIN_DWITHIN_FOPS * pairs)
+            extra = {"pairs_tested": pairs}
+            kernel = lambda a=kargs: (kernels.join_dwithin(*a),)
+            plain = lambda a=kargs: (kernels.join_dwithin_chunk_plain(*a),)
+            band = dwithin_threshold_band(join_dwithin_distances(args[0], args[1], rc, d[0], d[1]),
+                                          r_m, eps).t()
+
+            def check(got, want, band=band):
+                diff = got[0] != want[0]
+                return not bool((diff & ~band).any()), int(diff.sum())
+        if tag != want_tag:
+            raise AssertionError(f"{name}: launched {tag}, the cached build gives {want_tag}")
+        case = dict(
+            name=name, path="join", tag=tag, symbol=f"{name}_kernel",
+            replaces="geomesa_tpu/ops/join.py:" + ("548" if kind == "contains" else "592"),
+            source="geomesa_tpu_torch/csrc/join.cu", kernel=kernel, plain=plain,
+            shape=f"rows={n_rows} groups={n_groups} {tag}", extra=extra, **work)
+        if check is not None:
+            case["check"] = check
+        out.append(case)
+    return out
+
+
+def devseek_cases(store, shapes, streams1, streams3):
+    """``devseek`` and ``devseek_xz`` at each shape (candidate space) the
+    device-seek phase launched: the first (query, segment) of the phase's
+    streams whose candidate space it is, kernel and plain edition on the
+    same intervals.
+
+    Bound: bytes, the candidates' keys and flags gathered
+    (DEVSEEK_CAND_BYTES a candidate), the intervals (8 B each) and the
+    bits written; operations, the binary search (3 a step) and the
+    compares (12) a candidate at the INT32 rate."""
+    from geomesa_tpu_torch.index.planner import Query
+    from geomesa_tpu_torch.ops import filters, kernels
+
+    ex = store.executor
+    dev = ex.device
+    found = {}
+    sources = [("gdelt", streams1["config1"][1])] + \
+        [("ways", [c for c, _ in streams3[k]]) for k in DEVSEEK_XZ_STREAMS]
+    for tname, cqls in sources:
+        for cql in cqls:
+            plan = store._plan_cached(tname, Query.cql(cql))
+            table = store._tables[tname][plan.index.name]
+            per_block, total = ex._seek_intervals(table, plan)
+            if not total or total > kernels.DEVSEEK_MAX_CAND:
+                continue
+            xz = tname == "ways"
+            if xz:
+                geom, node, qenv, rect, t_lo, t_hi = ex._xz_pred_shape(table, plan)
+                desc, has_time = ex._xz_desc(qenv, rect, t_lo, t_hi)
+                name = "devseek_xz_" + ("xz3" if has_time else "xz2")
+                q_d = torch.from_numpy(desc).to(dev)
+            else:
+                box, win = ex._shape_keys(ex._exact_predicate_shape(table, plan))
+                has_time = win is not None
+                name = "devseek_" + ("z3" if has_time else "z2")
+                box_d = torch.from_numpy(box).to(dev)
+                win_d = torch.from_numpy(win).to(dev) if has_time else None
+            for seg, _starts, lens, tot, cand, iv in ex._candidate_batches(
+                    ex.device_index(table), per_block, dev):
+                key = (name, f"cand={cand}")
+                if key not in shapes or key in found:
+                    continue
+                if xz:
+                    valid = seg.xz_tvalid if has_time else seg.valid
+                    a = (*seg.xz_keys, seg.xz_isrect, valid, seg.xz_tk if has_time else None,
+                         iv[0], iv[1], q_d, cand, has_time)
+                    kernel = lambda a=a: (kernels.devseek_xz(*a),)
+                    plain = lambda a=a: (filters.devseek_xz_plain(*a),)
+                    out_bytes = cand // 4
+                else:
+                    a = (seg.xk, seg.yk, seg.tk if has_time else None,
+                         seg.tvalid if has_time else seg.valid, iv[0], iv[1], box_d, win_d, cand)
+                    kernel = lambda a=a: (kernels.devseek(*a),)
+                    plain = lambda a=a: (filters.devseek_plain(*a),)
+                    out_bytes = cand // 8
+                n_iv = iv[0].shape[0]
+                found[key] = dict(
+                    name=name, path="devseek", tag=key[1],
+                    symbol="devseek_xz_kernel" if xz else "devseek_kernel",
+                    replaces="geomesa_tpu/parallel/executor.py:" + ("4268" if xz else "4162"),
+                    source="geomesa_tpu_torch/csrc/devseek.cu", kernel=kernel, plain=plain,
+                    bytes=DEVSEEK_CAND_BYTES[name] * tot + 8 * n_iv + out_bytes,
+                    ops=(3 * int(np.log2(n_iv)) + 12) * tot,
+                    shape=f"{tname} candidates={tot} intervals={len(lens)} {key[1]}",
+                    extra={"candidates": tot, "intervals": int(len(lens))})
+    missing = [k for k, v in shapes.items() if v and k[0].startswith("devseek") and k not in found]
+    if missing:
+        raise AssertionError(f"the device-seek phase launched {missing}: no case")
+    return list(found.values())
 
 
 if __name__ == "__main__":

@@ -5,8 +5,11 @@ Port of ``geomesa_tpu/geom/predicates.py``.
 The host-side (numpy) versions of the post-filter kernels. These evaluate a
 *query geometry* against columnar batches of feature points -- the analog of
 the reference's CQL geometry predicates evaluated per-feature in server-side
-iterators (e.g. KryoLazyFilterTransformIterator). (The reference's device
-edition, ``geomesa_tpu/ops/geometry.py``, is not ported yet.)
+iterators (e.g. KryoLazyFilterTransformIterator). The reference's device
+edition, ``geomesa_tpu/ops/geometry.py``, is ``geomesa_tpu_torch/ops/
+geometry.py``. The ring tests run over blocks of [points, edges] at once
+(the reference loops over the edges); each element's arithmetic is the
+reference's, so the answers are its.
 """
 
 from __future__ import annotations
@@ -31,36 +34,46 @@ def points_in_envelope(x: np.ndarray, y: np.ndarray, env: Envelope) -> np.ndarra
     return (x >= env.xmin) & (x <= env.xmax) & (y >= env.ymin) & (y <= env.ymax)
 
 
+# elements of one [points, edges] block of the ring tests
+_RING_BLOCK = 1 << 20
+
+
+def _edge_blocks(x: np.ndarray, n_edges: int):
+    """Slices of ``x`` whose [points, edges] block holds at most
+    ``_RING_BLOCK`` elements."""
+    step = max(1, _RING_BLOCK // max(1, n_edges))
+    return (slice(i, i + step) for i in range(0, len(x), step))
+
+
 def _points_in_ring(x: np.ndarray, y: np.ndarray, ring: np.ndarray) -> np.ndarray:
     """Even-odd ray cast: True where (x, y) is strictly inside or on an edge
     crossing. Boundary points are handled separately by the on-segment test."""
     inside = np.zeros(x.shape, dtype=bool)
-    x0, y0 = ring[:-1, 0], ring[:-1, 1]
-    x1, y1 = ring[1:, 0], ring[1:, 1]
-    for i in range(len(x0)):
-        ax, ay, bx, by = x0[i], y0[i], x1[i], y1[i]
-        crosses = ((ay > y) != (by > y)) & (
-            x < (bx - ax) * (y - ay) / np.where(by != ay, by - ay, 1.0) + ax
-        )
-        inside ^= crosses
+    ax, ay = ring[:-1, 0], ring[:-1, 1]
+    bx, by = ring[1:, 0], ring[1:, 1]
+    dxe = bx - ax
+    dye = np.where(by != ay, by - ay, 1.0)
+    for sl in _edge_blocks(x, len(ax)):
+        px, py = x[sl, None], y[sl, None]
+        crosses = ((ay > py) != (by > py)) & (px < dxe * (py - ay) / dye + ax)
+        inside[sl] = crosses.sum(axis=1) % 2 == 1
     return inside
 
 
 def _points_on_segments(x: np.ndarray, y: np.ndarray, ring: np.ndarray, eps=1e-12):
     """True where a point lies on any segment of the ring (inclusive ends)."""
     on = np.zeros(x.shape, dtype=bool)
-    x0, y0 = ring[:-1, 0], ring[:-1, 1]
-    x1, y1 = ring[1:, 0], ring[1:, 1]
-    for i in range(len(x0)):
-        ax, ay, bx, by = x0[i], y0[i], x1[i], y1[i]
-        cross = (bx - ax) * (y - ay) - (by - ay) * (x - ax)
-        within = (
-            (np.minimum(ax, bx) - eps <= x)
-            & (x <= np.maximum(ax, bx) + eps)
-            & (np.minimum(ay, by) - eps <= y)
-            & (y <= np.maximum(ay, by) + eps)
-        )
-        on |= (np.abs(cross) <= eps * max(1.0, abs(bx - ax) + abs(by - ay))) & within
+    ax, ay = ring[:-1, 0], ring[:-1, 1]
+    bx, by = ring[1:, 0], ring[1:, 1]
+    dxe, dye = bx - ax, by - ay
+    tol = eps * np.maximum(1.0, np.abs(dxe) + np.abs(dye))
+    lox, hix = np.minimum(ax, bx) - eps, np.maximum(ax, bx) + eps
+    loy, hiy = np.minimum(ay, by) - eps, np.maximum(ay, by) + eps
+    for sl in _edge_blocks(x, len(ax)):
+        px, py = x[sl, None], y[sl, None]
+        cross = dxe * (py - ay) - dye * (px - ax)
+        within = (lox <= px) & (px <= hix) & (loy <= py) & (py <= hiy)
+        on[sl] = ((np.abs(cross) <= tol) & within).any(axis=1)
     return on
 
 

@@ -22,6 +22,10 @@ the hand kernels in :mod:`geomesa_tpu_torch.ops.kernels`:
   * ``xz_exact_planes``: the extent query's exact (hit, decided) planes
     over int64 envelope keys (the reference's ``_xz_exact_mask_body`` in
     ``geomesa_tpu/parallel/executor.py``);
+  * ``devseek_plain`` / ``devseek_xz_plain``: the device-assisted seek's
+    candidate expansion, gather and exact test (``exact_st_mask``,
+    ``xz_exact_planes``) packed over the candidate space (the reference's
+    ``_devseek_fn`` / ``_devseek_xz_fn``);
   * ``poly_planes``: the banded f32 point-in-polygon (hit, decided) planes
     of a point query (the reference's ``_poly_mask_body``).
 """
@@ -200,6 +204,52 @@ def xz_exact_planes(
     inside = (desc[0] <= bxmin) & (bxmax <= desc[2]) & (desc[1] <= bymin) & (bymax <= desc[3])
     decided = hit & (desc[5] != 0) & ~placeholder & (inside | isrect)
     return hit, decided
+
+
+def devseek_rows(starts: torch.Tensor, ends: torch.Tensor, cand_cap: int):
+    """(rows int64[cand_cap], ok bool[cand_cap]) of the device-assisted
+    seek's candidate space: ``starts`` int32[n_iv] interval starts (segment
+    rows) and ``ends`` int32[n_iv] the inclusive prefix sums of their
+    lengths (zero-length pads at the end). Candidate j < ends[-1] lies in
+    the interval ``searchsorted(ends, j, side="right")``, so zero-length
+    intervals are never chosen; its row is 0 where ``ok`` is false."""
+    dev = starts.device
+    n_iv = starts.shape[0]
+    j = torch.arange(cand_cap, dtype=torch.int64, device=dev)
+    e = ends.to(torch.int64)
+    seg = torch.clamp(torch.searchsorted(e, j, right=True), 0, n_iv - 1)
+    prev = e[seg] - (e - torch.cat([e.new_zeros(1), e[:-1]]))[seg]
+    ok = j < e[-1]
+    rows = starts.to(torch.int64)[seg] + (j - prev)
+    return torch.where(ok, rows, torch.zeros_like(rows)), ok
+
+
+def devseek_plain(xk, yk, tk, valid, starts, ends, box, win, cand_cap: int) -> torch.Tensor:
+    """The device-assisted seek of a point query -> u8[cand_cap / 8], MSB
+    first: candidate j's bit is :func:`exact_st_mask` of its gathered keys
+    (``box`` int64[4], ``win`` int64[2] or None; ``valid`` the temporal-valid
+    column with a window), false past the candidates (:func:`devseek_rows`)."""
+    from geomesa_tpu_torch.ops.zkernels import pack_mask_rows
+
+    rows, ok = devseek_rows(starts, ends, cand_cap)
+    m = exact_st_mask(xk[rows], yk[rows], valid[rows] & ok, box,
+                      None if win is None else tk[rows], win)
+    return pack_mask_rows(m)
+
+
+def devseek_xz_plain(bxmin, bymin, bxmax, bymax, isrect, valid, tk, starts, ends, desc,
+                     cand_cap: int, has_time: bool) -> torch.Tensor:
+    """The device-assisted seek of an extent query -> u8[2 * cand_cap / 8]:
+    the packed ``hit`` plane, then ``decided`` (:func:`xz_exact_planes` of
+    the gathered envelope keys, ``desc`` int64[8]; ``tk`` and the window
+    with ``has_time``), both false past the candidates."""
+    from geomesa_tpu_torch.ops.zkernels import pack_mask_rows
+
+    rows, ok = devseek_rows(starts, ends, cand_cap)
+    hit, dec = xz_exact_planes(bxmin[rows], bymin[rows], bxmax[rows], bymax[rows],
+                               isrect[rows], valid[rows] & ok, desc, desc[4],
+                               tk[rows] if has_time else None)
+    return torch.cat([pack_mask_rows(hit), pack_mask_rows(dec)])
 
 
 # the banded polygon ray cast: rows within POLY_EPS of a ring vertex's

@@ -39,6 +39,18 @@ answers that):
     the segment's longest key-sorted block that each own a z range, with
     shared runs, other blocks and rows out of order added by a later atomic
     pass;
+  * ``join`` (``csrc/join.cu``) replaces the spatial join's ``_pip_fn``
+    ("join_pip") and ``_dwithin_fn`` ("join_dwithin") of
+    ``geomesa_tpu/ops/join.py``: the (accept, check) dual masks of a probe
+    chunk's rows against their bucket's candidates, one launch a chunk
+    (one block a group and candidate slot) where the reference launches
+    once a bucket group;
+  * ``devseek`` (``csrc/devseek.cu``) replaces the device-assisted seek's
+    ``_devseek_fn`` ("devseek") and ``_devseek_xz_fn`` ("devseek_xz") of
+    ``geomesa_tpu/parallel/executor.py``: the host-planned candidate
+    intervals expanded on the device, the candidates' keys gathered and
+    tested exactly, and the packed bitmap (two planes for extents) over the
+    candidate space;
   * the coalescer's stacked full-table mask batches run on those kernels:
     ``exact_mask_batch`` (``exact_bitmap``'s bits) replaces
     ``_exact_mask_batch_fn``, and ``dual_mask_batch`` (``xz_dual_bitmap``'s
@@ -88,12 +100,15 @@ from geomesa_tpu_torch.ops.filters import (
     attr_combine,
     bbox_overlap_mask,
     exact_st_mask,
+    devseek_plain,
+    devseek_xz_plain,
     poly_planes,
     temporal_mask,
     xz_exact_planes,
     z2_query_mask,
     z3_query_mask,
 )
+from geomesa_tpu_torch.ops.geometry import join_dwithin_plain, join_pip_plain
 from geomesa_tpu_torch.ops.zkernels import pack_mask_rows
 from geomesa_tpu_torch.utils import devstats
 
@@ -111,11 +126,14 @@ SOURCES = {
     "knn_topk": "knn_topk.cu",
     "poly_dual_bitmap": "poly_dual_bitmap.cu",
     "pyramid_counts": "pyramid_counts.cu",
+    "join": "join.cu",
+    "devseek": "devseek.cu",
 }
 # extra nvcc flags per source: the f32 arithmetic of the density band, the
-# kNN distance and the polygon ray cast must not contract into FMAs that the
-# reference does not do
-_NVCC_FLAGS = {name: ["-fmad=false"] for name in ("density_grid", "knn_topk", "poly_dual_bitmap")}
+# kNN distance, the polygon ray cast and the join's masks must not contract
+# into FMAs that the reference does not do
+_NVCC_FLAGS = {name: ["-fmad=false"]
+               for name in ("density_grid", "knn_topk", "poly_dual_bitmap", "join")}
 
 # launches per kernel instantiation, counted where the wrapper launches
 LAUNCHES: Dict[str, int] = {
@@ -152,13 +170,21 @@ LAUNCHES: Dict[str, int] = {
     "poly_mask_batch_z2": 0,
     # the aggregate pyramid's build (chip_smoke.py's pyramid phase)
     "pyramid_counts": 0,
+    # the spatial join's masks and the device-assisted seek (chip_smoke.py's
+    # join and device-seek phases)
+    "join_pip": 0,
+    "join_dwithin": 0,
+    "devseek_z3": 0,
+    "devseek_xz_xz2": 0,
+    "devseek_xz_xz3": 0,
 }
 # launches per (instantiation, shape): "q=<descriptors>" for the bitmap
 # kernels, the mask batches and the count (+ " K=<codes>" for member and
 # notmember, " U=<lookup size>" for vocabmask, " E=<edges a query>" for the
 # polygons), "U=<bins>" for the histogram, "K=<boxes> W=<windows>" for the
 # masks, "<W>x<H>" for the grid, "k=<rows>" for the top-k, "bits=<b>
-# n=<rows>" for the pyramid counts
+# n=<rows>" for the pyramid counts, "C=<candidates> E=<edges>" / "C=<candidates>"
+# for the join's masks, "cand=<candidate space>" for the device-assisted seek
 LAUNCH_SHAPES: Counter = Counter()
 # both counts move under one lock: wrappers launch from many threads
 _COUNT_LOCK = threading.Lock()
@@ -325,16 +351,22 @@ _ARGTYPES = {
     "poly_dual_bitmap": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _LL, _P,
                          _I, _P, _P, _I],
     "pyramid_counts": [_P, _P, _P, _I, _P, _LL, _P, _LL, _LL, _P, _LL],
+    "join_pip": [_P, _P, _P, _P, _I, _P, _I, _P, _I, _P, _F, _P, _LL, _P],
+    "join_dwithin": [_P, _P, _P, _P, _I, _P, _I, _P, _P, _F, _F, _P, _LL, _P],
+    "devseek": [_I, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P, _I, _P],
+    "devseek_xz": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _P],
 }
 
 
-# the C entry points of each source beyond the one named after it
-_ENTRIES = {"exact_bitmap": ("exact_count", "exact_stat_hist")}
+# the C entry points of each source (default: the one named after it)
+_ENTRIES = {"exact_bitmap": ("exact_bitmap", "exact_count", "exact_stat_hist"),
+            "join": ("join_pip", "join_dwithin"),
+            "devseek": ("devseek", "devseek_xz")}
 
 
 def _load(name: str, path: str) -> ctypes.CDLL:
     lib = ctypes.CDLL(path)
-    for entry in (name, *_ENTRIES.get(name, ())):
+    for entry in _ENTRIES.get(name, (name,)):
         fn = getattr(lib, entry)
         fn.restype = ctypes.c_int
         fn.argtypes = _ARGTYPES[entry]
@@ -1213,4 +1245,201 @@ def pyramid_counts(xi, yi, mask, bits: int, starts=None) -> torch.Tensor:
                                  words)
     _raise_on(err, "pyramid_counts")
     _count("pyramid_counts", f"bits={bits} n={n}")
+    return out
+
+
+# -- the spatial join's dual masks -------------------------------------------
+
+
+def _group_candidates(rows: int, goff, grow, cand) -> torch.Tensor:
+    """int32[rows, C]: each chunk row's candidate row of ``cand`` (its
+    group ``g`` holds rows ``goff[g] .. goff[g + 1]``, whose candidates are
+    ``cand[grow[g]]``)."""
+    r = torch.arange(rows, dtype=torch.int64, device=cand.device)
+    g = torch.searchsorted(goff.to(torch.int64), r, right=True) - 1
+    return cand[grow.to(torch.int64)[g]]
+
+
+def _join_flags(accept: torch.Tensor, check: torch.Tensor) -> torch.Tensor:
+    """(accept, check) bool[R, C] -> u8 flags [C, R]: bit 0 accept, bit 1
+    check."""
+    return (accept.to(torch.uint8) | (check.to(torch.uint8) << 1)).t().contiguous()
+
+
+def join_pip_chunk_plain(px, py, goff, grow, cand, edges, ecnt, eps_deg) -> torch.Tensor:
+    """Plain edition of :func:`join_pip`: :func:`join_pip_plain` of every
+    row against its group's candidates."""
+    got = join_pip_plain(px, py, _group_candidates(px.shape[0], goff, grow, cand), edges, ecnt,
+                         eps_deg)
+    return _join_flags(*got)
+
+
+def join_dwithin_chunk_plain(px, py, goff, grow, cand, bx, by, r_m, eps_m) -> torch.Tensor:
+    """Plain edition of :func:`join_dwithin`: :func:`join_dwithin_plain` of
+    every row against its group's candidates."""
+    got = join_dwithin_plain(px, py, _group_candidates(px.shape[0], goff, grow, cand), bx, by,
+                             r_m, eps_m)
+    return _join_flags(*got)
+
+
+def _join_chunk_checks(what: str, px, py, goff, grow, cand):
+    """(device, rows, groups, candidate slots) of a join launch, after
+    checking the chunk's tensors."""
+    if px.device.type != "cuda":
+        raise KernelArgumentError(f"{what}: unsupported device {px.device}")
+    dev, rows = px.device, px.shape[0]
+    groups = grow.shape[0]
+    if not 0 < rows < 2**31 or groups < 1:
+        raise KernelArgumentError(f"{what}: {rows} rows in {groups} groups")
+    _check(px, "px", torch.float32, dev, (rows,))
+    _check(py, "py", torch.float32, dev, (rows,))
+    _check(goff, "goff", torch.int32, dev, (groups + 1,))
+    _check(grow, "grow", torch.int32, dev, (groups,))
+    _check(cand, "cand", torch.int32, dev)
+    if cand.dim() != 2 or cand.shape[1] < 1:
+        raise KernelArgumentError(f"{what}: cand must be [B, C], not {tuple(cand.shape)}")
+    return dev, rows, groups, cand.shape[1]
+
+
+def join_pip(px, py, goff, grow, cand, edges, ecnt, eps_deg) -> torch.Tensor:
+    """The contains join's dual masks of one probe chunk -> u8 flags [C,
+    R] (bit 0 accept, bit 1 check; slot-major).
+
+    ``px, py`` float32[R] the chunk's routed rows sorted by group, ``goff``
+    int32[groups + 1] the groups' row offsets, ``grow`` int32[groups] each
+    group's row in the resident candidate matrix ``cand`` int32[B, C] (-1
+    pads), ``edges`` float32[G, E, 4] and ``ecnt`` int32[G] the build
+    geometries' edge lists, ``eps_deg`` the f32 boundary band. Row r of
+    group g against slot s is :func:`join_pip_plain` of the row against
+    ``cand[grow[g], s]``."""
+    if px.device.type == "cpu":
+        return join_pip_chunk_plain(px, py, goff, grow, cand, edges, ecnt, eps_deg)
+    dev, rows, groups, c_cap = _join_chunk_checks("join_pip", px, py, goff, grow, cand)
+    _check(edges, "edges", torch.float32, dev)
+    if edges.dim() != 3 or edges.shape[2] != 4 or edges.shape[1] < 1:
+        raise KernelArgumentError(f"join_pip: edges must be [G, E, 4], not {tuple(edges.shape)}")
+    _check(ecnt, "ecnt", torch.int32, dev, (edges.shape[0],))
+    e_cap = edges.shape[1]
+    fn = _lib("join").join_pip
+    with torch.cuda.device(dev):
+        out = torch.empty((c_cap, rows), dtype=torch.uint8, device=dev)  # every flag written
+        err = fn(px.data_ptr(), py.data_ptr(), goff.data_ptr(), grow.data_ptr(), groups,
+                 cand.data_ptr(), c_cap, edges.data_ptr(), e_cap, ecnt.data_ptr(),
+                 float(np.float32(eps_deg)), out.data_ptr(), rows, _stream(dev))
+    _raise_on(err, "join_pip")
+    _count("join_pip", f"C={c_cap} E={e_cap}")
+    return out
+
+
+def join_dwithin(px, py, goff, grow, cand, bx, by, r_m, eps_m) -> torch.Tensor:
+    """The dwithin join's dual masks of one probe chunk -> u8 flags [C, R]
+    (bit 0 accept, bit 1 check; slot-major). Arguments as for
+    :func:`join_pip`, with ``bx, by`` float32[G] the build points (NaN for a
+    null geometry) and ``r_m``, ``eps_m`` the f32 radius and band: row r of
+    group g against slot s is :func:`join_dwithin_plain` of the row against
+    ``cand[grow[g], s]``."""
+    if px.device.type == "cpu":
+        return join_dwithin_chunk_plain(px, py, goff, grow, cand, bx, by, r_m, eps_m)
+    dev, rows, groups, c_cap = _join_chunk_checks("join_dwithin", px, py, goff, grow, cand)
+    _check(bx, "bx", torch.float32, dev)
+    if bx.dim() != 1:
+        raise KernelArgumentError(f"join_dwithin: bx must be [G], not {tuple(bx.shape)}")
+    _check(by, "by", torch.float32, dev, tuple(bx.shape))
+    r, eps = np.float32(r_m), np.float32(eps_m)
+    fn = _lib("join").join_dwithin
+    with torch.cuda.device(dev):
+        out = torch.empty((c_cap, rows), dtype=torch.uint8, device=dev)  # every flag written
+        err = fn(px.data_ptr(), py.data_ptr(), goff.data_ptr(), grow.data_ptr(), groups,
+                 cand.data_ptr(), c_cap, bx.data_ptr(), by.data_ptr(), float(r - eps),
+                 float(r + eps), out.data_ptr(), rows, _stream(dev))
+    _raise_on(err, "join_dwithin")
+    _count("join_dwithin", f"C={c_cap}")
+    return out
+
+
+# -- the device-assisted seek -------------------------------------------------
+
+# the seek's candidate space: a multiple of the launch's block, at most the
+# reference's bitmap budget
+DEVSEEK_MIN_CAND = 1024
+DEVSEEK_MAX_CAND = 1 << 22
+
+
+def _devseek_checks(what: str, starts, ends, cand_cap: int, n: int, dev):
+    if cand_cap % DEVSEEK_MIN_CAND or not 0 < cand_cap <= DEVSEEK_MAX_CAND:
+        raise KernelArgumentError(f"{what}: cand_cap ({cand_cap}) must be a multiple of "
+                                  f"{DEVSEEK_MIN_CAND} up to {DEVSEEK_MAX_CAND}")
+    if n >= 2**31:
+        raise KernelArgumentError(f"{what}: rows ({n}) must be below 2^31")
+    _check(starts, "starts", torch.int32, dev)
+    if starts.dim() != 1 or starts.shape[0] < 1:
+        raise KernelArgumentError(f"{what}: starts must be [n_iv], not {tuple(starts.shape)}")
+    _check(ends, "ends", torch.int32, dev, tuple(starts.shape))
+    return starts.shape[0]
+
+
+def devseek(xk, yk, tk, valid, starts, ends, box, win, cand_cap: int) -> torch.Tensor:
+    """The device-assisted seek of one point query over one segment -> u8
+    [cand_cap / 8], MSB first (:func:`geomesa_tpu_torch.ops.filters.
+    devseek_plain`): ``xk, yk`` (and ``tk``) int64[n] sort keys, ``valid``
+    bool[n] (the temporal-valid column with ``win``), ``starts`` int32[n_iv]
+    the candidate intervals' segment rows and ``ends`` int32[n_iv] the
+    inclusive prefix sums of their lengths, ``box`` int64[4] keys of (xmin,
+    xmax, ymin, ymax), ``win`` int64[2] inclusive ms or None, ``cand_cap`` a
+    multiple of 1024 up to 2^22."""
+    if xk.device.type == "cpu":
+        return devseek_plain(xk, yk, tk, valid, starts, ends, box, win, cand_cap)
+    if xk.device.type != "cuda":
+        raise KernelArgumentError(f"devseek: unsupported device {xk.device}")
+    dev, n = xk.device, xk.shape[0]
+    has_time = win is not None
+    n_iv = _devseek_checks("devseek", starts, ends, cand_cap, n, dev)
+    for what, t in [("xk", xk), ("yk", yk)] + ([("tk", tk)] if has_time else []):
+        _check(t, what, torch.int64, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    _check(box, "box", torch.int64, dev, (4,))
+    if has_time:
+        _check(win, "win", torch.int64, dev, (2,))
+    fn = _lib("devseek").devseek
+    with torch.cuda.device(dev):
+        out = torch.empty(cand_cap // 8, dtype=torch.uint8, device=dev)  # every word written
+        err = fn(int(has_time), xk.data_ptr(), yk.data_ptr(), tk.data_ptr() if has_time else None,
+                 valid.data_ptr(), starts.data_ptr(), ends.data_ptr(), n_iv, box.data_ptr(),
+                 win.data_ptr() if has_time else None, out.data_ptr(), cand_cap, _stream(dev))
+    _raise_on(err, "devseek")
+    _count("devseek_" + ("z3" if has_time else "z2"), f"cand={cand_cap}")
+    return out
+
+
+def devseek_xz(bxmin, bymin, bxmax, bymax, isrect, valid, tk, starts, ends, desc,
+               cand_cap: int, has_time: bool) -> torch.Tensor:
+    """The device-assisted seek of one extent query over one segment ->
+    u8[2 * cand_cap / 8], the packed ``hit`` plane then ``decided``
+    (:func:`geomesa_tpu_torch.ops.filters.devseek_xz_plain`): the four
+    int64[n] envelope keys, ``isrect`` and ``valid`` bool[n] (the
+    temporal-valid column with ``has_time``), ``tk`` int64[n] (read with
+    ``has_time``), the intervals as for :func:`devseek`, ``desc`` int64[8]
+    the executor's extent descriptor (``_xz_desc``)."""
+    if bxmin.device.type == "cpu":
+        return devseek_xz_plain(bxmin, bymin, bxmax, bymax, isrect, valid, tk, starts, ends,
+                                desc, cand_cap, has_time)
+    if bxmin.device.type != "cuda":
+        raise KernelArgumentError(f"devseek_xz: unsupported device {bxmin.device}")
+    dev, n = bxmin.device, bxmin.shape[0]
+    n_iv = _devseek_checks("devseek_xz", starts, ends, cand_cap, n, dev)
+    cols = [("bxmin", bxmin), ("bymin", bymin), ("bxmax", bxmax), ("bymax", bymax)]
+    for what, t in cols + ([("tk", tk)] if has_time else []):
+        _check(t, what, torch.int64, dev, (n,))
+    _check(isrect, "isrect", torch.bool, dev, (n,))
+    _check(valid, "valid", torch.bool, dev, (n,))
+    _check(desc, "desc", torch.int64, dev, (XZ_DESC,))
+    fn = _lib("devseek").devseek_xz
+    with torch.cuda.device(dev):
+        out = torch.empty(2 * cand_cap // 8, dtype=torch.uint8, device=dev)  # every word written
+        err = fn(int(has_time), bxmin.data_ptr(), bymin.data_ptr(), bxmax.data_ptr(),
+                 bymax.data_ptr(), isrect.data_ptr(), valid.data_ptr(),
+                 tk.data_ptr() if has_time else None, starts.data_ptr(), ends.data_ptr(), n_iv,
+                 desc.data_ptr(), out.data_ptr(), cand_cap, _stream(dev))
+    _raise_on(err, "devseek_xz")
+    _count("devseek_xz_" + ("xz3" if has_time else "xz2"), f"cand={cand_cap}")
     return out

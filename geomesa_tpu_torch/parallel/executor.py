@@ -88,8 +88,16 @@ stream takes there:
     an xz2 index. ``GEOMESA_SEEK`` = ``auto`` (the default) | ``0`` (never)
     | ``1`` (whenever the plan has ranges), read at each call; an attribute
     or id plan whose residual is one box(+window) also runs the C++ scan
-    over its candidates. The reference's device-assisted seek
-    (``GEOMESA_DEVSEEK``, off by default) is not in this slice.
+    over its candidates. With ``GEOMESA_DEVSEEK=1`` (off by default, the
+    reference's rule) a seek tries the DEVICE-ASSISTED SEEK first: the host
+    seeks the ranges and ships only the candidate intervals of each
+    segment; ``devseek`` (points: one exact box(+window)) or ``devseek_xz``
+    (extents: one spatial predicate, + xz3 time bounds) expands them on the
+    device, gathers the candidates' sort keys from the resident mirror,
+    tests them exactly and returns a packed bitmap over the candidates (two
+    planes for extents, whose ring takes the host's test): routes
+    ``device-seek`` / ``device-seek-xz``. More than 2^22 candidates decline
+    to the host seek.
 
 Dispatch and fetch check the ambient query budget (``utils/deadline.py``:
 ``device.dispatch`` a plan and a segment, ``device.fetch`` a copy); every
@@ -287,6 +295,33 @@ def _np_local(t: torch.Tensor) -> np.ndarray:
     (``mesh.fetch``: the ``device.fetch`` budget check and fault point,
     and the byte count)."""
     return fetch(t)
+
+
+def join_upload(device: torch.device, xs: np.ndarray, ys: np.ndarray, goff: np.ndarray,
+                grow: np.ndarray):
+    """Upload one spatial-join probe chunk (the reference's ``join_upload``):
+    the routed rows' f32 coordinates as one [2, R] copy and the group
+    layout (``goff`` int32[groups + 1], ``grow`` int32[groups]) as another,
+    both through ``mesh.upload`` (the ``device.dispatch`` boundary and the
+    byte counts). The reference NaN-pads each bucket group to a pow2; the
+    chunk's rows here pad to nothing, which the pad record says. Returns
+    (px, py, goff, grow) device tensors (views of the two copies)."""
+    n = len(xs)
+    xy = np.empty((2, n), dtype=np.float32)
+    xy[0] = xs
+    xy[1] = ys
+    layout = np.concatenate([goff, grow]).astype(np.int32)
+    devstats.record_pad(n, n, kind="join")
+    xy_d = upload(xy, device)
+    lay_d = upload(layout, device)
+    g = len(goff)
+    return xy_d[0], xy_d[1], lay_d[:g], lay_d[g:]
+
+
+def join_fetch(t: torch.Tensor) -> np.ndarray:
+    """Resolve a join kernel's flags to the host: the ``device.fetch``
+    boundary shared with every other scan resolution."""
+    return _np_local(t)
 
 
 def _decode_bitmap_rows(bits: np.ndarray, start: int, max_out: int) -> np.ndarray:
@@ -1802,6 +1837,61 @@ class _HostSeekScan:
                 yield block, rows
 
 
+def _seek_candidate_rows(starts: np.ndarray, lens: np.ndarray, j: np.ndarray) -> np.ndarray:
+    """Candidate indices -> segment rows: the device's arithmetic (the
+    interval of candidate j is ``searchsorted(ends, j, side="right")``)."""
+    seg_end = np.cumsum(lens)
+    which = np.searchsorted(seg_end, j, side="right")
+    prev = seg_end[which] - lens[which]
+    return starts[which] + (j - prev)
+
+
+class _DeviceSeekScan:
+    """The device-assisted seek of a point plan (the reference's
+    ``_DeviceSeekScan``): dispatched per segment, resolved lazily.
+    ``exact`` is True: the device evaluated the query's own f64 / ms test on
+    the candidates, so the hits ARE the result set (tombstones ride the
+    valid column, null dates the temporal-valid one)."""
+
+    __slots__ = ("pending", "exact")
+
+    def __init__(self, pending):
+        self.pending = pending  # [(segment, starts, lens, total, buf)]
+        self.exact = True
+
+    def __iter__(self):
+        for seg, starts, lens, total, buf in self.pending:
+            # no bit past the candidates is set: their count bounds the hits
+            j = _decode_bitmap_rows(_np_local(buf), 0, total)
+            if len(j):
+                yield from seg.to_block_rows(_seek_candidate_rows(starts, lens, j))
+
+
+class _DeviceSeekXZScan:
+    """The device-assisted seek of an extent plan (the reference's
+    ``_DeviceSeekXZScan``): decided rows are final; the ring (hit, not
+    decided) takes the host's exact per-geometry test. ``exact`` is True."""
+
+    __slots__ = ("pending", "ring_test", "exact")
+
+    def __init__(self, pending, ring_test):
+        self.pending = pending  # [(segment, starts, lens, total, buf)]
+        self.ring_test = ring_test
+        self.exact = True
+
+    def __iter__(self):
+        for seg, starts, lens, total, buf in self.pending:
+            raw = _np_local(buf)
+            half = len(raw) // 2
+            hit = _decode_bitmap_rows(raw[:half], 0, total)
+            if not len(hit):
+                continue
+            dec = _decode_bitmap_rows(raw[half:], 0, total)
+            yield from _yield_xz_rows(seg, _seek_candidate_rows(starts, lens, dec),
+                                      _seek_candidate_rows(starts, lens, _ring_split(hit, dec)),
+                                      self.ring_test)
+
+
 class DeviceIndex:
     """Segmented device-resident mirror of one index table: appended blocks
     become new segments, new tombstones flip valid bits of the resident
@@ -1962,12 +2052,13 @@ class TorchScanExecutor:
             self.breaker.cancel_probe()
         return scan
 
-    def push_down(self, table: Optional[IndexTable], fn, *args):
+    def push_down(self, table: Optional[IndexTable], fn, *args, evict: bool = True):
         """One device call that answers whole (a count, stats, density,
-        kNN or pyramid build) under the breaker envelope: ``fn(*args)``,
-        None when it declines, ``HOST_BREAKER`` while the circuit is open,
-        ``HOST_DEGRADED`` after a failure (``degrade`` ran). A value other
-        than None closes a half-open circuit."""
+        kNN, pyramid build or spatial join) under the breaker envelope:
+        ``fn(*args)``, None when it declines, ``HOST_BREAKER`` while the
+        circuit is open, ``HOST_DEGRADED`` after a failure (``degrade``
+        ran; ``evict=False`` evicts no mirror: the join's device state is
+        its build's). A value other than None closes a half-open circuit."""
         if not self.breaker.allow():
             trace.event("breaker.short_circuit", breaker=self.breaker.name)
             return HOST_BREAKER
@@ -1977,7 +2068,7 @@ class TorchScanExecutor:
             self.breaker.cancel_probe()
             raise
         except Exception as e:
-            self.degrade(table, e)
+            self.degrade(table, e, evict=evict)
             return HOST_DEGRADED
         if got is None:
             self.breaker.cancel_probe()
@@ -2050,7 +2141,8 @@ class TorchScanExecutor:
         return all(seg.load_attr_codes(attr) for seg in dev.segments) and (
             kind != "vocabmask" or all(seg.attr_vocab_ok(attr) for seg in dev.segments))
 
-    def degrade(self, table: Optional[IndexTable], exc: BaseException) -> None:
+    def degrade(self, table: Optional[IndexTable], exc: BaseException, *,
+                evict: bool = True) -> None:
         """Record a device -> host degradation (the reference's
         ``degrade``): evict the failed table's device mirror (None evicts
         every mirror: a batched dispatch failed mid-stream) so the next
@@ -2058,11 +2150,15 @@ class TorchScanExecutor:
         breaker, count ``degrade.device_to_host`` (and
         ``degrade.mirror_rebuilds`` per mirror evicted) in
         ``robustness_metrics()``, record the decision and write one stderr
-        line. The caller answers from the host table scan."""
+        line. The caller answers from the host table scan. ``evict=False``
+        evicts no mirror (a failed spatial join's device state is its
+        build's, which the join evicts)."""
         import sys
 
         with self._cache_lock:
-            if table is None:
+            if not evict:
+                evicted = 0
+            elif table is None:
                 evicted = len(self._cache)
                 self._cache.clear()
             else:
@@ -2077,7 +2173,8 @@ class TorchScanExecutor:
         audit.decision("degrade", "device_to_host", error=type(exc).__name__,
                        mirrors_evicted=evicted)
         sys.stderr.write(f"[executor] device scan failed ({type(exc).__name__}: {exc}); "
-                         "host path answers; mirror marked for rebuild\n")
+                         "host path answers" + ("; mirror marked for rebuild\n" if evict
+                                                else "\n"))
 
     def dispatch_many(self, items: Sequence[Tuple[IndexTable, QueryPlan]]):
         """Dispatch a query stream; returns {id(plan): scan | None}.
@@ -2469,9 +2566,10 @@ class TorchScanExecutor:
         a host searchsorted seek touches only candidate rows and beats a
         device full scan. ``GEOMESA_SEEK``: auto (default) | 0 (never) | 1
         (whenever ranges exist), read at each call; ``SEEK_FRAC`` is the
-        cutoff of auto. The reference's device-assisted
-        seek (``GEOMESA_DEVSEEK``, off by default) is not ported: this is
-        its choice with that seek off."""
+        cutoff of auto. A seek tries the device-assisted seek first
+        (``GEOMESA_DEVSEEK=1`` only: ``_device_seek``, then its extent
+        edition ``_device_seek_xz``), then the host seek, as the reference
+        does."""
         mode = os.environ.get("GEOMESA_SEEK", "auto")
         if mode == "0" or not plan.ranges:
             return None
@@ -2480,6 +2578,24 @@ class TorchScanExecutor:
             return None
         # one searchsorted pass serves the cost probe and, if the seek wins,
         # the scan itself
+        per_block, total = self._seek_intervals(table, plan)
+        if mode != "1":
+            if total > SEEK_FRAC * nrows:
+                return None
+        dev = self._device_seek(table, plan, per_block, total)
+        if dev is None:
+            dev = self._device_seek_xz(table, plan, per_block, total)
+        if dev is not None:
+            return dev
+        pred = self._native_seek_pred(table, plan)
+        if pred is None:
+            pred = self._xz_native_pred(table, plan)
+        return _HostSeekScan(table, per_block, pred)
+
+    @staticmethod
+    def _seek_intervals(table: IndexTable, plan: QueryPlan):
+        """(per_block, total): each block's seek intervals of the plan's
+        ranges, [(block, starts, ends, flags)], and the rows they cover."""
         per_block = []
         total = 0
         for b in table.blocks:
@@ -2487,13 +2603,138 @@ class TorchScanExecutor:
             if len(starts):
                 total += int(np.maximum(ends - starts, 0).sum())
                 per_block.append((b, starts, ends, flags))
-        if mode != "1":
-            if total > SEEK_FRAC * nrows:
-                return None
-        pred = self._native_seek_pred(table, plan)
-        if pred is None:
-            pred = self._xz_native_pred(table, plan)
-        return _HostSeekScan(table, per_block, pred)
+        return per_block, total
+
+    # -- the device-assisted seek ---------------------------------------------
+
+    @staticmethod
+    def _devseek_enabled() -> bool:
+        """``GEOMESA_DEVSEEK``: 1 forces the device-assisted seek; auto and 0
+        leave it off (the reference's rule, read at each call)."""
+        return os.environ.get("GEOMESA_DEVSEEK", "auto") == "1"
+
+    def _devseek_ready(self, table: IndexTable, per_block, total: int, xz: bool):
+        """The table's device index with its exact columns loaded when the
+        seek may run: candidates in (0, 2^22] and every seeked block synced
+        into a segment (an unsynced block would be dropped); else None."""
+        if total == 0 or total > kernels.DEVSEEK_MAX_CAND:
+            return None
+        dev = self.device_index(table)
+        if not dev.segments:
+            return None
+        for seg in dev.segments:
+            if xz:
+                seg.load_exact_xz(table)
+            else:
+                seg.load_exact(table)
+        synced = set()
+        for seg in dev.segments:
+            synced.update(seg.block_ids)
+        if any(id(b) not in synced for b, _s, _e, _f in per_block):
+            return None
+        return dev
+
+    def _device_seek(self, table: IndexTable, plan: QueryPlan, per_block, total: int):
+        """The device-assisted seek of a point plan (the reference's
+        ``_device_seek``): the host-planned candidate intervals ship to the
+        device, ``kernels.devseek`` tests each candidate exactly and a
+        packed bitmap over the candidates comes back: O(candidates) device
+        work. Declines (None) unless forced on, the plan is one exact
+        box(+window) and the candidates fit the bitmap budget."""
+        if not self._devseek_enabled():
+            return None
+        shape = self._exact_predicate_shape(table, plan)
+        if shape is None:
+            return None
+        dev = self._devseek_ready(table, per_block, total, xz=False)
+        if dev is None:
+            return None
+        box_np, win_np = self._shape_keys(shape)
+        has_time = win_np is not None
+        q = upload(np.concatenate([box_np, win_np if has_time else np.zeros(2, np.int64)]),
+                   self.device)
+        box_d, win_d = q[:4], (q[4:] if has_time else None)
+        pending = []
+        for seg, starts, lens, tot, cand, iv in self._candidate_batches(dev, per_block,
+                                                                        self.device):
+            deadline.check("device.dispatch")
+            buf = kernels.devseek(seg.xk, seg.yk, seg.tk if has_time else None,
+                                  seg.tvalid if has_time else seg.valid, iv[0], iv[1], box_d,
+                                  win_d, cand)
+            pending.append((seg, starts, lens, tot, buf))
+        if not pending:
+            return None
+        return _DeviceSeekScan(pending)
+
+    def _device_seek_xz(self, table: IndexTable, plan: QueryPlan, per_block, total: int):
+        """The extent edition (the reference's ``_device_seek_xz``): exact
+        envelope tests over the int64 envelope keys and the isrect decisions
+        on the device (``kernels.devseek_xz``); only the boundary ring takes
+        the host's per-geometry test. Qualifies as the dual route does: one
+        spatial predicate on the default geometry (+ xz3 time bounds)."""
+        if not self._devseek_enabled():
+            return None
+        shape = self._xz_pred_shape(table, plan)
+        if shape is None:
+            return None
+        geom, node, qenv, rect, t_lo, t_hi = shape
+        dev = self._devseek_ready(table, per_block, total, xz=True)
+        if dev is None:
+            return None
+        desc, has_time = self._xz_desc(qenv, rect, t_lo, t_hi)
+        if has_time and any(seg.xz_tk is None for seg in dev.segments):
+            return None
+        desc_d = upload(desc, self.device)
+        pending = []
+        for seg, starts, lens, tot, cand, iv in self._candidate_batches(dev, per_block,
+                                                                        self.device):
+            deadline.check("device.dispatch")
+            valid = seg.xz_tvalid if has_time else seg.valid
+            buf = kernels.devseek_xz(*seg.xz_keys, seg.xz_isrect, valid,
+                                     seg.xz_tk if has_time else None, iv[0], iv[1], desc_d,
+                                     cand, has_time)
+            pending.append((seg, starts, lens, tot, buf))
+        if not pending:
+            return None
+        return _DeviceSeekXZScan(pending, _extent_ring_test(node, geom))
+
+    @staticmethod
+    def _candidate_batches(dev: "DeviceIndex", per_block, device):
+        """Per segment, the candidate intervals of both device seeks (the
+        reference's ``_candidate_batches``): the per-block seek intervals in
+        segment rows, overlap-MERGED first (overlapping intervals would emit
+        shared rows once per interval), zero-length ones dropped, padded to
+        a pow2 of at least 64 intervals; the candidate space is the pow2 of
+        at least 1024 above their total. Yields (segment, starts, lens,
+        total, cand_cap, (starts, ends) on the device), ``ends`` the
+        inclusive prefix sums of the lengths (one upload a segment)."""
+        for seg in dev.segments:
+            offsets = {bid: off for bid, off in zip(seg.block_ids, seg.block_starts)}
+            sts, lns = [], []
+            for block, starts, ends, flags in per_block:
+                off = offsets.get(id(block))
+                if off is None:
+                    continue
+                starts, ends, _f = _merge_overlapping_intervals(starts, ends, flags)
+                keep = ends > starts
+                if keep.any():
+                    sts.append(starts[keep] + off)
+                    lns.append((ends - starts)[keep])
+            if not sts:
+                continue
+            starts = np.concatenate(sts).astype(np.int64)
+            lens = np.concatenate(lns).astype(np.int64)
+            tot = int(lens.sum())
+            if tot == 0:
+                continue
+            n_iv = _pow2_at_least(len(starts), 64)
+            cand = _pow2_at_least(tot, kernels.DEVSEEK_MIN_CAND)
+            iv = np.zeros((2, n_iv), np.int32)
+            iv[0, :len(starts)] = starts
+            iv[1, :len(lens)] = np.cumsum(lens)
+            iv[1, len(lens):] = tot
+            iv_d = upload(iv, device)
+            yield seg, starts, lens, tot, cand, (iv_d[0], iv_d[1])
 
     def _native_seek_pred(self, table: IndexTable, plan: QueryPlan):
         """("z", geom, dtg, box, t_lo, t_hi, use_covered) for the one-pass

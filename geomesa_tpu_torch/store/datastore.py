@@ -102,8 +102,17 @@ aggregate is audited: an ``audit_writer`` gets one ``QueryEvent``,
 ``_tenants_obj``) fold it in. The brownout ladder (``utils/brownout.py``)
 sits on the admission gate and the pyramid's cold build; a timeline
 sampler (``utils/timeline.py``) ticks it. Workload capture, the durable
-telemetry spool, the arrow aggregation, joins and streaming are not in
-the port yet.
+telemetry spool, the arrow aggregation and streaming are not in the port
+yet.
+
+Spatial joins (the reference's ``query_join``, ``ops/join.py``):
+``query_join(build, probe, "contains" | "dwithin(<m>)")`` buckets the
+build side once a schema generation on the device and streams the probe
+side's points through the ``join_pip`` / ``join_dwithin`` kernels, exact
+f64 verification of the boundary band on the host; the whole join holds
+one admission slot and one budget, and its pairs equal the host reference
+join's (``stats["path"]`` = ``device-join``, ``host-join``,
+``host-join-breaker`` or ``host-join-degraded``).
 """
 
 from __future__ import annotations
@@ -703,6 +712,133 @@ class TorchDataStore:
         finally:
             plans_mod.end(ptok)
             self._log_slow_query(name, plan, root)
+
+    # -- spatial joins ---------------------------------------------------------
+
+    def query_join(self, build, probe, predicate: Union[str, Any] = "contains", *,
+                   radius_m: Optional[float] = None):
+        """Spatial join: which probe features match which build features
+        (the reference's ``query_join``).
+
+        ``build`` / ``probe`` are type names or ``(name, query)`` pairs
+        (each side's filter runs through the ordinary scan path);
+        ``predicate`` is ``"contains"`` (probe point in build polygon,
+        boundary inclusive) or ``"dwithin(<meters>)"`` / ``("dwithin",
+        radius_m=...)``. Returns ``ops.join.JoinResult``. The whole join runs
+        under one query budget and holds ONE admission slot end to end; the
+        inner build and probe queries ride it (a reentrant admit), so a join
+        never deadlocks against itself. It is audited as a ``join``: the
+        ``queries.join`` counter and ``query.join`` timer, its plan
+        fingerprint (``shape="join:<kind>"``, its path as the scan path) and
+        its tenant; a timed-out or shed join writes its failure event
+        (``queries.join.<outcome>``) and raises, never a truncated pair
+        set."""
+        from geomesa_tpu_torch.ops.join import JoinPlanner, JoinSpec
+
+        spec = JoinSpec.parse(predicate, radius_m)
+        build_name, build_q = self._join_side(build)
+        probe_name, probe_q = self._join_side(probe)
+        label = f"{build_name}+{probe_name}"
+        root = trace.NOOP
+        t0 = time.perf_counter()
+        ptok = plans_mod.begin()
+        try:
+            with trace.span("query.join", force=self.slow_query_s is not None,
+                            build=build_name, probe=probe_name, predicate=spec.kind) as root:
+                try:
+                    with deadline_mod.budget(self.query_timeout_s):
+                        with self.admission.admit(
+                                priority=admission_mod.classify(probe_q.hints)):
+                            dev0 = devstats.receipt_snapshot()
+                            result = JoinPlanner(self).join(build_name, build_q, probe_name,
+                                                            probe_q, spec)
+                        receipt = devstats.receipt_since(dev0)
+                        if root.recording:
+                            root.set_attr("join", result.stats)
+                            root.set_attr("hits", len(result))
+                            root.set_attr("device", receipt)
+                        if self.metrics is not None:
+                            self.metrics.inc("queries.join")
+                            self.metrics.update_timer("query.join", time.perf_counter() - t0)
+                        if plans_mod.enabled():
+                            self._plans_obj().observe(
+                                "join", label, shape=f"join:{spec.kind}",
+                                scan_path=str(result.stats.get("path", "")), outcome="ok",
+                                hits=len(result), duration_s=time.perf_counter() - t0,
+                                receipt=receipt)
+                        self._observe_join(build_q, probe_q, "ok", t0, len(result), receipt)
+                        return result
+                except (QueryTimeout, ShedLoad) as e:
+                    # a timed-out join never returns a truncated pair set; a
+                    # join shed at admission ran no inner query, so it
+                    # audits itself
+                    outcome = "timeout" if isinstance(e, QueryTimeout) else "shed"
+                    if root.recording:
+                        root.set_attr("outcome", outcome)
+                    if self.metrics is not None:
+                        # join-scoped counters: an inner query that timed out
+                        # counted itself in queries.<outcome> already
+                        self.metrics.inc("queries.join")
+                        self.metrics.inc(f"queries.join.{outcome}")
+                    if plans_mod.enabled():
+                        self._plans_obj().observe(
+                            "join", label, shape=f"join:{spec.kind}", outcome=outcome,
+                            duration_s=time.perf_counter() - t0)
+                    self._observe_join(build_q, probe_q, outcome, t0)
+                    if self.audit_writer is not None:
+                        self._audit_join_failure(label, probe_q, t0, outcome)
+                    raise
+        finally:
+            plans_mod.end(ptok)
+            self._log_slow_query(label, None, root)
+
+    def _observe_join(self, build_q, probe_q, outcome: str, t0: float, rows: int = 0,
+                      receipt=None) -> None:
+        """The tenant meter of one join (``_join_tenant``)."""
+        if tenants_mod.enabled():
+            self._tenants_obj().observe(self._join_tenant(build_q, probe_q), "join",
+                                        outcome=outcome, duration_s=time.perf_counter() - t0,
+                                        rows=rows, receipt=receipt)
+
+    def _audit_join_failure(self, label: str, probe_q: Query, t0: float, outcome: str) -> None:
+        """The ``QueryEvent`` of a join that failed crisply (the reference's
+        ``_audit_failure`` with ``count_metrics=False``: the join's counters
+        are its own)."""
+        from geomesa_tpu_torch.filter.parser import to_cql
+        from geomesa_tpu_torch.utils.audit import QueryEvent
+
+        self.audit_writer.write_event(QueryEvent(
+            store=type(self).__name__,
+            type_name=label,
+            user=self.user,
+            filter=to_cql(probe_q.filter),
+            hints=dict(probe_q.hints),
+            date_ms=int(time.time() * 1000),
+            planning_ms=0.0,
+            scanning_ms=1000 * (time.perf_counter() - t0),
+            hits=0,
+            scan_path="",
+            trace_id=trace.current_trace_id() or "",
+            outcome=outcome,
+        ))
+
+    @staticmethod
+    def _join_tenant(build_q, probe_q) -> str:
+        """Tenant label of a join: the probe's hint wins, then the build's."""
+        label = tenants_mod.tenant_of(probe_q)
+        if label == tenants_mod.ANON:
+            label = tenants_mod.tenant_of(build_q)
+        return label
+
+    def _join_side(self, side) -> tuple:
+        """``"name"`` or ``(name, cql-or-Query)`` -> (name, Query)."""
+        if isinstance(side, str):
+            name, q = side, Query()
+        else:
+            name, q = side
+            q = self._as_query(q)
+        self.get_schema(name)  # fail fast on unknown types
+        return name, q
 
     def _coalescer_obj(self):
         """The store's coalescer, made at first use (one instance however
@@ -1601,8 +1737,13 @@ def _scan_label(scan) -> str:
     if isinstance(scan, HostRoute):
         return scan.label
     name = type(scan).__name__
-    if name == "_HostSeekScan":
-        return "host-seek"
+    labels = {
+        "_HostSeekScan": "host-seek",
+        "_DeviceSeekScan": "device-seek",
+        "_DeviceSeekXZScan": "device-seek-xz",
+    }
+    if name in labels:
+        return labels[name]
     base = (
         "device-batch-dual" if name == "_XZBatchScan"
         else "device-exact" if scan.exact

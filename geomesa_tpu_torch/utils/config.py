@@ -142,6 +142,17 @@ PRIORITY_DEFAULT = SystemProperty("geomesa.priority.default", "interactive")
 BATCH_ENABLED = SystemProperty("geomesa.batch.enabled", "true")
 BATCH_WINDOW_MS = SystemProperty("geomesa.batch.window.ms", "2")
 BATCH_MAX_QUERIES = SystemProperty("geomesa.batch.max.queries", "32")
+# spatial joins (ops/join.py): the build side buckets into a z2 grid of
+# 2^bits x 2^bits base cells; a bucket holding more than `skew.threshold`
+# geometries quad-splits into finer cells (at most `split.depth` levels);
+# a built build side stays resident on the device, keyed by the schema
+# generation, until `cache.ttl` after its last use; probe points stream
+# through the device `probe.chunk` rows at a time
+JOIN_BUCKET_BITS = SystemProperty("geomesa.join.bucket.bits", "3")
+JOIN_SKEW_THRESHOLD = SystemProperty("geomesa.join.skew.threshold", "128")
+JOIN_SPLIT_DEPTH = SystemProperty("geomesa.join.split.depth", "6")
+JOIN_CACHE_TTL = SystemProperty("geomesa.join.cache.ttl", "10 minutes")
+JOIN_PROBE_CHUNK = SystemProperty("geomesa.join.probe.chunk", "2048")
 # the aggregate pyramid cache (ops/pyramid.py): counts and per-column
 # sum/min/max/count answered from interior partial sums plus the exact
 # boundary ring, and a density-grid memo. `cell.bits` sets the finest

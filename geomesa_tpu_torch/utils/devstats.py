@@ -180,10 +180,18 @@ def receipt_of(costs: Dict[str, int]) -> Dict[str, Any]:
 
 def device_debug() -> Dict[str, Any]:
     """The device telemetry as one structured payload: builds, transfers,
-    padding, HBM and the coalescer's reach."""
+    padding, HBM, the coalescer's reach and the spatial join's block
+    (``ops.join.join_debug``: build cache, buckets, probe counters)."""
     counters, gauges, _timers, totals = devstats_metrics().snapshot()
     build_count, build_sum_s = totals.get("kernel.build", (0, 0.0))
     prefix = "batch.coalesce.group.pow2."
+    try:
+        # lazy: the join subsystem may never have loaded in this process
+        from geomesa_tpu_torch.ops.join import join_debug
+
+        join_block = join_debug()
+    except Exception:  # noqa: BLE001 - the debug payload renders regardless
+        join_block = {}
     return {
         "device": torch.cuda.get_device_name(0) if torch.cuda.is_initialized() else "cpu",
         "kernels": {k[len("kernel.build."):]: v for k, v in sorted(counters.items())
@@ -211,4 +219,5 @@ def device_debug() -> Dict[str, Any]:
                            for k in sorted((k for k in counters if k.startswith(prefix)),
                                            key=lambda k: int(k[len(prefix):]))},
         },
+        "join": join_block,
     }

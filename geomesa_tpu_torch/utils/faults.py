@@ -1,7 +1,7 @@
 """Deterministic fault injection at named boundaries.
 
 Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
-``fault_point``. The port places four points:
+``fault_point``. The port places six points:
 
     device.dispatch    every host -> device copy (``parallel/mesh.py``
                        ``upload``: mirror builds and query descriptors): a
@@ -15,6 +15,12 @@ Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
     agg.build          the aggregate pyramid's build and its column grids
                        (ops/pyramid.py): a fault there degrades the
                        aggregation to the uncached exact scan
+    join.build         a spatial join's build side: bucketing and its
+                       upload (ops/join.py)
+    join.probe         each probe chunk of a spatial join (ops/join.py):
+                       a fault at either join point degrades the whole
+                       join to the host reference join with identical
+                       pairs (``degrade.join_to_host``)
 
 Kinds: ``error`` raises ``InjectedFault`` (an
 OSError), ``drop`` raises ``InjectedDrop`` (a ConnectionError),

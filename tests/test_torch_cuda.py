@@ -22,7 +22,11 @@ from geomesa_tpu_torch.ops import aggregations as agg
 from geomesa_tpu_torch.ops import filters as F
 from geomesa_tpu_torch.ops import kernels
 from geomesa_tpu_torch.ops.zkernels import f64_keys, unpack_mask_rows
-from geomesa_tpu_torch.parallel.executor import TorchScanExecutor, _decode_bitmap_rows
+from geomesa_tpu_torch.parallel.executor import (
+    TorchScanExecutor,
+    _decode_bitmap_rows,
+    _merge_overlapping_intervals,
+)
 
 
 @pytest.fixture
@@ -1455,3 +1459,187 @@ def test_pyramid_counts_rejects_bad_arguments_on_the_card(cuda):
         kernels.pyramid_counts(xi, xi, mask[:512], 8)
     with pytest.raises(ValueError):
         kernels.pyramid_counts(xi, xi, mask, 8, starts=[0, 2048])
+
+
+# -- the spatial join's masks and the device-assisted seek ----------------------
+
+
+def _join_chunk(cuda, seed, groups, c_cap, n_geoms):
+    """One probe chunk's layout on the card: rows sorted by group (NaN rows
+    among them), CSR offsets, each group's candidate row (-1 slots
+    included), over ``n_geoms`` build geometries."""
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(0, 300, groups)
+    sizes[0] = max(sizes[0], 1)
+    goff = np.concatenate([[0], np.cumsum(sizes)]).astype(np.int32)
+    px = rng.uniform(-1, 21, goff[-1]).astype(np.float32)
+    py = rng.uniform(-1, 21, goff[-1]).astype(np.float32)
+    px[::97] = np.nan
+    py[::97] = np.nan
+    cand = np.full((groups + 2, c_cap), -1, np.int32)
+    for b in range(groups + 2):
+        k = rng.integers(1, c_cap + 1)
+        cand[b, :k] = rng.choice(n_geoms, k, replace=k > n_geoms)
+    grow = rng.integers(0, groups + 2, groups).astype(np.int32)
+    return [torch.from_numpy(a).to(cuda) for a in (px, py, goff, grow, cand)]
+
+
+def _join_edges(cuda, n_geoms, seed, e_big=0):
+    """Star rings (with a hole every third), one edgeless geometry, and with
+    ``e_big`` one ring of that many edges (more than a shared-memory tile)."""
+    rng = np.random.default_rng(seed)
+    lists = []
+    for g in range(n_geoms):
+        cx, cy, r = rng.uniform(2, 18), rng.uniform(2, 18), rng.uniform(0.5, 4)
+        k = e_big // 2 if (e_big and g == 1) else int(rng.integers(4, 32))
+        ang = np.linspace(0, 2 * np.pi, 2 * k + 1)[:-1]
+        rad = np.where(np.arange(2 * k) % 2 == 0, r, 0.5 * r)
+        ring = np.stack([cx + rad * np.cos(ang), cy + rad * np.sin(ang)], 1)
+        rings = [np.vstack([ring, ring[:1]])]
+        if g % 3 == 0:
+            hole = np.stack([cx + 0.3 * r * np.cos(ang), cy + 0.3 * r * np.sin(ang)], 1)[::-1]
+            rings.append(np.vstack([hole, hole[:1]]))
+        edges = np.concatenate([np.concatenate([rg[:-1], rg[1:]], 1) for rg in rings])
+        lists.append(edges.astype(np.float32))
+    lists[-1] = lists[-1][:0]  # no edges
+    e_pad = 8
+    while e_pad < max(len(e) for e in lists):
+        e_pad *= 2
+    edges = np.zeros((n_geoms, e_pad, 4), np.float32)
+    ecnt = np.zeros(n_geoms, np.int32)
+    for g, e in enumerate(lists):
+        edges[g, :len(e)] = e
+        ecnt[g] = len(e)
+    return torch.from_numpy(edges).to(cuda), torch.from_numpy(ecnt).to(cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups,c_cap,e_big", [(1, 8, 0), (5, 32, 0), (3, 16, 1200)])
+def test_join_pip_matches_plain_on_the_card(cuda, groups, c_cap, e_big):
+    n_geoms = 40
+    chunk = _join_chunk(cuda, groups * c_cap, groups, c_cap, n_geoms)
+    edges, ecnt = _join_edges(cuda, n_geoms, c_cap, e_big)
+    eps = np.float32(1e-3)
+    got = kernels.join_pip(*chunk, edges, ecnt, eps)
+    want = kernels.join_pip_chunk_plain(*chunk, edges, ecnt, eps)
+    assert torch.equal(got, want)
+    assert bool((want & 1).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radius", [5000.0, 300_000.0])
+def test_join_dwithin_matches_plain_on_the_card(cuda, radius):
+    """Equal flags except pairs whose f32 distance lies within 4 ulps of
+    r - eps or r + eps (``dwithin_threshold_band``): the kernel's sinf /
+    cosf / asinf and torch's may round such a pair across the threshold."""
+    from geomesa_tpu_torch.ops.geometry import dwithin_threshold_band, snap_epsilon_m
+
+    n_geoms = 64
+    chunk = _join_chunk(cuda, int(radius), 6, 32, n_geoms)
+    rng = np.random.default_rng(5)
+    bx = torch.from_numpy(rng.uniform(0, 20, n_geoms).astype(np.float32)).to(cuda)
+    by = torch.from_numpy(rng.uniform(0, 20, n_geoms).astype(np.float32)).to(cuda)
+    bx[7] = float("nan")
+    eps = snap_epsilon_m(radius)
+    px, py, goff, grow, cand = chunk
+    rows_cand = kernels._group_candidates(px.shape[0], goff, grow, cand)
+    # the first rows 0.02 degrees (about 2 km) from their first candidate
+    first = rows_cand[:64, 0].long().clamp(min=0)
+    px[:64] = bx[first] + 0.02
+    py[:64] = by[first]
+    got = kernels.join_dwithin(*chunk, bx, by, radius, eps)
+    want = kernels.join_dwithin_chunk_plain(*chunk, bx, by, radius, eps)
+    from geomesa_tpu_torch.ops.geometry import join_dwithin_distances
+
+    band = dwithin_threshold_band(join_dwithin_distances(px, py, rows_cand, bx, by), radius,
+                                  eps).t()
+    assert not bool(((got != want) & ~band).any())
+    assert bool((want & 1).any())
+
+
+def _seek_inputs(cuda, n, seed, zero_len=True):
+    rng = np.random.default_rng(seed)
+    starts = np.sort(rng.choice(n - 600, 300, replace=False)).astype(np.int64)
+    lens = rng.integers(0, 500, 300)
+    if zero_len:
+        lens[::7] = 0
+    ends = np.minimum(starts + lens, n)
+    s, e, _f = _merge_overlapping_intervals(starts, ends, np.zeros(300, bool))
+    lens = e - s
+    n_iv = 512
+    iv = np.zeros((2, n_iv), np.int32)
+    iv[0, :len(s)] = s
+    iv[1, :len(s)] = np.cumsum(lens)
+    iv[1, len(s):] = lens.sum()
+    cand = 1024
+    while cand < lens.sum():
+        cand *= 2
+    return torch.from_numpy(iv).to(cuda), cand * 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [False, True])
+def test_devseek_matches_plain_on_the_card(cuda, has_time):
+    n = 1 << 18
+    r = _rows(n, 77)
+    xk, yk = (torch.from_numpy(f64_keys(r[k])).to(cuda) for k in ("x", "y"))
+    tk = torch.from_numpy(r["t"]).to(cuda)
+    valid = torch.from_numpy(r["valid"]).to(cuda)
+    iv, cand = _seek_inputs(cuda, n, 78)
+    box = torch.from_numpy(f64_keys(np.array([-10.0, 12.0, -8.0, 15.0]))).to(cuda)
+    win = torch.tensor([1_767_225_600_000 + 86_400_000, 1_767_225_600_000 + 6 * 86_400_000],
+                       dtype=torch.int64, device=cuda) if has_time else None
+    got = kernels.devseek(xk, yk, tk if has_time else None, valid, iv[0], iv[1], box, win, cand)
+    want = F.devseek_plain(xk, yk, tk if has_time else None, valid, iv[0], iv[1], box, win, cand)
+    assert torch.equal(got, want) and bool(want.any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("has_time", [False, True])
+@pytest.mark.parametrize("rect", [False, True])
+def test_devseek_xz_matches_plain_on_the_card(cuda, has_time, rect):
+    n = 1 << 17
+    rng = np.random.default_rng(91)
+    x0, y0 = rng.uniform(-20, 20, n), rng.uniform(-20, 20, n)
+    env = np.stack([x0, y0, x0 + rng.uniform(0, 3, n), y0 + rng.uniform(0, 3, n)], 1)
+    env[::11] = 0.0  # null geometries
+    keys = [torch.from_numpy(f64_keys(env[:, j])).to(cuda) for j in range(4)]
+    isrect = torch.from_numpy(rng.random(n) > 0.5).to(cuda)
+    valid = torch.from_numpy(rng.random(n) > 0.05).to(cuda)
+    tk = torch.from_numpy(1_767_225_600_000 + rng.integers(0, 10 * 86_400_000, n)).to(cuda)
+    iv, cand = _seek_inputs(cuda, n, 92)
+    desc = np.zeros(kernels.XZ_DESC, np.int64)
+    desc[:5] = f64_keys(np.array([-8.0, -6.0, 9.0, 11.0, 0.0]))
+    desc[5] = int(rect)
+    if has_time:
+        desc[6:] = (1_767_225_600_000 + 86_400_000, 1_767_225_600_000 + 5 * 86_400_000)
+    desc = torch.from_numpy(desc).to(cuda)
+    got = kernels.devseek_xz(*keys, isrect, valid, tk if has_time else None, iv[0], iv[1], desc,
+                             cand, has_time)
+    want = F.devseek_xz_plain(*keys, isrect, valid, tk, iv[0], iv[1], desc, cand, has_time)
+    assert torch.equal(got, want) and bool(want[:cand // 8].any())
+    assert bool(want[cand // 8:].any()) == rect
+
+
+@pytest.mark.cuda
+def test_join_and_devseek_reject_bad_arguments_on_the_card(cuda):
+    px = torch.zeros(16, dtype=torch.float32, device=cuda)
+    goff = torch.tensor([0, 16], dtype=torch.int32, device=cuda)
+    grow = torch.zeros(1, dtype=torch.int32, device=cuda)
+    cand = torch.zeros((1, 8), dtype=torch.int32, device=cuda)
+    edges = torch.zeros((1, 8, 4), dtype=torch.float32, device=cuda)
+    ecnt = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(TypeError):
+        kernels.join_pip(px.double(), px, goff, grow, cand, edges, ecnt, 1e-3)
+    with pytest.raises(ValueError):
+        kernels.join_pip(px, px, goff[:1], grow, cand, edges, ecnt, 1e-3)
+    with pytest.raises(ValueError):
+        kernels.join_dwithin(px, px, goff, grow, cand, px, px[:4], 10.0, 1.0)
+    xk = torch.zeros(2048, dtype=torch.int64, device=cuda)
+    valid = torch.ones(2048, dtype=torch.bool, device=cuda)
+    iv = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    box = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        kernels.devseek(xk, xk, None, valid, iv[0], iv[1], box, None, 1000)
+    with pytest.raises(ValueError):
+        kernels.devseek(xk, xk, None, valid, iv[0], iv[1][:8], box, None, 1024)

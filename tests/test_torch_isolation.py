@@ -10,7 +10,8 @@ pyramid, transform and converter modules, then a delete, an ``age_off``
 sweep, a labelled query and a degraded query (the security, breaker and
 fault modules), then an EXPLAIN ANALYZE, an audited ``query_many`` and a
 timeline tick (the trace, audit, plans, tenants, timeline, SLO and
-brownout modules), must load neither ``jax`` nor any ``geomesa_tpu``
+brownout modules), a ``contains`` and a ``dwithin`` join and a forced
+device-assisted seek, must load neither ``jax`` nor any ``geomesa_tpu``
 module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
@@ -256,6 +257,37 @@ assert snap["counters"]["queries"] >= 5 and snap["plans"] and snap["tenants"]
 assert slo.SloEngine(sampler).evaluate()["violating"] == []
 assert store._brownout.level == 0 and brownout.enabled() and tenants.enabled()
 print(audit.prometheus_text([store.metrics, audit.robustness_metrics()])[:40])
+# spatial joins, contains and dwithin (the join module, its kernels' plain
+# editions), then a forced device-assisted seek, each against an oracle
+os.environ["GEOMESA_SEEK"] = "0"
+from geomesa_tpu_torch.geom.base import Point, Polygon
+ring = cs.star(5.0, -5.0, 30.0)
+pbox = "bbox(geom, -40.0, -40.0, 40.0, 40.0)"
+store.create_schema(parse_spec("zones", "zname:String,*geom:Polygon:srid=4326"))
+with store.writer("zones") as w:
+    w.write(["z0", Polygon(ring.tolist())], fid="g0")
+probe = store.query("poly", pbox)
+pxs, pys, pf = probe.columns["geom__x"], probe.columns["geom__y"], probe.fids
+j = store.query_join("zones", ("poly", pbox), predicate="contains")
+assert j.stats["path"] == "device-join", j.stats
+assert set(j.pairs()) == {("g0", str(pf[k])) for k in cs.pip([ring], pxs, pys)} and len(j)
+store.create_schema(parse_spec("sites", "*geom:Point:srid=4326"))
+sites = [(-30.0 + 5.0 * k, -20.0 + 3.5 * k) for k in range(12)]
+with store.writer("sites") as w:
+    for k, (sx, sy) in enumerate(sites):
+        w.write([Point(sx, sy)], fid=f"s{k}")
+j = store.query_join("sites", ("poly", pbox), predicate="dwithin(300000)")
+assert j.stats["path"] == "device-join", j.stats
+want = {(f"s{k}", str(pf[i])) for k, (sx, sy) in enumerate(sites)
+        for i in np.flatnonzero(cs.haversine_np(pxs, pys, sx, sy) <= 300000.0)}
+assert set(j.pairs()) == want and want
+os.environ["GEOMESA_SEEK"] = "1"
+os.environ["GEOMESA_DEVSEEK"] = "1"
+r = store.query("poly", pbox)
+assert r.scan_path == "device-seek", r.scan_path
+assert set(r.fids) == set(pf) and len(pf)
+os.environ["GEOMESA_SEEK"] = "0"
+del os.environ["GEOMESA_DEVSEEK"]
 from geomesa_tpu_torch import native
 st = native.status()
 assert all(v["loaded"] for v in st.values()), st
@@ -274,8 +306,9 @@ def test_port_runs_config1_without_jax_or_the_reference():
     aggregate pyramid (a count and an aggregate), a transform, a sampled
     query, a delete, an age_off sweep, a labelled query, a degraded query,
     an EXPLAIN ANALYZE, an audited query_many, a timeline tick with the SLO
-    engine and the brownout ladder, and the native libraries they run,
-    load no JAX."""
+    engine and the brownout ladder, a contains and a dwithin join, a forced
+    device-assisted seek, and the native libraries they run, load no
+    JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(

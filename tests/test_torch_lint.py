@@ -18,6 +18,9 @@
   ``timeline.py``, ``slo.py``, ``brownout.py``, ``admission.py``) are in
   the scan and touch no tensor: only ``utils/trace.py`` imports ``torch``
   (for its profiler ranges);
+* the spatial join (``ops/join.py``) and the device-assisted seek reach
+  their kernels through the counted wrappers and their copies through
+  ``mesh``: each launch is counted, each copy is in the receipts;
 * every ``decision(point, reason)`` names its point as a string constant
   and its reason as a stable code (a constant, or a name or f-string of
   names that picks among constants; never a formatted message), and every
@@ -279,3 +282,49 @@ def test_store_observes_plans_inside_a_scope():
     for fn in ("TorchDataStore._audit", "TorchDataStore._audit_failure",
                "TorchDataStore.aggregate"):
         assert _called(store[fn], "observe"), fn
+
+
+JOIN = os.path.join("ops", "join.py")
+STORE = os.path.join("store", "datastore.py")
+
+
+@pytest.mark.parametrize("wrapper", ["join_pip", "join_dwithin", "devseek", "devseek_xz"])
+def test_join_and_devseek_launches_are_counted(wrapper):
+    fn = dict(_functions(MODULES[KERNELS]))[wrapper]
+    assert _called(fn, "_raise_on") and _called(fn, "_count"), wrapper
+
+
+def test_join_and_devseek_copies_pass_the_counted_helpers():
+    """The join uploads its build side and each probe chunk through
+    ``upload`` (``join_upload``) and fetches each chunk's flags through the
+    counted ``fetch`` (``join_fetch``); the seek uploads its descriptors and
+    intervals through ``upload`` and resolves through ``_np_local``; and
+    its every decision is a constant code."""
+    join = dict(_functions(MODULES[JOIN]))
+    ex = dict(_functions(MODULES[EXECUTOR]))
+    assert _called(join["JoinBuild.ensure_device"], "upload")
+    dj = join["device_join"]
+    assert _called(dj, "join_upload") and _called(dj, "join_fetch")
+    assert _called(dj, "join_pip") and _called(dj, "join_dwithin")
+    assert _called(ex["join_upload"], "upload") and _called(ex["join_fetch"], "_np_local")
+    for fn in ("TorchScanExecutor._device_seek", "TorchScanExecutor._device_seek_xz",
+               "TorchScanExecutor._candidate_batches"):
+        assert _called(ex[fn], "upload"), fn
+    assert _called(ex["TorchScanExecutor._device_seek"], "devseek")
+    assert _called(ex["TorchScanExecutor._device_seek_xz"], "devseek_xz")
+    for cls in ("_DeviceSeekScan", "_DeviceSeekXZScan"):
+        assert _called(ex[f"{cls}.__iter__"], "_np_local"), cls
+    for mod in (JOIN, STORE, EXECUTOR):
+        for _name, fn in _functions(MODULES[mod]):
+            assert not (_called(fn, "cpu") or _called(fn, "numpy") or _called(fn, "as_tensor"))
+    reasons = set()
+    for n in ast.walk(MODULES[JOIN]):
+        if isinstance(n, ast.Call) and isinstance(n.func, ast.Attribute) \
+                and n.func.attr == "decision":
+            assert isinstance(n.args[0], ast.Constant) and n.args[0].value == "join.kernel"
+            assert isinstance(n.args[1], ast.Constant)
+            reasons.add(n.args[1].value)
+    assert reasons == {"build_ineligible", "antipodal_radius", "env_disabled",
+                       "device_tripped", "brownout"}
+    store = dict(_functions(MODULES[STORE]))["TorchDataStore.query_join"]
+    assert _called(store, "begin") and _called(store, "end") and _called(store, "observe")
