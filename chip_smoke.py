@@ -127,7 +127,7 @@ Phases (any failure raises and the script exits non-zero):
      (registers, spills); the run fails unless all four native libraries
      load;
   2. config #1: ingest N points (20M by default), upload the z3/z2 device
-     columns; config #3: make N ways (8M by default) from the seed, ingest
+     columns; config #3: make N ways (4M by default) from the seed, ingest
      them with precomputed envelope companions, upload the xz3/xz2 device
      columns, plan every stream and answer it with the numpy oracle
      (``oracle_rows``, which shares no code with the port's geometry);
@@ -274,8 +274,10 @@ Phases (any failure raises and the script exits non-zero):
      seek, the host seek and the device full scan, the least of three
      alternating rounds; then their kernel phase: ``join_pip`` /
      ``join_dwithin`` on the first probe chunk (``join_dwithin`` equal to
-     its plain edition but within 4 ulps of a threshold) and ``devseek`` /
-     ``devseek_xz`` at each candidate space the phase launched;
+     its plain edition but within 4 ulps of a threshold), each beside its
+     floor (`` dead``: the same launch with every candidate -1, flags all
+     0, no launch counted) and ``devseek`` / ``devseek_xz`` at each
+     candidate space the phase launched;
   8. the lifecycle and fault phases, each a path of its own (their
      launches read with the counts reset just before). Their shapes are
      timed as entries of their own, tagged with the table's state: `` holes``
@@ -414,10 +416,12 @@ def brute_force(x, y, t, box=BOX):
     return np.flatnonzero(in_box(x, y, box) & (t > T_LO) & (t < T_HI))
 
 
-# -- config #3: OSM-way-shaped extents (bench_suite.py bench_xz2's table at
-# its size, with lines, rotated polygons, rectangles and null geometries) --
+# -- config #3: OSM-way-shaped extents (bench_suite.py bench_xz2's table,
+# with lines, rotated polygons, rectangles and null geometries) -----------
 
-WAYS_ROWS = 8_000_000
+# half of bench_xz2's 8M: a depth cut for the script's 1200 s limit (the
+# ways' making and ingest, the oracle and the compaction scale with it)
+WAYS_ROWS = 4_000_000
 # bench_xz2's schema and one more column, the way's kind (line, polygon or
 # rect), that the attribute edition of the dual plane reads (stream (a'))
 WAYS_SPEC = "*geom:Geometry:srid=4326,dtg:Date,kind:String"
@@ -1202,7 +1206,7 @@ def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
     (``fid_rows``) where the fids are fixed-width unicode with that
     one-character prefix, else as sets of strings."""
     fids = np.asarray(res.fids)
-    want = np.unique(np.asarray(want_rows, dtype=np.int64))
+    want = sorted_unique(want_rows)
     if fids.dtype.kind == "U" and len(prefix) == 1 and len(fids):
         cps = np.ascontiguousarray(fids).view(np.uint32).reshape(len(fids), -1)
         if (cps[:, 0] == ord(prefix)).all():
@@ -1216,6 +1220,13 @@ def expect_fids(res, want_rows, what: str, prefix: str = "f") -> None:
         raise AssertionError(
             f"{what}: fid-set parity failed ({len(got)} device vs {len(want)} brute force)"
         )
+
+
+def sorted_unique(rows) -> np.ndarray:
+    """``np.unique`` of int64 row numbers by a sort (a hashed ``np.unique``
+    takes ~0.5 s for a million rows on some numpy builds)."""
+    a = np.sort(np.asarray(rows, dtype=np.int64).ravel())
+    return a[np.concatenate(([True], a[1:] != a[:-1]))] if len(a) else a
 
 
 def fid_numbers(fids: np.ndarray) -> np.ndarray:
@@ -2233,7 +2244,8 @@ def check_launches(entries, launched, names):
     over every path (stream (i)'s host route runs config #1's lone exact
     query). Fail unless every entry's own path launched it, every shape a
     path launched is timed (so the shapes' launches add up to the paths'
-    count per kernel) and every kernel has an entry. Returns the ranking:
+    count per kernel) and every kernel has an entry; a ``floor`` entry (the
+    join's dead-slot launches) needs no launch. Returns the ranking:
     per kernel, the sum over its shapes of launches x (ms - bound),
     largest first."""
     total = {}
@@ -2245,7 +2257,8 @@ def check_launches(entries, launched, names):
         path = e.pop("path")
         key = (e["name"], e["shape_tag"])
         e["launches"] = total.get(key, 0)
-        if not launched[path][1].get(key):
+        # a floor entry (a dead-slot launch) times a shape no path launches
+        if not launched[path][1].get(key) and not e.get("floor"):
             missing.append(f"{path}: {key[0]} {key[1]}")
     timed = {(e["name"], e["shape_tag"]) for e in entries}
     untimed = [f"{name} {tag}" for (name, tag), count in total.items()
@@ -5407,8 +5420,10 @@ JOIN_REGION = (-82.0, 34.0, -68.0, 43.0)
 JOIN_WARM = 3
 # FP32-pipe instructions of csrc/join.cu's loops in their sm_90a SASS: a
 # (row, candidate, live edge) of join_pip, a straddling edge's crossing on
-# top, and a (row, candidate) of join_dwithin (the path of finite degrees);
-# and the integer work beside them (loop, parity, flag bits)
+# top, and a (row, candidate) of join_dwithin (the path of finite degrees,
+# the build point's cosine counted once a candidate, not a pair: the
+# kernel's own SASS, which takes it in every pair, has ~114); and the
+# integer work beside them (loop, parity, flag bits)
 JOIN_PIP_EDGE_FOPS = 34
 JOIN_PIP_STRADDLE_FOPS = 10
 JOIN_PIP_EDGE_IOPS = 2
@@ -5697,7 +5712,11 @@ def join_cases(store, shapes):
     the rows' coordinates, the layout, the candidate rows and each
     referenced geometry's edges or point read once, and a flag a pair
     written. ``join_dwithin`` agrees with its plain edition except within
-    4 ulps of a threshold (``dwithin_threshold_band``)."""
+    4 ulps of a threshold (``dwithin_threshold_band``).
+
+    Each shape also has its floor, tagged `` dead``: the same launch with
+    every candidate -1, whose flags must all be 0 (bound: the layout's
+    bytes). No path launches it, so its entry counts no launch."""
     from geomesa_tpu_torch.ops import join as join_mod
     from geomesa_tpu_torch.ops import kernels
     from geomesa_tpu_torch.ops.geometry import (
@@ -5772,7 +5791,26 @@ def join_cases(store, shapes):
         if check is not None:
             case["check"] = check
         out.append(case)
+        # the floor of the grid: the same launch with every candidate -1 (a
+        # launch, the layout's reads and the zero stores); no path launches it
+        dead = torch.full_like(d[2], -1)
+        dargs = (*kargs[:4], dead, *kargs[5:])
+        fn = kernels.join_pip if kind == "contains" else kernels.join_dwithin
+        plain_fn = (kernels.join_pip_chunk_plain if kind == "contains"
+                    else kernels.join_dwithin_chunk_plain)
+        out.append(dict(
+            case, tag=f"{tag} dead", shape=f"rows={n_rows} groups={n_groups} {tag} dead",
+            kernel=lambda a=dargs, fn=fn: (fn(*a),),
+            plain=lambda a=dargs, fn=plain_fn: (fn(*a),),
+            check=join_dead_check, bytes=base_bytes, ops=0, fops=0,
+            extra={"floor": True, "floor_of": tag}))
     return out
+
+
+def join_dead_check(got, want):
+    """(equal, max abs err) of a dead-slot join launch: its flags equal the
+    plain edition's and are all 0."""
+    return torch.equal(got[0], want[0]) and not bool(got[0].any()), max_abs_err(got, want)
 
 
 def devseek_cases(store, shapes, streams1, streams3):

@@ -516,7 +516,7 @@ class DeviceSegment:
         if not self.n:
             return
         keep = np.concatenate([
-            table.fid_keep(b.record.columns["__fid__"])[b.rowid] if b.record is not None
+            table.source_keep(b.record)[b.rowid] if b.record is not None
             else table.fid_keep(b.full_col("__fid__"))
             for b in self.blocks
         ])

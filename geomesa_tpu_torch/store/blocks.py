@@ -791,12 +791,21 @@ class IndexTable:
         self.ft = ft
         self.blocks: List[FeatureBlock] = []
         self.tombstones: set = set()
-        # the tombstones as one array for np.isin and as a hashed probe,
-        # made at first use after each delete
-        self._tomb_arr: Optional[np.ndarray] = None
-        self._tomb_probe: Optional[_UnicodeProbe] = None
+        self._forget_tombstones()
         # bumped on every mutation; device-resident mirrors key off this
         self.version = 0
+
+    def _forget_tombstones(self) -> None:
+        """Drop what was derived from the tombstones: their array for
+        np.isin and hashed probe, and the keep masks of ``source_keep``
+        (new dicts, so that a scan that read the old tombstones stores
+        its mask into the old one)."""
+        self._tomb_arr: Optional[np.ndarray] = None
+        self._tomb_probe: Optional[_UnicodeProbe] = None
+        # id(fid source) -> (source, keep mask over all its rows)
+        self._keep_masks: Dict[int, tuple] = {}
+        # id(fid source) -> rows filtered one by one since the last delete
+        self._keep_probed: Dict[int, int] = {}
 
     @property
     def num_rows(self) -> int:
@@ -820,7 +829,7 @@ class IndexTable:
 
     def delete(self, fids: Sequence[str]):
         self.tombstones.update(fids)
-        self._tomb_arr = self._tomb_probe = None
+        self._forget_tombstones()
         self.version += 1
 
     def tombstone_array(self) -> np.ndarray:
@@ -842,6 +851,17 @@ class IndexTable:
                 self._tomb_probe = _UnicodeProbe(tomb)
             return ~self._tomb_probe.isin(fids)
         return ~np.isin(fids, tomb)
+
+    def source_keep(self, src: Union[RecordBlock, FeatureBlock]) -> np.ndarray:
+        """``fid_keep`` over every row of ``src`` (a record block, or a
+        feature block that holds its own ``__fid__``), kept until the next
+        delete: the device mirror's tombstone sync and the scans after it
+        share one pass over the fids."""
+        masks = self._keep_masks
+        got = masks.get(id(src))
+        if got is None or got[0] is not src:
+            got = masks[id(src)] = (src, self.fid_keep(src.columns["__fid__"]))
+        return got[1]
 
     def scan(self, ranges: Sequence[ScanRange]) -> Iterator[Tuple[FeatureBlock, np.ndarray]]:
         for b in self.blocks:
@@ -886,8 +906,26 @@ class IndexTable:
         scan path (plain, covered, native seek) goes through."""
         if not self.tombstones or not len(rows):
             return None
-        keep = self.fid_keep(b.gather("__fid__", rows))
+        keep = self._rows_keep(b, rows)
         return None if keep.all() else keep
+
+    def _rows_keep(self, b: FeatureBlock, rows: np.ndarray) -> np.ndarray:
+        """``fid_keep`` of the fids at block-local ``rows``, read from the
+        keep mask of the block's fid source (``gather``'s rule: its own
+        ``__fid__``, else its record block's through ``rowid``) once that
+        mask exists. The rows' own fids are probed until the rows probed
+        since the last delete add up to the source's size; then the mask
+        is made, so a scan pays at most twice what probing each row once
+        costs."""
+        src = b if "__fid__" in b.columns or b.record is None else b.record
+        got = self._keep_masks.get(id(src))
+        if got is None or got[0] is not src:
+            probed = self._keep_probed.get(id(src), 0) + len(rows)
+            if probed < src.n:
+                self._keep_probed[id(src)] = probed
+                return self.fid_keep(b.gather("__fid__", rows))
+        mask = self.source_keep(src)
+        return mask[rows] if src is b else mask[b.rowid[rows]]
 
     def _strip_tombstones(self, b: FeatureBlock, rows: np.ndarray) -> np.ndarray:
         keep = self.tombstone_keep(b, rows)
@@ -906,7 +944,7 @@ class IndexTable:
             record = self.merged_record()
         self.blocks = []
         self.tombstones = set()
-        self._tomb_arr = self._tomb_probe = None
+        self._forget_tombstones()
         self.version += 1
         self.insert_record(record)
 
@@ -924,7 +962,7 @@ class IndexTable:
             seen.add(id(rb))
             rows = np.arange(rb.n, dtype=np.int64)
             if self.tombstones:
-                rows = rows[self.fid_keep(rb.columns["__fid__"])]
+                rows = rows[self.source_keep(rb)]
             if len(rows):
                 parts.append(record_rows_decoded(rb.columns, rows))
         merged = intern_string_columns(self.ft, intern_fids(concat_columns(parts)))

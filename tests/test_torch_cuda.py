@@ -27,6 +27,7 @@ from geomesa_tpu_torch.parallel.executor import (
     _decode_bitmap_rows,
     _merge_overlapping_intervals,
 )
+from join_layouts import LAYOUTS as JOIN_LAYOUTS
 
 
 @pytest.fixture
@@ -1553,6 +1554,61 @@ def test_join_dwithin_matches_plain_on_the_card(cuda, radius):
 
     band = dwithin_threshold_band(join_dwithin_distances(px, py, rows_cand, bx, by), radius,
                                   eps).t()
+    assert not bool(((got != want) & ~band).any())
+    assert bool((want & 1).any())
+
+
+def _join_layout(cuda, name):
+    """``join_layouts.layout(name)`` on the card: (px, py, goff, grow, cand)."""
+    from join_layouts import layout
+
+    return [torch.from_numpy(a).to(cuda) for a in layout(name)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(JOIN_LAYOUTS))
+def test_join_pip_matches_plain_on_every_layout(cuda, name):
+    """``join_pip`` bit for bit against its plain edition on the layouts a
+    grid of row tiles x candidate slots can get wrong
+    (``tests/join_layouts.py``: one group over a whole 2,048-row chunk,
+    1-row groups, group boundaries inside a tile, an all -1 candidate row,
+    128 slots with one live, NaN rows at tile edges, a polygon past one
+    shared-memory tile, a row count no multiple of the tile); the CPU tests
+    hold the plain edition to the reference's ``_pip_fn`` on the same
+    layouts."""
+    from join_layouts import LAYOUT_EPS_DEG, edge_table
+
+    chunk = _join_layout(cuda, name)
+    edges, ecnt = (torch.from_numpy(a).to(cuda) for a in edge_table(name))
+    eps = np.float32(LAYOUT_EPS_DEG)
+    got = kernels.join_pip(*chunk, edges, ecnt, eps)
+    want = kernels.join_pip_chunk_plain(*chunk, edges, ecnt, eps)
+    assert torch.equal(got, want)
+    assert bool((want & 1).any()) and bool((want & 2).any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(JOIN_LAYOUTS))
+def test_join_dwithin_matches_plain_on_every_layout(cuda, name):
+    """``join_dwithin`` against its plain edition on the same layouts: equal
+    outside 4 ulps of a threshold (``dwithin_threshold_band``)."""
+    from join_layouts import LAYOUT_RADIUS_M, sites
+
+    from geomesa_tpu_torch.ops.geometry import (
+        dwithin_threshold_band,
+        join_dwithin_distances,
+        snap_epsilon_m,
+    )
+
+    chunk = _join_layout(cuda, name)
+    bx, by = (torch.from_numpy(a).to(cuda) for a in sites())
+    eps = snap_epsilon_m(LAYOUT_RADIUS_M)
+    got = kernels.join_dwithin(*chunk, bx, by, LAYOUT_RADIUS_M, eps)
+    want = kernels.join_dwithin_chunk_plain(*chunk, bx, by, LAYOUT_RADIUS_M, eps)
+    px, py, goff, grow, cand = chunk
+    rows_cand = kernels._group_candidates(px.shape[0], goff, grow, cand)
+    band = dwithin_threshold_band(join_dwithin_distances(px, py, rows_cand, bx, by),
+                                  LAYOUT_RADIUS_M, eps).t()
     assert not bool(((got != want) & ~band).any())
     assert bool((want & 1).any())
 

@@ -73,6 +73,11 @@ from geomesa_tpu_torch.utils.audit import (
     robustness_metrics,
 )
 from geomesa_tpu_torch.utils.config import properties
+from join_layouts import LAYOUT_EPS_DEG, LAYOUT_RADIUS_M
+from join_layouts import LAYOUTS as JOIN_LAYOUTS
+from join_layouts import edge_table as join_edge_table
+from join_layouts import layout as join_layout
+from join_layouts import sites as join_sites
 
 T0 = 1483228800000
 # the ulps of f32 distance within which join_dwithin's accept / check may
@@ -359,6 +364,65 @@ def test_chunk_wrappers_equal_the_per_group_plain_edition():
         acc, chk = join_dwithin_plain(args[0][rows], args[1][rows], c, bx, by, 400_000.0, 20.0)
         assert torch.equal(dflags[:, rows], (acc.to(torch.uint8) | chk.to(torch.uint8) << 1).t())
     assert (flags & 1).any() and (dflags & 1).any()
+
+
+def _ref_group_flags(fn, layout_args, *rest):
+    """u8 flags [C, R] of the reference's per-group kernel ``fn`` (``_pip_fn()``
+    or ``_dwithin_fn()``) over a chunk layout: each group's rows NaN-padded
+    to a power of two (at least 8), as the reference launches them, against
+    its candidate row."""
+    px, py, goff, grow, cand = layout_args
+    out = np.zeros((cand.shape[1], len(px)), np.uint8)
+    for g in range(len(grow)):
+        r0, r1 = int(goff[g]), int(goff[g + 1])
+        pad = max(8, 1 << int(np.ceil(np.log2(r1 - r0))))
+        gx = np.full(pad, np.nan, np.float32)
+        gy = np.full(pad, np.nan, np.float32)
+        gx[:r1 - r0], gy[:r1 - r0] = px[r0:r1], py[r0:r1]
+        acc, chk = fn(jnp.asarray(gx), jnp.asarray(gy), jnp.asarray(cand[grow[g]]),
+                      *(jnp.asarray(a) if isinstance(a, np.ndarray) else a for a in rest))
+        acc, chk = np.asarray(acc)[:r1 - r0], np.asarray(chk)[:r1 - r0]
+        out[:, r0:r1] = (acc.astype(np.uint8) | chk.astype(np.uint8) << 1).T
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_LAYOUTS))
+def test_join_pip_chunk_plain_matches_pip_fn_on_every_layout(name):
+    """``join_pip_chunk_plain`` (the card kernel's plain edition) equals the
+    reference's ``_pip_fn()`` group by group, bit for bit, on the layouts
+    that a grid of row tiles x candidate slots can get wrong
+    (``tests/join_layouts.py``; the card tests hold the kernel to the plain
+    edition on the same layouts)."""
+    args = join_layout(name)
+    edges, ecnt = join_edge_table(name)
+    eps = np.float32(LAYOUT_EPS_DEG)
+    got = kernels.join_pip_chunk_plain(*(torch.from_numpy(a) for a in args),
+                                       torch.from_numpy(edges), torch.from_numpy(ecnt),
+                                       eps).numpy()
+    want = _ref_group_flags(ref_join._pip_fn(), args, edges, ecnt, eps)
+    assert np.array_equal(got, want)
+    assert (got & 1).any() and (got & 2).any()
+
+
+@pytest.mark.parametrize("name", sorted(JOIN_LAYOUTS))
+def test_join_dwithin_chunk_plain_matches_dwithin_fn_on_every_layout(name):
+    """``join_dwithin_chunk_plain`` against the reference's
+    ``_dwithin_fn()`` group by group on the same layouts: equal except
+    pairs within ``ULPS`` ulps of a threshold."""
+    args = join_layout(name)
+    bx, by = join_sites()
+    r32 = np.float32(LAYOUT_RADIUS_M)
+    eps = np.float32(snap_epsilon_m(LAYOUT_RADIUS_M))
+    t = [torch.from_numpy(a) for a in args]
+    got = kernels.join_dwithin_chunk_plain(*t, torch.from_numpy(bx), torch.from_numpy(by),
+                                           r32, eps).numpy()
+    want = _ref_group_flags(ref_join._dwithin_fn(), args, bx, by, r32, eps)
+    rc = kernels._group_candidates(len(args[0]), t[2], t[3], t[4])
+    band = dwithin_threshold_band(
+        join_dwithin_distances(t[0], t[1], rc, torch.from_numpy(bx), torch.from_numpy(by)),
+        r32, eps, ULPS).t().numpy()
+    assert not ((got != want) & ~band).any()
+    assert (got & 1).any()
 
 
 def test_wrappers_refuse_devices_other_than_cpu_and_cuda():

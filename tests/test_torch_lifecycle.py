@@ -494,3 +494,47 @@ def test_pyramid_counts_plain_with_holes_inside_runs(layout, bits):
     plain = pyramid_counts_plain(torch.from_numpy(xi), torch.from_numpy(yi),
                                  torch.from_numpy(mask), bits)
     assert np.array_equal(plain.numpy(), want)
+
+
+@pytest.mark.parametrize("index", ["z3", "z2", "id", "attr:kind"])
+def test_tombstone_keep_masks_equal_probing_each_row(index):
+    """The host tombstone filter (``IndexTable.tombstone_keep``) equals
+    ``np.isin`` of the rows' own fids before and after its keep mask of
+    each record block is made (once the rows probed add up to the
+    record's size), after a second delete forgets the masks, after the
+    device mirror's sync makes them, and after ``compact``."""
+    port = TorchDataStore(executor=TorchScanExecutor(device="cpu"))
+    port.create_schema(parse_spec("t", SPEC))
+    batches = _point_batches()
+    for b in batches:
+        port._insert_columns(port.get_schema("t"), {c: v.copy() for c, v in b.items()})
+    fids = np.concatenate([b["__fid__"] for b in batches]).astype(str)
+    rng = np.random.default_rng(11)
+
+    def check(table, probes):
+        tomb = np.asarray(sorted(table.tombstones))
+        for blk in table.blocks:
+            for _ in range(probes):
+                rows = np.unique(rng.integers(0, blk.n, blk.n // 3))
+                want = ~np.isin(blk.gather("__fid__", rows), tomb)
+                got = table.tombstone_keep(blk, rows)
+                assert np.array_equal(np.ones(len(rows), bool) if got is None else got, want)
+
+    port.delete_features("t", fids[::7].tolist())
+    table = port._tables["t"][index]
+    assert not table._keep_masks
+    check(table, 6)
+    assert {id(blk.record) for blk in table.blocks} == set(table._keep_masks)
+    port.delete_features("t", fids[1::5].tolist())
+    assert not table._keep_masks
+    check(table, 1)
+    if index in ("z3", "z2"):
+        port.executor.device_index(table)
+        assert {id(blk.record) for blk in table.blocks} == set(table._keep_masks)
+        check(table, 2)
+    port.compact("t")
+    table = port._tables["t"][index]
+    assert not table.tombstones and not table._keep_masks
+    assert table.tombstone_keep(table.blocks[0], np.arange(table.blocks[0].n)) is None
+    dead = set(fids[::7]) | set(fids[1::5])
+    assert port._tables["t"]["id"].num_rows == len(fids) - len(dead)
