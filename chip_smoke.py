@@ -101,7 +101,14 @@ against its plain PyTorch edition:
     ``device.dispatch`` / ``device.fetch`` schedule until the device
     circuit breaker opens, the open circuit, the probe that closes it, one
     join under an injected ``join.probe`` fault, and one failed device
-    kNN.
+    kNN;
+  * the persistent file store (``store/fs.py``): config #1 at 4M rows over
+    its 40 days in daily partitions and 40,000 of config #3's ways
+    (monthly) written to an ``FsDataStore`` and reopened eagerly and
+    lazily, config #1's stream and extent streams (a), (b), (d) from each,
+    two crashes recovered, a seeded block-read fault schedule, and
+    ``proximity_search`` / ``density_process`` over the reopened store:
+    the kernels of config #1 and #3 from blocks read back off the disk.
 
 The aggregate cache (``geomesa.agg.enabled``) is off for every phase but
 the pyramid phase: with it on, the density streams' repeated queries would
@@ -117,8 +124,8 @@ default.
 Run from the repository root with one CUDA device:
 
     python3 chip_smoke.py [--rows N] [--ways N] [--dens N] [--attr N] [--knn N]
-                          [--poly N] [--labels N] [--seed S] [--out DIR]
-                          [--ab DIR [DIR ...]]
+                          [--poly N] [--labels N] [--persist N] [--persist-ways N]
+                          [--seed S] [--out DIR] [--ab DIR [DIR ...]]
 
 Phases (any failure raises and the script exits non-zero):
   1. header: card name and power limit, torch / CUDA versions, the kernels'
@@ -214,7 +221,7 @@ Phases (any failure raises and the script exits non-zero):
      into its steps on host clocks around a synchronised device
      (``build_split``: the mask upload, kernel, grid fetch, int64 sum,
      levels, stats and uploads), whose launches no path counts;
-  5. (after phase 8) every kernel must have launched during its path's
+  5. (after phase 9) every kernel must have launched during its path's
      run, at every shape that phase 3 timed, and every shape a path
      launched must be timed; the ranking, per kernel, sums launches x
      (ms - bound) over its shapes;
@@ -297,7 +304,33 @@ Phases (any failure raises and the script exits non-zero):
      ``join.probe`` fault with the fault-free pairs on
      ``host-join-degraded`` and one ``degrade.join_to_host``, the kNN's
      identical list on ``host-bbox``). The run fails if a degrade, a breaker opening or a
-     kNN trip appears before the fault phase.
+     kNN trip appears before the fault phase;
+  9. the persist phase, a path of its own (``persist_path``, its launches
+     tagged `` reopened``), on a temporary directory (its filesystem type
+     logged; fsync on, the store's default): config #1's N rows (4M by
+     default) written through ``_insert_columns`` as one journaled batch
+     of 40 daily blocks, and N ways (40,000) as monthly blocks (write
+     rec/s); the store reopened eagerly and with ``lazy=True`` (seconds
+     each); the lazy store's first query timed with its partition reads and
+     mirror build, and the partitions it read required to be exactly the
+     two-week window's (15 of 40); on each store the 20 queries alone (then
+     timed warm) and through ``query_many`` (warm, then timed), streams
+     (a) and (b) through ``query_many`` and (a), (b), (d) alone, and an
+     exact count, every fid set equal to brute force (``oracle_rows`` for
+     the ways) and every route the in-memory store's (the writer's); an
+     estimated count from the persisted sketches that reads no block; on
+     a small type of its own (PERSIST_SMALL rows, 1% deleted) a write batch
+     crashed at ``journal.commit`` and a compaction at its second
+     ``fs.block_delete`` (``SimulatedCrash``), each reopened (recovery ms)
+     to exactly the pre- or the post-state on a device route; the seeded
+     ``fs.block_read`` error schedule on a lazy reopen (the same answers,
+     ``retry.fs.block_read.retries`` moved, no give-up, no quarantine);
+     ``proximity_search`` of 16 seeded points at 100 km against an f64
+     haversine oracle (a mask kernel launched) and ``density_process``
+     at 64x32 against ``density_oracle`` (``density_grid_z3`` launched);
+     then its kernel phase (``persist_cases``): every shape it launched,
+     on the reopened store's segments. Every figure is logged beside the
+     card's name and power limit.
 
 Prints a ``{"native": {...}}`` line (each host library's load status and
 its host ms per call beside its plain edition's), a metrics line (with
@@ -314,8 +347,10 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1926,6 +1961,10 @@ def main() -> int:
     ap.add_argument("--knn", type=int, default=KNN_ROWS, help="config #5 points")
     ap.add_argument("--poly", type=int, default=POLY_ROWS, help="polygon-plane points")
     ap.add_argument("--labels", type=int, default=LABEL_ROWS, help="labelled-table points")
+    ap.add_argument("--persist", type=int, default=PERSIST_ROWS,
+                    help="config #1 rows of the file-store phase")
+    ap.add_argument("--persist-ways", type=int, default=PERSIST_WAYS,
+                    help="config #3 ways of the file-store phase")
     ap.add_argument("--seed", type=int, default=66, help="seed of the config #3 ways")
     ap.add_argument("--out", default="chiprun_out", help="directory for the JSON record")
     ap.add_argument("--ab", nargs="+", default=[], metavar="DIR",
@@ -2175,6 +2214,22 @@ def main() -> int:
     fault_s = time.perf_counter() - t_fault
     log(f"lifecycle phases {lifecycle_s:.1f} s, fault phase {fault_s:.1f} s")
 
+    # -- phase 9: the persistent file store, on a temporary directory ----------
+    t_persist = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="geomesa-persist-")
+    try:
+        kernels.reset_launches()
+        metrics_persist, store_p, plans_p9 = persist_path(args.persist, args.persist_ways, tmp,
+                                                          card)
+        launched["persist"] = (dict(kernels.LAUNCHES), relabel(kernels.LAUNCH_SHAPES, REOPENED))
+        persist_s = time.perf_counter() - t_persist
+        entries += kernel_checks(persist_cases(store_p, plans_p9, launched["persist"][1]), *ints)
+        del store_p
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"persist phase {persist_s:.1f} s, its kernels "
+        f"{time.perf_counter() - t_persist - persist_s:.1f} s ({card})")
+
     # -- phase 5: each path went through its kernels, at every timed shape ----
     ranking = check_launches(entries, launched, set(kernels.LAUNCHES))
     log(f"launches x (ms - bound) per smoke run: {json.dumps(ranking)}")
@@ -2219,6 +2274,8 @@ def main() -> int:
         "lifecycle_phases_s": lifecycle_s,
         "faults": metrics_faults,
         "fault_phase_s": fault_s,
+        "persist": metrics_persist,
+        "persist_phase_s": persist_s,
         "flagged_kernel_entries": [f"{e['name']} {e['shape_tag']}" for e in entries
                                    if e["flagged"]],
         "script_s": time.perf_counter() - t_start,
@@ -5882,6 +5939,419 @@ def devseek_cases(store, shapes, streams1, streams3):
     if missing:
         raise AssertionError(f"the device-seek phase launched {missing}: no case")
     return list(found.values())
+
+
+# -- phase 9: the persistent file store (store/fs.py) -------------------------
+
+# config #1 at 4M rows over its 40 days, daily partitions of ~100k rows
+# (GDELT's daily order of size): a depth cut of its 20M for the phase's
+# share of the script's 1200 s limit
+PERSIST_ROWS = 4_000_000
+PERSIST_WAYS = 40_000
+# the crash schedules' own small type, so that each reopen stays cheap
+PERSIST_SMALL = 20_000
+REOPENED = " reopened"
+PROXIMITY_POINTS = 16
+PROXIMITY_M = 100_000.0
+# a seeded transient-read schedule: one block read in five fails (retried)
+BLOCK_READ_SCHEDULE = "fs.block_read:error=0.2"
+BLOCK_READ_SEED = 11
+
+
+def fs_type(path: str) -> str:
+    """The filesystem type of the mount that holds ``path`` (the longest
+    mount point of ``/proc/mounts`` above it)."""
+    path = os.path.realpath(path)
+    best, kind = "", "unknown"
+    try:
+        with open("/proc/mounts") as fh:
+            for line in fh:
+                parts = line.split()
+                mnt = parts[1] if len(parts) > 2 else None
+                if mnt and (path == mnt or path.startswith(mnt.rstrip("/") + "/")) \
+                        and len(mnt) >= len(best):
+                    best, kind = mnt, parts[2]
+    except OSError:
+        pass
+    return kind
+
+
+def _persist_stream(store, name, cqls, boxes, data, ref_routes, what, reps=1):
+    """Config #1's stream on one store: each query alone through
+    ``store.query`` (checked, then timed ``reps`` times), then through
+    ``query_many`` (warm, then timed); every fid set equal to brute force
+    and every route the in-memory store's. Returns (sync ms, pipelined ms)
+    a query."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    x, y, t = data
+    sync_routes, pipe_routes = ref_routes
+    for i, (c, b) in enumerate(zip(cqls, boxes)):
+        r = store.query(name, c)
+        expect_fids(r, brute_force(x, y, t, b), f"{what} sync query {i}")
+        if r.scan_path != sync_routes[i]:
+            raise AssertionError(f"{what} sync query {i} took {r.scan_path}, "
+                                 f"the in-memory store {sync_routes[i]}")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for c in cqls:
+            store.query(name, c)
+    sync_ms = (time.perf_counter() - t0) * 1e3 / (reps * len(cqls))
+    queries = [Query.cql(c, properties=[]) for c in cqls]
+    store.query_many(name, queries)
+    t0 = time.perf_counter()
+    results = store.query_many(name, queries)
+    pipe_ms = (time.perf_counter() - t0) * 1e3 / len(queries)
+    for i, (r, b) in enumerate(zip(results, boxes)):
+        expect_fids(r, brute_force(x, y, t, b), f"{what} pipelined query {i}")
+        if r.scan_path != pipe_routes[i]:
+            raise AssertionError(f"{what} pipelined query {i} took {r.scan_path}, "
+                                 f"the in-memory store {pipe_routes[i]}")
+    return sync_ms, pipe_ms
+
+
+def _routes(store, name, cqls):
+    """(sync routes, pipelined routes) of a stream on ``store``."""
+    from geomesa_tpu_torch.index.planner import Query
+
+    sync = [store.query(name, c).scan_path for c in cqls]
+    pipe = [r.scan_path for r in store.query_many(name, [Query.cql(c, properties=[])
+                                                         for c in cqls])]
+    return sync, pipe
+
+
+def persist_path(n, n_ways, tmp, card):
+    """The ``persist`` phase (``store/fs.py`` on the card): config #1's
+    ``n`` rows written to a daily-partitioned ``FsDataStore`` under ``tmp``
+    (fsync on) and ``n_ways`` of config #3's ways beside them (monthly);
+    the store reopened eagerly and with ``lazy=True``; config #1's 20-query
+    stream sync and pipelined on both, and extent streams (a), (b) and (d),
+    every fid set equal to its oracle and every route the in-memory
+    store's; the lazy store reading only the two-week window's partitions;
+    a write batch crashed at ``journal.commit`` and a compaction at
+    ``fs.block_delete`` on a small type of its own, each reopened to the
+    pre or the post state on the device; the seeded ``fs.block_read``
+    schedule leaving the answers as they were (the retry counters move);
+    then ``proximity_search`` and ``density_process`` on the reopened
+    store against their f64 oracles. Returns (metrics, the reopened eager
+    store, its stream plans and the proximity plan) for the kernel phase."""
+    from geomesa_tpu_torch.ops import kernels
+    from geomesa_tpu_torch.process import analytic, proximity_search
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+    from geomesa_tpu_torch.store import integrity
+    from geomesa_tpu_torch.store.fs import FsDataStore
+    from geomesa_tpu_torch.store.partitions import DateTimeScheme
+    from geomesa_tpu_torch.filter.parser import parse_cql
+    from geomesa_tpu_torch.index.planner import Query
+
+    spec = "dtg:Date,*geom:Point:srid=4326"
+    out = {"rows": n, "ways": n_ways, "tmp_fs_type": fs_type(tmp),
+           "fsync": integrity.fsync_enabled()}
+    root = os.path.join(tmp, "store")
+    x, y, t = synthesize(n, seed=31)
+    data = (x, y, t)
+    fids = np.char.add("f", np.arange(n).astype(f"<U{len(str(n - 1))}"))
+    ways = synthesize_ways(n_ways, seed=67)
+    wcols = ways_columns(ways)
+    boxes, cqls = make_queries(REPS)
+
+    # 1. write: config #1 daily, then the ways monthly (one store each: a
+    # type takes the scheme of the store that creates it)
+    t0 = time.perf_counter()
+    w = FsDataStore(root, partition_scheme="daily")
+    w.create_schema(parse_spec("gdelt", spec))
+    w._insert_columns(w.get_schema("gdelt"), {"__fid__": fids, "geom__x": x, "geom__y": y,
+                                              "dtg": t})
+    w.stats.flush()
+    out["write_s"] = time.perf_counter() - t0
+    out["write_rec_per_s"] = n / out["write_s"]
+    t0 = time.perf_counter()
+    ww = FsDataStore(root, partition_scheme="monthly")
+    ww.create_schema(parse_spec("ways", WAYS_SPEC))
+    ww._insert_columns(ww.get_schema("ways"), dict(wcols))
+    ww.stats.flush()
+    out["ways_write_s"] = time.perf_counter() - t0
+    out["ways_write_rec_per_s"] = n_ways / out["ways_write_s"]
+    n_parts = len(w._files["gdelt"])
+    log(f"persist: wrote {n:,} rows into {n_parts} daily partitions at "
+        f"{out['write_rec_per_s']:,.0f} rec/s and {n_ways:,} ways at "
+        f"{out['ways_write_rec_per_s']:,.0f} rec/s, fsync on, {out['tmp_fs_type']} ({card})")
+
+    # the in-memory store's routes (the writers hold every row in memory)
+    routes = _routes(w, "gdelt", cqls)
+    xz = xz_streams(reps=4, tris=1, resid=2)
+    xz_items = [(s, c, sp) for s in ("xz2_bbox", "xz3_bbox_during", "xz2_or") for c, sp in xz[s]]
+    xz_routes = {c: ww.query("ways", c).scan_path for _s, c, _sp in xz_items}
+
+    # 2. reopen, eager and lazy
+    t0 = time.perf_counter()
+    e = FsDataStore(root)
+    out["reopen_eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lz = FsDataStore(root, lazy=True)
+    out["reopen_lazy_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    r = lz.query("gdelt", cqls[0])
+    r.fids  # noqa: B018 - the fid gather is part of the first answer
+    torch.cuda.synchronize()
+    out["lazy_first_query_ms"] = (time.perf_counter() - t0) * 1e3
+    expect_fids(r, brute_force(x, y, t, boxes[0]), "lazy first query")
+    want_parts = set(DateTimeScheme("daily").covering(w.get_schema("gdelt"), parse_cql(DURING)))
+    read = {os.path.dirname(f) for f in lz._loaded["gdelt"]}
+    if read != want_parts or len(read) >= n_parts:
+        raise AssertionError(f"the lazy store read {sorted(read)}, not the window's "
+                             f"{sorted(want_parts)}")
+    out["partitions"] = n_parts
+    out["partitions_read_lazy"] = len(read)
+    log(f"persist: reopened eagerly in {out['reopen_eager_s']:.2f} s, lazily in "
+        f"{out['reopen_lazy_s']:.3f} s; the lazy first query {out['lazy_first_query_ms']:.1f} ms "
+        f"(its partition reads and mirror build), {len(read)} of {n_parts} partitions read "
+        f"({card})")
+    for store, label in ((e, "eager"), (lz, "lazy")):
+        sync_ms, pipe_ms = _persist_stream(store, "gdelt", cqls, boxes, data, routes,
+                                           f"persist {label}")
+        out[f"query_ms_sync_{label}"] = sync_ms
+        out[f"query_ms_pipelined_{label}"] = pipe_ms
+        for s in ("xz2_bbox", "xz3_bbox_during"):
+            items = xz[s]
+            res = store.query_many("ways", [Query.cql(c, properties=[]) for c, _ in items])
+            for (c, sp), rr in zip(items, res):
+                expect_fids(rr, oracle_rows(ways, *sp), f"persist {label} {s}", prefix="w")
+                if rr.scan_path != XZ_PATHS[s][1]:
+                    raise AssertionError(f"persist {label} {s} took {rr.scan_path}")
+        for s, c, sp in xz_items:
+            rr = store.query("ways", c)
+            expect_fids(rr, oracle_rows(ways, *sp), f"persist {label} {s} alone", prefix="w")
+            if rr.scan_path != xz_routes[c]:
+                raise AssertionError(f"persist {label} {s} took {rr.scan_path}, the in-memory "
+                                     f"store {xz_routes[c]}")
+        got = store.count("gdelt", cqls[1])
+        if got != len(brute_force(x, y, t, boxes[1])):
+            raise AssertionError(f"persist {label} count {got}")
+        log(f"persist {label}: {sync_ms:.2f} ms a query sync, {pipe_ms:.2f} pipelined "
+            f"(warm, config #1's stream) ({card})")
+    if {os.path.dirname(f) for f in lz._loaded["gdelt"]} != want_parts:
+        raise AssertionError("the lazy stream read partitions outside its window")
+    # an estimate answers from the persisted sketches and reads no block
+    fresh = FsDataStore(root, lazy=True)
+    out["estimate_query0"] = fresh.count("gdelt", cqls[0], exact=False)
+    out["exact_query0"] = int(len(brute_force(x, y, t, boxes[0])))
+    if fresh._loaded["gdelt"]:
+        raise AssertionError("an estimated count read blocks")
+    del fresh
+
+    # 3. crashes and recovery on a small type of its own
+    out["recovery"] = persist_crashes(os.path.join(tmp, "crash"), card)
+
+    # 4. the process layer on the reopened store
+    reg = kernels.LAUNCHES
+    before = dict(reg)
+    pts = knn_points(PROXIMITY_POINTS, seed=91)
+    t0 = time.perf_counter()
+    prox = proximity_search(e, "gdelt", pts, PROXIMITY_M)
+    prox_ms = (time.perf_counter() - t0) * 1e3
+    near = np.zeros(n, dtype=bool)
+    deg = PROXIMITY_M / 111_000.0 + 1.0
+    for px, py in pts:
+        cand = np.flatnonzero(np.abs(y - py) <= deg)
+        near[cand[haversine_np(x[cand], y[cand], px, py) <= PROXIMITY_M]] = True
+    expect_fids(prox, np.flatnonzero(near), "proximity_search")
+    if not prox.scan_path.startswith("device-"):
+        raise AssertionError(f"proximity_search took {prox.scan_path}")
+    mid = dict(reg)
+    if not any(mid.get(k, 0) > before.get(k, 0) for k in mid
+               if k.startswith(("candidate_mask", "exact_bitmap"))):
+        raise AssertionError(f"proximity_search launched no mask kernel: {mid}")
+    t0 = time.perf_counter()
+    grid = analytic.density_process(e, "gdelt", BOX, 64, 32, QUERY)
+    dens_ms = (time.perf_counter() - t0) * 1e3
+    if not np.array_equal(np.asarray(grid), density_oracle(x, y, t, BOX, True, 64, 32)):
+        raise AssertionError("density_process differs from its oracle")
+    if reg.get("density_grid_z3", 0) <= mid.get("density_grid_z3", 0):
+        raise AssertionError("density_process launched no density_grid")
+    out["proximity"] = {"points": len(pts), "radius_m": PROXIMITY_M, "hits": int(near.sum()),
+                        "ms": prox_ms, "route": prox.scan_path}
+    out["density_process_ms"] = dens_ms
+    log(f"persist: proximity_search of {len(pts)} points, {int(near.sum())} hits, "
+        f"{prox_ms:.1f} ms on {prox.scan_path}; density_process {dens_ms:.1f} ms ({card})")
+    plans = {
+        "config1": [e._plan_cached("gdelt", Query.cql(c)) for c in cqls],
+        "proximity": prox.plan,
+        "xz": {s: [e._plan_cached("ways", Query.cql(c)) for c, _ in xz[s]]
+               for s in ("xz2_bbox", "xz3_bbox_during", "xz2_or")},
+    }
+    return out, e, plans
+
+
+def _small_state(store, cqls, boxes, data, deleted):
+    """The stream's answers on ``store``, each checked against brute force
+    over ``data`` less ``deleted``; every answer on the device."""
+    x, y, t = data
+    for i, (c, b) in enumerate(zip(cqls, boxes)):
+        r = store.query("gdelt", c)
+        rows = brute_force(x, y, t, b)
+        expect_fids(r, rows[~deleted[rows]], f"recovered query {i}")
+        if not r.scan_path.startswith("device-"):
+            raise AssertionError(f"recovered query {i} took {r.scan_path}")
+
+
+def persist_crashes(root, card):
+    """A small daily type (PERSIST_SMALL rows, 1% of them deleted): one write
+    batch crashed at ``journal.commit``, then a ``compact`` crashed at its
+    second ``fs.block_delete``; after each crash the store reopens (recovery
+    timed) to exactly the pre- or the post-state, every answer on the
+    device. Then the seeded ``fs.block_read`` schedule on a lazy reopen:
+    the answers equal, the retry counter moved, nothing given up or
+    quarantined. Returns the recovery metrics."""
+    from geomesa_tpu_torch.schema.featuretype import parse_spec
+    from geomesa_tpu_torch.store.fs import FsDataStore
+    from geomesa_tpu_torch.utils import faults
+    from geomesa_tpu_torch.utils.audit import robustness_metrics
+    from geomesa_tpu_torch.utils.faults import FaultRule, SimulatedCrash
+
+    m = PERSIST_SMALL
+    x, y, t = synthesize(m, seed=43)
+    fids = np.char.add("f", np.arange(m).astype(f"<U{len(str(m - 1))}"))
+    cols = {"__fid__": fids, "geom__x": x, "geom__y": y, "dtg": t}
+    base = m * 4 // 5
+    boxes, cqls = make_queries(REPS)
+    s = FsDataStore(root, partition_scheme="daily")
+    ft = parse_spec("gdelt", "dtg:Date,*geom:Point:srid=4326")
+    s.create_schema(ft)
+    s._insert_columns(ft, {k: v[:base] for k, v in cols.items()})
+    deleted = np.zeros(m, dtype=bool)
+    deleted[np.random.default_rng(44).choice(base, base // 100, replace=False)] = True
+    s.delete_features("gdelt", fids[deleted].tolist())
+    absent = deleted.copy()
+    absent[base:] = True  # the pre-state: the second batch never written
+    out = {}
+    with faults.inject(rules=[FaultRule("journal.commit", "crash", max_fires=1)]):
+        try:
+            s._insert_columns(ft, {k: v[base:] for k, v in cols.items()})
+            raise AssertionError("the write batch did not crash")
+        except SimulatedCrash:
+            pass
+    del s  # the process is gone; only the disk survives
+    t0 = time.perf_counter()
+    r = FsDataStore(root)
+    out["write_crash_reopen_s"] = time.perf_counter() - t0
+    out["write_crash_recovery_ms"] = r.last_recovery["duration_ms"]
+    out["write_crash_intents"] = r.last_recovery["intents"]
+    # pre or post: the post-state holds the second batch
+    post = len(r.query("gdelt", "INCLUDE")) == m - int(deleted.sum())
+    _small_state(r, cqls, boxes, (x, y, t), deleted if post else absent)
+    out["write_crash_state"] = "post" if post else "pre"
+    with faults.inject(rules=[FaultRule("fs.block_delete", "crash", max_fires=1, skip=1)]):
+        try:
+            r.compact("gdelt")
+            raise AssertionError("the compaction did not crash")
+        except SimulatedCrash:
+            pass
+    live = deleted if post else absent
+    del r
+    t0 = time.perf_counter()
+    r = FsDataStore(root)
+    out["compact_crash_reopen_s"] = time.perf_counter() - t0
+    out["compact_crash_recovery_ms"] = r.last_recovery["duration_ms"]
+    out["compact_crash_intents"] = r.last_recovery["intents"]
+    _small_state(r, cqls, boxes, (x, y, t), live)
+    # the seeded transient-read schedule: the same answers, retries only
+    reg = robustness_metrics()
+    keys = ("retry.fs.block_read.retries", "retry.fs.block_read.giveup", "quarantine.files")
+    before = {k: reg.counter(k) for k in keys}
+    with faults.inject(BLOCK_READ_SCHEDULE, seed=BLOCK_READ_SEED):
+        lz = FsDataStore(root, lazy=True)
+        _small_state(lz, cqls, boxes, (x, y, t), live)
+    moved = {k: reg.counter(k) - before[k] for k in keys}
+    if moved[keys[0]] <= 0 or moved[keys[1]] or moved[keys[2]]:
+        raise AssertionError(f"the fs.block_read schedule moved {moved}")
+    out["block_read_schedule"] = {"spec": BLOCK_READ_SCHEDULE, "seed": BLOCK_READ_SEED, **moved}
+    log(f"persist recovery: write crash -> {out['write_crash_state']} in "
+        f"{out['write_crash_recovery_ms']:.1f} ms, compaction crash in "
+        f"{out['compact_crash_recovery_ms']:.1f} ms; fs.block_read schedule: {moved} ({card})")
+    return out
+
+
+def persist_cases(store, plans, launched):
+    """The kernels of the persist path, one case per shape it launched,
+    timed on the reopened eager store's segments (tagged `` reopened``):
+    ``exact_bitmap_z3`` at each q of the stream's descriptors,
+    ``exact_count_z3``, the proximity query's ``candidate_mask_z2``,
+    ``density_grid_z3`` at 64 x 32, ``xz_dual_bitmap`` at each q of the
+    extent streams' descriptors and stream (d)'s ``xz_mask_xz2``."""
+    from geomesa_tpu_torch.ops import filters, kernels
+
+    ex = store.executor
+    tables = store._tables["gdelt"]
+    wtables = store._tables["ways"]
+
+    def seg(table):
+        return ex.device_index(table).segments[0]
+
+    descs = [ex._exact_descriptor(tables["z3"], p) for p in plans["config1"]]
+    ebox = _up(store, np.stack([d[0] for d in descs]))
+    ewin = _up(store, np.stack([d[1] for d in descs]))
+    cases = []
+    for name, tag in sorted(launched):
+        base = tag[:-len(REOPENED)]
+        q = int(base.split("=")[1]) if base.startswith("q=") else None
+        if name == "exact_bitmap_z3":
+            cases.append(exact_case(name, seg(tables["z3"]), ebox[:q], ewin[:q], "persist"))
+        elif name == "exact_count_z3":
+            cases.append(count_case(name, seg(tables["z3"]), ebox[0], ewin[0], "persist"))
+        elif name == "candidate_mask_z2" and plans["proximity"].index.name == "z2":
+            s = seg(tables["z2"])
+            boxes_d, _ = ex._query_descriptor(tables["z2"], plans["proximity"])
+            k = boxes_d.shape[0]
+            if base != f"K={k} W=0":
+                raise AssertionError(f"persist path launched {name} {tag}, the proximity "
+                                     f"plan has K={k}")
+            cases.append(dict(
+                name=name, path="persist", tag=base, symbol="candidate_mask_kernel",
+                replaces="geomesa_tpu/ops/pallas_kernels.py:91",
+                source="geomesa_tpu_torch/csrc/candidate_mask.cu",
+                kernel=lambda s=s, b=boxes_d: (kernels.candidate_mask(s.xi, s.yi, s.valid, b),),
+                plain=lambda s=s, b=boxes_d: (filters.z2_query_mask(s.xi, s.yi, s.valid, b),),
+                bytes=s.n_padded * (2 * 4 + 1) + s.n_padded,
+                ops=s.n_padded * (5 * k + 1),
+                shape=f"rows={s.n_padded} K={k}",
+            ))
+        elif name == "density_grid_z3":
+            cases += density_cases(store, {"persist": ("gdelt", [(QUERY, BOX, True, (64, 32))],
+                                                       "device-density")})
+        elif name in ("xz_dual_bitmap_xz2", "xz_dual_bitmap_xz3"):
+            index = name[-3:]
+            stream = "xz3_bbox_during" if index == "xz3" else "xz2_bbox"
+            d = _up(store, np.stack([ex._xz_batch_desc(wtables[index], p)[0]
+                                     for p in plans["xz"][stream]]))
+            if q > d.shape[0]:
+                raise AssertionError(f"persist path launched {name} {tag}: more queries "
+                                     f"than its stream")
+            cases.append(dual_case(name, seg(wtables[index]), d[:q], index == "xz3", "persist"))
+        elif name == "xz_mask_xz2":
+            s = seg(wtables["xz2"])
+            bx, _ = ex._query_descriptor(wtables["xz2"], plans["xz"]["xz2_or"][0])
+            env = (s.bxmin, s.bymin, s.bxmax, s.bymax, s.valid, bx)
+            if base != f"K={bx.shape[0]} W=0":
+                raise AssertionError(f"persist path launched {name} {tag}, stream (d) has "
+                                     f"K={bx.shape[0]}")
+            cases.append(dict(
+                name=name, path="persist", tag=base, symbol="xz_mask_kernel",
+                replaces="geomesa_tpu/ops/pallas_kernels.py:95",
+                source="geomesa_tpu_torch/csrc/xz_mask.cu",
+                kernel=lambda env=env: (kernels.xz_mask(*env),),
+                plain=lambda env=env: (kernels.xz_mask_plain(*env),),
+                bytes=s.n_padded * (4 * 4 + 1) + s.n_padded,
+                ops=s.n_padded * (bx.shape[0] + 1), fops=s.n_padded * 4 * bx.shape[0],
+                shape=f"rows={s.n_padded} K={bx.shape[0]}",
+            ))
+        else:
+            raise AssertionError(f"persist path launched {name} {tag}: no case")
+    got = {(c["name"], c["tag"] + REOPENED) for c in cases}
+    if got != set(launched):
+        raise AssertionError(f"persist cases {sorted(got)} are not the launched shapes "
+                             f"{sorted(launched)}")
+    return tag_cases(cases, REOPENED)
 
 
 if __name__ == "__main__":

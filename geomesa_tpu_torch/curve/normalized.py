@@ -88,3 +88,41 @@ class NormalizedTime(BitNormalizedDimension):
 
     def __init__(self, precision: int, hi: float):
         super().__init__(0.0, hi, precision)
+
+
+class SemiNormalizedDimension:
+    """Legacy ceil-based normalization, kept to read pre-1.3 index data.
+
+    Reference: NormalizedDimension.scala:87-97 (SemiNormalizedDimension);
+    it does not bin the lower bound correctly, as in the reference.
+    """
+
+    def __init__(self, lo: float, hi: float, precision: int):
+        self.min = float(lo)
+        self.max = float(hi)
+        self.precision = precision
+        self.max_index = precision
+
+    def normalize(self, x) -> np.ndarray:
+        x = np.asarray(x, dtype=np.float64)
+        return np.ceil((x - self.min) / (self.max - self.min) * self.precision).astype(np.int64)
+
+    def denormalize(self, i) -> np.ndarray:
+        i = np.asarray(i, dtype=np.int64)
+        out = (i.astype(np.float64) - 0.5) * (self.max - self.min) / self.precision + self.min
+        return np.where(i == 0, self.min, out)
+
+
+class SemiNormalizedLat(SemiNormalizedDimension):
+    def __init__(self, precision: int):
+        super().__init__(-90.0, 90.0, precision)
+
+
+class SemiNormalizedLon(SemiNormalizedDimension):
+    def __init__(self, precision: int):
+        super().__init__(-180.0, 180.0, precision)
+
+
+class SemiNormalizedTime(SemiNormalizedDimension):
+    def __init__(self, precision: int, hi: float):
+        super().__init__(0.0, hi, precision)

@@ -841,10 +841,13 @@ class JoinPlanner:
             # dict.setdefault is atomic: two concurrent first joins agree on
             # ONE cache
             cache = store.__dict__.setdefault("_join_cache", JoinBuildCache())
+        # a lazy store's partition loads settle BEFORE the key is taken (the
+        # build query runs the hook again as a no-op), and the key is
         # captured ONCE, before the build query: a write landing mid-build
         # moves the generation past this key, so a build that read pre-write
         # rows never answers a post-write join. The full build query
         # identity keys too (limit, projection, sort, hints).
+        store._prepare_query(build_name, build_query)
         key = (
             build_name, to_cql(build_query.filter), build_query.max_features,
             tuple(build_query.properties) if build_query.properties is not None else None,

@@ -272,6 +272,7 @@ class QueryCoalescer:
             t0 = time.perf_counter()
             try:
                 with deadline.attach(m.dl):
+                    store._prepare_query(name, m.query)
                     plan = store._plan_cached(name, m.query)
             except Exception as e:
                 m.finish(e)

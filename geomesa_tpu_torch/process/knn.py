@@ -189,6 +189,11 @@ def _device_knn_rows(store, name: str, ft, x: float, y: float, k: int,
         return None
     if store._age_off_cutoff(ft) is not None:
         return None  # expired rows are masked by the query path only
+    # a lazy file store may hold partitions on disk only; kNN has no
+    # pruning filter, so everything must be resident before ranking
+    ensure = getattr(store, "_ensure_loaded", None)
+    if ensure is not None:
+        ensure(name, None)
     tables = store._tables.get(name, {})
     table = tables.get("z3") or tables.get("z2")
     if table is None or table.num_rows == 0:

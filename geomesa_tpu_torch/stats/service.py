@@ -1,15 +1,19 @@
 """Stats service: write-time sketches + query-time selectivity estimates.
 
-Port of ``geomesa_tpu/stats/service.py`` limited to what the strategy
-choice reads (MetadataBackedStats; StatsBasedEstimator.scala:27-41): the
-total count, the lon/lat/dtg histograms and bounds, a MinMax per numeric
-or date attribute (+ an auto-ranging histogram when it is indexed) and a
-TopK and a Frequency sketch per indexed string. Persistence, merging and
-the z3 histogram are not ported.
+Port of ``geomesa_tpu/stats/service.py``'s MetadataBackedStats and the
+estimator the strategy choice reads (StatsBasedEstimator.scala:27-41): the
+total count, the lon/lat/dtg histograms and bounds, the z3 histogram, a
+MinMax per numeric or date attribute (+ an auto-ranging histogram when it
+is indexed) and a TopK and a Frequency sketch per indexed string. With a
+metadata store (``store/metadata.py``) the sketches persist as the
+reference's JSON under the type's ``stats`` key (debounced:
+``persist_every`` batches, or ``flush``), so a reopened file store reads
+them back instead of observing its replayed rows twice.
 """
 
 from __future__ import annotations
 
+import json
 from typing import Dict, Optional
 
 import numpy as np
@@ -17,17 +21,28 @@ import numpy as np
 from geomesa_tpu_torch.filter import ast
 from geomesa_tpu_torch.filter.extract import extract_geometries, extract_intervals
 from geomesa_tpu_torch.schema.featuretype import AttributeType, FeatureType
-from geomesa_tpu_torch.stats.sketches import CountStat, Frequency, Histogram, MinMax, TopK
+from geomesa_tpu_torch.stats import sketches
+from geomesa_tpu_torch.stats.sketches import (
+    CountStat,
+    Frequency,
+    Histogram,
+    MinMax,
+    TopK,
+    Z3HistogramStat,
+)
 
 _HIST_BINS = 1000
 
 
-class SketchStats:
-    """Per-type sketches observed as columnar batches are written (the
-    reference's MetadataBackedStats, held in memory)."""
+class MetadataBackedStats:
+    """Per-type sketches observed as columnar batches are written, kept in
+    ``metadata`` when one is given (the reference's MetadataBackedStats)."""
 
-    def __init__(self):
+    def __init__(self, metadata=None, persist_every: int = 50):
+        self.metadata = metadata
         self._stats: Dict[str, Dict[str, object]] = {}
+        self._unpersisted: Dict[str, int] = {}
+        self._persist_every = persist_every
 
     def _init_for(self, ft: FeatureType) -> Dict[str, object]:
         stats: Dict[str, object] = {"count": CountStat()}
@@ -44,6 +59,8 @@ class SketchStats:
             hi = np.datetime64("2040-01-01", "ms").astype(np.int64)
             stats["dtg"] = Histogram(dtg.name, _HIST_BINS, float(lo), float(hi))
             stats["minmax:dtg"] = MinMax(dtg.name, track_cardinality=False)
+        if geom is not None and dtg is not None and geom.type == AttributeType.POINT:
+            stats["z3"] = Z3HistogramStat(geom.name, dtg.name, ft.z3_interval.value)
         for a in ft.attributes:
             if a is geom or a is dtg:
                 continue
@@ -61,19 +78,40 @@ class SketchStats:
     def stats_for(self, ft: FeatureType) -> Dict[str, object]:
         got = self._stats.get(ft.name)
         if got is None:
-            got = self._stats[ft.name] = self._init_for(ft)
+            got = self._load(ft.name)
+            if got is not None:
+                # a payload from before a sketch kind existed gains it
+                # (empty, observing later writes)
+                for k, v in self._init_for(ft).items():
+                    got.setdefault(k, v)
+            else:
+                got = self._init_for(ft)
+            got = self._stats.setdefault(ft.name, got)
         return got
 
-    def observe_columns(self, ft: FeatureType, columns: Dict[str, np.ndarray]) -> None:
+    def observe_columns(self, ft: FeatureType, columns: Dict[str, np.ndarray],
+                        z3_keys=None) -> None:
+        """``z3_keys``: optional (keys, bins) of a just-sealed z3 block of the
+        same rows, from which the z3 histogram takes its cells instead of
+        encoding the batch again."""
         from geomesa_tpu_torch.store.blocks import num_rows
 
         stats = self.stats_for(ft)
         stats["count"].count += num_rows(columns)
         decoded: Dict[str, tuple] = {}
         for key, stat in stats.items():
-            if key == "count" or stat.attribute not in columns:
+            if key == "count":
+                continue
+            if isinstance(stat, Z3HistogramStat):
+                if z3_keys is not None:
+                    stat.observe_keys(*z3_keys)
+                elif stat.geom + "__x" in columns and stat.dtg in columns:
+                    stat.observe_xyt(columns[stat.geom + "__x"], columns[stat.geom + "__y"],
+                                     columns[stat.dtg])
                 continue
             attr = stat.attribute
+            if attr not in columns:
+                continue
             vocab = columns.get(attr + "__vocab")
             if vocab is not None:
                 # dictionary column: (vocab values, bincount of codes), the
@@ -88,6 +126,39 @@ class SketchStats:
                 continue
             nulls = columns.get(attr.split("__")[0] + "__null")
             stat.observe(columns[attr], nulls)
+        # debounced persistence: serializing every sketch a batch would tax
+        # the write path, and the sketches are recomputable
+        self._unpersisted[ft.name] = self._unpersisted.get(ft.name, 0) + 1
+        if self._unpersisted[ft.name] >= self._persist_every:
+            self.flush(ft.name)
+
+    # -- persistence -----------------------------------------------------------
+
+    def flush(self, name: Optional[str] = None) -> None:
+        """Persist the sketches of ``name`` (of every type: None) now."""
+        for n in [name] if name else list(self._stats):
+            if n in self._stats:
+                self._persist(n)
+                self._unpersisted[n] = 0
+
+    def _persist(self, name: str) -> None:
+        if self.metadata is None:
+            return
+        payload = json.dumps({k: json.loads(v.to_json()) for k, v in self._stats[name].items()})
+        self.metadata.insert(name, "stats", payload)
+
+    def _load(self, name: str) -> Optional[Dict[str, object]]:
+        if self.metadata is None:
+            return None
+        raw = self.metadata.read(name, "stats")
+        if not raw:
+            return None
+        return {k: sketches._from_state(v) for k, v in json.loads(raw).items()}
+
+    def has_persisted(self, name: str) -> bool:
+        """Whether durable sketches exist: a store replaying persisted
+        blocks must then NOT observe them again."""
+        return self.metadata is not None and bool(self.metadata.read(name, "stats"))
 
     def get_count(self, ft: FeatureType, f: Optional[ast.Filter] = None) -> Optional[float]:
         stats = self.stats_for(ft)

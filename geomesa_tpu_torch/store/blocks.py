@@ -284,12 +284,13 @@ class RecordBlock:
     so attributes and fids are stored once per batch instead of once per
     index table."""
 
-    __slots__ = ("columns", "n", "_nulls_memo", "__weakref__")
+    __slots__ = ("columns", "n", "_nulls_memo", "_spilled", "__weakref__")
 
     def __init__(self, columns: Columns):
         self.columns = columns
         self.n = num_rows(columns)
         self._nulls_memo: Dict[str, bool] = {}
+        self._spilled = False
 
     def has_nulls(self, name: str) -> bool:
         got = self._nulls_memo.get(name)
@@ -298,6 +299,105 @@ class RecordBlock:
             got = bool(col.any()) if col is not None else False
             self._nulls_memo[name] = got
         return got
+
+    def spill(self) -> None:
+        """Cold-column spill (``geomesa.spill.dir``, the reference's
+        ``RecordBlock.spill``): non-object columns of at least
+        ``geomesa.spill.min.bytes`` are written as .npy files (fsynced, then
+        dropped from the page cache) and reopened memory-mapped, so a wide
+        schema's record columns become reclaimable page cache instead of
+        heap. Reads (``gather`` through the rowid join) are unchanged: an
+        ``np.memmap`` is an ndarray. The files go when the block is
+        collected; a dead process's files are swept at a directory's first
+        use. Called AFTER the batch's index tables and sketches read the
+        columns (spilling first would write, evict and fault them back).
+        Idempotent; off when the knob is unset."""
+        from geomesa_tpu_torch.utils.config import SPILL_DIR, SPILL_MIN_BYTES
+
+        d = SPILL_DIR.get()
+        if not d or not self.n or self._spilled:
+            return
+        self._spilled = True
+        import os
+        import re
+        import uuid
+        import weakref
+
+        os.makedirs(d, exist_ok=True)
+        _sweep_stale_spill_files(d)
+        min_bytes = SPILL_MIN_BYTES.to_bytes() or 0
+        paths = []
+        cols = dict(self.columns)
+        tag = uuid.uuid4().hex[:12]
+        for i, (k, v) in enumerate(cols.items()):
+            if (not isinstance(v, np.ndarray) or v.dtype == object or v.nbytes < min_bytes
+                    or isinstance(v, np.memmap)):
+                continue
+            # the index keeps sanitized names collision-proof
+            safe = re.sub(r"[^A-Za-z0-9_.-]", "_", k)
+            path = os.path.join(d, f"rb-{os.getpid()}-{tag}-{i}-{safe}.npy")
+            np.save(path, v)
+            # fsync BEFORE dropping: DONTNEED skips dirty pages
+            try:
+                fd = os.open(path, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                    os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+                finally:
+                    os.close(fd)
+            except (AttributeError, OSError):  # pragma: no cover
+                pass
+            cols[k] = np.load(path, mmap_mode="r")
+            paths.append(path)
+        if paths:
+            self.columns = cols
+            weakref.finalize(self, _remove_spill_files, paths)
+
+
+def _remove_spill_files(paths: Sequence[str]) -> None:
+    import os
+
+    for p in paths:
+        try:
+            os.unlink(p)
+        except OSError:
+            pass
+
+
+_SWEPT_SPILL_DIRS: set = set()
+
+
+def _sweep_stale_spill_files(d: str) -> None:
+    """Unlink the ``rb-<pid>-*`` files of dead processes (a crash never runs
+    the finalizers); once a directory a process."""
+    import os
+    import re
+
+    if d in _SWEPT_SPILL_DIRS:
+        return
+    _SWEPT_SPILL_DIRS.add(d)
+    pat = re.compile(r"^rb-(\d+)-")
+    try:
+        names = os.listdir(d)
+    except OSError:
+        return
+    for name in names:
+        m = pat.match(name)
+        if m is None:
+            continue
+        pid = int(m.group(1))
+        if pid == os.getpid():
+            continue
+        try:
+            os.kill(pid, 0)
+        except ProcessLookupError:
+            try:
+                os.unlink(os.path.join(d, name))
+            except OSError:
+                pass
+        except OSError:
+            pass  # alive but not ours (EPERM): leave it
+
 
 # scan-hot columns each index family keeps physically sorted in its own
 # blocks (everything else rides in the shared RecordBlock): the native
@@ -935,9 +1035,8 @@ class IndexTable:
         """Merge all blocks into one, dropping tombstoned rows. With
         ``record`` given, rebuild against that pre-merged shared record
         block (the datastore compacts all of a type's tables against ONE
-        merged record); otherwise merge this table's own record parts.
-        The reference also spills the merged record to disk
-        (``geomesa.spill.dir``); the port keeps it in memory."""
+        merged record, and spills it afterwards); otherwise merge this
+        table's own record parts."""
         if record is None:
             if len(self.blocks) <= 1 and not self.tombstones:
                 return

@@ -140,8 +140,8 @@ from geomesa_tpu_torch.ops.kernels import KernelError
 from geomesa_tpu_torch.parallel.executor import HostRoute, TorchScanExecutor
 from geomesa_tpu_torch.parallel.mesh import Device
 from geomesa_tpu_torch.schema.feature import Feature
-from geomesa_tpu_torch.schema.featuretype import AttributeType, FeatureType
-from geomesa_tpu_torch.stats.service import SketchStats
+from geomesa_tpu_torch.schema.featuretype import AttributeType, FeatureType, parse_spec
+from geomesa_tpu_torch.stats.service import MetadataBackedStats
 from geomesa_tpu_torch.store.blocks import (
     ColumnBuffer,
     Columns,
@@ -323,7 +323,10 @@ class TorchDataStore:
     counters and timers; ``user`` names the caller in the events;
     ``slow_query_s`` (None: ``geomesa.query.slow.threshold``, unset by
     default) forces every query's span tree and logs the queries slower
-    than it."""
+    than it. ``metadata`` (``store/metadata.py``; in memory by default)
+    keeps the schemas, the write-time sketches and the file store's
+    ``geomesa.vis`` marker: the schemas it holds are registered at
+    construction, as the reference recovers them."""
 
     # cross-query coalescing at the admission point (parallel/batch.py)
     COALESCE_QUERIES = True
@@ -333,7 +336,8 @@ class TorchDataStore:
                  max_inflight: Optional[int] = None, max_queue: Optional[int] = None,
                  auths: Optional[Any] = None, audit_writer: Optional[Any] = None,
                  metrics: Optional[Any] = None, slow_query_s: Optional[float] = None,
-                 user: str = "unknown"):
+                 user: str = "unknown", metadata: Optional[Any] = None):
+        from geomesa_tpu_torch.store.metadata import InMemoryMetadata
         from geomesa_tpu_torch.utils.brownout import BrownoutController
         from geomesa_tpu_torch.utils.config import (
             QUERY_MAX_INFLIGHT,
@@ -342,6 +346,7 @@ class TorchDataStore:
             SLOW_QUERY_THRESHOLD,
         )
 
+        self.metadata = metadata if metadata is not None else InMemoryMetadata()
         self.executor = executor if executor is not None else TorchScanExecutor(device)
         self.flush_size = flush_size
         self.auths = auths
@@ -364,7 +369,7 @@ class TorchDataStore:
         self._brownout = BrownoutController()
         self.admission.brownout = self._brownout
         # write-time sketches feeding the cost-based strategy choice
-        self.stats = SketchStats()
+        self.stats = MetadataBackedStats(self.metadata)
         self._schemas: Dict[str, FeatureType] = {}
         self._indices: Dict[str, List[IndexKeySpace]] = {}
         self._tables: Dict[str, Dict[str, IndexTable]] = {}
@@ -385,6 +390,11 @@ class TorchDataStore:
                 self.metrics.gauge_fn("plan_cache.size",
                                       lambda: sum(len(s._plan_cache) for s in stores))
             stores.add(self)
+        # the schemas a persistent metadata store already holds
+        for name in self.metadata.scan_types():
+            spec = self.metadata.read(name, "attributes")
+            if spec:
+                self._register(parse_spec(name, spec))
 
     @property
     def authorizations(self) -> List[str]:
@@ -403,6 +413,12 @@ class TorchDataStore:
             return
         if ft.default_geometry is None:
             raise ValueError("Schema requires a geometry attribute")
+        if not default_indices(ft):
+            raise ValueError(f"No indices support schema {ft.name}")
+        self.metadata.insert(ft.name, "attributes", ft.spec())
+        self._register(ft)
+
+    def _register(self, ft: FeatureType) -> None:
         indices = default_indices(ft)
         if not indices:
             raise ValueError(f"No indices support schema {ft.name}")
@@ -425,6 +441,7 @@ class TorchDataStore:
         and moves, which drops the type's pyramid entries; the type's cached
         plans go too."""
         self.get_schema(name)
+        self.metadata.delete(name)
         del self._schemas[name], self._indices[name], self._tables[name]
         with self._plan_lock:
             for key in [k for k in self._plan_cache if k[0] == name]:
@@ -436,7 +453,11 @@ class TorchDataStore:
     def writer(self, name: str, flush_size: Optional[int] = None) -> FeatureWriter:
         return FeatureWriter(self, self.get_schema(name), flush_size or self.flush_size)
 
-    def _insert_columns(self, ft: FeatureType, columns: Columns):
+    def _insert_columns(self, ft: FeatureType, columns: Columns, observe_stats: bool = True):
+        """One write batch: a shared record block, a sealed block in every
+        index table, the sketches (unless ``observe_stats`` is False: a
+        file store replaying blocks its persisted sketches already saw)
+        and the cold-column spill (``RecordBlock.spill``)."""
         # once per batch, not per index table
         columns = intern_string_columns(ft, intern_fids(columns))
         # ONE shared record block per batch: index tables sort only their
@@ -444,8 +465,28 @@ class TorchDataStore:
         record = RecordBlock(columns)
         for table in self._tables[ft.name].values():
             table.insert_record(record)
-        self.stats.observe_columns(ft, columns)
+        if observe_stats and self.stats is not None:
+            self.stats.observe_columns(ft, columns, z3_keys=self._z3_keys(ft, columns))
+        # after every index table and the sketches read the columns
+        record.spill()
         self._note_write(ft.name)
+
+    def _z3_keys(self, ft: FeatureType, columns: Columns):
+        """(keys, bins) of the z3 block just sealed from ``columns``, for the
+        z3 histogram, when its rows are the batch's (NaN-free coordinates:
+        the histogram drops NaN rows, the block's lenient encode keeps
+        them)."""
+        zt = self._tables[ft.name].get("z3")
+        geom = ft.default_geometry
+        if zt is None or not zt.blocks or geom is None:
+            return None
+        blk = zt.blocks[-1]
+        x = columns.get(geom.name + "__x")
+        y = columns.get(geom.name + "__y")
+        if (x is None or y is None or blk.n != len(x) or blk.bins is None
+                or np.isnan(x).any() or np.isnan(y).any()):
+            return None
+        return blk.key, blk.bins
 
     def _note_write(self, name: str) -> None:
         """Advance the type's write generation; every write calls this. The
@@ -477,9 +518,9 @@ class TorchDataStore:
 
     def compact(self, name: str) -> None:
         """Rewrite every index table of the type from ONE merged record
-        block of its live rows (tombstones dropped); the device mirrors
-        rebuild at the next query. The reference also spills the merged
-        record (``geomesa.spill.dir``); the port keeps it in memory."""
+        block of its live rows (tombstones dropped), then spill it
+        (``geomesa.spill.dir``); the device mirrors rebuild at the next
+        query."""
         tables = self._tables[name]
         first = next(iter(tables.values()))
         if len(first.blocks) <= 1 and not first.tombstones:
@@ -493,6 +534,7 @@ class TorchDataStore:
         record = full.merged_record()
         for table in tables.values():
             table.compact(record)
+        record.spill()  # after every table's rebuild read its columns
         self._note_write(name)
 
     def _age_off_cutoff(self, ft: FeatureType) -> Optional[int]:
@@ -687,6 +729,10 @@ class TorchDataStore:
                                 t_start, t_planned = t_admit, t_admit + out.plan_s
                             else:
                                 with devstats.collecting() as own:
+                                    # a lazy store's partition load lands
+                                    # on this query's trace and receipt,
+                                    # before the audited clock starts
+                                    self._prepare_query(name, query)
                                     t_start = time.perf_counter()
                                     plan = self._plan_cached(name, query)
                                     t_planned = time.perf_counter()
@@ -712,6 +758,13 @@ class TorchDataStore:
         finally:
             plans_mod.end(ptok)
             self._log_slow_query(name, plan, root)
+
+    def _prepare_query(self, name: str, query: Query) -> None:
+        """The hook that runs inside a query's root span before it plans
+        (``query``, ``query_many``, ``count``, ``aggregate``, a coalesced
+        member and a join's build side): a store that must materialize
+        state first (the file store's lazy partition loads) overrides it,
+        so that the work lands on the query's trace."""
 
     # -- spatial joins ---------------------------------------------------------
 
@@ -1080,6 +1133,7 @@ class TorchDataStore:
                 return int(est)
         elif shortcuts:
             if q.max_features is None and not q.hints:
+                self._prepare_query(name, q)
                 plan = self._plan_cached(name, q)
                 got = self._count_pyramid(name, ft, q, plan)
                 if got is not None:
@@ -1343,6 +1397,7 @@ class TorchDataStore:
                 try:
                     with deadline_mod.budget(self.query_timeout_s):
                         with self.admission.admit(priority=admission_mod.classify(q.hints)):
+                            self._prepare_query(name, q)
                             got = self._aggregate_pyramid(name, ft, q, cols)
                             if got is None:
                                 # the exact fallback (the slot and the budget
@@ -1451,6 +1506,11 @@ class TorchDataStore:
                                 key=admission_mod.PRIORITIES.index, default=None)
                 with self.admission.admit(self.query_timeout_s, batch_pri):
                     with devstats.collecting() as shared:
+                        # the batch's shared preparation (a lazy store's
+                        # partition loads) under one budget
+                        with deadline_mod.budget(self.query_timeout_s):
+                            for q in qs:
+                                self._prepare_query(name, q)
                         results = self._query_many_planned(name, ft, qs)
                     if batch.recording:
                         batch.set_attr("device", devstats.receipt_of(shared))

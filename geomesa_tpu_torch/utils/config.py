@@ -228,3 +228,19 @@ BROWNOUT_QUEUE_RATIO_1 = SystemProperty("geomesa.brownout.queue.ratio.1", "0.5")
 BROWNOUT_QUEUE_RATIO_2 = SystemProperty("geomesa.brownout.queue.ratio.2", "0.75")
 BROWNOUT_QUEUE_RATIO_3 = SystemProperty("geomesa.brownout.queue.ratio.3", "0.95")
 BROWNOUT_RETRY_AFTER_S = SystemProperty("geomesa.brownout.retry.after.s", "1")
+# the file store (store/fs.py, store/journal.py): a quarantined corrupt
+# file is kept for inspection, then aged out by the store-open scrub once
+# older than `fs.quarantine.ttl`
+QUARANTINE_TTL = SystemProperty("geomesa.fs.quarantine.ttl", "7 days")
+# cold-column spill (store/blocks.py RecordBlock.spill): when `spill.dir`
+# is set, record columns of at least `spill.min.bytes` are written there as
+# .npy files and reopened memory-mapped; off by default
+SPILL_DIR = SystemProperty("geomesa.spill.dir", None)
+SPILL_MIN_BYTES = SystemProperty("geomesa.spill.min.bytes", "4MB")
+# retry budgets (utils/retry.py): a token bucket a boundary caps its
+# retries at about `ratio` of its calls, refilled at least `min` tokens a
+# second and holding at most `cap`; a spent bucket gives up at once
+RETRY_BUDGET_ENABLED = SystemProperty("geomesa.retry.budget.enabled", "true")
+RETRY_BUDGET_RATIO = SystemProperty("geomesa.retry.budget.ratio", "0.1")
+RETRY_BUDGET_MIN = SystemProperty("geomesa.retry.budget.min", "10")
+RETRY_BUDGET_CAP = SystemProperty("geomesa.retry.budget.cap", "100")

@@ -1,7 +1,7 @@
 """Deterministic fault injection at named boundaries.
 
-Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
-``fault_point``. The port places six points:
+Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws,
+``fault_point`` and ``maybe_tear``. The port places twelve points:
 
     device.dispatch    every host -> device copy (``parallel/mesh.py``
                        ``upload``: mirror builds and query descriptors): a
@@ -21,13 +21,22 @@ Port of ``geomesa_tpu/utils/faults.py``: the rules, their seeded draws and
                        a fault at either join point degrades the whole
                        join to the host reference join with identical
                        pairs (``degrade.join_to_host``)
+    fs.block_read      a file store block's read (store/fs.py): retried
+    fs.block_write     a file store block's write (store/fs.py): retried;
+                       ``torn`` truncates the written block before it is
+                       published, which the CRC footer catches on read
+    fs.block_delete    a journaled file delete (store/journal.py)
+    metadata.save      the schema registry's flush (store/metadata.py);
+                       ``torn`` as at ``fs.block_write``
+    journal.intent     an intent record's publish (store/journal.py)
+    journal.commit     an intent record's commit (store/journal.py)
 
 Kinds: ``error`` raises ``InjectedFault`` (an
 OSError), ``drop`` raises ``InjectedDrop`` (a ConnectionError),
 ``latency`` sleeps a few ms (never past the ambient budget), ``crash``
 raises ``SimulatedCrash`` (a BaseException no ``except Exception``
-absorbs); ``torn`` is a write-site kind of the reference that no port
-point draws.
+absorbs: the process is gone, only the disk survives) and ``torn``
+truncates a written file (``maybe_tear``, the write sites only).
 
 Activation is scoped::
 
@@ -212,3 +221,22 @@ def fault_point(point: str) -> None:
             raise SimulatedCrash(f"simulated crash at {point}")
         else:
             raise InjectedFault(f"injected error at {point}")
+
+
+def maybe_tear(point: str, path: str) -> bool:
+    """Apply a fired ``torn`` rule to a just-written, not yet published
+    file: truncate it to half and return True. The caller publishes the
+    torn file anyway, which stands for a crash inside the write-then-rename
+    window, so that the corruption-detection and quarantine path stays
+    provable though the fsyncs close that window for real crashes."""
+    for fs in _active_sets():
+        rule = fs.draw(point, ("torn",))
+        if rule is None:
+            continue
+        robustness_metrics().inc(f"fault.{point}.torn")
+        trace.event(f"fault.{point}.torn", path=path)
+        size = os.path.getsize(path)
+        with open(path, "rb+") as fh:
+            fh.truncate(max(0, size // 2))
+        return True
+    return False

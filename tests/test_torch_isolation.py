@@ -11,8 +11,10 @@ sweep, a labelled query and a degraded query (the security, breaker and
 fault modules), then an EXPLAIN ANALYZE, an audited ``query_many`` and a
 timeline tick (the trace, audit, plans, tenants, timeline, SLO and
 brownout modules), a ``contains`` and a ``dwithin`` join and a forced
-device-assisted seek, must load neither ``jax`` nor any ``geomesa_tpu``
-module.
+device-assisted seek, then a file store written, reopened eagerly and
+lazily, queried (points and extents), crashed mid-compaction and recovered,
+with the process layer over it, must load neither ``jax`` nor any
+``geomesa_tpu`` module.
 conftest.py imports jax in every test process, so that check runs in a
 subprocess. A source scan
 holds every port module (and chip_smoke.py) to the same rule, and the
@@ -288,6 +290,42 @@ assert r.scan_path == "device-seek", r.scan_path
 assert set(r.fids) == set(pf) and len(pf)
 os.environ["GEOMESA_SEEK"] = "0"
 del os.environ["GEOMESA_DEVSEEK"]
+# the file store: write config #1's rows and a few ways (geometry objects
+# pickled under the reference's class names), reopen eagerly and lazily,
+# query, crash a compaction and recover, and run the process layer
+import shutil
+import tempfile
+from geomesa_tpu_torch.process import analytic, proximity_search
+from geomesa_tpu_torch.store.fs import FsDataStore
+froot = tempfile.mkdtemp()
+fs = FsDataStore(froot, partition_scheme="daily", executor=TorchScanExecutor(device="cpu"))
+fs.create_schema(parse_spec("gdelt", "dtg:Date,*geom:Point:srid=4326"))
+fs._insert_columns(fs.get_schema("gdelt"), {"__fid__": fids, "geom__x": x, "geom__y": y, "dtg": t})
+fs.create_schema(wft)
+fs._insert_columns(fs.get_schema("ways"), cs.ways_columns(ways))
+fs.stats.flush()
+for lazy in (False, True):
+    fs2 = FsDataStore(froot, lazy=lazy, executor=TorchScanExecutor(device="cpu"))
+    res = fs2.query_many("gdelt", cqls)
+    for i, r in enumerate(res):
+        m = (x >= -80 + i) & (x <= -70 + i) & (y >= 36) & (y <= 41) & (t > lo) & (t < hi)
+        assert set(r.fids) == {f"f{j}" for j in np.flatnonzero(m)}, i
+        assert r.plan.scan_path == "device-exact/bitmap", r.plan.scan_path
+    for c, spec in streams["xz2_bbox"] + streams["xz3_bbox_during"]:
+        assert set(fs2.query("ways", c).fids) == {f"w{j}" for j in cs.oracle_rows(ways, *spec)}
+    near = proximity_search(fs2, "gdelt", [(-75.0, 38.0)], 50_000.0)
+    assert set(near.fids) == {f"f{j}" for j in np.flatnonzero(
+        cs.haversine_np(x, y, -75.0, 38.0) <= 50_000.0)}
+    grid = analytic.density_process(fs2, "gdelt", env, 100, 60, cqls[0])
+    assert grid.sum() == len(res[0])
+with faults.inject("fs.block_delete:crash"):
+    try:
+        fs2.compact("gdelt")
+    except faults.SimulatedCrash:
+        pass
+fs3 = FsDataStore(froot, executor=TorchScanExecutor(device="cpu"))
+assert fs3.last_recovery["intents"]["forward"] == 1 and fs3.count("gdelt") == n
+shutil.rmtree(froot)
 from geomesa_tpu_torch import native
 st = native.status()
 assert all(v["loaded"] for v in st.values()), st
@@ -307,8 +345,9 @@ def test_port_runs_config1_without_jax_or_the_reference():
     query, a delete, an age_off sweep, a labelled query, a degraded query,
     an EXPLAIN ANALYZE, an audited query_many, a timeline tick with the SLO
     engine and the brownout ladder, a contains and a dwithin join, a forced
-    device-assisted seek, and the native libraries they run, load no
-    JAX."""
+    device-assisted seek, a file store's write, eager and lazy reopens,
+    crash recovery and processes, and the native libraries they run, load
+    no JAX."""
     env = dict(os.environ, PYTHONPATH=ROOT, OMP_NUM_THREADS="1")
     env.pop("JAX_PLATFORMS", None)
     proc = subprocess.run(
